@@ -1,0 +1,315 @@
+"""Algorithms — the generational loops as Python loops over tensor steps.
+
+Port of the ``ea_simple`` path of :mod:`deap_tpu.algorithms`. Each
+generation is select → var_and → evaluate invalid → archive/stats on
+the device; ``lax.scan`` becomes a loop over generations. The toolbox
+convention, batched:
+
+- ``toolbox.evaluate``: ``genomes -> values [n] | [n, nobj]``
+- ``toolbox.mate``:     ``(generator, g1[m, L], g2[m, L]) -> (c1, c2)``
+- ``toolbox.mutate``:   ``(generator, g[n, L]) -> g``
+- ``toolbox.select``:   ``(generator, wvalues, k) -> int64[k]``
+
+Variation deletes fitness through the population's ``valid`` mask; every
+row is re-evaluated by the batched evaluate but only invalid rows are
+written, and ``nevals`` counts exactly those.
+
+:func:`ea_simple_packed` is the OneMax generation on bit-packed genomes
+that the JAX package's ``bench.py`` races (``make_run_selgather``,
+``make_run_packed``), as a user-facing loop.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from deap_tpu_torch.core.population import Population, gather
+from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
+from deap_tpu_torch.ops import packed as _packed
+from deap_tpu_torch.ops import variation as _variation
+from deap_tpu_torch.ops.kernels import KERNEL_DTYPES, fused_variation
+from deap_tpu_torch.ops.selection import sel_tournament_sorted
+from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
+from deap_tpu_torch.support.logbook import Logbook
+from deap_tpu_torch.support.stats import Statistics
+
+
+def _tree_where(mask: torch.Tensor, a, b):
+    def w(x, y):
+        m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
+        return torch.where(m, x, y)
+    return pytree.tree_map(w, a, b)
+
+
+def _as2d(values: torch.Tensor) -> torch.Tensor:
+    return values[:, None] if values.ndim == 1 else values
+
+
+def evaluate_invalid(pop: Population, evaluate: Callable) -> Population:
+    """Batch-evaluate and write back only the invalid rows."""
+    values = _as2d(evaluate(pop.genomes))
+    return pop.with_fitness(values, mask=~pop.valid)
+
+
+# ------------------------------------------------- fused variation plane ----
+#
+# var_and accepts a ``fused`` mode: when the toolbox's (mate, mutate) pair
+# is fused-capable (ops.variation.resolve_plan) and the genomes are one
+# [n, L] tensor, the variation plane runs as one pass — masks drawn in the
+# unfused operators' order, then one apply: the CUDA kernel
+# (ops.kernels.fused_variation) on the card for bool/float32 genomes, the
+# plain apply (ops.variation.apply_variation) otherwise. Both give the
+# children of the unfused composition for the same generator state.
+
+def _resolve_fused(fused, toolbox, genomes) -> Tuple[Optional[str], object]:
+    """``fused=`` → ``(mode, plan)``, mode ``None`` (unfused), ``'plain'``
+    or ``'kernel'``. ``'auto'`` takes the kernel for CUDA bool/float32
+    genomes, the plain apply otherwise, and the unfused composition when
+    the configuration is not fused-capable; an explicit ``'plain'`` or
+    ``'kernel'`` raises instead of computing something else."""
+    if fused in (False, None, "off"):
+        return None, None
+    if fused is True:
+        fused = "auto"
+    if fused not in ("auto", "plain", "kernel"):
+        raise ValueError(f"unknown fused mode {fused!r}")
+    plan = _variation.resolve_plan(toolbox)
+    leaf = _variation.single_genome_leaf(genomes)
+    reason = None
+    if plan is None:
+        reason = "operators not fused-capable"
+    elif leaf is None:
+        reason = "genomes are not a single [n, L] tensor"
+    if reason is not None:
+        if fused != "auto":
+            raise ValueError(f"fused={fused!r} requested but {reason}")
+        return None, None
+    if fused == "auto":
+        on_card = leaf.device.type == "cuda" and leaf.dtype in KERNEL_DTYPES
+        return ("kernel" if on_card else "plain"), plan
+    if fused == "kernel" and leaf.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused='kernel' requested but genome dtype "
+                         f"{leaf.dtype} is outside the kernel's set")
+    return fused, plan
+
+
+def _rebuild_genomes(template, children):
+    _, spec = pytree.tree_flatten(template)
+    return pytree.tree_unflatten([children], spec)
+
+
+def var_and_apply(pop: Population, masks, mut_kind: str, mode: str,
+                  sel_idx: Optional[torch.Tensor] = None) -> Population:
+    """The apply half of the fused :func:`var_and`: children of
+    ``gather(pop, sel_idx)`` (``pop`` when ``None``) under ``masks`` from
+    :func:`ops.variation.var_and_masks`, through the kernel
+    (``mode='kernel'``) or the plain apply (``'plain'``)."""
+    cx_row, lo, hi, do_mut, mask, arg = masks
+    g = _variation.single_genome_leaf(pop.genomes)
+    n = cx_row.shape[0]
+    if sel_idx is None:
+        src, base = None, pop
+    else:
+        # fitness/valid/extras row-select only: the genome gather happens
+        # inside the apply
+        src, base = sel_idx, gather(pop.replace(genomes=()), sel_idx)
+    if mode == "kernel":
+        # the kernel reads partner rows by explicit index; the plain apply
+        # derives the adjacent-pair partner view by reshape
+        partner = _variation.pair_partner_positions(n, g.device)
+        if src is None:
+            src = torch.arange(n, dtype=torch.int32, device=g.device)
+        else:
+            src = src.to(torch.int32)
+            partner = src[partner.long()]
+        children = fused_variation(g, src, partner, cx_row, lo, hi, do_mut,
+                                   mask, arg, mut_kind=mut_kind)
+    else:
+        children = _variation.apply_variation(g, src, None, cx_row, lo, hi,
+                                              do_mut, mask, arg, mut_kind)
+    genomes = _rebuild_genomes(pop.genomes, children)
+    return base.replace(genomes=genomes).invalidate(cx_row | do_mut)
+
+
+def var_and(generator: torch.Generator, pop: Population, toolbox,
+            cxpb: float, mutpb: float, fused="auto",
+            sel_idx: Optional[torch.Tensor] = None) -> Population:
+    """Crossover AND mutation variation (the reference's varAnd).
+
+    Adjacent pairs (0,1), (2,3), ... mate with probability ``cxpb``; each
+    individual then mutates with probability ``mutpb``; every touched row
+    is invalidated. An odd last individual never mates. ``fused`` picks
+    the execution (see :func:`_resolve_fused`); every mode gives the same
+    children for the same generator state. ``sel_idx`` composes a
+    selection gather into the plane: ``var_and(g, pop, tb, ...,
+    sel_idx=idx)`` == ``var_and(g, gather(pop, idx), tb, ...)``.
+    """
+    mode, plan = _resolve_fused(fused, toolbox, pop.genomes)
+    if mode is None:
+        if sel_idx is not None:
+            pop = gather(pop, sel_idx)
+        return _var_and_unfused(generator, pop, toolbox, cxpb, mutpb)
+    g = _variation.single_genome_leaf(pop.genomes)
+    n = int(sel_idx.shape[0]) if sel_idx is not None else pop.size
+    masks = _variation.var_and_masks(generator, n, g.shape[1], cxpb, mutpb,
+                                     plan, g.dtype)
+    return var_and_apply(pop, masks, plan.mut_kind, mode, sel_idx)
+
+
+def _var_and_unfused(generator: torch.Generator, pop: Population, toolbox,
+                     cxpb: float, mutpb: float) -> Population:
+    """The compute-both-then-select composition — the oracle the fused
+    plane is held against. Draw order: mate, pair Bernoullis, mutate, row
+    Bernoullis."""
+    n = pop.size
+    npairs = n // 2
+    dev = generator.device
+    genomes = pop.genomes
+    cx_touched = torch.zeros(n, dtype=torch.bool, device=dev)
+    if npairs:
+        even = pytree.tree_map(lambda a: a[0: 2 * npairs: 2], genomes)
+        odd = pytree.tree_map(lambda a: a[1: 2 * npairs: 2], genomes)
+        c1, c2 = toolbox.mate(generator, even, odd)
+        do_cx = torch.rand(npairs, generator=generator, device=dev) < cxpb
+        even = _tree_where(do_cx, c1, even)
+        odd = _tree_where(do_cx, c2, odd)
+
+        def interleave(e, o, orig):
+            pair = torch.stack([e, o], dim=1).reshape(
+                (2 * npairs,) + tuple(e.shape[1:]))
+            return torch.cat([pair.to(orig.dtype), orig[2 * npairs:]], dim=0)
+
+        genomes = pytree.tree_map(interleave, even, odd, genomes)
+        cx_touched[: 2 * npairs] = do_cx.repeat_interleave(2)
+    mutated = toolbox.mutate(generator, genomes)
+    do_mut = torch.rand(n, generator=generator, device=dev) < mutpb
+    genomes = _tree_where(do_mut, mutated, genomes)
+    return pop.replace(genomes=genomes).invalidate(cx_touched | do_mut)
+
+
+# ------------------------------------------------------------------ loops ----
+
+def _maybe_stats(stats: Optional[Statistics], pop: Population):
+    return stats.compile(pop) if stats is not None else {}
+
+
+def _pop_loop_init(pop: Population, toolbox, halloffame_size: int,
+                   stats: Optional[Statistics]):
+    """Gen 0: evaluate the invalid founders, seed the hall of fame, build
+    the gen-0 record."""
+    nevals0 = (~pop.valid).sum()
+    pop = evaluate_invalid(pop, toolbox.evaluate)
+    hof = hof_init(halloffame_size, pop) if halloffame_size else None
+    if hof is not None:
+        hof = hof_update(hof, pop)
+    return pop, hof, {"nevals": nevals0, **_maybe_stats(stats, pop)}
+
+
+def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
+                        stats: Optional[Statistics] = None,
+                        fused="auto") -> Callable:
+    """The eaSimple generation step ``(generator, pop, hof) -> (pop, hof,
+    record)``: select n → var_and → evaluate invalid → replace."""
+
+    def step(generator, pop, hof):
+        idx = toolbox.select(generator, pop.wvalues, pop.size)
+        off = var_and(generator, pop, toolbox, cxpb, mutpb, fused=fused,
+                      sel_idx=idx)
+        nevals = (~off.valid).sum()
+        off = evaluate_invalid(off, toolbox.evaluate)
+        if hof is not None:
+            hof = hof_update(hof, off)
+        return off, hof, {"nevals": nevals, **_maybe_stats(stats, off)}
+
+    return step
+
+
+def ea_simple(generator: torch.Generator, pop: Population, toolbox,
+              cxpb: float, mutpb: float, ngen: int,
+              stats: Optional[Statistics] = None, halloffame_size: int = 0,
+              verbose: bool = False, fused="auto", device: DeviceLike = None,
+              ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
+    """The canonical generational GA: select n → varAnd → evaluate
+    invalid → replace, for ``ngen`` generations, on ``device`` (the card
+    unless ``device="cpu"``; ``generator`` must live there too).
+    ``fused`` as in :func:`var_and`."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    pop, hof, record0 = _pop_loop_init(pop.to(dev), toolbox,
+                                       halloffame_size, stats)
+    step = make_ea_simple_step(toolbox, cxpb, mutpb, stats, fused=fused)
+    records = []
+    for _ in range(ngen):
+        pop, hof, rec = step(generator, pop, hof)
+        records.append(rec)
+    logbook = _build_logbook(record0, records, stats)
+    if verbose:
+        print(logbook.stream)
+    return pop, logbook, hof
+
+
+def _host(record):
+    return pytree.tree_map(lambda v: v.cpu() if isinstance(v, torch.Tensor)
+                           else v, record)
+
+
+def _build_logbook(record0, records, stats) -> Logbook:
+    logbook = Logbook()
+    logbook.header = ["gen", "nevals"] + (list(stats.fields) if stats
+                                          else [])
+    for gen, rec in enumerate([record0] + records):
+        logbook.record(gen=gen, **_host(rec))
+    return logbook
+
+
+# ------------------------------------------------------ packed OneMax ----
+
+def ea_simple_packed(generator: torch.Generator, packed: torch.Tensor,
+                     fit: torch.Tensor, length: int, ngen: int, *,
+                     cxpb: float, mutpb: float, indpb: float,
+                     tournsize: int = 3, select: str = "gather",
+                     prng: str = "input", device: DeviceLike = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ngen`` OneMax eaSimple generations on bit-packed genomes:
+    tournament selection, then :func:`ops.packed.fused_variation_eval_packed`
+    (two-point crossover, flip-bit mutation, popcount fitness).
+
+    ``select='gather'`` selects and gathers the parents in one kernel
+    (:func:`ops.packed.sel_tournament_gather_packed`, draw order: aspirant
+    bits, then variation bits); ``select='sorted'`` uses the rank-based
+    :func:`ops.selection.sel_tournament_sorted` and an index gather.
+    Random bits are drawn with ``generator`` and streamed into the kernels
+    (``prng='input'``); in-kernel generation (``prng='hw'``) is not
+    available yet.
+
+    :param packed: ``uint32[n, W]`` rows (:func:`ops.packed.pack_genomes`).
+    :param fit: ``f32[n]`` fitness (:func:`ops.packed.packed_fitness`).
+    :returns: ``(packed, fit)`` after ``ngen`` generations.
+    """
+    if prng == "hw":
+        raise NotImplementedError(
+            "prng='hw' needs in-kernel Philox, which is not ported yet "
+            "(ROADMAP.md: 'In-kernel Philox for the hw path'); use "
+            "prng='input'")
+    if prng != "input":
+        raise ValueError(f"unknown prng mode {prng!r}")
+    if select not in ("gather", "sorted"):
+        raise ValueError(f"unknown select {select!r}")
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    packed, fit = packed.to(dev), fit.to(dev)
+    n, W = packed.shape
+    for _ in range(ngen):
+        if select == "gather":
+            parents = _packed.sel_tournament_gather_packed(
+                packed, fit, _packed.tournament_bits(generator, tournsize, n))
+        else:
+            idx = sel_tournament_sorted(generator, fit[:, None], n, tournsize)
+            parents = packed.view(torch.int32)[idx].view(torch.uint32)
+        packed, fit = _packed.fused_variation_eval_packed(
+            parents, length, *_packed.variation_bits(generator, n, W),
+            cxpb=cxpb, mutpb=mutpb, indpb=indpb)
+    return packed, fit

@@ -1,0 +1,66 @@
+"""Carry population and hall-of-fame state between the two packages.
+
+The port never imports the JAX package, so state crosses as numpy arrays
+plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
+fields goes in, the port's :class:`Population` comes out, and back. The
+tests use it to run both packages on the same state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from deap_tpu_torch.core.fitness import FitnessSpec
+from deap_tpu_torch.core.population import Population
+from deap_tpu_torch.device import DeviceLike, resolve_device
+from deap_tpu_torch.support.hof import HallOfFame
+
+
+def to_tensor(array, device: DeviceLike = None) -> torch.Tensor:
+    """A numpy (or numpy-convertible) array as a tensor on ``device``."""
+    return torch.from_numpy(np.array(array)).to(resolve_device(device))
+
+
+def to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    return tensor.detach().cpu().numpy()
+
+
+def population_from_arrays(genomes, fitness, valid, weights: Sequence[float],
+                           extras: Optional[Dict[str, Any]] = None,
+                           device: DeviceLike = None) -> Population:
+    """The port's population from numpy fields (``genomes`` may be a dict
+    or tuple of arrays)."""
+    conv = lambda a: to_tensor(a, device)
+    return Population(genomes=pytree.tree_map(conv, genomes),
+                      fitness=conv(fitness), valid=conv(valid),
+                      extras=pytree.tree_map(conv, extras or {}),
+                      spec=FitnessSpec(weights))
+
+
+def population_to_arrays(pop: Population) -> Dict[str, Any]:
+    """``{genomes, fitness, valid, extras, weights}`` as numpy arrays."""
+    return {"genomes": pytree.tree_map(to_numpy, pop.genomes),
+            "fitness": to_numpy(pop.fitness),
+            "valid": to_numpy(pop.valid),
+            "extras": pytree.tree_map(to_numpy, pop.extras),
+            "weights": pop.spec.weights}
+
+
+def hof_from_arrays(genomes, fitness, filled, weights: Sequence[float],
+                    device: DeviceLike = None) -> HallOfFame:
+    conv = lambda a: to_tensor(a, device)
+    return HallOfFame(genomes=pytree.tree_map(conv, genomes),
+                      fitness=conv(fitness), filled=conv(filled),
+                      spec=FitnessSpec(weights))
+
+
+def hof_to_arrays(hof: HallOfFame) -> Dict[str, Any]:
+    """``{genomes, fitness, filled, weights}`` as numpy arrays."""
+    return {"genomes": pytree.tree_map(to_numpy, hof.genomes),
+            "fitness": to_numpy(hof.fitness),
+            "filled": to_numpy(hof.filled),
+            "weights": hof.spec.weights}

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where a generation's time goes in the PyTorch/CUDA port, on one card.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 port_profile.py [--out DIR]
+
+Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
+window of the two main-path loops at pop 100,000 and L 100:
+
+- ``ea_simple`` OneMax (tournament 3, cxpb 0.5, mutpb 0.2, indpb 0.05,
+  hall of fame 1, fitness statistics), 10 generations after 3 of warm-up;
+- ``ea_simple_packed`` with the select-and-gather kernel, 100 generations
+  after 10 of warm-up.
+
+For each it prints the wall time per generation (host clock around work
+that ends in a synchronise), the device time per generation summed over
+kernels, the device's busy share (device time over wall time; one stream,
+so kernels do not overlap), and the kernels that take the most device
+time. The chrome traces go to ``DIR`` (default ``build/profile``).
+"""
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N, L = 100_000, 100
+
+
+def profile(name, run, warm, steps, out_dir, facts):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    run(warm)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f"[{facts}] {name}: wall {wall / steps * 1e3:.3f} ms/gen, "
+          f"device {device_us / steps / 1e3:.3f} ms/gen, busy share "
+          f"{device_us / 1e6 / wall:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / steps:10.1f} us/gen "
+              f"{e.count / steps:6.1f} calls/gen  {e.key[:90]}")
+    # the same window without the profiler, for its overhead
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    print(f"[{facts}] {name}: wall without profiler "
+          f"{plain / steps * 1e3:.3f} ms/gen")
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                      "profile"))
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("port_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from deap_tpu_torch import FitnessSpec, Toolbox, _build, algorithms, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import gpu_facts, make_generator
+    from deap_tpu_torch.ops import packed
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    os.makedirs(args.out, exist_ok=True)
+    facts = gpu_facts()
+    _build.build()
+    dev = torch.device("cuda")
+
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    gen = make_generator(0, dev)
+    pop = init_population(gen, N, ops.bernoulli_genome(L),
+                          FitnessSpec((1.0,)), device=dev)
+    pop, _, hof = algorithms.ea_simple(gen, pop, tb, 0.5, 0.2, 0,
+                                       halloffame_size=1, device=dev)
+    step = algorithms.make_ea_simple_step(tb, 0.5, 0.2, fitness_stats())
+    state = {"pop": pop, "hof": hof}
+
+    def run_ea(steps):
+        for _ in range(steps):
+            state["pop"], state["hof"], _ = step(gen, state["pop"],
+                                                 state["hof"])
+
+    profile("ea_simple", run_ea, 3, 10, args.out, facts)
+
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(gen, N))
+    pstate = {"pk": pk, "fit": packed.packed_fitness(pk)}
+
+    def run_packed(steps):
+        pstate["pk"], pstate["fit"] = algorithms.ea_simple_packed(
+            gen, pstate["pk"], pstate["fit"], L, steps, cxpb=0.5, mutpb=0.2,
+            indpb=0.05, device=dev)
+
+    profile("ea_simple_packed", run_packed, 10, 100, args.out, facts)
+    print(facts)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

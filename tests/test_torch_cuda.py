@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA card and the CUDA toolkit; they skip without a
+card. On a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+(``--noconftest``: tests/conftest.py imports jax, which the port does not
+need.)
+
+Each kernel is held bitwise against its plain PyTorch version on the
+same CUDA tensors, at small odd shapes; the wrappers' launch counters
+must rise by one per call.
+"""
+
+import pytest
+import torch
+
+from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, ops
+from deap_tpu_torch.core.population import init_population
+from deap_tpu_torch.device import make_generator
+from deap_tpu_torch.ops import kernels, packed, variation
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    if a.dtype in (torch.float32, torch.uint32):
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,L", [(1, 17), (2, 33), (65, 100), (1001, 31)])
+@pytest.mark.parametrize("dtype,kind", [(torch.bool, "flip"),
+                                        (torch.float32, "flip"),
+                                        (torch.float32, "add"),
+                                        (torch.float32, "set"),
+                                        (torch.bool, "set")])
+def test_fused_variation_kernel_equals_plain(card, n, L, dtype, kind):
+    gen = make_generator(n + L, card)
+    g = (torch.rand((n, L), generator=gen, device=card) < 0.5).to(dtype)
+    src = torch.randint(0, n, (n,), generator=gen, device=card,
+                        dtype=torch.int32)
+    partner = src[variation.pair_partner_positions(n, card).long()]
+    cx_row, lo, hi, do_mut, mask, _ = variation.var_and_masks(
+        gen, n, L, 0.7, 0.6, variation.VariationPlan(
+            ops.cx_two_point.fused_segment_draw, "cx", "flip",
+            ops.mut_flip_bit.fused_plan(0.3)[1], "mut"), dtype)
+    arg = None if kind == "flip" else torch.randn((n, L), generator=gen,
+                                                  device=card)
+    before = kernels.fused_variation.launches
+    args = (g, src, partner, cx_row, lo, hi, do_mut, mask, arg)
+    got = kernels.fused_variation(*args, mut_kind=kind)
+    want = variation.apply_variation(*args, kind).to(dtype)
+    torch.cuda.synchronize()
+    assert kernels.fused_variation.launches == before + 1
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("n,L", [(1, 100), (2, 33), (65, 32), (1001, 100)])
+def test_packed_kernels_equal_plain(card, n, L):
+    gen = make_generator(n, card)
+    pk = packed.pack_genomes(torch.rand((n, L), generator=gen, device=card)
+                             < 0.5)
+    W = pk.shape[1]
+    bits = packed.variation_bits(gen, n, W)
+    probs = dict(cxpb=0.6, mutpb=0.5, indpb=0.1)
+    got = packed.fused_variation_eval_packed(pk, L, *bits, **probs)
+    want = packed.fused_variation_eval_packed_plain(pk, L, *bits, **probs)
+    fit = packed.packed_fitness(pk)
+    draws = packed.tournament_bits(gen, 3, n)
+    sel = packed.sel_tournament_gather_packed(pk, fit, draws)
+    sel_want = packed.sel_tournament_gather_packed_plain(pk, fit, draws)
+    torch.cuda.synchronize()
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(sel, sel_want)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
+    g = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    z = torch.zeros(4, dtype=torch.int32, device=card)
+    m = torch.zeros((4, 8), dtype=torch.bool, device=card)
+    with pytest.raises(TypeError, match="bool or float32"):
+        kernels.fused_variation(g, z, z, z.bool(), z, z, z.bool(), m)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.fused_variation(g.bool(), z.long(), z, z.bool(), z, z,
+                                z.bool(), m)
+    with pytest.raises(TypeError, match="uint32"):
+        packed.sel_tournament_gather_packed(
+            g, torch.zeros(4, device=card),
+            torch.zeros((3, 4), dtype=torch.int32, device=card))
+
+
+def test_ea_simple_on_the_card_goes_through_the_kernel(card):
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    runs = []
+    for fused in ("auto", False):
+        gen = make_generator(0, card)
+        pop = init_population(gen, 301, ops.bernoulli_genome(100),
+                              FitnessSpec((1.0,)), device=card)
+        before = kernels.fused_variation.launches
+        runs.append(algorithms.ea_simple(gen, pop, tb, 0.5, 0.2, 4,
+                                         fused=fused, device=card))
+        if fused == "auto":
+            assert kernels.fused_variation.launches == before + 4
+    assert torch.equal(runs[0][0].genomes, runs[1][0].genomes)

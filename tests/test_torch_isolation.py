@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points never fall back to the CPU quietly."""
+
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from deap_tpu_torch import algorithms as talg
+from deap_tpu_torch import device as tdevice
+from deap_tpu_torch import ops as tops
+from deap_tpu_torch.core.fitness import FitnessSpec
+from deap_tpu_torch.core.population import init_population
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from deap_tpu_torch import Toolbox, FitnessSpec, ops, algorithms
+        from deap_tpu_torch.core.population import init_population
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.support.stats import fitness_stats
+        import deap_tpu_torch.convert, deap_tpu_torch.ops.packed
+        gen = make_generator(0, "cpu")
+        tb = Toolbox()
+        tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+        tb.register("mate", ops.cx_two_point)
+        tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+        tb.register("select", ops.sel_tournament, tournsize=3)
+        pop = init_population(gen, 50, ops.bernoulli_genome(20),
+                              FitnessSpec((1.0,)), device="cpu")
+        pop, lb, hof = algorithms.ea_simple(gen, pop, tb, 0.5, 0.2, 3,
+                                            stats=fitness_stats(),
+                                            halloffame_size=1, device="cpu")
+        assert len(lb) == 4
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|deap_tpu)(\s|\.|$)", re.M)
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "deap_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        hits = _IMPORT.findall(path.read_text())
+        assert not hits, (path, hits)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    spec = FitnessSpec((1.0,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.make_generator(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.resolve_device("cuda")
+    gen = tdevice.make_generator(0, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_population(gen, 4, tops.bernoulli_genome(8), spec)
+    pop = init_population(gen, 4, tops.bernoulli_genome(8), spec,
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        talg.ea_simple(gen, pop, None, 0.5, 0.2, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        talg.ea_simple_packed(gen, torch.zeros((4, 1), dtype=torch.uint32),
+                              torch.zeros(4), 8, 1, cxpb=0.5, mutpb=0.2,
+                              indpb=0.05)
+
+
+def test_generator_must_live_on_the_run_device():
+    gen = tdevice.make_generator(0, "cpu")
+    with pytest.raises(ValueError, match="generator"):
+        tdevice.check_generator(gen, torch.device("meta"))
