@@ -18,7 +18,21 @@ Phases (any failure ends the script with a non-zero exit code):
 4. the packed generation (tournament select-and-gather kernel, then the
    packed variation kernel) for 200 generations at pop 100k, after a
    small run that must equal the plain versions bit for bit, and the same
-   step with the rank-based tournament.
+   step with the rank-based tournament;
+5. the dominance kernels K7 and K8 against their plain versions on
+   3-objective DTLZ2 data at the NSGA-II path's shapes (100k rows; K8
+   with the prefix chain reduction's 512 queries): bitwise where the
+   sums are exact, timed against the card's compare rate;
+6. the non-dominated sorting engines agree on the card at n 8192
+   (tiled, matrix, sweep, dc through K8 and plain; staircase and tiled
+   at M 2), and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through
+   K7 on a 16,384-row union;
+7. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
+   selection, Gaussian variation clipped to [0, 1], evaluation,
+   ``sel_nsga2`` over the union): a small run whose survivors through
+   K7 equal those through the dominance matrix, then mu 50,000 (union
+   100k, 12 variables) for 3 generations after one of warm-up, with K7
+   launched once per front peeled.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -37,8 +51,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N, L, TOURNSIZE = 100_000, 100, 3
 CXPB, MUTPB, INDPB = 0.5, 0.2, 0.05
 EA_NGEN, PACKED_NGEN = 20, 200
+# bench.py's NSGA-II headline: mu 50k on 3-objective DTLZ2, 12 variables
+MO_POP, MO_NOBJ, MO_DIM, MO_NGEN = 50_000, 3, 12, 3
+ENGINE_N, DC_UNION, MO_SMALL = 8192, 16_384, 2048
 # device memory rates by card name (NVIDIA data sheets), bytes per second
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+# float32 compares issued per SM per clock (4 schedulers x 32 lanes)
+COMPARES_PER_SM_CLOCK = 128
+EXACT = 2.0 ** 24  # float32 integers are exact below this
+# K7 sums past 2^24 round in another order than the plain version's:
+# a stated relative tolerance there
+K7_RTOL = 1e-5
 
 
 def fail(msg):
@@ -69,6 +92,15 @@ def max_abs_err(a, b):
     if a.dtype == torch.uint32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return float((a.double() - b.double()).abs().max())
+
+
+def max_sm_clock_hz():
+    """The card's maximum SM clock, from ``nvidia-smi``."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=30)
+    return float(out.stdout.split()[0]) * 1e6
 
 
 def time_ms(fn, flush, reps=25):
@@ -109,8 +141,13 @@ def main():
     name = torch.cuda.get_device_name(0)
     rate = memory_rate(name)
     tag = f"[{facts}]"
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    compare_rate = sms * COMPARES_PER_SM_CLOCK * clock
     print(f"card: {facts}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; memory rate for bounds {rate / 1e12} TB/s")
+          f"{torch.version.cuda}; memory rate for bounds {rate / 1e12} TB/s; "
+          f"{sms} SMs at max {clock / 1e6:.0f} MHz = {compare_rate:.4e} "
+          f"float32 compares/s")
 
     # ------------------------------------------------------------ build --
     t0 = time.perf_counter()
@@ -126,16 +163,22 @@ def main():
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
     report = {}
 
-    def record(key, name, source, replaces, err, ms, plain_ms, nbytes):
-        bound_ms = nbytes / rate * 1e3
+    def record(key, name, source, replaces, err, ms, plain_ms, nbytes,
+               compares=0):
+        """One kernel's line; the bound is the larger of its bytes over the
+        memory rate and its float32 compares over the compare rate."""
+        bytes_ms = nbytes / rate * 1e3
+        compares_ms = compares / compare_rate * 1e3
+        bound_ms = max(bytes_ms, compares_ms)
+        bound_by = "bytes" if bytes_ms >= compares_ms else "operations"
         report[key] = {"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": None,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": "bytes",
+                       "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": None}
         print(f"{tag} {name}: {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} "
-              f"us for {nbytes / 1e6:.2f} MB, plain {plain_ms * 1e3:.2f} us),"
-              f" max_abs_err {err}")
+              f"us by {bound_by}: {nbytes / 1e6:.2f} MB, {compares:.3e} "
+              f"compares; plain {plain_ms * 1e3:.2f} us), max_abs_err {err}")
 
     # ----------------------------------------- K1 fused_variation check --
     gen = make_generator(1, dev)
@@ -250,7 +293,7 @@ def main():
     print(f"{tag} ea_simple(n=1001, 5 gens) through fused_variation == "
           f"unfused composition bitwise")
 
-    kernels.fused_variation.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pop, logbook, hof = onemax_run(0, N, EA_NGEN, "auto")
@@ -300,8 +343,7 @@ def main():
     for select in ("gather", "sorted"):
         g, pk, fit = packed_start(5, N)
         start_mean = float(fit.mean())
-        packed.fused_variation_eval_packed.launches = 0
-        packed.sel_tournament_gather_packed.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pk, fit = algorithms.ea_simple_packed(
@@ -327,12 +369,223 @@ def main():
               f"gens/s; mean fitness {start_mean:.3f} -> "
               f"{float(fit.mean()):.3f}; launches K3 {k3}, K4 {k4}")
 
-    print(json.dumps({"kernels": [report[k] for k in ("k1", "k3", "k4")]}))
+    mo_phases(torch, dev, tag, report, record)
+
+    print(json.dumps({"kernels": [report[k] for k in
+                                  ("k1", "k3", "k4", "k7", "k8")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter."""
+    from deap_tpu_torch.ops import kernels, packed
+    return (kernels.fused_variation, packed.fused_variation_eval_packed,
+            packed.sel_tournament_gather_packed,
+            kernels.dominated_weight_sums, kernels.dominated_weight_maxes)
+
+
+def reset_counts():
+    """Set every launch count to 0 just before a main-path run."""
+    for fn in launch_counters():
+        fn.launches = 0
+
+
+def mo_phases(torch, dev, tag, report, record):
+    """Phases 5-7: K7 and K8 at the NSGA-II path's shapes, the engines'
+    agreement, and the NSGA-II 3-objective DTLZ2 run."""
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import mo
+    from deap_tpu_torch.core.fitness import lex_sort_desc
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    n2, m = 2 * MO_POP, MO_NOBJ
+    gen = make_generator(11, dev)
+    w = -bm.dtlz2(torch.rand((n2, MO_DIM), generator=gen, device=dev), m)
+    if not (w.shape == (n2, m) and bool(torch.isfinite(w).all())):
+        fail("dtlz2 gave non-finite or misshapen values")
+
+    # ------------------------------------ K7 dominated_weight_sums check --
+    ones = torch.ones(n2, device=dev)
+    got = kernels.dominated_weight_sums(w, ones)        # a first peel
+    want = kernels.dominated_weight_sums_plain(w, ones)
+    torch.cuda.synchronize()
+    if not (float(want.max()) < EXACT and bitwise_equal(got, want)):
+        fail("dominated_weight_sums (0/1 weights) differs from the plain "
+             "version")
+    err = max_abs_err(got, want)
+    strength = kernels.strengths_tiled(w)
+    if not bitwise_equal(strength, kernels.dominated_weight_sums_plain(
+            -w, ones)):
+        fail("strengths_tiled differs from the plain version")
+    raw = kernels.dominated_weight_sums(w, strength)     # SPEA2 raw
+    raw_plain = kernels.dominated_weight_sums_plain(w, strength)
+    torch.cuda.synchronize()
+    exact = raw_plain < EXACT
+    rel = float(((raw - raw_plain).abs() / raw_plain.clamp_min(1.0)).max())
+    if not (bitwise_equal(raw[exact], raw_plain[exact]) and rel <= K7_RTOL):
+        fail(f"dominated_weight_sums (SPEA2 strengths) differs from the "
+             f"plain version (max relative error {rel})")
+    print(f"{tag} dominated_weight_sums == plain bitwise at n={n2}, m={m} "
+          f"(0/1 weights, counts up to {int(want.max())}; strengths); SPEA2 "
+          f"raw bitwise on the {int(exact.sum())} rows below 2^24, max "
+          f"relative error {rel:.3e} on the {int((~exact).sum())} above")
+    record("k7", "dominated_weight_sums", "deap_tpu_torch/csrc/dominance.cu",
+           "deap_tpu/ops/kernels.py:106", err,
+           time_ms(lambda: kernels.dominated_weight_sums(w, ones), flush),
+           time_ms(lambda: kernels.dominated_weight_sums_plain(w, ones),
+                   flush, reps=3),
+           4 * (n2 * m + 2 * n2), compares=2 * m * n2 * n2)
+
+    # ----------------------------------- K8 dominated_weight_maxes check --
+    ranks = mo.nd_rank(w, impl="tiled")
+    order = lex_sort_desc(w)
+    ws, rs = w[order].contiguous(), ranks[order]
+    start, block = MO_POP, 512
+    queries = ws[start:start + block].contiguous()
+    weights = torch.where(torch.arange(n2, device=dev) < start,
+                          rs.float() + 1.0, 0.0)
+    got = kernels.dominated_weight_maxes(ws, weights, queries)
+    want = kernels.dominated_weight_maxes_plain(ws, weights, queries)
+    torch.cuda.synchronize()
+    if not bitwise_equal(got, want):
+        fail("dominated_weight_maxes differs from the plain version")
+    print(f"{tag} dominated_weight_maxes == plain bitwise: {block} queries "
+          f"against {n2} lex-sorted rows, prefix {start}, max "
+          f"{float(got.max())}")
+    record("k8", "dominated_weight_maxes", "deap_tpu_torch/csrc/dominance.cu",
+           "deap_tpu/ops/kernels.py:173", max_abs_err(got, want),
+           time_ms(lambda: kernels.dominated_weight_maxes(ws, weights,
+                                                          queries), flush),
+           time_ms(lambda: kernels.dominated_weight_maxes_plain(
+               ws, weights, queries), flush, reps=5),
+           4 * (n2 * m + n2 + block * m + block),
+           compares=2 * m * block * n2)
+    del flush
+
+    # ------------------------------------------- engines agree at 8192 --
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    w8 = w[:ENGINE_N].contiguous()
+    want, t_matrix = timed(lambda: mo.nd_rank(w8, impl="matrix"))
+    times = {"matrix": t_matrix}
+    for name, fn in (
+            ("tiled", lambda: mo.nd_rank(w8, impl="tiled")),
+            ("dc kernel", lambda: mo.nd_rank_prefix(w8, cross="kernel")),
+            ("dc plain", lambda: mo.nd_rank_prefix(w8, cross="plain")),
+            ("sweep", lambda: mo.nd_rank(w8, impl="sweep"))):
+        got, times[name] = timed(fn)
+        if not torch.equal(got, want):
+            fail(f"nd_rank {name} differs from the matrix engine at "
+                 f"n={ENGINE_N}")
+    w2 = w8[:, :2].contiguous()
+    stair, times["staircase m2"] = timed(lambda: mo.nd_rank(
+        w2, impl="staircase"))
+    tiled2, times["tiled m2"] = timed(lambda: mo.nd_rank(w2, impl="tiled"))
+    if not torch.equal(stair, tiled2):
+        fail("nd_rank staircase differs from tiled at m=2")
+    print(f"{tag} nd_rank engines agree at n={ENGINE_N} (m=3: tiled, "
+          f"matrix, dc kernel/plain, sweep; m=2: staircase, tiled), "
+          f"{int(want.max()) + 1} fronts; seconds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+    wu = w[:DC_UNION].contiguous()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_dc = mo.sel_nsga2(None, wu, DC_UNION // 2, nd="dc")
+    torch.cuda.synchronize()
+    t_dc = time.perf_counter() - t0
+    report["k8"]["launches"] = kernels.dominated_weight_maxes.launches
+    if kernels.dominated_weight_maxes.launches != DC_UNION // 512 - 1:
+        fail(f"sel_nsga2(nd='dc') launched K8 "
+             f"{kernels.dominated_weight_maxes.launches} times")
+    by_tiled = mo.sel_nsga2(None, wu, DC_UNION // 2, nd="tiled")
+    if not torch.equal(by_dc, by_tiled):
+        fail("sel_nsga2 through K8 (dc) differs from it through K7 (tiled)")
+    print(f"{tag} sel_nsga2 over a {DC_UNION}-row union: nd='dc' == "
+          f"nd='tiled'; dc took {t_dc:.4f} s with "
+          f"{report['k8']['launches']} K8 launches")
+
+    # ------------------------------------------- NSGA-II 3-objective run --
+    def generation(g, x, w, nd, inputs=None):
+        """bench.py's NSGA-II generation (make_run_nsga2_3obj)."""
+        if inputs is not None:
+            inputs.append(("dcd", w))
+        parents = x[mo.sel_tournament_dcd(g, w, x.shape[0])]
+        noise = torch.randn(parents.shape, generator=g, device=dev)
+        off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
+        xall = torch.cat([x, off])
+        wall = torch.cat([w, -bm.dtlz2(off, m)])
+        if inputs is not None:
+            inputs.append(("nsga2", wall))
+        keep = mo.sel_nsga2(None, wall, x.shape[0], nd=nd)
+        return xall[keep], wall[keep]
+
+    def start(seed, mu):
+        g = make_generator(seed, dev)
+        x = torch.rand((mu, MO_DIM), generator=g, device=dev)
+        return g, x, -bm.dtlz2(x, m)
+
+    runs = []
+    for nd in ("tiled", "matrix"):
+        g, x, wm = start(21, MO_SMALL)
+        for _ in range(2):
+            x, wm = generation(g, x, wm, nd)
+        runs.append((x, wm))
+    if not (bitwise_equal(runs[0][0], runs[1][0])
+            and bitwise_equal(runs[0][1], runs[1][1])):
+        fail("NSGA-II through K7 differs from it through the dominance "
+             "matrix")
+    print(f"{tag} NSGA-II mu={MO_SMALL}, 2 generations: nd='tiled' == "
+          f"nd='matrix' bitwise in the kept genomes and weighted values")
+
+    g, x, wm = start(5, MO_POP)
+    x, wm = generation(g, x, wm, "standard")  # warm-up
+    inputs = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MO_NGEN):
+        x, wm = generation(g, x, wm, "standard", inputs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k7 = kernels.dominated_weight_sums.launches
+    k8 = kernels.dominated_weight_maxes.launches
+    report["k7"]["launches"] = k7
+    # the fronts each selection peeled, recomputed from its input
+    peels = [mo.nd_rank(v, impl="tiled", return_peels=True,
+                        cover_k=MO_POP if kind == "nsga2" else None)[1]
+             for kind, v in inputs]
+    if k7 != sum(peels) or k8 != 0:
+        fail(f"K7 launched {k7} times for {sum(peels)} fronts peeled "
+             f"(K8 {k8})")
+    if not (x.shape == (MO_POP, MO_DIM) and wm.shape == (MO_POP, m)
+            and bool(torch.isfinite(wm).all())
+            and float(x.min()) >= 0.0 and float(x.max()) <= 1.0
+            and torch.allclose(wm, -bm.dtlz2(x, m), rtol=1e-6, atol=0.0)):
+        fail("NSGA-II's final population is wrong")
+    front = wm[mo.nd_rank(wm) == 0]
+    if int(kernels.dominated_counts(front, torch.ones(
+            front.shape[0], device=dev)).max()) != 0:
+        fail("the final first front is not mutually non-dominated")
+    dist = float((front.norm(dim=1) - 1.0).mean())
+    print(f"{tag} NSGA-II DTLZ2 mu={MO_POP} (union {n2}, m={m}, dim "
+          f"{MO_DIM}): {MO_NGEN} generations in {wall_s:.3f} s = "
+          f"{MO_NGEN / wall_s:.3f} gens/s; fronts peeled per selection "
+          f"{peels} (dcd, nsga2 per generation); K7 launches {k7} = "
+          f"{k7 / MO_NGEN:.1f} per generation; first front {front.shape[0]} "
+          f"rows, mean ||f||-1 {dist:.4f}")
 
 
 def _onemax_toolbox(Toolbox, ops):

@@ -1,0 +1,48 @@
+"""Benchmark objective functions, batched over rows.
+
+Port of the multi-objective part of :mod:`deap_tpu.benchmarks` that the
+NSGA-II path uses (ZDT1 and DTLZ2). The JAX package's functions take one
+genome ``f32[dim]`` and are ``vmap``-ed; these take the population
+``f32[n, dim]`` and return ``f32[n, nobj]`` (minimisation).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from deap_tpu_torch.benchmarks import tools  # noqa: F401
+
+__all__ = ["zdt1", "dtlz2"]
+
+
+def _zdt_g(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 + 9.0 * x[:, 1:].sum(1) / (x.shape[1] - 1)
+
+
+def zdt1(x: torch.Tensor) -> torch.Tensor:
+    """ZDT1: ``f1 = x0``, ``f2 = g (1 - sqrt(f1 / g))``."""
+    g = _zdt_g(x)
+    f1 = x[:, 0]
+    return torch.stack([f1, g * (1.0 - torch.sqrt(f1 / g))], dim=1)
+
+
+def _dtlz_spherical(x: torch.Tensor, obj: int, g: torch.Tensor,
+                    ) -> torch.Tensor:
+    xc = x[:, :obj - 1]
+    cosc = torch.cos(0.5 * math.pi * xc)
+    cum = torch.cat([torch.ones_like(x[:, :1]), torch.cumprod(cosc, dim=1)],
+                    dim=1)                                  # [n, obj]
+    fs = [(1.0 + g) * cum[:, obj - 1]]
+    for m in range(obj - 2, -1, -1):
+        fs.append((1.0 + g) * cum[:, m] * torch.sin(0.5 * math.pi * xc[:, m]))
+    return torch.stack(fs, dim=1)
+
+
+def dtlz2(x: torch.Tensor, obj: int) -> torch.Tensor:
+    """DTLZ2 with ``obj`` objectives: the unit sphere's first orthant
+    scaled by ``1 + g``, ``g = Σ (x_m - 0.5)²`` over the last
+    ``dim - obj + 1`` variables."""
+    g = ((x[:, obj - 1:] - 0.5) ** 2).sum(1)
+    return _dtlz_spherical(x, obj, g)

@@ -1,4 +1,5 @@
-"""Carry population and hall-of-fame state between the two packages.
+"""Carry population, hall-of-fame and Pareto-archive state between the
+two packages.
 
 The port never imports the JAX package, so state crosses as numpy arrays
 plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
@@ -18,6 +19,7 @@ from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population
 from deap_tpu_torch.device import DeviceLike, resolve_device
 from deap_tpu_torch.support.hof import HallOfFame
+from deap_tpu_torch.support.pareto import ParetoArchive
 
 
 def to_tensor(array, device: DeviceLike = None) -> torch.Tensor:
@@ -64,3 +66,19 @@ def hof_to_arrays(hof: HallOfFame) -> Dict[str, Any]:
             "fitness": to_numpy(hof.fitness),
             "filled": to_numpy(hof.filled),
             "weights": hof.spec.weights}
+
+
+def pareto_from_arrays(genomes, fitness, filled, weights: Sequence[float],
+                       device: DeviceLike = None) -> ParetoArchive:
+    conv = lambda a: to_tensor(a, device)
+    return ParetoArchive(genomes=pytree.tree_map(conv, genomes),
+                         fitness=conv(fitness), filled=conv(filled),
+                         spec=FitnessSpec(weights))
+
+
+def pareto_to_arrays(archive: ParetoArchive) -> Dict[str, Any]:
+    """``{genomes, fitness, filled, weights}`` as numpy arrays."""
+    return {"genomes": pytree.tree_map(to_numpy, archive.genomes),
+            "fitness": to_numpy(archive.fitness),
+            "filled": to_numpy(archive.filled),
+            "weights": archive.spec.weights}

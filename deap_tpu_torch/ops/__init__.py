@@ -1,7 +1,11 @@
 """Operator library of the port: batched tensor functions that take a
 ``torch.Generator``, plus the CUDA kernels of the main path."""
 
-from deap_tpu_torch.ops.crossover import cx_one_point, cx_two_point
+from deap_tpu_torch.ops.crossover import (
+    cx_one_point,
+    cx_simulated_binary_bounded,
+    cx_two_point,
+)
 from deap_tpu_torch.ops.init import (
     bernoulli_genome,
     constant_genome,
@@ -13,8 +17,15 @@ from deap_tpu_torch.ops.init import (
     randint_genome,
     uniform_genome,
 )
-from deap_tpu_torch.ops.kernels import fused_variation
-from deap_tpu_torch.ops.mutation import mut_flip_bit
+from deap_tpu_torch.ops.kernels import (
+    dominated_counts,
+    dominated_weight_maxes,
+    dominated_weight_sums,
+    fused_variation,
+    nd_rank_tiled,
+    strengths_tiled,
+)
+from deap_tpu_torch.ops.mutation import mut_flip_bit, mut_polynomial_bounded
 from deap_tpu_torch.ops.packed import (
     fused_variation_eval_packed,
     pack_genomes,

@@ -1,11 +1,15 @@
-"""Segment crossovers on batches of pairs.
+"""Crossovers on batches of pairs.
 
-Port of ``cx_one_point`` / ``cx_two_point`` from
-:mod:`deap_tpu.ops.crossover`. Operators are batched:
+Port of ``cx_one_point``, ``cx_two_point`` and
+``cx_simulated_binary_bounded`` from :mod:`deap_tpu.ops.crossover`.
+Operators are batched:
 ``(generator, g1[m, L], g2[m, L]) -> (c1, c2)``. Each carries a
 ``fused_segment_draw(generator, m, L) -> (lo, hi)`` tag, the draw that
 reproduces its cut points as a half-open swap segment, which the fused
 variation plane (:mod:`deap_tpu_torch.ops.variation`) consumes.
+Bounded SBX is real-valued and has no fused form; its draws are made by
+:func:`sbx_bounded_draws` and applied by the draw-taking core
+:func:`_sbx_bounded`.
 """
 
 from __future__ import annotations
@@ -57,3 +61,50 @@ def cx_two_point(generator, g1, g2):
 
 
 cx_two_point.fused_segment_draw = _two_points
+
+
+# ------------------------------------------------------ bounded SBX ----
+
+def sbx_bounded_draws(generator, shape):
+    """The draws of :func:`cx_simulated_binary_bounded` per gene: the
+    application coin (probability 0.5), the spread uniform and the swap
+    coin (probability 0.5), in that order."""
+    dev = generator.device
+    coin = torch.rand(shape, generator=generator, device=dev) < 0.5
+    rand = torch.rand(shape, generator=generator, device=dev)
+    swap = torch.rand(shape, generator=generator, device=dev) < 0.5
+    return coin, rand, swap
+
+
+def _sbx_bounded(g1, g2, eta, low, up, coin, rand, swap):
+    """Bounded SBX on given draws (see :func:`cx_simulated_binary_bounded`)."""
+    low = torch.as_tensor(low, dtype=g1.dtype, device=g1.device)
+    up = torch.as_tensor(up, dtype=g1.dtype, device=g1.device)
+    gate = coin & ((g1 - g2).abs() > 1e-14)
+    x1 = torch.minimum(g1, g2)
+    x2 = torch.maximum(g1, g2)
+    diff = torch.where(gate, x2 - x1, 1.0)  # no 0-division on idle genes
+
+    def child(bound_term, sign):
+        beta = 1.0 + 2.0 * bound_term / diff
+        alpha = 2.0 - beta ** -(eta + 1.0)
+        beta_q = torch.where(
+            rand <= 1.0 / alpha,
+            (rand * alpha) ** (1.0 / (eta + 1.0)),
+            (1.0 / (2.0 - rand * alpha)) ** (1.0 / (eta + 1.0)))
+        return 0.5 * (x1 + x2 + sign * beta_q * diff)
+
+    c1 = torch.minimum(torch.maximum(child(x1 - low, -1.0), low), up)
+    c2 = torch.minimum(torch.maximum(child(up - x2, +1.0), low), up)
+    o1 = torch.where(swap, c2, c1)
+    o2 = torch.where(swap, c1, c2)
+    return torch.where(gate, o1, g1), torch.where(gate, o2, g2)
+
+
+def cx_simulated_binary_bounded(generator, g1, g2, eta, low, up):
+    """Bounded simulated binary crossover (Deb's NSGA-II C code): per
+    gene, applied with probability 0.5 where the parents differ, spread
+    factor from ``eta``, children clipped to ``[low, up]`` and swapped
+    with probability 0.5."""
+    return _sbx_bounded(g1, g2, eta, low, up,
+                        *sbx_bounded_draws(generator, g1.shape))

@@ -1,11 +1,19 @@
-"""Hand-written CUDA kernels of the variation plane, and their helpers.
+"""Hand-written CUDA kernels and their helpers.
 
-Port of the main-path part of :mod:`deap_tpu.ops.kernels`:
-:func:`fused_variation` (the TPU's Pallas kernel of the same name) runs
-``csrc/fused_variation.cu`` on CUDA tensors and its plain PyTorch version,
-:func:`deap_tpu_torch.ops.variation.apply_variation`, on CPU tensors.
-Nothing else decides between the two, and a CUDA tensor never takes the
-plain path.
+Port of :mod:`deap_tpu.ops.kernels`. Each wrapper runs its kernel on
+CUDA tensors and its plain PyTorch version on CPU tensors; nothing else
+decides between the two, and a CUDA tensor never takes the plain path.
+
+- :func:`fused_variation` (K1, ``csrc/fused_variation.cu``): the
+  variation plane; plain version
+  :func:`deap_tpu_torch.ops.variation.apply_variation`.
+- :func:`dominated_weight_sums` (K7) and :func:`dominated_weight_maxes`
+  (K8), ``csrc/dominance.cu``: Pareto-dominance reductions over all
+  pairs without the ``[n, n]`` matrix; plain versions
+  :func:`dominated_weight_sums_plain` and
+  :func:`dominated_weight_maxes_plain`. On them sit
+  :func:`dominated_counts`, :func:`strengths_tiled` and the peeling sort
+  :func:`nd_rank_tiled`.
 
 ``_u01`` and ``_pair_consistent`` are the shared random-bit conventions
 of the fused kernels (``ops.packed`` uses them too).
@@ -17,10 +25,14 @@ from typing import Optional
 
 import torch
 
+from deap_tpu_torch.core.fitness import dominates
+
 from deap_tpu_torch import _build
 from deap_tpu_torch.ops.variation import apply_variation
 
-__all__ = ["fused_variation", "KERNEL_DTYPES"]
+__all__ = ["fused_variation", "KERNEL_DTYPES", "dominated_weight_sums",
+           "dominated_weight_maxes", "dominated_counts", "strengths_tiled",
+           "nd_rank_tiled"]
 
 #: genome dtypes the kernel takes: bool (as one byte) and float32
 KERNEL_DTYPES = (torch.bool, torch.float32)
@@ -137,3 +149,225 @@ def fused_variation(genomes: torch.Tensor, src_idx: torch.Tensor,
 
 
 fused_variation.launches = 0
+
+
+# ------------------------------------------------ dominance reductions ----
+#
+# K7 and K8 of deap_tpu.ops.kernels: `j dominates i` is the weighted-value
+# test of core.fitness.dominates, all_k(w[j,k] >= w[i,k]) and
+# any_k(w[j,k] > w[i,k]), in IEEE compares. Weights must be finite (the
+# TPU kernels multiply the 0/1 dominance by the weight, which turns an
+# infinite weight of a row that does not dominate into NaN).
+
+#: objectives the dominance kernels take (``MAX_M`` of csrc/dominance.cu)
+DOMINANCE_MAX_NOBJ = 32
+#: query rows per step of the plain versions: a ``[1024, n, m]`` compare
+_PLAIN_CHUNK = 1024
+_K8_BLOCKS_PER_SM = 4
+
+
+def _dominators(queries: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bool[nq, n]``: row ``j`` of ``w`` dominates query row ``i``."""
+    return dominates(w[None, :, :], queries[:, None, :])
+
+
+def dominated_weight_sums_plain(w: torch.Tensor, weights: torch.Tensor,
+                                chunk: int = _PLAIN_CHUNK) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dominated_weight_sums`, a chunk of
+    query rows at a time."""
+    w = w.to(torch.float32)
+    weights = weights.to(torch.float32)
+    out = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
+    for s in range(0, w.shape[0], chunk):
+        dom = _dominators(w[s:s + chunk], w)
+        out[s:s + chunk] = torch.where(dom, weights, 0.0).sum(1)
+    return out
+
+
+def dominated_weight_maxes_plain(w: torch.Tensor, weights: torch.Tensor,
+                                 queries: Optional[torch.Tensor] = None,
+                                 chunk: int = _PLAIN_CHUNK) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dominated_weight_maxes`, a chunk of
+    query rows at a time."""
+    w = w.to(torch.float32)
+    weights = weights.to(torch.float32)
+    queries = w if queries is None else queries.to(torch.float32)
+    out = torch.zeros(queries.shape[0], dtype=torch.float32, device=w.device)
+    if w.shape[0] == 0:
+        return out
+    for s in range(0, queries.shape[0], chunk):
+        dom = _dominators(queries[s:s + chunk], w)
+        out[s:s + chunk] = torch.where(dom, weights, 0.0).amax(1).clamp_min(
+            0.0)
+    return out
+
+
+def _dominance_inputs(what: str, w: torch.Tensor, weights: torch.Tensor,
+                      queries: Optional[torch.Tensor] = None):
+    """Checks and float32 copies for the dominance kernels (weights may be
+    a bool mask, as in the JAX package)."""
+    if w.ndim != 2:
+        raise ValueError(f"{what}: w must be [n, nobj], got {tuple(w.shape)}")
+    n, m = w.shape
+    if not 1 <= m <= DOMINANCE_MAX_NOBJ:
+        raise ValueError(f"{what} takes 1 to {DOMINANCE_MAX_NOBJ} "
+                         f"objectives, got {m}")
+    dev = w.device
+    w = w.to(torch.float32).contiguous()
+    weights = weights.to(torch.float32).contiguous()
+    _check_cuda("weights", dev, torch.float32, (n,), weights)
+    if queries is not None:
+        queries = queries.to(torch.float32).contiguous()
+        _check_cuda("queries", dev, torch.float32, (queries.shape[0], m),
+                    queries)
+    return w, weights, queries
+
+
+def dominated_weight_sums(w: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """``out[i] = Σ_{j dominates i} weights[j]`` without the ``[n, n]``
+    dominance matrix (K7). With 0/1 weights this counts dominators; with
+    SPEA2 strengths it is the raw fitness.
+
+    Sums of integer-valued weights below 2²⁴ are exact, so kernel and
+    plain version agree bitwise there; otherwise they add in different
+    orders (the kernel in ascending ``j``) and agree to a relative 1e-6.
+
+    :param w: ``f32[n, nobj]`` weighted values (maximisation).
+    :param weights: ``f32[n]`` finite per-dominator weights (bools
+        accepted).
+    :returns: ``f32[n]``.
+    """
+    if w.device.type == "cpu":
+        return dominated_weight_sums_plain(w, weights)
+    if w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w.device}")
+    w, weights, _ = _dominance_inputs("dominated_weight_sums", w, weights)
+    n, m = w.shape
+    out = torch.empty(n, dtype=torch.float32, device=w.device)
+    if n == 0:
+        return out
+    P, I = _build.PTR, _build.INT
+    fn = _build.function("dominance", "dominated_weight_sums",
+                         [P, P, P, I, I, P])
+    err = fn(w.data_ptr(), weights.data_ptr(), out.data_ptr(), n, m,
+             torch.cuda.current_stream(w.device).cuda_stream)
+    dominated_weight_sums.launches += 1
+    _build.check("dominance", err, "dominated_weight_sums")
+    return out
+
+
+dominated_weight_sums.launches = 0
+
+
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dominated_weight_maxes(w: torch.Tensor, weights: torch.Tensor,
+                           queries: Optional[torch.Tensor] = None,
+                           ) -> torch.Tensor:
+    """``out[i] = max_{j dominates queries[i]} weights[j]``, 0 with no
+    dominator (K8): the cross step of the prefix chain reduction
+    (:func:`deap_tpu_torch.mo.ndsort.nd_rank_prefix`). ``queries``
+    defaults to ``w``. Weights must be non-negative and finite: 0 is the
+    "no dominator" identity. The maximum is exact in any order, so kernel
+    and plain version agree bitwise.
+
+    :param w: ``f32[n, nobj]`` candidate dominators (weighted values).
+    :param weights: ``f32[n]`` per-dominator weights (>= 0).
+    :param queries: ``f32[nq, nobj]`` rows to rank against ``w``.
+    :returns: ``f32[nq]``.
+    """
+    if w.device.type == "cpu":
+        return dominated_weight_maxes_plain(w, weights, queries)
+    if w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w.device}")
+    w, weights, queries = _dominance_inputs(
+        "dominated_weight_maxes", w, weights, w if queries is None
+        else queries)
+    n, m = w.shape
+    nq = queries.shape[0]
+    out = torch.zeros(nq, dtype=torch.float32, device=w.device)
+    if n == 0 or nq == 0:
+        return out
+    # split the rows of w across blocks until the card holds a few blocks
+    # per SM (a few hundred queries alone fill a handful of SMs)
+    query_blocks = -(-nq // 128)
+    tiles = -(-n // 256)
+    want = -(-_K8_BLOCKS_PER_SM * _multiprocessors(w.device) // query_blocks)
+    nsplit = max(1, min(tiles, want, 65535))
+    P, I = _build.PTR, _build.INT
+    fn = _build.function("dominance", "dominated_weight_maxes",
+                         [P, P, P, P, I, I, I, I, P])
+    err = fn(w.data_ptr(), weights.data_ptr(), queries.data_ptr(),
+             out.data_ptr(), n, nq, m, nsplit,
+             torch.cuda.current_stream(w.device).cuda_stream)
+    dominated_weight_maxes.launches += 1
+    _build.check("dominance", err, "dominated_weight_maxes")
+    return out
+
+
+dominated_weight_maxes.launches = 0
+
+
+def dominated_counts(w: torch.Tensor,
+                     remaining: torch.Tensor) -> torch.Tensor:
+    """``counts[i] = #{j : remaining[j] and j dominates i}`` — K7 with 0/1
+    weights, as ``int32[n]``."""
+    return dominated_weight_sums(w, remaining).to(torch.int32)
+
+
+def strengths_tiled(w: torch.Tensor) -> torch.Tensor:
+    """SPEA2 strength ``S(i) = #{j : i dominates j}`` through K7: negating
+    ``w`` flips the direction of domination, so the kernel counts the
+    rows each row dominates."""
+    return dominated_weight_sums(
+        -w, torch.ones(w.shape[0], dtype=torch.float32, device=w.device))
+
+
+def peel_fronts(count_dominators, n: int, device,
+                max_fronts: Optional[int] = None,
+                cover_k: Optional[int] = None, fallback: str = "none"):
+    """The front-peeling loop of the peeling engines: rows with no
+    remaining dominator (``count_dominators(remaining) -> int32[n]``)
+    form the next front. ``max_fronts``, ``cover_k`` and ``fallback`` as
+    in :func:`nd_rank_tiled`. Returns ``(ranks, fronts peeled)``. The loop
+    runs on the host, one synchronise per peel."""
+    if fallback not in ("none", "count"):
+        raise ValueError(f"unknown nd_rank fallback {fallback!r}")
+    stop = n if max_fronts is None else min(max_fronts, n)
+    covered_stop = n if cover_k is None else min(cover_k, n)
+    ranks = torch.full((n,), n, dtype=torch.int32, device=device)
+    remaining = torch.ones(n, dtype=torch.bool, device=device)
+    current, covered = 0, 0
+    while covered < n and current < stop and covered < covered_stop:
+        front = remaining & (count_dominators(remaining) == 0)
+        ranks = torch.where(front, current, ranks)
+        remaining = remaining & ~front
+        current += 1
+        covered = n - int(remaining.sum())
+    if fallback == "count" and covered < n and current >= stop:
+        ranks = torch.where(remaining, current + count_dominators(remaining),
+                            ranks)
+    return ranks, current
+
+
+def nd_rank_tiled(w: torch.Tensor, max_fronts: Optional[int] = None, *,
+                  cover_k: Optional[int] = None, fallback: str = "none",
+                  return_peels: bool = False):
+    """Non-domination rank (0 = first front) by peeling fronts, each peel
+    one K7 count of the remaining dominators: O(fronts · n²·m) work and
+    O(n·m) memory.
+
+    ``max_fronts`` stops peeling early (unpeeled rows keep rank ``n``);
+    ``cover_k`` stops once ``cover_k`` rows are ranked (exact for a top-k
+    cut); ``fallback='count'`` gives the rows left after a stop on
+    ``max_fronts`` the rank ``fronts + #dominators among them``, in one
+    more K7 launch. ``return_peels`` also returns the fronts peeled, as an
+    int.
+    """
+    ranks, peels = peel_fronts(lambda rem: dominated_counts(w, rem),
+                               w.shape[0], w.device, max_fronts, cover_k,
+                               fallback)
+    return (ranks, peels) if return_peels else ranks

@@ -1,6 +1,13 @@
 from deap_tpu_torch.support.hof import HallOfFame, hof_best, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
+from deap_tpu_torch.support.pareto import (
+    ParetoArchive,
+    nondominated_mask,
+    pareto_init,
+    pareto_update,
+)
 from deap_tpu_torch.support.stats import Statistics, fitness_stats
 
 __all__ = ["HallOfFame", "hof_best", "hof_init", "hof_update", "Logbook",
-           "Statistics", "fitness_stats"]
+           "ParetoArchive", "nondominated_mask", "pareto_init",
+           "pareto_update", "Statistics", "fitness_stats"]

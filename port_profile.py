@@ -3,15 +3,20 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 port_profile.py [--out DIR]
+    python3 port_profile.py [--out DIR] [--nsga2]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
-window of the two main-path loops at pop 100,000 and L 100:
+window of the two OneMax main-path loops at pop 100,000 and L 100:
 
 - ``ea_simple`` OneMax (tournament 3, cxpb 0.5, mutpb 0.2, indpb 0.05,
   hall of fame 1, fitness statistics), 10 generations after 3 of warm-up;
 - ``ea_simple_packed`` with the select-and-gather kernel, 100 generations
-  after 10 of warm-up.
+  after 10 of warm-up;
+
+or, with ``--nsga2``, one NSGA-II generation on 3-objective DTLZ2 at mu
+50,000 (``bench.py``'s ``make_run_nsga2_3obj`` step: DCD mating
+selection, Gaussian variation clipped to [0, 1], evaluation,
+``sel_nsga2`` over the 100k union) after one of warm-up.
 
 For each it prints the wall time per generation (host clock around work
 that ends in a synchronise), the device time per generation summed over
@@ -61,10 +66,41 @@ def profile(name, run, warm, steps, out_dir, facts):
           f"{plain / steps * 1e3:.3f} ms/gen")
 
 
+def profile_nsga2(dev, out_dir, facts, mu=50_000, nobj=3, dim=12):
+    import torch
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import mo
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    gen = make_generator(5, dev)
+    x = torch.rand((mu, dim), generator=gen, device=dev)
+    state = {"x": x, "w": -bm.dtlz2(x, nobj)}
+
+    def run(steps):
+        for _ in range(steps):
+            x, w = state["x"], state["w"]
+            parents = x[mo.sel_tournament_dcd(gen, w, mu)]
+            noise = torch.randn(parents.shape, generator=gen, device=dev)
+            off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
+            xall = torch.cat([x, off])
+            wall = torch.cat([w, -bm.dtlz2(off, nobj)])
+            keep = mo.sel_nsga2(None, wall, mu)
+            state["x"], state["w"] = xall[keep], wall[keep]
+
+    before = kernels.dominated_weight_sums.launches
+    profile("nsga2_dtlz2_mu50k", run, 1, 1, out_dir, facts)
+    # profile() runs warm-up, profiled and unprofiled windows: 3 generations
+    print(f"    K7 launches per generation "
+          f"{(kernels.dominated_weight_sums.launches - before) / 3:.1f}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
                                                       "profile"))
+    parser.add_argument("--nsga2", action="store_true",
+                        help="profile the NSGA-II 3-objective generation")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -81,6 +117,10 @@ def main():
     facts = gpu_facts()
     _build.build()
     dev = torch.device("cuda")
+    if args.nsga2:
+        profile_nsga2(dev, args.out, facts)
+        print(facts)
+        return 0
 
     tb = Toolbox()
     tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))

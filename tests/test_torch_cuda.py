@@ -16,7 +16,7 @@ must rise by one per call.
 import pytest
 import torch
 
-from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, ops
+from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
 from deap_tpu_torch.core.population import init_population
 from deap_tpu_torch.device import make_generator
 from deap_tpu_torch.ops import kernels, packed, variation
@@ -115,3 +115,65 @@ def test_ea_simple_on_the_card_goes_through_the_kernel(card):
         if fused == "auto":
             assert kernels.fused_variation.launches == before + 4
     assert torch.equal(runs[0][0].genomes, runs[1][0].genomes)
+
+
+def _fitness_on(card, seed, n, m):
+    """Integer grid values (exact ties) with duplicated, -inf and NaN
+    rows."""
+    gen = make_generator(seed, card)
+    w = torch.randint(0, 4, (n, m), generator=gen, device=card).float()
+    if n > 4:
+        rows = torch.randint(0, n, (2, n // 3), generator=gen, device=card)
+        w[rows[0]] = w[rows[1]]
+        w[: max(1, n // 20)] = -torch.inf
+        w[n // 2: n // 2 + max(1, n // 30)] = torch.nan
+    return w
+
+
+@pytest.mark.parametrize("n", [1, 2, 257, 1001])
+@pytest.mark.parametrize("m", [1, 3, 5, 9])
+def test_dominance_kernels_equal_plain(card, n, m):
+    w = _fitness_on(card, n + m, n, m)
+    gen = make_generator(n, card)
+    for weights in ((torch.rand(n, generator=gen, device=card) < 0.5),
+                    torch.randint(-3, 4, (n,), generator=gen,
+                                  device=card).float()):
+        before = kernels.dominated_weight_sums.launches
+        got = kernels.dominated_weight_sums(w, weights)
+        want = kernels.dominated_weight_sums_plain(w, weights)
+        torch.cuda.synchronize()
+        assert kernels.dominated_weight_sums.launches == before + 1
+        assert _same(got, want)
+    weights = torch.randint(0, 6, (n,), generator=gen, device=card).float()
+    for nq in (1, n + 3, 2 * n + 77):
+        queries = _fitness_on(card, nq, nq, m)
+        before = kernels.dominated_weight_maxes.launches
+        got = kernels.dominated_weight_maxes(w, weights, queries)
+        want = kernels.dominated_weight_maxes_plain(w, weights, queries)
+        torch.cuda.synchronize()
+        assert kernels.dominated_weight_maxes.launches == before + 1
+        assert _same(got, want)
+
+
+def test_dominance_kernels_on_a_wide_population(card):
+    """Many tiles and, for K8, many blocks over the rows of w."""
+    w = -torch.rand((20_000, 3), generator=make_generator(3, card),
+                    device=card)
+    ones = torch.ones(20_000, device=card)
+    assert _same(kernels.dominated_weight_sums(w, ones),
+                 kernels.dominated_weight_sums_plain(w, ones))
+    queries = w[:512] * 0.999
+    weights = torch.arange(20_000, device=card).float()
+    assert _same(kernels.dominated_weight_maxes(w, weights, queries),
+                 kernels.dominated_weight_maxes_plain(w, weights, queries))
+
+
+def test_engines_agree_on_the_card(card):
+    w = -torch.rand((3000, 3), generator=make_generator(4, card), device=card)
+    want = mo.nd_rank(w, impl="matrix")
+    for impl in ("tiled", "sweep", "dc"):
+        assert torch.equal(mo.nd_rank(w, impl=impl), want), impl
+    assert torch.equal(mo.nd_rank_prefix(w, cross="plain"), want)
+    w2 = w[:, :2].contiguous()
+    assert torch.equal(mo.nd_rank(w2, impl="staircase"),
+                       mo.nd_rank(w2, impl="tiled"))

@@ -28,6 +28,12 @@ def test_port_runs_without_jax_or_the_jax_package():
         from deap_tpu_torch.device import make_generator
         from deap_tpu_torch.support.stats import fitness_stats
         import deap_tpu_torch.convert, deap_tpu_torch.ops.packed
+        import deap_tpu_torch.mo, deap_tpu_torch.benchmarks
+        import deap_tpu_torch.support.pareto, deap_tpu_torch.native
+        from deap_tpu_torch import benchmarks as bm, mo
+        fx = -bm.dtlz2(torch.rand(40, 12, generator=make_generator(1, "cpu")),
+                       3)
+        assert mo.sel_nsga2(None, fx, 20, nd="dc").shape == (20,)
         gen = make_generator(0, "cpu")
         tb = Toolbox()
         tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
