@@ -21,12 +21,13 @@ Phases (any failure ends the script with a non-zero exit code):
    step with the rank-based tournament;
 5. the dominance kernels K7 and K8 against their plain versions on
    3-objective DTLZ2 data at the NSGA-II path's shapes (100k rows; K8
-   with the prefix chain reduction's 512 queries): bitwise where the
-   sums are exact, timed against the card's compare rate;
+   as the prefix chain reduction calls it, 512 queries against the 50k
+   ranked rows before them): bitwise where the sums are exact, timed
+   against the card's compare rate;
 6. the non-dominated sorting engines agree on the card at n 8192
-   (tiled, matrix, sweep, dc through K8 and plain; staircase and tiled
-   at M 2), and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through
-   K7 on a 16,384-row union;
+   (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
+   and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
+   16,384-row union;
 7. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
    selection, Gaussian variation clipped to [0, 1], evaluation,
    ``sel_nsga2`` over the union): a small run whose survivors through
@@ -443,29 +444,31 @@ def mo_phases(torch, dev, tag, report, record):
            4 * (n2 * m + 2 * n2), compares=2 * m * n2 * n2)
 
     # ----------------------------------- K8 dominated_weight_maxes check --
+    # one cross step of nd_rank_prefix as it calls K8: the block of 512
+    # lex-sorted rows at `start` against the ranked prefix before it, with
+    # weights rank + 1
     ranks = mo.nd_rank(w, impl="tiled")
     order = lex_sort_desc(w)
     ws, rs = w[order].contiguous(), ranks[order]
     start, block = MO_POP, 512
-    queries = ws[start:start + block].contiguous()
-    weights = torch.where(torch.arange(n2, device=dev) < start,
-                          rs.float() + 1.0, 0.0)
-    got = kernels.dominated_weight_maxes(ws, weights, queries)
-    want = kernels.dominated_weight_maxes_plain(ws, weights, queries)
+    prefix, weights = ws[:start], rs[:start].float() + 1.0
+    queries = ws[start:start + block]
+    got = kernels.dominated_weight_maxes(prefix, weights, queries)
+    want = kernels.dominated_weight_maxes_plain(prefix, weights, queries)
     torch.cuda.synchronize()
     if not bitwise_equal(got, want):
         fail("dominated_weight_maxes differs from the plain version")
     print(f"{tag} dominated_weight_maxes == plain bitwise: {block} queries "
-          f"against {n2} lex-sorted rows, prefix {start}, max "
-          f"{float(got.max())}")
+          f"against the {start}-row ranked prefix of {n2} lex-sorted rows, "
+          f"max {float(got.max())}")
     record("k8", "dominated_weight_maxes", "deap_tpu_torch/csrc/dominance.cu",
            "deap_tpu/ops/kernels.py:173", max_abs_err(got, want),
-           time_ms(lambda: kernels.dominated_weight_maxes(ws, weights,
+           time_ms(lambda: kernels.dominated_weight_maxes(prefix, weights,
                                                           queries), flush),
            time_ms(lambda: kernels.dominated_weight_maxes_plain(
-               ws, weights, queries), flush, reps=5),
-           4 * (n2 * m + n2 + block * m + block),
-           compares=2 * m * block * n2)
+               prefix, weights, queries), flush, reps=5),
+           4 * (start * m + start + block * m + block),
+           compares=2 * m * block * start)
     del flush
 
     # ------------------------------------------- engines agree at 8192 --
@@ -481,8 +484,7 @@ def mo_phases(torch, dev, tag, report, record):
     times = {"matrix": t_matrix}
     for name, fn in (
             ("tiled", lambda: mo.nd_rank(w8, impl="tiled")),
-            ("dc kernel", lambda: mo.nd_rank_prefix(w8, cross="kernel")),
-            ("dc plain", lambda: mo.nd_rank_prefix(w8, cross="plain")),
+            ("dc", lambda: mo.nd_rank(w8, impl="dc")),
             ("sweep", lambda: mo.nd_rank(w8, impl="sweep"))):
         got, times[name] = timed(fn)
         if not torch.equal(got, want):
@@ -495,7 +497,7 @@ def mo_phases(torch, dev, tag, report, record):
     if not torch.equal(stair, tiled2):
         fail("nd_rank staircase differs from tiled at m=2")
     print(f"{tag} nd_rank engines agree at n={ENGINE_N} (m=3: tiled, "
-          f"matrix, dc kernel/plain, sweep; m=2: staircase, tiled), "
+          f"matrix, dc, sweep; m=2: staircase, tiled), "
           f"{int(want.max()) + 1} fronts; seconds "
           + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
 
@@ -518,20 +520,6 @@ def mo_phases(torch, dev, tag, report, record):
           f"{report['k8']['launches']} K8 launches")
 
     # ------------------------------------------- NSGA-II 3-objective run --
-    def generation(g, x, w, nd, inputs=None):
-        """bench.py's NSGA-II generation (make_run_nsga2_3obj)."""
-        if inputs is not None:
-            inputs.append(("dcd", w))
-        parents = x[mo.sel_tournament_dcd(g, w, x.shape[0])]
-        noise = torch.randn(parents.shape, generator=g, device=dev)
-        off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
-        xall = torch.cat([x, off])
-        wall = torch.cat([w, -bm.dtlz2(off, m)])
-        if inputs is not None:
-            inputs.append(("nsga2", wall))
-        keep = mo.sel_nsga2(None, wall, x.shape[0], nd=nd)
-        return xall[keep], wall[keep]
-
     def start(seed, mu):
         g = make_generator(seed, dev)
         x = torch.rand((mu, MO_DIM), generator=g, device=dev)
@@ -541,7 +529,7 @@ def mo_phases(torch, dev, tag, report, record):
     for nd in ("tiled", "matrix"):
         g, x, wm = start(21, MO_SMALL)
         for _ in range(2):
-            x, wm = generation(g, x, wm, nd)
+            x, wm = nsga2_generation(g, x, wm, nd)
         runs.append((x, wm))
     if not (bitwise_equal(runs[0][0], runs[1][0])
             and bitwise_equal(runs[0][1], runs[1][1])):
@@ -551,13 +539,13 @@ def mo_phases(torch, dev, tag, report, record):
           f"nd='matrix' bitwise in the kept genomes and weighted values")
 
     g, x, wm = start(5, MO_POP)
-    x, wm = generation(g, x, wm, "standard")  # warm-up
+    x, wm = nsga2_generation(g, x, wm, "standard")  # warm-up
     inputs = []
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(MO_NGEN):
-        x, wm = generation(g, x, wm, "standard", inputs)
+        x, wm = nsga2_generation(g, x, wm, "standard", inputs)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     k7 = kernels.dominated_weight_sums.launches
@@ -586,6 +574,27 @@ def mo_phases(torch, dev, tag, report, record):
           f"{peels} (dcd, nsga2 per generation); K7 launches {k7} = "
           f"{k7 / MO_NGEN:.1f} per generation; first front {front.shape[0]} "
           f"rows, mean ||f||-1 {dist:.4f}")
+
+
+def nsga2_generation(g, x, w, nd="standard", inputs=None):
+    """bench.py's NSGA-II generation (make_run_nsga2_3obj) on DTLZ2: DCD
+    mating selection, Gaussian variation clipped to [0, 1], evaluation,
+    ``sel_nsga2`` over the union. ``inputs`` collects each selection's
+    weighted values. Returns the survivors' genomes and weighted values."""
+    import torch
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import mo
+    if inputs is not None:
+        inputs.append(("dcd", w))
+    parents = x[mo.sel_tournament_dcd(g, w, x.shape[0])]
+    noise = torch.randn(parents.shape, generator=g, device=x.device)
+    off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
+    xall = torch.cat([x, off])
+    wall = torch.cat([w, -bm.dtlz2(off, w.shape[1])])
+    if inputs is not None:
+        inputs.append(("nsga2", wall))
+    keep = mo.sel_nsga2(None, wall, x.shape[0], nd=nd)
+    return xall[keep], wall[keep]
 
 
 def _onemax_toolbox(Toolbox, ops):

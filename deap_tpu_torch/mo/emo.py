@@ -79,22 +79,6 @@ def _nd_static_auto(n: int, nobj: int, device_type: str) -> str:
             else "matrix")
 
 
-def _nd_candidates(n: int, nobj: int, device_type: str):
-    """The engines worth comparing at this shape: the exact ones for this
-    M plus the matrix baseline, and the tiled kernel where it can win.
-    All return the same ranks."""
-    names = ["matrix"]
-    if device_type == "cuda" and n >= ND_TILED_THRESHOLD:
-        names.append("tiled")
-    if nobj == 2:
-        names.append("staircase")
-    if nobj == 3:
-        names.append("sweep")
-    if nobj >= 3:
-        names.append("dc")
-    return names
-
-
 def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
             impl: str = "auto", cover_k: Optional[int] = None,
             fallback: str = "none", return_peels: bool = False):

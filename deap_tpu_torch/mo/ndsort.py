@@ -40,10 +40,7 @@ import numpy as np
 import torch
 
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
-from deap_tpu_torch.ops.kernels import (
-    dominated_weight_maxes,
-    dominated_weight_maxes_plain,
-)
+from deap_tpu_torch.ops.kernels import dominated_weight_maxes
 
 __all__ = ["nd_rank_sweep3", "nd_rank_prefix"]
 
@@ -224,31 +221,21 @@ def _chain_in_block(blk: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
 
 
 def nd_rank_prefix(w: torch.Tensor, max_rank: Optional[int] = None,
-                   return_peels: bool = False, *, block: int = 512,
-                   cross: str = "auto"):
+                   return_peels: bool = False, *, block: int = 512):
     """Exact any-M non-domination ranks in one front-count-free pass.
 
     Rows sorted lexicographically descending are consumed in blocks of
     ``block``; a block's base ranks are the dominance max-reduction
-    against the already-ranked prefix (``weights = rank + 1``), and the
-    in-block pass closes the longest-chain DP. Rows at or after the
-    block's start carry weight 0 in the JAX package's cross step and are
-    left out here, which gives the same maxima.
-
-    ``cross``: ``'kernel'`` reduces through K8
+    against the already-ranked prefix (``weights = rank + 1``) through K8
     (:func:`deap_tpu_torch.ops.kernels.dominated_weight_maxes`, its plain
-    version for CPU tensors); ``'plain'`` through the plain version;
-    ``'auto'`` is ``'kernel'`` for CUDA tensors, ``'plain'`` otherwise.
+    version for CPU tensors), and the in-block pass closes the
+    longest-chain DP. Rows at or after the block's start carry weight 0
+    in the JAX package's cross step and are left out here, which gives
+    the same maxima.
     """
     n, _ = w.shape
-    if cross == "auto":
-        cross = "kernel" if w.device.type == "cuda" else "plain"
-    if cross not in ("plain", "kernel"):
-        raise ValueError(f"unknown nd_rank_prefix cross {cross!r}")
     if n == 0:
         return _empty(w, return_peels)
-    reduce = (dominated_weight_maxes if cross == "kernel"
-              else dominated_weight_maxes_plain)
     order = lex_sort_desc(w)
     ws = w[order].to(torch.float32)
     block = max(1, min(block, n))
@@ -259,6 +246,6 @@ def nd_rank_prefix(w: torch.Tensor, max_rank: Optional[int] = None,
             base = torch.zeros(blk.shape[0], dtype=torch.float32,
                                device=w.device)
         else:
-            base = reduce(ws[:start], R[:start] + 1.0, blk)
+            base = dominated_weight_maxes(ws[:start], R[:start] + 1.0, blk)
         R[start:start + block] = _chain_in_block(blk, base)
     return _finish(R.to(torch.int32), order, n, max_rank, return_peels)

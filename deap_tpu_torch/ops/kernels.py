@@ -231,7 +231,7 @@ def dominated_weight_sums(w: torch.Tensor,
 
     Sums of integer-valued weights below 2²⁴ are exact, so kernel and
     plain version agree bitwise there; otherwise they add in different
-    orders (the kernel in ascending ``j``) and agree to a relative 1e-6.
+    orders (the kernel in ascending ``j``) and agree to a relative 1e-5.
 
     :param w: ``f32[n, nobj]`` weighted values (maximisation).
     :param weights: ``f32[n]`` finite per-dominator weights (bools

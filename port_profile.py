@@ -14,9 +14,10 @@ window of the two OneMax main-path loops at pop 100,000 and L 100:
   after 10 of warm-up;
 
 or, with ``--nsga2``, one NSGA-II generation on 3-objective DTLZ2 at mu
-50,000 (``bench.py``'s ``make_run_nsga2_3obj`` step: DCD mating
-selection, Gaussian variation clipped to [0, 1], evaluation,
-``sel_nsga2`` over the 100k union) after one of warm-up.
+50,000 (``bench.py``'s ``make_run_nsga2_3obj`` step, the one
+``chip_smoke.py`` checks: DCD mating selection, Gaussian variation
+clipped to [0, 1], evaluation, ``sel_nsga2`` over the 100k union) after
+one of warm-up.
 
 For each it prints the wall time per generation (host clock around work
 that ends in a synchronise), the device time per generation summed over
@@ -66,27 +67,21 @@ def profile(name, run, warm, steps, out_dir, facts):
           f"{plain / steps * 1e3:.3f} ms/gen")
 
 
-def profile_nsga2(dev, out_dir, facts, mu=50_000, nobj=3, dim=12):
+def profile_nsga2(dev, out_dir, facts):
     import torch
+    from chip_smoke import MO_DIM, MO_NOBJ, MO_POP, nsga2_generation
     from deap_tpu_torch import benchmarks as bm
-    from deap_tpu_torch import mo
     from deap_tpu_torch.device import make_generator
     from deap_tpu_torch.ops import kernels
 
     gen = make_generator(5, dev)
-    x = torch.rand((mu, dim), generator=gen, device=dev)
-    state = {"x": x, "w": -bm.dtlz2(x, nobj)}
+    x = torch.rand((MO_POP, MO_DIM), generator=gen, device=dev)
+    state = {"x": x, "w": -bm.dtlz2(x, MO_NOBJ)}
 
     def run(steps):
         for _ in range(steps):
-            x, w = state["x"], state["w"]
-            parents = x[mo.sel_tournament_dcd(gen, w, mu)]
-            noise = torch.randn(parents.shape, generator=gen, device=dev)
-            off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
-            xall = torch.cat([x, off])
-            wall = torch.cat([w, -bm.dtlz2(off, nobj)])
-            keep = mo.sel_nsga2(None, wall, mu)
-            state["x"], state["w"] = xall[keep], wall[keep]
+            state["x"], state["w"] = nsga2_generation(gen, state["x"],
+                                                      state["w"])
 
     before = kernels.dominated_weight_sums.launches
     profile("nsga2_dtlz2_mu50k", run, 1, 1, out_dir, facts)

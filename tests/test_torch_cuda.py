@@ -173,7 +173,8 @@ def test_engines_agree_on_the_card(card):
     want = mo.nd_rank(w, impl="matrix")
     for impl in ("tiled", "sweep", "dc"):
         assert torch.equal(mo.nd_rank(w, impl=impl), want), impl
-    assert torch.equal(mo.nd_rank_prefix(w, cross="plain"), want)
+    # an odd block: K8 at other prefix and query counts
+    assert torch.equal(mo.nd_rank_prefix(w, block=97), want)
     w2 = w[:, :2].contiguous()
     assert torch.equal(mo.nd_rank(w2, impl="staircase"),
                        mo.nd_rank(w2, impl="tiled"))
