@@ -9,9 +9,9 @@ Phases (any failure ends the script with a non-zero exit code):
 
 1. build every kernel of ``deap_tpu_torch/csrc`` with ``nvcc`` (one
    process per source, all started together);
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (pop 100,000, L 100, 4 words) — bitwise — and time
-   both with CUDA events, the L2 cache flushed before every launch;
+2. hold K1, K3 and K4 against their plain PyTorch versions on the card at
+   the main path's shapes (pop 100,000, L 100, 4 words) — bitwise — and
+   time both with CUDA events, the L2 cache flushed before every launch;
 3. ``ea_simple`` OneMax (pop 100k, L 100, cxpb 0.5, mutpb 0.2, indpb 0.05,
    tournament 3, hall of fame 1, fitness statistics) for 20 generations,
    after a small run that must equal the unfused composition bit for bit;
@@ -19,21 +19,35 @@ Phases (any failure ends the script with a non-zero exit code):
    packed variation kernel) for 200 generations at pop 100k, after a
    small run that must equal the plain versions bit for bit, and the same
    step with the rank-based tournament;
-5. the dominance kernels K7 and K8 against their plain versions on
+5. K2 on byte genomes: bitwise against its plain version at pop 100k and
+   L 100 (and in float32 at a small odd n), then ``bench.py``'s fused
+   OneMax loop (tournament, row gather, K2) for 200 generations at pop
+   100k, after a 5-generation run at n 1001 that must equal the plain
+   versions bit for bit;
+6. K5, the resident whole-GA loop: bitwise against its plain version for
+   5 generations at pop 100k and at a small odd n, then 200 generations
+   at pop 100k in 4 calls of 50;
+7. K6 on the continuous GA (``bench_suite.py``'s rastrigin_n30_pop100k:
+   blend α 0.5, Gaussian σ 0.3 and indpb 0.1, cxpb 0.5, mutpb 0.2):
+   against its plain version at pop 100k and L 30 (decisions and crossed
+   genes exact, mutated genes and fitness at the stated tolerances), the
+   fused Rastrigin loop for 50 generations and unfused ``ea_simple``
+   (``cx_blend``, ``mut_gaussian``, ``sel_tournament``) for 10;
+8. the dominance kernels K7 and K8 against their plain versions on
    3-objective DTLZ2 data at the NSGA-II path's shapes (100k rows; K8
    as the prefix chain reduction calls it, 512 queries against the 50k
    ranked rows before them): bitwise where the sums are exact, timed
    against the card's compare rate;
-6. the non-dominated sorting engines agree on the card at n 8192
+9. the non-dominated sorting engines agree on the card at n 8192
    (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
    and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
    16,384-row union;
-7. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
-   selection, Gaussian variation clipped to [0, 1], evaluation,
-   ``sel_nsga2`` over the union): a small run whose survivors through
-   K7 equal those through the dominance matrix, then mu 50,000 (union
-   100k, 12 variables) for 3 generations after one of warm-up, with K7
-   launched once per front peeled.
+10. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
+    selection, Gaussian variation clipped to [0, 1], evaluation,
+    ``sel_nsga2`` over the union): a small run whose survivors through
+    K7 equal those through the dominance matrix, then mu 50,000 (union
+    100k, 12 variables) for 3 generations after one of warm-up, with K7
+    launched once per front peeled.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -55,6 +69,13 @@ EA_NGEN, PACKED_NGEN = 20, 200
 # bench.py's NSGA-II headline: mu 50k on 3-objective DTLZ2, 12 variables
 MO_POP, MO_NOBJ, MO_DIM, MO_NGEN = 50_000, 3, 12, 3
 ENGINE_N, DC_UNION, MO_SMALL = 8192, 16_384, 2048
+# bench.py's fused and whole-GA candidates: 200 generations; K5 takes them
+# in calls of 50
+FUSED_NGEN, EVOLVE_NGEN, EVOLVE_CALL = 200, 200, 50
+# bench_suite.py's continuous GA, rastrigin_n30_pop100k (NGEN 50)
+RA_N, RA_DIM, RA_NGEN, RA_UNFUSED_NGEN = 100_000, 30, 50, 10
+RA_CXPB, RA_MUTPB, RA_INDPB, RA_ALPHA, RA_SIGMA = 0.5, 0.2, 0.1, 0.5, 0.3
+RA_LOW, RA_UP = -5.12, 5.12
 # device memory rates by card name (NVIDIA data sheets), bytes per second
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 compares issued per SM per clock (4 schedulers x 32 lanes)
@@ -237,15 +258,12 @@ def main():
     print(f"{tag} fused_variation_eval_packed == plain bitwise at n={N}, "
           f"W={W}")
     err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    pairu = kernels._u01(kernels._words(bits[0][0::2]))
-    n_cx = int((pairu[: N // 2, 0] < kernels._f32(CXPB)).sum())
-    n_mut = int((kernels._u01(kernels._words(bits[1]))[:, 0]
-                 < kernels._f32(MUTPB)).sum())
+    n_cx, n_mut = pairs_mating(bits[0], CXPB), rows_below(bits[1], MUTPB)
     # what this run's draws need: rows in and out, fitness out, pair word 0
-    # of every pair and words 1-2 of mating pairs, row bits, gene bits of
-    # mutating rows
+    # of every pair and words 1-2 of mating pairs, row bits, and of
+    # mutating rows the L gene-bit planes of real genes
     nbytes = (2 * N * W * 4 + N * 4 + (N // 2) * 4 + n_cx * 8 + N * 4
-              + n_mut * 32 * W * 4)
+              + n_mut * L * 4)
     record("k3", "fused_variation_eval_packed",
            "deap_tpu_torch/csrc/packed_variation.cu",
            "deap_tpu/ops/packed.py:264", err,
@@ -370,10 +388,12 @@ def main():
               f"gens/s; mean fitness {start_mean:.3f} -> "
               f"{float(fit.mean()):.3f}; launches K3 {k3}, K4 {k4}")
 
+    whole_generation_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
 
     print(json.dumps({"kernels": [report[k] for k in
-                                  ("k1", "k3", "k4", "k7", "k8")]}))
+                                  ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
+                                   "k8")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -383,9 +403,11 @@ def main():
 
 def launch_counters():
     """Every kernel wrapper's launch counter."""
-    from deap_tpu_torch.ops import kernels, packed
-    return (kernels.fused_variation, packed.fused_variation_eval_packed,
-            packed.sel_tournament_gather_packed,
+    from deap_tpu_torch.ops import kernels, kernels_real, packed
+    return (kernels.fused_variation, kernels.fused_variation_eval,
+            packed.fused_variation_eval_packed,
+            packed.sel_tournament_gather_packed, packed.evolve_packed,
+            kernels_real.fused_variation_eval_real,
             kernels.dominated_weight_sums, kernels.dominated_weight_maxes)
 
 
@@ -393,6 +415,270 @@ def reset_counts():
     """Set every launch count to 0 just before a main-path run."""
     for fn in launch_counters():
         fn.launches = 0
+
+
+def whole_generation_phases(torch, dev, tag, report, record):
+    """Phases 5-7: K2, K5 and K6 at their main paths' shapes, and the
+    loops that drive them."""
+    from deap_tpu_torch import FitnessSpec, algorithms, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, kernels_real, packed
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    gen = make_generator(31, dev)
+
+    # ----------------------------------- K2 fused_variation_eval check --
+    worst = 0.0
+    for n, dtype in ((1001, torch.float32), (N, torch.bool)):
+        g = (torch.rand((n, L), generator=gen, device=dev) < 0.5).to(dtype)
+        bits = kernels.fused_bits(gen, n, L)
+        got = kernels.fused_variation_eval(g, *bits, **probs)
+        want = kernels.fused_variation_eval_plain(g, *bits, **probs)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("children", "fitness")):
+            if not bitwise_equal(a, b):
+                fail(f"fused_variation_eval[{dtype}] {what} differ from the "
+                     f"plain version at n={n}")
+            worst = max(worst, max_abs_err(a, b))
+        print(f"{tag} fused_variation_eval[{dtype}] == plain bitwise at "
+              f"n={n}, L={L}")
+    n_cx, n_mut = pairs_mating(bits[0], CXPB), rows_below(bits[1], MUTPB)
+    # what this run's draws need: genomes in and out, fitness out, pair
+    # word 0 of every pair and words 1-2 of mating pairs, row bits, gene
+    # bits of mutating rows
+    nbytes = (2 * N * L + 4 * N + 4 * (N // 2) + 8 * n_cx + 4 * N
+              + 4 * L * n_mut)
+    record("k2", "fused_variation_eval",
+           "deap_tpu_torch/csrc/fused_variation_eval.cu",
+           "deap_tpu/ops/kernels.py:697", worst,
+           time_ms(lambda: kernels.fused_variation_eval(g, *bits, **probs),
+                   flush),
+           time_ms(lambda: kernels.fused_variation_eval_plain(g, *bits,
+                                                              **probs),
+                   flush), nbytes)
+    print(f"  (of {N} rows {n_mut} mutate, of {N // 2} pairs {n_cx} mate)")
+
+    def onemax_start(seed, n):
+        g = make_generator(seed, dev)
+        genomes = ops.bernoulli_genome(L)(g, n)
+        return g, genomes, genomes.sum(1).to(torch.float32)
+
+    runs = []
+    for variation in (kernels.fused_variation_eval,
+                      kernels.fused_variation_eval_plain):
+        g, genomes, fit = onemax_start(13, 1001)
+        for _ in range(5):
+            genomes, fit = fused_onemax_generation(g, genomes, fit, variation)
+        runs.append((genomes, fit))
+    if not (bitwise_equal(runs[0][0], runs[1][0])
+            and bitwise_equal(runs[0][1], runs[1][1])):
+        fail("the fused OneMax loop through K2 differs from it through the "
+             "plain version")
+    print(f"{tag} fused OneMax loop (n=1001, 5 gens) through K2 == plain "
+          f"version bitwise")
+
+    g, genomes, fit = onemax_start(17, N)
+    means = [float(fit.mean())]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FUSED_NGEN):
+        genomes, fit = fused_onemax_generation(g, genomes, fit)
+        if i % 50 == 49:
+            means.append(float(fit.mean()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report["k2"]["launches"] = kernels.fused_variation_eval.launches
+    if kernels.fused_variation_eval.launches != FUSED_NGEN:
+        fail(f"K2 launched {kernels.fused_variation_eval.launches} times in "
+             f"{FUSED_NGEN} generations")
+    if not (torch.equal(fit, genomes.sum(1).to(torch.float32))
+            and means[-1] > means[0] + 10):
+        fail(f"the fused OneMax loop's fitness is wrong or did not climb: "
+             f"{means}")
+    print(f"{tag} fused OneMax loop n={N} L={L}: {FUSED_NGEN} generations in "
+          f"{wall:.3f} s = {FUSED_NGEN / wall:.2f} gens/s (the mean reads "
+          f"included); mean fitness every 50 gens "
+          + " -> ".join(f"{m:.3f}" for m in means)
+          + f"; K2 launches {report['k2']['launches']}")
+
+    # ------------------------------------------- K5 evolve_packed check --
+    W = packed.words_for(L)
+
+    def packed_start(seed, n):
+        g = make_generator(seed, dev)
+        pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, n))
+        return g, pk, packed.packed_fitness(pk)
+
+    worst = 0.0
+    for n in (1001, N):
+        g, pk, fit = packed_start(19, n)
+        bits = packed.evolve_bits(g, 5, TOURNSIZE, n, W)
+        got = packed.evolve_packed(pk, fit, L, *bits, **probs)
+        want = packed.evolve_packed_plain(pk, fit, L, *bits, **probs)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("population", "fitness")):
+            if not bitwise_equal(a, b):
+                fail(f"evolve_packed {what} differs from the plain version "
+                     f"after 5 generations at n={n}")
+            worst = max(worst, max_abs_err(a, b))
+        print(f"{tag} evolve_packed == plain bitwise after 5 generations at "
+              f"n={n}, W={W}")
+    g, pk, fit = packed_start(23, N)
+    bits = packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, W)
+    call_bytes = evolve_bytes(bits, N, W, L, CXPB, MUTPB)
+    print(f"  K5 bound per generation: {call_bytes / EVOLVE_CALL / 1e6:.3f} MB "
+          f"(draws of {EVOLVE_CALL} generations "
+          f"{sum(b.numel() for b in bits) * 4 / 1e9:.3f} GB per call, of which "
+          f"the call needs {call_bytes / 1e9:.3f} GB)")
+    record("k5", "evolve_packed", "deap_tpu_torch/csrc/evolve_packed.cu",
+           "deap_tpu/ops/packed.py:496", worst,
+           time_ms(lambda: packed.evolve_packed(pk, fit, L, *bits, **probs),
+                   flush, reps=10),
+           time_ms(lambda: packed.evolve_packed_plain(pk, fit, L, *bits,
+                                                      **probs),
+                   flush, reps=3), call_bytes)
+    del bits
+    g, pk, fit = packed_start(29, N)
+    start_mean = float(fit.mean())
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EVOLVE_NGEN // EVOLVE_CALL):
+        pk, fit = packed.evolve_packed(
+            pk, fit, L, *packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, W),
+            **probs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report["k5"]["launches"] = packed.evolve_packed.launches
+    if packed.evolve_packed.launches != EVOLVE_NGEN // EVOLVE_CALL:
+        fail(f"K5 launched {packed.evolve_packed.launches} times for "
+             f"{EVOLVE_NGEN} generations")
+    if not (torch.equal(fit, packed.packed_fitness(pk))
+            and float(fit.mean()) > start_mean + 10):
+        fail("evolve_packed's fitness is wrong or did not climb")
+    print(f"{tag} evolve_packed n={N}: {EVOLVE_NGEN} generations in "
+          f"{EVOLVE_NGEN // EVOLVE_CALL} calls of {EVOLVE_CALL} in {wall:.3f} "
+          f"s = {EVOLVE_NGEN / wall:.2f} gens/s (the draws included); mean "
+          f"fitness {start_mean:.3f} -> {float(fit.mean()):.3f}; K5 launches "
+          f"{report['k5']['launches']}")
+
+    # ------------------------------- K6 fused_variation_eval_real check --
+    ra = dict(cxpb=RA_CXPB, mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA,
+              sigma=RA_SIGMA, evaluate="rastrigin")
+    genomes = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(gen, RA_N)
+    bits = kernels_real.real_bits(gen, RA_N, RA_DIM)
+    got = kernels_real.fused_variation_eval_real(genomes, *bits, **ra)
+    want = kernels_real.fused_variation_eval_real_plain(genomes, *bits, **ra)
+    torch.cuda.synchronize()
+    errs = kernels_real.real_kernel_errors(got, want, *bits, mutpb=RA_MUTPB,
+                                           indpb=RA_INDPB, mu=0.0,
+                                           sigma=RA_SIGMA)
+    if not errs["ok"]:
+        fail(f"fused_variation_eval_real differs from the plain version: "
+             f"{errs}")
+    print(f"{tag} fused_variation_eval_real vs plain at n={RA_N}, "
+          f"L={RA_DIM}: {errs['unmutated']} crossed or untouched genes "
+          f"bitwise; {errs['mutated']} mutated genes within "
+          f"{kernels_real.STEP_ULPS} "
+          f"ulp of the step + 1 of the gene, largest "
+          f"{errs['max_ulps']} ulp of step + gene ({errs['max_abs']:.3e} "
+          f"absolute); fitness largest relative error "
+          f"{errs['max_fit_rel']:.3e}")
+    n_cx = pairs_mating(bits[0], RA_CXPB)
+    n_mut = rows_below(bits[1], RA_MUTPB)
+    # genomes in and out, fitness out, pair word 0 of every pair, row bits,
+    # the gamma plane of mating pairs, the gate plane of mutating rows and
+    # u1/u2 of mutated genes
+    nbytes = (8 * RA_N * RA_DIM + 4 * RA_N + 4 * (RA_N // 2) + 4 * RA_N
+              + 4 * RA_DIM * (n_cx + n_mut) + 8 * errs["mutated"])
+    record("k6", "fused_variation_eval_real",
+           "deap_tpu_torch/csrc/fused_variation_real.cu",
+           "deap_tpu/ops/kernels_real.py:142",
+           max(errs["max_abs"], errs["max_fit_abs"]),
+           time_ms(lambda: kernels_real.fused_variation_eval_real(
+               genomes, *bits, **ra), flush),
+           time_ms(lambda: kernels_real.fused_variation_eval_real_plain(
+               genomes, *bits, **ra), flush), nbytes)
+    print(f"  (of {RA_N} rows {n_mut} mutate, of {RA_N // 2} pairs {n_cx} "
+          f"mate, {errs['mutated']} genes mutated)")
+    del flush
+
+    g = make_generator(37, dev)
+    genomes = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(g, RA_N)
+    fit = kernels_real.eval_rastrigin(genomes)
+    bests = [float(fit.min())]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RA_NGEN):
+        genomes, fit = rastrigin_fused_generation(g, genomes, fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bests.append(float(fit.min()))
+    report["k6"]["launches"] = kernels_real.fused_variation_eval_real.launches
+    if report["k6"]["launches"] != RA_NGEN:
+        fail(f"K6 launched {report['k6']['launches']} times in {RA_NGEN} "
+             f"generations")
+    check = kernels_real.eval_rastrigin(genomes)
+    if not (bool(torch.isfinite(fit).all()) and bests[1] < bests[0]
+            and torch.allclose(fit, check, rtol=kernels_real.FIT_RTOL,
+                               atol=1e-3)):
+        fail(f"the fused Rastrigin loop's fitness is wrong or did not fall: "
+             f"best {bests}")
+    print(f"{tag} fused Rastrigin loop n={RA_N} dim={RA_DIM}: {RA_NGEN} "
+          f"generations in {wall:.3f} s = {RA_NGEN / wall:.2f} gens/s; best "
+          f"{bests[0]:.4f} -> {bests[1]:.4f}, mean {float(fit.mean()):.4f}; "
+          f"K6 launches {report['k6']['launches']}")
+
+    g = make_generator(41, dev)
+    pop = init_population(g, RA_N, ops.uniform_genome(RA_DIM, RA_LOW, RA_UP),
+                          FitnessSpec((-1.0,)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = algorithms.ea_simple(
+        g, pop, rastrigin_toolbox(), RA_CXPB, RA_MUTPB, RA_UNFUSED_NGEN,
+        stats=fitness_stats(), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mins = logbook.select("min")
+    if not (mins[-1] < mins[0] and bool(torch.isfinite(pop.fitness).all())):
+        fail(f"unfused Rastrigin ea_simple did not improve: {mins}")
+    print(f"{tag} unfused Rastrigin ea_simple n={RA_N}: {RA_UNFUSED_NGEN} "
+          f"generations in {wall:.3f} s incl. gen-0 evaluation = "
+          f"{RA_UNFUSED_NGEN / wall:.2f} gens/s; best {mins[0]:.4f} -> "
+          f"{mins[-1]:.4f}")
+
+
+def rows_below(bits, p):
+    """How many uint32 draws of ``bits`` give a uniform below ``p``."""
+    from deap_tpu_torch.ops import kernels
+    return int((kernels._u01(kernels._words(bits)) < kernels._f32(p)).sum())
+
+
+def pairs_mating(pairbits, cxpb):
+    """How many pairs of a ``[n, 4]`` pair stream mate (the even row's
+    word 0 below ``cxpb``; an odd last row never mates)."""
+    n = pairbits.shape[0]
+    return rows_below(pairbits[0: 2 * (n // 2): 2, 0], cxpb)
+
+
+def evolve_bytes(bits, n, W, L, cxpb, mutpb):
+    """The bytes one :func:`evolve_packed` call on ``bits`` must move:
+    the population and fitness in and out once; per generation every
+    aspirant draw, pair word 0 of every pair and words 1-2 of mating
+    pairs, every row draw and, of mutating lanes, the ``L`` gene-bit
+    planes of real genes (the planes past gene ``L`` flip nothing)."""
+    sel, pair, row, _ = bits
+    ngen, tournsize = sel.shape[:2]
+    n_cx = sum(pairs_mating(pair[g].T, cxpb) for g in range(ngen))
+    n_mut = sum(rows_below(row[g], mutpb) for g in range(ngen))
+    per_gen = 4 * (tournsize * n + n // 2 + n)
+    return (2 * (4 * n * W + 4 * n) + ngen * per_gen + 8 * n_cx
+            + 4 * L * n_mut)
 
 
 def mo_phases(torch, dev, tag, report, record):
@@ -595,6 +881,48 @@ def nsga2_generation(g, x, w, nd="standard", inputs=None):
         inputs.append(("nsga2", wall))
     keep = mo.sel_nsga2(None, wall, x.shape[0], nd=nd)
     return xall[keep], wall[keep]
+
+
+def fused_onemax_generation(g, genomes, fit, variation=None):
+    """``bench.py``'s ``make_run_fused`` step: tournament 3 on the fitness,
+    the gather of the parents' rows, then K2 (or ``variation``, its plain
+    version). Returns the children and their fitness."""
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.ops.selection import sel_tournament
+    variation = variation or kernels.fused_variation_eval
+    n, length = genomes.shape
+    idx = sel_tournament(g, fit[:, None], n, TOURNSIZE)
+    return variation(genomes[idx], *kernels.fused_bits(g, n, length),
+                     cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+
+
+def rastrigin_fused_generation(g, genomes, fit):
+    """``bench_suite.py``'s fused Rastrigin step: the rank-based tournament
+    3 on the (minimised) fitness, the gather of the parents' rows, then K6
+    with blend and Gaussian variation and Rastrigin evaluated in the
+    kernel."""
+    from deap_tpu_torch.ops import kernels_real
+    from deap_tpu_torch.ops.selection import sel_tournament_sorted
+    n, length = genomes.shape
+    idx = sel_tournament_sorted(g, -fit[:, None], n, TOURNSIZE)
+    return kernels_real.fused_variation_eval_real(
+        genomes[idx], *kernels_real.real_bits(g, n, length), cxpb=RA_CXPB,
+        mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA, sigma=RA_SIGMA,
+        evaluate="rastrigin")
+
+
+def rastrigin_toolbox():
+    """``bench_suite.py``'s unfused Rastrigin toolbox: ``cx_blend``,
+    ``mut_gaussian``, ``sel_tournament`` and Rastrigin (minimised). The
+    blend has no segment draw, so ``var_and`` takes its unfused path."""
+    from deap_tpu_torch import Toolbox, benchmarks, ops
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tb.register("mate", ops.cx_blend, alpha=RA_ALPHA)
+    tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=RA_SIGMA,
+                indpb=RA_INDPB)
+    tb.register("select", ops.sel_tournament, tournsize=TOURNSIZE)
+    return tb
 
 
 def _onemax_toolbox(Toolbox, ops):

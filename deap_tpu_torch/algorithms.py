@@ -30,7 +30,11 @@ from deap_tpu_torch.core.population import Population, gather
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
 from deap_tpu_torch.ops import packed as _packed
 from deap_tpu_torch.ops import variation as _variation
-from deap_tpu_torch.ops.kernels import KERNEL_DTYPES, fused_variation
+from deap_tpu_torch.ops.kernels import (
+    KERNEL_DTYPES,
+    _resolve_prng,
+    fused_variation,
+)
 from deap_tpu_torch.ops.selection import sel_tournament_sorted
 from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
@@ -282,23 +286,17 @@ def ea_simple_packed(generator: torch.Generator, packed: torch.Tensor,
     bits, then variation bits); ``select='sorted'`` uses the rank-based
     :func:`ops.selection.sel_tournament_sorted` and an index gather.
     Random bits are drawn with ``generator`` and streamed into the kernels
-    (``prng='input'``); in-kernel generation (``prng='hw'``) is not
-    available yet.
+    (``prng='input'``); in-kernel generation (``prng='hw'``, and
+    ``'auto'`` on the card) is not available yet and raises.
 
     :param packed: ``uint32[n, W]`` rows (:func:`ops.packed.pack_genomes`).
     :param fit: ``f32[n]`` fitness (:func:`ops.packed.packed_fitness`).
     :returns: ``(packed, fit)`` after ``ngen`` generations.
     """
-    if prng == "hw":
-        raise NotImplementedError(
-            "prng='hw' needs in-kernel Philox, which is not ported yet "
-            "(ROADMAP.md: 'In-kernel Philox for the hw path'); use "
-            "prng='input'")
-    if prng != "input":
-        raise ValueError(f"unknown prng mode {prng!r}")
     if select not in ("gather", "sorted"):
         raise ValueError(f"unknown select {select!r}")
     dev = resolve_device(device)
+    _resolve_prng(prng, dev)
     check_generator(generator, dev)
     packed, fit = packed.to(dev), fit.to(dev)
     n, W = packed.shape

@@ -1,9 +1,10 @@
 """Benchmark objective functions, batched over rows.
 
-Port of the multi-objective part of :mod:`deap_tpu.benchmarks` that the
-NSGA-II path uses (ZDT1 and DTLZ2). The JAX package's functions take one
-genome ``f32[dim]`` and are ``vmap``-ed; these take the population
-``f32[n, dim]`` and return ``f32[n, nobj]`` (minimisation).
+Port of the functions of :mod:`deap_tpu.benchmarks` that the port's
+paths use: sphere and Rastrigin (the continuous GA), ZDT1 and DTLZ2
+(NSGA-II). The JAX package's functions take one genome ``f32[dim]`` and
+are ``vmap``-ed; these take the population ``f32[n, dim]`` and return
+``f32[n, nobj]`` (minimisation).
 """
 
 from __future__ import annotations
@@ -14,7 +15,19 @@ import torch
 
 from deap_tpu_torch.benchmarks import tools  # noqa: F401
 
-__all__ = ["zdt1", "dtlz2"]
+__all__ = ["sphere", "rastrigin", "zdt1", "dtlz2"]
+
+
+def sphere(x: torch.Tensor) -> torch.Tensor:
+    """``f = Σ x_i²``."""
+    return (x * x).sum(1, keepdim=True)
+
+
+def rastrigin(x: torch.Tensor) -> torch.Tensor:
+    """Rastrigin, ``f = 10·dim + Σ x_i² − 10·cos(2π x_i)``; optimum 0 at
+    the origin."""
+    term = x * x - 10.0 * torch.cos(2.0 * math.pi * x)
+    return 10.0 * x.shape[1] + term.sum(1, keepdim=True)
 
 
 def _zdt_g(x: torch.Tensor) -> torch.Tensor:

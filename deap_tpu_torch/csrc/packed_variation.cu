@@ -10,13 +10,15 @@
 // column b * W + j.
 //
 // Bound on the H100: bytes. The gene-bit stream is 32 uint32 per word,
-// 16x the genomes; a row that does not mutate (mutpb) needs none of it.
+// 16x the genomes; a row that does not mutate (mutpb) needs none of it,
+// and a row that does needs the L planes of its real genes.
 //
 // Design: one thread per row. The row's words stay in registers; the
 // crossover segment of each word is the mask bits_below(hi - 32 j) &
 // ~bits_below(lo - 32 j); flip words are assembled from the 32 bit-plane
 // columns by shifts and ors (the TPU folded them with two MXU matmuls, a
-// TPU workaround that gives the same bits); the tail beyond L is masked;
+// TPU workaround that gives the same bits) from the planes of genes below
+// L only, so the tail beyond L never flips;
 // fitness is __popc summed. The partner row (r ^ 1) is read only when the
 // pair mates and the gene bits only when the row mutates, so the kernel
 // moves only the bytes this generation's draws need.
@@ -60,12 +62,14 @@ packed_variation_kernel(const uint32_t* __restrict__ g,
       child = (child & ~seg) | (mate[j] & seg);
     }
     if (do_mut) {
+      // only the planes of real genes: bits past gene L never flip
+      const int nb = min(32, L - start);
       uint32_t flip = 0u;
 #pragma unroll 8
-      for (int b = 0; b < 32; ++b) {
+      for (int b = 0; b < nb; ++b) {
         flip |= static_cast<uint32_t>(u01(gb[b * W + j]) < indpb) << b;
       }
-      child ^= flip & bits_below(L - start);
+      child ^= flip;
     }
     dst[j] = child;
     count += __popc(child);

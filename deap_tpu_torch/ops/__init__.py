@@ -2,6 +2,7 @@
 ``torch.Generator``, plus the CUDA kernels of the main path."""
 
 from deap_tpu_torch.ops.crossover import (
+    cx_blend,
     cx_one_point,
     cx_simulated_binary_bounded,
     cx_two_point,
@@ -21,13 +22,30 @@ from deap_tpu_torch.ops.kernels import (
     dominated_counts,
     dominated_weight_maxes,
     dominated_weight_sums,
+    fused_bits,
     fused_variation,
+    fused_variation_eval,
     nd_rank_tiled,
     strengths_tiled,
 )
-from deap_tpu_torch.ops.mutation import mut_flip_bit, mut_polynomial_bounded
+from deap_tpu_torch.ops.kernels_real import (
+    eval_rastrigin,
+    eval_sphere,
+    fused_variation_eval_real,
+    real_bits,
+)
+from deap_tpu_torch.ops.mutation import (
+    mut_flip_bit,
+    mut_gaussian,
+    mut_polynomial_bounded,
+)
 from deap_tpu_torch.ops.packed import (
+    cx_two_point_packed,
+    evolve_bits,
+    evolve_packed,
+    flip_words,
     fused_variation_eval_packed,
+    mut_flip_bit_packed,
     pack_genomes,
     packed_fitness,
     popcount,

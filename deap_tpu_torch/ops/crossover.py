@@ -1,15 +1,15 @@
 """Crossovers on batches of pairs.
 
-Port of ``cx_one_point``, ``cx_two_point`` and
+Port of ``cx_one_point``, ``cx_two_point``, ``cx_blend`` and
 ``cx_simulated_binary_bounded`` from :mod:`deap_tpu.ops.crossover`.
 Operators are batched:
 ``(generator, g1[m, L], g2[m, L]) -> (c1, c2)``. Each carries a
 ``fused_segment_draw(generator, m, L) -> (lo, hi)`` tag, the draw that
 reproduces its cut points as a half-open swap segment, which the fused
 variation plane (:mod:`deap_tpu_torch.ops.variation`) consumes.
-Bounded SBX is real-valued and has no fused form; its draws are made by
-:func:`sbx_bounded_draws` and applied by the draw-taking core
-:func:`_sbx_bounded`.
+Blend and bounded SBX are real-valued and have no fused form; they
+apply their draws in the draw-taking cores :func:`_blend` (one uniform
+per gene) and :func:`_sbx_bounded` (draws from :func:`sbx_bounded_draws`).
 """
 
 from __future__ import annotations
@@ -61,6 +61,21 @@ def cx_two_point(generator, g1, g2):
 
 
 cx_two_point.fused_segment_draw = _two_points
+
+
+# ------------------------------------------------------------ blend ----
+
+def _blend(g1, g2, alpha, u):
+    """Blend crossover on given uniforms (see :func:`cx_blend`)."""
+    gamma = (1.0 + 2.0 * alpha) * u - alpha
+    return (1.0 - gamma) * g1 + gamma * g2, gamma * g1 + (1.0 - gamma) * g2
+
+
+def cx_blend(generator, g1, g2, alpha):
+    """BLX-alpha blend: per gene ``γ = (1+2α)·u − α`` in ``[−α, 1+α]``,
+    children ``(1−γ)·g1 + γ·g2`` and ``γ·g1 + (1−γ)·g2``."""
+    u = torch.rand(g1.shape, generator=generator, device=generator.device)
+    return _blend(g1, g2, alpha, u)
 
 
 # ------------------------------------------------------ bounded SBX ----

@@ -7,6 +7,11 @@ decides between the two, and a CUDA tensor never takes the plain path.
 - :func:`fused_variation` (K1, ``csrc/fused_variation.cu``): the
   variation plane; plain version
   :func:`deap_tpu_torch.ops.variation.apply_variation`.
+- :func:`fused_variation_eval` (K2, ``csrc/fused_variation_eval.cu``):
+  one OneMax generation on byte or float32 genomes — adjacent-pair
+  two-point crossover, flip-bit mutation, sum-of-genes fitness; plain
+  version :func:`fused_variation_eval_plain`, random bits from
+  :func:`fused_bits`.
 - :func:`dominated_weight_sums` (K7) and :func:`dominated_weight_maxes`
   (K8), ``csrc/dominance.cu``: Pareto-dominance reductions over all
   pairs without the ``[n, n]`` matrix; plain versions
@@ -16,12 +21,13 @@ decides between the two, and a CUDA tensor never takes the plain path.
   :func:`nd_rank_tiled`.
 
 ``_u01`` and ``_pair_consistent`` are the shared random-bit conventions
-of the fused kernels (``ops.packed`` uses them too).
+of the fused kernels (``ops.packed`` and ``ops.kernels_real`` use them
+too), and :func:`fused_bits` draws the streams of their bits-input path.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,9 +36,10 @@ from deap_tpu_torch.core.fitness import dominates
 from deap_tpu_torch import _build
 from deap_tpu_torch.ops.variation import apply_variation
 
-__all__ = ["fused_variation", "KERNEL_DTYPES", "dominated_weight_sums",
-           "dominated_weight_maxes", "dominated_counts", "strengths_tiled",
-           "nd_rank_tiled"]
+__all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits",
+           "fused_variation_eval", "fused_variation_eval_plain",
+           "dominated_weight_sums", "dominated_weight_maxes",
+           "dominated_counts", "strengths_tiled", "nd_rank_tiled"]
 
 #: genome dtypes the kernel takes: bool (as one byte) and float32
 KERNEL_DTYPES = (torch.bool, torch.float32)
@@ -81,6 +88,61 @@ def _check_cuda(name: str, device: torch.device, dtype, shape,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# ------------------------------------------- the fused kernels' draws ----
+
+def _uint32_bits(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform uint32 bits, drawn as full-range int32 and viewed."""
+    bits = torch.randint(-2**31, 2**31, shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return bits.view(torch.uint32)
+
+
+def fused_bits(generator: torch.Generator, n: int, gene_cols: int):
+    """The bit streams of one fused generation kernel, in the layout of
+    the JAX package's bits-input path (``run_fused_kernel``) without its
+    padding: ``(pairbits [n, 4], rowbits [n, 1], genebits [n,
+    gene_cols])``, uint32, drawn in that order."""
+    return (_uint32_bits(generator, (n, 4)), _uint32_bits(generator, (n, 1)),
+            _uint32_bits(generator, (n, gene_cols)))
+
+
+def _resolve_prng(prng: str, device: torch.device) -> None:
+    """Only the bits-input path (``'input'``) is ported. ``'hw'``, and
+    ``'auto'`` on the card, where it means ``'hw'``, need in-kernel
+    Philox."""
+    if prng == "auto":
+        prng = "hw" if device.type == "cuda" else "input"
+    if prng == "hw":
+        raise NotImplementedError(
+            "prng='hw' needs in-kernel Philox, which is not ported yet "
+            "(ROADMAP.md B5: 'In-kernel Philox for the hw path'); use "
+            "prng='input'")
+    if prng != "input":
+        raise ValueError(f"unknown prng mode {prng!r}")
+
+
+def _pair_decisions(pairbits: torch.Tensor, L: int, cxpb: float):
+    """Each row's crossover decision and segment from its pair's even
+    row's draws: ``(do_cx bool[n], lo int32[n], hi int32[n])``. An odd
+    last row never mates; ``p1 = 1 + int(u·L)``, ``p2 = 1 + int(u·(L−1))``
+    bumped past ``p1`` (float32 products, as the TPU kernels compute
+    them), and the segment is ``[min, max)``."""
+    n = pairbits.shape[0]
+    pairu = _u01(_pair_consistent(_words(pairbits)))
+    row = torch.arange(n, device=pairbits.device)
+    do_cx = (pairu[:, 0] < _f32(cxpb)) & ((row | 1) < n)
+    p1 = 1 + (pairu[:, 1] * L).to(torch.int32)
+    p2 = 1 + (pairu[:, 2] * (L - 1)).to(torch.int32)
+    p2 = torch.where(p2 >= p1, p2 + 1, p2)
+    return do_cx, torch.minimum(p1, p2), torch.maximum(p1, p2)
+
+
+def _partner_rows(g: torch.Tensor) -> torch.Tensor:
+    """Row ``r ^ 1`` of each row (an odd last row gets itself)."""
+    row = torch.arange(g.shape[0], device=g.device)
+    return g[torch.clamp(row ^ 1, max=g.shape[0] - 1)]
 
 
 def fused_variation(genomes: torch.Tensor, src_idx: torch.Tensor,
@@ -149,6 +211,81 @@ def fused_variation(genomes: torch.Tensor, src_idx: torch.Tensor,
 
 
 fused_variation.launches = 0
+
+
+# ------------------------------------------ K2 fused_variation_eval ----
+
+def fused_variation_eval_plain(genomes, pairbits, rowbits, genebits, *,
+                               cxpb, mutpb, indpb):
+    """Plain PyTorch version of :func:`fused_variation_eval`."""
+    n, L = genomes.shape
+    do_cx, lo, hi = _pair_decisions(pairbits, L, cxpb)
+    col = torch.arange(L, device=genomes.device)
+    seg = (do_cx[:, None] & (col >= lo[:, None]) & (col < hi[:, None]))
+    child = torch.where(seg, _partner_rows(genomes), genomes)
+    do_mut = _u01(_words(rowbits))[:, 0:1] < _f32(mutpb)
+    flip = do_mut & (_u01(_words(genebits)) < _f32(indpb))
+    flipped = ~child if child.dtype == torch.bool else 1.0 - child
+    child = torch.where(flip, flipped, child)
+    return child, child.to(torch.float32).sum(1)
+
+
+def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
+                         rowbits: torch.Tensor, genebits: torch.Tensor, *,
+                         cxpb: float, mutpb: float, indpb: float,
+                         prng: str = "input",
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One OneMax generation on 0/1 genomes (K2): adjacent pairs (0,1),
+    (2,3), ... swap a two-point segment with probability ``cxpb`` (the
+    even row's ``pairbits`` decide for both; an odd last row never
+    mates), each row mutates with probability ``mutpb`` flipping each
+    gene with probability ``indpb`` (``1 - x`` on float32), and fitness
+    is the sum of the genes — ``var_and`` with ``cx_two_point`` and
+    ``mut_flip_bit`` followed by the OneMax evaluation, in one pass.
+
+    Fitness sums are exact for 0/1 genomes, so kernel and plain version
+    agree bitwise there.
+
+    :param genomes: ``[n, L]`` bool or float32.
+    :param pairbits, rowbits, genebits: ``uint32`` ``[n, 4]``, ``[n, 1]``,
+        ``[n, L]``, e.g. from ``fused_bits(generator, n, L)``.
+    :param prng: only ``'input'`` (these bits) is ported; ``'hw'`` raises
+        ``NotImplementedError``.
+    :returns: ``(children [n, L] in the genomes' dtype, fitness f32[n])``.
+    """
+    _resolve_prng(prng, genomes.device)
+    if genomes.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"fused_variation_eval takes bool or float32 "
+                        f"genomes, got {genomes.dtype}")
+    if genomes.device.type == "cpu":
+        return fused_variation_eval_plain(genomes, pairbits, rowbits,
+                                          genebits, cxpb=cxpb, mutpb=mutpb,
+                                          indpb=indpb)
+    if genomes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {genomes.device}")
+    n, L = genomes.shape
+    dev = genomes.device
+    _check_cuda("genomes", dev, genomes.dtype, (n, L), genomes)
+    _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
+    _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
+    _check_cuda("genebits", dev, torch.uint32, (n, L), genebits)
+    out = torch.empty((n, L), dtype=genomes.dtype, device=dev)
+    fit = torch.empty((n,), dtype=torch.float32, device=dev)
+    lib_fn = "fused_variation_eval_u8" if genomes.dtype == torch.bool \
+        else "fused_variation_eval_f32"
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    fn = _build.function("fused_variation_eval", lib_fn,
+                         [P] * 6 + [I, I, F, F, F, P])
+    err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
+             genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, L,
+             _f32(cxpb), _f32(mutpb), _f32(indpb),
+             torch.cuda.current_stream(dev).cuda_stream)
+    fused_variation_eval.launches += 1
+    _build.check("fused_variation_eval", err, "fused_variation_eval")
+    return out, fit
+
+
+fused_variation_eval.launches = 0
 
 
 # ------------------------------------------------ dominance reductions ----

@@ -1,12 +1,14 @@
 """Mutations on a batch of genomes.
 
-Port of ``mut_flip_bit`` and ``mut_polynomial_bounded`` from
-:mod:`deap_tpu.ops.mutation`: ``(generator, g[n, L], ...) -> g``. Its ``fused_plan(indpb)`` tag
-returns ``("flip", draw)`` where ``draw(generator, n, L, dtype) ->
-(mask, None)`` makes exactly the operator's draw, so the fused
-variation plane computes the same children. Polynomial bounded
-mutation is real-valued and has no fused form; its draws are made by
-:func:`polynomial_bounded_draws` and applied by :func:`_polynomial_bounded`.
+Port of ``mut_flip_bit``, ``mut_gaussian`` and ``mut_polynomial_bounded``
+from :mod:`deap_tpu.ops.mutation`: ``(generator, g[n, L], ...) -> g``.
+A ``fused_plan(**params)`` tag returns ``(kind, draw)`` where
+``draw(generator, n, L, dtype) -> (mask, arg)`` makes exactly the
+operator's draws, so the fused variation plane computes the same
+children: ``("flip", ...)`` for flip-bit, ``("add", ...)`` with the
+Gaussian noise for ``mut_gaussian``. Polynomial bounded mutation has no
+fused form. Each real-valued operator's draws are made by a ``*_draws``
+function and applied by a draw-taking core.
 """
 
 from __future__ import annotations
@@ -34,6 +36,40 @@ def _flip_bit_fused(indpb):
 
 
 mut_flip_bit.fused_plan = _flip_bit_fused
+
+
+# --------------------------------------------------------- gaussian ----
+
+def gaussian_draws(generator, shape, indpb: float):
+    """The draws of :func:`mut_gaussian` per gene: the mutation mask
+    (probability ``indpb``), then a standard normal."""
+    dev = generator.device
+    mask = torch.rand(shape, generator=generator, device=dev) < indpb
+    z = torch.randn(shape, generator=generator, device=dev)
+    return mask, z
+
+
+def _gaussian(g, mu, sigma, mask, z):
+    """Gaussian mutation on given draws (see :func:`mut_gaussian`)."""
+    return torch.where(mask, g + (mu + sigma * z), g)
+
+
+def mut_gaussian(generator, g: torch.Tensor, mu, sigma,
+                 indpb: float) -> torch.Tensor:
+    """Gaussian additive mutation: each gene gets ``+ N(mu, sigma)`` with
+    probability ``indpb``."""
+    return _gaussian(g, mu, sigma, *gaussian_draws(generator, g.shape, indpb))
+
+
+def _gaussian_fused(mu, sigma, indpb):
+    def draw(generator, n, L, dtype):
+        del dtype  # the noise is float32, as K1's add kind takes it
+        mask, z = gaussian_draws(generator, (n, L), indpb)
+        return mask, mu + sigma * z
+    return "add", draw
+
+
+mut_gaussian.fused_plan = _gaussian_fused
 
 
 # ----------------------------------------------- polynomial bounded ----

@@ -1,19 +1,23 @@
 """Bit-packed bitstring populations — 32 genes per uint32 word.
 
-Port of the main-path part of :mod:`deap_tpu.ops.packed`: the word-level
-helpers and two CUDA kernels,
+Port of :mod:`deap_tpu.ops.packed`: the word-level helpers (packing,
+popcount, segment masks, two-point crossover and flip-bit mutation on
+words) and three CUDA kernels,
 
-- :func:`fused_variation_eval_packed` (``csrc/packed_variation.cu``): one
-  OneMax generation on packed rows — adjacent-pair two-point crossover,
-  flip-bit mutation, popcount fitness;
-- :func:`sel_tournament_gather_packed` (``csrc/selgather_packed.cu``):
-  tournament selection of the parents plus the gather of their rows.
+- :func:`fused_variation_eval_packed` (K3, ``csrc/packed_variation.cu``):
+  one OneMax generation on packed rows — adjacent-pair two-point
+  crossover, flip-bit mutation, popcount fitness;
+- :func:`sel_tournament_gather_packed` (K4, ``csrc/selgather_packed.cu``):
+  tournament selection of the parents plus the gather of their rows;
+- :func:`evolve_packed` (K5, ``csrc/evolve_packed.cu``): ``ngen`` whole
+  generations of both in one launch, the population resident on the
+  card.
 
-Both take their random bits explicitly, as uint32 tensors in the layout
-of the TPU kernels' bits-input path; :func:`variation_bits` and
-:func:`tournament_bits` draw them with a ``torch.Generator``. Each runs
-its kernel on CUDA tensors and its plain PyTorch version
-(``*_plain``) on CPU tensors.
+All take their random bits explicitly, as uint32 tensors in the layout
+of the TPU kernels' bits-input path; :func:`variation_bits`,
+:func:`tournament_bits` and :func:`evolve_bits` draw them with a
+``torch.Generator``. Each runs its kernel on CUDA tensors and its plain
+PyTorch version (``*_plain``) on CPU tensors.
 
 Packed words are ``torch.uint32`` at every public boundary. torch's
 uint32 has no shifts, adds, modulo or comparisons, so the plain versions
@@ -27,12 +31,17 @@ from typing import Tuple
 import torch
 
 from deap_tpu_torch import _build
+from deap_tpu_torch.ops.crossover import _two_points
 from deap_tpu_torch.ops.kernels import (
     _check_cuda,
     _f32,
-    _pair_consistent,
+    _pair_decisions,
+    _partner_rows,
+    _resolve_prng,
     _u01,
+    _uint32_bits,
     _words,
+    fused_bits,
 )
 
 __all__ = [
@@ -41,12 +50,18 @@ __all__ = [
     "popcount",
     "packed_fitness",
     "segment_mask_words",
+    "cx_two_point_packed",
+    "flip_words",
+    "mut_flip_bit_packed",
     "variation_bits",
     "tournament_bits",
+    "evolve_bits",
     "fused_variation_eval_packed",
     "fused_variation_eval_packed_plain",
     "sel_tournament_gather_packed",
     "sel_tournament_gather_packed_plain",
+    "evolve_packed",
+    "evolve_packed_plain",
 ]
 
 WORD = 32
@@ -123,20 +138,65 @@ def segment_mask_words(lo: torch.Tensor, hi: torch.Tensor,
     return _as_uint32(_segment_words(lo, hi, W))
 
 
+def _flip_from_planes(planes: torch.Tensor, length: int) -> torch.Tensor:
+    """int64 flip words from a per-gene 0/1 mask ``[..., 32, W]`` (bit
+    ``b`` of word ``j`` at ``[..., b, j]``); bits at and past gene
+    ``length`` are clear."""
+    W = planes.shape[-1]
+    words = (planes.to(torch.int64)
+             * _bit_weights(planes.device)[:, None]).sum(-2)
+    starts = torch.arange(W, device=planes.device) * WORD
+    return words & _bits_below(length - starts)
+
+
+def _cx_two_point_packed(g1, g2, lo, hi):
+    """:func:`cx_two_point_packed` on given segments ``[lo, hi)``."""
+    m = _segment_words(lo, hi, g1.shape[-1])
+    a, b = _words(g1), _words(g2)
+    keep = ~m & _MASK32
+    return _as_uint32((a & keep) | (b & m)), _as_uint32((b & keep) | (a & m))
+
+
+def cx_two_point_packed(generator: torch.Generator, g1: torch.Tensor,
+                        g2: torch.Tensor, length: int):
+    """Two-point crossover on packed rows ``uint32[m, W]``: the segment
+    of each pair, drawn as ``cx_two_point`` draws it (``_two_points``),
+    swapped through word masks."""
+    lo, hi = _two_points(generator, g1.shape[0], length)
+    return _cx_two_point_packed(g1, g2, lo, hi)
+
+
+def _flip_words(u: torch.Tensor, indpb: float, length: int) -> torch.Tensor:
+    """:func:`flip_words` on given per-bit uniforms ``[..., W, 32]``."""
+    planes = (u < _f32(indpb)).transpose(-1, -2)
+    return _as_uint32(_flip_from_planes(planes, length))
+
+
+def flip_words(generator: torch.Generator, shape_words, indpb: float,
+               length: int) -> torch.Tensor:
+    """Bernoulli(indpb) per gene, packed: ``uint32[*shape_words]`` from
+    one uniform draw per bit position (``[*shape_words, 32]``), so each
+    bit has exactly probability ``indpb``. Bits past ``length`` are never
+    set."""
+    u = torch.rand((*shape_words, WORD), generator=generator,
+                   device=generator.device)
+    return _flip_words(u, indpb, length)
+
+
+def mut_flip_bit_packed(generator: torch.Generator, g: torch.Tensor,
+                        indpb: float, length: int) -> torch.Tensor:
+    """Flip-bit mutation on packed rows: XOR with
+    :func:`flip_words` of the rows' shape."""
+    flip = flip_words(generator, g.shape, indpb, length)
+    return _as_uint32(_words(g) ^ _words(flip))
+
+
 # ------------------------------------------------------------- draws ----
-
-def _uint32_bits(generator: torch.Generator, shape) -> torch.Tensor:
-    """Uniform uint32 bits, drawn as full-range int32 and viewed."""
-    bits = torch.randint(-2**31, 2**31, shape, generator=generator,
-                         device=generator.device, dtype=torch.int32)
-    return bits.view(torch.uint32)
-
 
 def variation_bits(generator: torch.Generator, n: int, W: int):
     """The bit streams of one :func:`fused_variation_eval_packed` call:
     ``(pairbits [n, 4], rowbits [n, 1], genebits [n, 32 W])``."""
-    return (_uint32_bits(generator, (n, 4)), _uint32_bits(generator, (n, 1)),
-            _uint32_bits(generator, (n, WORD * W)))
+    return fused_bits(generator, n, WORD * W)
 
 
 def tournament_bits(generator: torch.Generator, tournsize: int,
@@ -146,37 +206,34 @@ def tournament_bits(generator: torch.Generator, tournsize: int,
     return _uint32_bits(generator, (tournsize, n))
 
 
+def evolve_bits(generator: torch.Generator, ngen: int, tournsize: int,
+                n: int, W: int):
+    """The draws of one :func:`evolve_packed` call, lane-major as the TPU
+    kernel takes them: ``(sel [ngen, tournsize, n], pair [ngen, 3, n],
+    row [ngen, 1, n], gene [ngen, 32 W, n])``, uint32, bit plane ``b`` of
+    word ``w`` in row ``b W + w`` of ``gene``."""
+    return (_uint32_bits(generator, (ngen, tournsize, n)),
+            _uint32_bits(generator, (ngen, 3, n)),
+            _uint32_bits(generator, (ngen, 1, n)),
+            _uint32_bits(generator, (ngen, WORD * W, n)))
+
+
 # ---------------------------------------------- variation + evaluation ----
 
 def fused_variation_eval_packed_plain(packed, length, pairbits, rowbits,
                                       genebits, *, cxpb, mutpb, indpb):
-    """Plain PyTorch version of :func:`fused_variation_eval_packed`."""
+    """Plain PyTorch version of :func:`fused_variation_eval_packed`
+    (``pairbits`` may be ``[n, 3]``: word 3 is never read)."""
     n, W = packed.shape
-    L = length
     g = _words(packed)
-    pairu = _u01(_pair_consistent(_words(pairbits)))
-    do_cx = pairu[:, 0:1] < _f32(cxpb)
-    p1 = 1 + (pairu[:, 1:2] * L).to(torch.int32)
-    p2 = 1 + (pairu[:, 2:3] * (L - 1)).to(torch.int32)
-    p2 = torch.where(p2 >= p1, p2 + 1, p2)
-    lo = torch.minimum(p1, p2)[:, 0]
-    hi = torch.maximum(p1, p2)[:, 0]
-
-    row = torch.arange(n, device=packed.device)
-    partner = g[torch.clamp(row ^ 1, max=n - 1)]
-    has_partner = ((row | 1) < n)[:, None]
-    seg = _segment_words(lo, hi, W)
-    seg = torch.where(do_cx & has_partner, seg, 0)
-    child = (g & ~seg & _MASK32) | (partner & seg)
+    do_cx, lo, hi = _pair_decisions(pairbits, length, cxpb)
+    seg = torch.where(do_cx[:, None], _segment_words(lo, hi, W), 0)
+    child = (g & ~seg & _MASK32) | (_partner_rows(g) & seg)
 
     do_mut = _u01(_words(rowbits))[:, 0:1] < _f32(mutpb)
     geneu = _u01(_words(genebits)).reshape(n, WORD, W)  # plane b, word j
-    planes = (geneu < _f32(indpb)).to(torch.int64)
-    flip = (planes * _bit_weights(packed.device)[:, None]).sum(1)
-    starts = torch.arange(W, device=packed.device) * WORD
-    flip = flip & _bits_below(L - starts)
-    flip = torch.where(do_mut, flip, 0)
-    child = child ^ flip
+    flip = _flip_from_planes(geneu < _f32(indpb), length)
+    child = child ^ torch.where(do_mut, flip, 0)
     fit = _popcount64(child).sum(-1).to(torch.float32)
     return _as_uint32(child), fit
 
@@ -286,3 +343,86 @@ def sel_tournament_gather_packed(packed: torch.Tensor, fit: torch.Tensor,
 
 
 sel_tournament_gather_packed.launches = 0
+
+
+# ------------------------------------------------- whole generations ----
+
+def evolve_packed_plain(packed, fit, length, sel, pair, row, gene, *, cxpb,
+                        mutpb, indpb):
+    """Plain PyTorch version of :func:`evolve_packed`: per generation, the
+    K4 and K3 plain versions on that generation's draws, turned
+    row-major."""
+    fit = fit.to(torch.float32)
+    for g in range(sel.shape[0]):
+        parents = sel_tournament_gather_packed_plain(packed, fit, sel[g])
+        packed, fit = fused_variation_eval_packed_plain(
+            parents, length, pair[g].T, row[g].T, gene[g].T, cxpb=cxpb,
+            mutpb=mutpb, indpb=indpb)
+    return packed, fit
+
+
+def evolve_packed(packed: torch.Tensor, fit: torch.Tensor, length: int,
+                  sel: torch.Tensor, pair: torch.Tensor, row: torch.Tensor,
+                  gene: torch.Tensor, *, cxpb: float, mutpb: float,
+                  indpb: float, prng: str = "input",
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ngen`` whole OneMax eaSimple generations in one launch (K5):
+    tournament selection (aspirant ``t`` of child lane ``c`` is
+    ``sel[g, t, c] % n``, a strictly greater fitness wins, so the first
+    drawn wins ties), then :func:`fused_variation_eval_packed`'s two-point
+    crossover, flip-bit mutation and popcount fitness, with the
+    population resident on the card between generations. ``ngen`` and
+    ``tournsize`` are the draws' first two sizes; ``ngen == 0`` returns
+    the inputs.
+
+    :param packed: ``uint32[n, W]`` rows from :func:`pack_genomes`.
+    :param fit: ``f32[n]`` their fitness (e.g. :func:`packed_fitness`).
+    :param sel, pair, row, gene: ``uint32`` ``[ngen, tournsize, n]``,
+        ``[ngen, 3, n]``, ``[ngen, 1, n]``, ``[ngen, 32 W, n]``, e.g. from
+        :func:`evolve_bits`.
+    :param prng: only ``'input'`` (these bits) is ported; ``'hw'`` raises
+        ``NotImplementedError``.
+    :returns: ``(population uint32[n, W], fitness f32[n])`` after
+        ``ngen`` generations.
+    """
+    _resolve_prng(prng, packed.device)
+    fit = fit.to(torch.float32)
+    ngen = sel.shape[0]
+    if ngen == 0:
+        return packed, fit
+    if packed.device.type == "cpu":
+        return evolve_packed_plain(packed, fit, length, sel, pair, row, gene,
+                                   cxpb=cxpb, mutpb=mutpb, indpb=indpb)
+    if packed.device.type != "cuda":
+        raise ValueError(f"no kernel for device {packed.device}")
+    n, W = packed.shape
+    tournsize = sel.shape[1]
+    if tournsize < 1:
+        raise ValueError("tournsize must be at least 1")
+    if not 0 < length <= W * WORD:
+        raise ValueError(f"length {length} does not fit {W} words")
+    dev = packed.device
+    fit = fit.contiguous()
+    _check_cuda("packed", dev, torch.uint32, (n, W), packed)
+    _check_cuda("fit", dev, torch.float32, (n,), fit)
+    _check_cuda("sel", dev, torch.uint32, (ngen, tournsize, n), sel)
+    _check_cuda("pair", dev, torch.uint32, (ngen, 3, n), pair)
+    _check_cuda("row", dev, torch.uint32, (ngen, 1, n), row)
+    _check_cuda("gene", dev, torch.uint32, (ngen, WORD * W, n), gene)
+    pops = torch.empty((2, n, W), dtype=torch.uint32, device=dev)
+    fits = torch.empty((2, n), dtype=torch.float32, device=dev)
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    fn = _build.function("evolve_packed", "evolve_packed",
+                         [P] * 8 + [I] * 5 + [F] * 3 + [P])
+    err = fn(packed.data_ptr(), fit.data_ptr(), sel.data_ptr(),
+             pair.data_ptr(), row.data_ptr(), gene.data_ptr(),
+             pops.data_ptr(), fits.data_ptr(), n, W, length, ngen, tournsize,
+             _f32(cxpb), _f32(mutpb), _f32(indpb),
+             torch.cuda.current_stream(dev).cuda_stream)
+    evolve_packed.launches += 1
+    _build.check("evolve_packed", err, "evolve_packed")
+    last = (ngen - 1) % 2  # generation g writes buffer g % 2
+    return pops[last], fits[last]
+
+
+evolve_packed.launches = 0

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 port_profile.py [--out DIR] [--nsga2]
+    python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
+                            [--rastrigin]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -13,11 +14,21 @@ window of the two OneMax main-path loops at pop 100,000 and L 100:
 - ``ea_simple_packed`` with the select-and-gather kernel, 100 generations
   after 10 of warm-up;
 
-or, with ``--nsga2``, one NSGA-II generation on 3-objective DTLZ2 at mu
-50,000 (``bench.py``'s ``make_run_nsga2_3obj`` step, the one
-``chip_smoke.py`` checks: DCD mating selection, Gaussian variation
-clipped to [0, 1], evaluation, ``sel_nsga2`` over the 100k union) after
-one of warm-up.
+or, with the flags, ``chip_smoke.py``'s own loops (any of them in one
+run):
+
+- ``--nsga2``: one NSGA-II generation on 3-objective DTLZ2 at mu 50,000
+  (``bench.py``'s ``make_run_nsga2_3obj`` step: DCD mating selection,
+  Gaussian variation clipped to [0, 1], evaluation, ``sel_nsga2`` over
+  the 100k union) after one of warm-up;
+- ``--fused``: ``bench.py``'s fused OneMax loop (tournament, row gather,
+  K2) at pop 100k, L 100, 100 generations after 10 of warm-up;
+- ``--evolve``: ``evolve_packed`` (K5) at pop 100k, 200 generations in
+  calls of 50 (the draws of each call included) after one call of
+  warm-up;
+- ``--rastrigin``: ``bench_suite.py``'s fused Rastrigin loop (rank
+  tournament, row gather, K6) at pop 100k, 30 genes, 50 generations
+  after 5 of warm-up.
 
 For each it prints the wall time per generation (host clock around work
 that ends in a synchronise), the device time per generation summed over
@@ -90,13 +101,84 @@ def profile_nsga2(dev, out_dir, facts):
           f"{(kernels.dominated_weight_sums.launches - before) / 3:.1f}")
 
 
+def profile_fused(dev, out_dir, facts):
+    import torch
+    from chip_smoke import L, N, fused_onemax_generation
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+
+    gen = make_generator(17, dev)
+    genomes = ops.bernoulli_genome(L)(gen, N)
+    state = {"g": genomes, "f": genomes.sum(1).to(torch.float32)}
+
+    def run(steps):
+        for _ in range(steps):
+            state["g"], state["f"] = fused_onemax_generation(gen, state["g"],
+                                                             state["f"])
+
+    profile("fused_onemax", run, 10, 100, out_dir, facts)
+
+
+def profile_evolve(dev, out_dir, facts):
+    from chip_smoke import (CXPB, EVOLVE_CALL, INDPB, L, MUTPB, N,
+                            TOURNSIZE)
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import packed
+
+    gen = make_generator(29, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(gen, N))
+    state = {"pk": pk, "fit": packed.packed_fitness(pk)}
+    W = pk.shape[1]
+
+    def run(steps):  # steps generations, in calls of EVOLVE_CALL
+        for _ in range(steps // EVOLVE_CALL):
+            state["pk"], state["fit"] = packed.evolve_packed(
+                state["pk"], state["fit"], L,
+                *packed.evolve_bits(gen, EVOLVE_CALL, TOURNSIZE, N, W),
+                cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+
+    profile("evolve_packed", run, EVOLVE_CALL, 4 * EVOLVE_CALL, out_dir,
+            facts)
+
+
+def profile_rastrigin(dev, out_dir, facts):
+    from chip_smoke import (RA_DIM, RA_LOW, RA_N, RA_NGEN, RA_UP,
+                            rastrigin_fused_generation)
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels_real
+
+    gen = make_generator(37, dev)
+    genomes = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(gen, RA_N)
+    state = {"g": genomes, "f": kernels_real.eval_rastrigin(genomes)}
+
+    def run(steps):
+        for _ in range(steps):
+            state["g"], state["f"] = rastrigin_fused_generation(
+                gen, state["g"], state["f"])
+
+    profile("rastrigin_fused", run, 5, RA_NGEN, out_dir, facts)
+
+
+PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
+            "evolve": profile_evolve, "rastrigin": profile_rastrigin}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
                                                       "profile"))
     parser.add_argument("--nsga2", action="store_true",
                         help="profile the NSGA-II 3-objective generation")
+    parser.add_argument("--fused", action="store_true",
+                        help="profile the fused OneMax loop (K2)")
+    parser.add_argument("--evolve", action="store_true",
+                        help="profile evolve_packed (K5)")
+    parser.add_argument("--rastrigin", action="store_true",
+                        help="profile the fused Rastrigin loop (K6)")
     args = parser.parse_args()
+    chosen = [name for name in PROFILES if getattr(args, name)]
     import torch
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA card", file=sys.stderr)
@@ -112,8 +194,9 @@ def main():
     facts = gpu_facts()
     _build.build()
     dev = torch.device("cuda")
-    if args.nsga2:
-        profile_nsga2(dev, args.out, facts)
+    if chosen:
+        for name in chosen:
+            PROFILES[name](dev, args.out, facts)
         print(facts)
         return 0
 

@@ -8,9 +8,10 @@ card. On a machine with one:
 (``--noconftest``: tests/conftest.py imports jax, which the port does not
 need.)
 
-Each kernel is held bitwise against its plain PyTorch version on the
-same CUDA tensors, at small odd shapes; the wrappers' launch counters
-must rise by one per call.
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors, at small odd shapes — bitwise, and K6 at its stated tolerance
+(``kernels_real.real_kernel_errors``); the wrappers' launch counters must
+rise by one per call.
 """
 
 import pytest
@@ -19,7 +20,7 @@ import torch
 from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
 from deap_tpu_torch.core.population import init_population
 from deap_tpu_torch.device import make_generator
-from deap_tpu_torch.ops import kernels, packed, variation
+from deap_tpu_torch.ops import kernels, kernels_real, packed, variation
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +179,102 @@ def test_engines_agree_on_the_card(card):
     w2 = w[:, :2].contiguous()
     assert torch.equal(mo.nd_rank(w2, impl="staircase"),
                        mo.nd_rank(w2, impl="tiled"))
+
+
+# ----------------------------------------- the whole-generation kernels --
+
+@pytest.mark.parametrize("n,L", [(1, 100), (2, 33), (65, 31), (1001, 100)])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+def test_fused_variation_eval_kernel_equals_plain(card, n, L, dtype):
+    gen = make_generator(n + L, card)
+    g = (torch.rand((n, L), generator=gen, device=card) < 0.5).to(dtype)
+    bits = kernels.fused_bits(gen, n, L)
+    probs = dict(cxpb=0.6, mutpb=0.5, indpb=0.1)
+    before = kernels.fused_variation_eval.launches
+    got = kernels.fused_variation_eval(g, *bits, **probs)
+    want = kernels.fused_variation_eval_plain(g, *bits, **probs)
+    torch.cuda.synchronize()
+    assert kernels.fused_variation_eval.launches == before + 1
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,L,ngen,tournsize", [(1, 100, 3, 3),
+                                                (2, 33, 1, 1),
+                                                (257, 100, 4, 3),
+                                                (1001, 70, 7, 2)])
+def test_evolve_packed_kernel_equals_plain(card, n, L, ngen, tournsize):
+    gen = make_generator(n + ngen, card)
+    pk = packed.pack_genomes(torch.rand((n, L), generator=gen, device=card)
+                             < 0.5)
+    fit = packed.packed_fitness(pk)
+    bits = packed.evolve_bits(gen, ngen, tournsize, n, pk.shape[1])
+    probs = dict(cxpb=0.7, mutpb=0.5, indpb=0.1)
+    before = packed.evolve_packed.launches
+    got = packed.evolve_packed(pk, fit, L, *bits, **probs)
+    want = packed.evolve_packed_plain(pk, fit, L, *bits, **probs)
+    torch.cuda.synchronize()
+    assert packed.evolve_packed.launches == before + 1
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,L,evaluate", [(1, 30, "rastrigin"),
+                                          (2, 5, "sphere"),
+                                          (129, 30, "rastrigin"),
+                                          (1001, 40, "sphere")])
+def test_fused_variation_eval_real_kernel_within_tolerance(card, n, L,
+                                                           evaluate):
+    gen = make_generator(n + L, card)
+    g = torch.rand((n, L), generator=gen, device=card) * 10.24 - 5.12
+    bits = kernels_real.real_bits(gen, n, L)
+    kw = dict(cxpb=0.7, mutpb=0.6, indpb=0.3, alpha=0.3, mu=0.1, sigma=0.3)
+    before = kernels_real.fused_variation_eval_real.launches
+    got = kernels_real.fused_variation_eval_real(g, *bits, **kw,
+                                                 evaluate=evaluate)
+    want = kernels_real.fused_variation_eval_real_plain(g, *bits, **kw,
+                                                        evaluate=evaluate)
+    torch.cuda.synchronize()
+    assert kernels_real.fused_variation_eval_real.launches == before + 1
+    errs = kernels_real.real_kernel_errors(got, want, *bits, mutpb=0.6,
+                                           indpb=0.3, mu=0.1, sigma=0.3)
+    assert errs["ok"], errs
+    # a callable is applied after the kernel, which still launches
+    children, fit = kernels_real.fused_variation_eval_real(
+        g, *bits, **kw, evaluate=lambda c: c.sum(1))
+    assert kernels_real.fused_variation_eval_real.launches == before + 2
+    assert _same(children, got[0]) and _same(fit, children.sum(1))
+
+
+def test_whole_generation_wrappers_refuse_hw_and_bad_input(card):
+    g = torch.zeros((4, 8), dtype=torch.bool, device=card)
+    gen = make_generator(0, card)
+    bits = kernels.fused_bits(gen, 4, 8)
+    probs = dict(cxpb=0.5, mutpb=0.5, indpb=0.5)
+    for prng in ("hw", "auto"):
+        with pytest.raises(NotImplementedError, match="Philox"):
+            kernels.fused_variation_eval(g, *bits, **probs, prng=prng)
+    with pytest.raises(TypeError, match="uint32"):
+        kernels.fused_variation_eval(g, bits[0].view(torch.int32), *bits[1:],
+                                     **probs)
+    pk = torch.zeros((4, 1), dtype=torch.uint32, device=card)
+    draws = packed.evolve_bits(gen, 2, 3, 4, 1)
+    with pytest.raises(NotImplementedError, match="Philox"):
+        packed.evolve_packed(pk, torch.zeros(4, device=card), 8, *draws,
+                             **probs, prng="auto")
+    with pytest.raises(ValueError, match="shape"):
+        packed.evolve_packed(pk, torch.zeros(4, device=card), 8,
+                             draws[0][:, :, :3], *draws[1:], **probs)
+
+
+def test_var_and_with_gaussian_goes_through_the_add_kind(card):
+    tb = Toolbox()
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=0.3, indpb=0.2)
+    pop = init_population(make_generator(0, card), 301,
+                          ops.uniform_genome(30, -5.12, 5.12),
+                          FitnessSpec((-1.0,)), device=card)
+    before = kernels.fused_variation.launches
+    got = algorithms.var_and(make_generator(1, card), pop, tb, 0.5, 0.2)
+    assert kernels.fused_variation.launches == before + 1
+    want = algorithms.var_and(make_generator(1, card), pop, tb, 0.5, 0.2,
+                              fused=False)
+    assert _same(got.genomes, want.genomes)

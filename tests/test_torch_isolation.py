@@ -30,6 +30,8 @@ def test_port_runs_without_jax_or_the_jax_package():
         import deap_tpu_torch.convert, deap_tpu_torch.ops.packed
         import deap_tpu_torch.mo, deap_tpu_torch.benchmarks
         import deap_tpu_torch.support.pareto, deap_tpu_torch.native
+        import deap_tpu_torch.ops.kernels_real
+        import chip_smoke, port_profile
         from deap_tpu_torch import benchmarks as bm, mo
         fx = -bm.dtlz2(torch.rand(40, 12, generator=make_generator(1, "cpu")),
                        3)
