@@ -47,7 +47,15 @@ Phases (any failure ends the script with a non-zero exit code):
     ``sel_nsga2`` over the union): a small run whose survivors through
     K7 equal those through the dominance matrix, then mu 50,000 (union
     100k, 12 variables) for 3 generations after one of warm-up, with K7
-    launched once per front peeled.
+    launched once per front peeled;
+11. K9, the GP grouped evaluator: bitwise against its plain version on
+    the grouped schedule of a ``gen_half_and_half`` population under
+    ``math_set(1)`` (pop 4096, width 64, 256 points, deduped as the loop
+    builds it) and on a small odd case, then ``bench_gp.py``'s symbolic
+    regression (the quartic on 256 points, pop 4096, width 64, cxpb 0.5,
+    mutpb 0.1) for 50 generations: best MSE at most 0.05, K9 launched
+    once per depth level evaluated, after a 5-generation run at pop 256
+    that must equal the same run through the plain version bit for bit.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -76,6 +84,10 @@ FUSED_NGEN, EVOLVE_NGEN, EVOLVE_CALL = 200, 200, 50
 RA_N, RA_DIM, RA_NGEN, RA_UNFUSED_NGEN = 100_000, 30, 50, 10
 RA_CXPB, RA_MUTPB, RA_INDPB, RA_ALPHA, RA_SIGMA = 0.5, 0.2, 0.1, 0.5, 0.3
 RA_LOW, RA_UP = -5.12, 5.12
+# bench_gp.py's GP symbolic regression: the quartic on 256 points, pop
+# 4096, genome width 64, 50 generations, gate best MSE <= 0.05 (MSE_GATE)
+GP_POP, GP_ML, GP_P, GP_NGEN, GP_CXPB, GP_MUTPB = 4096, 64, 256, 50, 0.5, 0.1
+GP_MSE_GATE, GP_SMALL_POP, GP_SMALL_NGEN = 0.05, 256, 5
 # device memory rates by card name (NVIDIA data sheets), bytes per second
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 compares issued per SM per clock (4 schedulers x 32 lanes)
@@ -390,10 +402,11 @@ def main():
 
     whole_generation_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
+    gp_phases(torch, dev, tag, report, record)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
-                                   "k8")]}))
+                                   "k8", "k9")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -408,7 +421,8 @@ def launch_counters():
             packed.fused_variation_eval_packed,
             packed.sel_tournament_gather_packed, packed.evolve_packed,
             kernels_real.fused_variation_eval_real,
-            kernels.dominated_weight_sums, kernels.dominated_weight_maxes)
+            kernels.dominated_weight_sums, kernels.dominated_weight_maxes,
+            kernels.gp_grouped_dispatch)
 
 
 def reset_counts():
@@ -681,6 +695,24 @@ def evolve_bytes(bits, n, W, L, cxpb, mutpb):
             + 4 * L * n_mut)
 
 
+def k9_bytes(sched, prims, P):
+    """The bytes K9 must move for the grouped schedule ``sched`` at ``P``
+    points: each row that some operand within its primitive's arity
+    reads (argument or instruction rows; constants are inline) read once,
+    each instruction row (pad rows too) written once, and the schedule
+    arrays read once."""
+    import numpy as np
+    chunk = sched["src_idx"].shape[0] // sched["nchunks"]
+    row_ar = np.repeat(np.asarray([p.arity for p in prims])[
+        sched["chunk_ops"]], chunk)
+    used = ((np.arange(sched["src_idx"].shape[1]) < row_ar[:, None])
+            & ~sched["src_isc"])
+    rows_read = np.unique(sched["src_idx"][used]).size
+    return (4 * P * (rows_read + sched["src_idx"].shape[0])
+            + sched["chunk_ops"].nbytes + sched["src_idx"].nbytes
+            + sched["src_const"].nbytes + sched["src_isc"].nbytes)
+
+
 def mo_phases(torch, dev, tag, report, record):
     """Phases 5-7: K7 and K8 at the NSGA-II path's shapes, the engines'
     agreement, and the NSGA-II 3-objective DTLZ2 run."""
@@ -860,6 +892,191 @@ def mo_phases(torch, dev, tag, report, record):
           f"{peels} (dcd, nsga2 per generation); K7 launches {k7} = "
           f"{k7 / MO_NGEN:.1f} per generation; first front {front.shape[0]} "
           f"rows, mean ||f||-1 {dist:.4f}")
+
+
+def gp_phases(torch, dev, tag, report, record):
+    """Phase 11: K9 at the GP path's shapes, and bench_gp.py's symbolic
+    regression through it."""
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    pset = gp.math_set(1)
+    X, y = symbreg_data(dev)
+
+    # ----------------------------------- K9 gp_grouped_dispatch check --
+    def k9_check(what, genomes, Xk, chunk=128):
+        """K9 and its plain version on the grouped schedule of
+        ``genomes`` (deduped, as the loop's evaluator builds it), over the
+        whole value buffer; returns the schedule, the error and both
+        timing closures."""
+        interp = gp.make_batch_interpreter(pset, genomes["nodes"].shape[1],
+                                           mode="grouped", chunk=chunk)
+        sched, _ = interp.schedule(genomes)
+        args = [torch.from_numpy(sched[k]).to(dev) for k in
+                ("chunk_ops", "src_idx", "src_const", "src_isc")]
+        buf = torch.zeros((pset.n_args + sched["nchunks"] * chunk,
+                           Xk.shape[0]), device=dev)
+        buf[:pset.n_args] = Xk.T
+        bufs = [buf.clone(), buf.clone()]
+        kw = dict(chunk=chunk, n_args=pset.n_args)
+
+        def kernel():
+            return kernels.gp_grouped_dispatch(
+                bufs[0], *args, interp.branches,
+                levels=sched["level_starts"], **kw)
+
+        def plain():
+            return kernels.gp_grouped_dispatch_plain(bufs[1], *args,
+                                                     interp.branches, **kw)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"gp_grouped_dispatch differs from the plain version on "
+                 f"{what}")
+        err = max_abs_err(got.nan_to_num(), want.nan_to_num())
+        print(f"{tag} gp_grouped_dispatch == plain bitwise over the whole "
+              f"value buffer on {what}: {sched['n_instructions']} "
+              f"instructions of {len(sched['root_idx'])} distinct trees "
+              f"in {sched['nchunks']} chunks of {chunk}, "
+              f"{len(sched['level_starts']) - 1} levels, P {Xk.shape[0]} "
+              f"(cos/sin: cosf/sinf on both sides)")
+        return sched, interp.branches, err, kernel, plain
+
+    g = make_generator(47, dev)
+    small = gp.gen_half_and_half(pset, 24, 1, 4)(g, 37)
+    _, _, err_small, _, _ = k9_check(
+        "a small odd case (pop 37, width 24, P 7)", small,
+        torch.rand((7, 1), generator=g, device=dev) * 4 - 2)
+    genomes = gp.gen_half_and_half(pset, GP_ML, 1, 2)(g, GP_POP)
+    sched, branches, err, kernel, plain = k9_check(
+        f"gen_half_and_half(1, 2) at pop {GP_POP}, width {GP_ML}", genomes, X)
+    record("k9", "gp_grouped_dispatch", "deap_tpu_torch/csrc/gp_grouped.cu",
+           "deap_tpu/ops/kernels.py:306", max(err, err_small),
+           time_ms(kernel, flush), time_ms(plain, flush, reps=5),
+           k9_bytes(sched, branches, GP_P))
+
+    # ------------------- a small symbreg run: kernel == plain, bitwise --
+    runs = []
+    for use_plain in (False, True):
+        g, start, run = symbreg_start(dev, 43, GP_SMALL_POP)
+        interp = run.interpreter
+        if use_plain:
+            interp.grouped_dispatch = (
+                lambda *a, levels, **k: kernels.gp_grouped_dispatch_plain(
+                    *a, **k))
+        heights = []
+        unique = interp.unique
+
+        def counted(trees, Xe, unique=unique, heights=heights):
+            # the schedule's levels are the distinct depths of operator
+            # nodes: the tallest tree's height (one level when no tree
+            # has an operator)
+            heights.append(max(1, int(gp.tree_height(trees, pset).max())))
+            return unique(trees, Xe)
+
+        interp.unique = counted
+        before = kernels.gp_grouped_dispatch.launches
+        runs.append(run(g, start, GP_SMALL_NGEN))
+        launched = kernels.gp_grouped_dispatch.launches - before
+        want = 0 if use_plain else sum(heights)
+        if launched != want or interp.levels_run != sum(heights):
+            fail(f"symbreg small run (plain={use_plain}): K9 launched "
+                 f"{launched} times, levels {interp.levels_run}, the "
+                 f"evaluated trees' heights sum to {sum(heights)}")
+    same = all(bitwise_equal(runs[0]["genomes"][k], runs[1]["genomes"][k])
+               for k in ("nodes", "consts", "length"))
+    if not (same and bitwise_equal(runs[0]["fitness"], runs[1]["fitness"])
+            and runs[0]["nevals"] == runs[1]["nevals"]):
+        fail("symbreg through K9 differs from it through the plain version")
+    print(f"{tag} symbreg pop={GP_SMALL_POP}, {GP_SMALL_NGEN} generations: "
+          f"through K9 == through the plain version bitwise (genomes, "
+          f"fitness, nevals); K9 launches {sum(heights)} = the evaluated "
+          f"levels")
+
+    # ------------------------------- bench_gp.py's symbreg at full width --
+    g, start, run = symbreg_start(dev, 1, GP_POP)
+    scan = gp.make_batch_interpreter(pset, GP_ML, mode="scan")
+
+    def mse(trees):
+        return ((scan(trees, X) - y) ** 2).mean(1)
+
+    start_best = float(mse(start).nan_to_num(float("inf")).min())
+    reset_counts()
+    run.interpreter.levels_run = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(g, start, GP_NGEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k9 = kernels.gp_grouped_dispatch.launches
+    report["k9"]["launches"] = k9
+    if k9 != run.interpreter.levels_run or k9 < GP_NGEN + 1:
+        fail(f"K9 launched {k9} times for {run.interpreter.levels_run} "
+             f"levels evaluated in {GP_NGEN} generations")
+    best = -res["best_fitness"]
+    fit = res["fitness"]
+    # the scan mode, the JAX package's oracle, recomputes every row: NaN in
+    # the same rows, the rest equal up to the MSE's summation order
+    want = -mse(res["genomes"])
+    nan = torch.isnan(fit)
+    if not (fit.shape == (GP_POP,) and torch.equal(nan, torch.isnan(want))
+            and torch.allclose(fit[~nan], want[~nan], rtol=1e-5, atol=0.0)):
+        fail("the symbreg run's fitness disagrees with the scan "
+             "interpreter's")
+    if not best <= GP_MSE_GATE:
+        fail(f"symbreg best MSE {best} is above the gate {GP_MSE_GATE}")
+    nevals = res["nevals"]
+    print(f"{tag} symbreg (bench_gp.py) pop={GP_POP} width={GP_ML} "
+          f"P={GP_P}: {GP_NGEN} generations in {wall:.3f} s incl. gen-0 "
+          f"evaluation = {GP_NGEN / wall:.3f} gens/s; best MSE "
+          f"{start_best:.6f} -> {best:.6f} (gate {GP_MSE_GATE}); nevals "
+          f"gen 0 {nevals[0]}, then mean "
+          f"{statistics.mean(nevals[1:]):.1f} per generation "
+          f"(min {min(nevals[1:])}, max {max(nevals[1:])}); {int(nan.sum())} "
+          f"NaN rows; K9 launches {k9} = "
+          f"{k9 / (GP_NGEN + 1):.2f} levels per evaluation")
+    print(f"  best tree: {gp.to_string(res['best_genome'], pset)}")
+    print(f"  nevals per generation: {nevals}")
+
+    # K9 on the evolved population, the shape most generations give it
+    sched, branches, _, kernel, plain = k9_check(
+        f"the evolved population after {GP_NGEN} generations",
+        res["genomes"], X)
+    nbytes = k9_bytes(sched, branches, GP_P)
+    ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush, reps=3)
+    print(f"{tag} gp_grouped_dispatch on the evolved population: "
+          f"{ms * 1e3:.2f} us (bound {nbytes / rate * 1e6:.2f} us by bytes: {nbytes / 1e6:.2f} MB; plain {plain_ms * 1e3:.2f} "
+          f"us)")
+    del flush
+
+
+def symbreg_data(dev):
+    """bench_gp.py's data: the quartic x^4 + x^3 + x^2 + x at the 256
+    points of ``linspace(-1, 1, 256, endpoint=False)`` (exact in
+    float32)."""
+    import torch
+    x = (torch.arange(GP_P, dtype=torch.float32, device=dev) * (2.0 / GP_P)
+         - 1.0)
+    return x[:, None], x ** 4 + x ** 3 + x ** 2 + x
+
+
+def symbreg_start(dev, seed, pop):
+    """A generator, ``gen_half_and_half(1, 2)`` trees of width 64 under
+    ``math_set(1)`` and ``bench_gp.py``'s symbreg loop (grouped mode with
+    dedup, K9 on the card)."""
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.device import make_generator
+    pset = gp.math_set(1)
+    X, y = symbreg_data(dev)
+    g = make_generator(seed, dev)
+    start = gp.gen_half_and_half(pset, GP_ML, 1, 2)(g, pop)
+    run = gp.make_symbreg_loop(pset, GP_ML, X, y, cxpb=GP_CXPB,
+                               mutpb=GP_MUTPB, device=dev)
+    return g, start, run
 
 
 def nsga2_generation(g, x, w, nd="standard", inputs=None):

@@ -1,5 +1,5 @@
-"""Carry population, hall-of-fame and Pareto-archive state between the
-two packages.
+"""Carry population, hall-of-fame, Pareto-archive and GP-genome state
+between the two packages.
 
 The port never imports the JAX package, so state crosses as numpy arrays
 plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
@@ -82,3 +82,22 @@ def pareto_to_arrays(archive: ParetoArchive) -> Dict[str, Any]:
             "fitness": to_numpy(archive.fitness),
             "filled": to_numpy(archive.filled),
             "weights": archive.spec.weights}
+
+
+_GP_DTYPES = {"nodes": np.int32, "consts": np.float32, "length": np.int32}
+
+
+def gp_genomes_from_arrays(arrays: Dict[str, Any],
+                           device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The port's GP trees from the JAX package's genome dict (``nodes``
+    int32, ``consts`` float32, ``length`` int32, as numpy)."""
+    return {k: to_tensor(np.asarray(arrays[k], dtype), device)
+            for k, dtype in _GP_DTYPES.items()}
+
+
+def gp_genomes_to_arrays(genomes: Dict[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+    """The port's GP trees as the JAX package's genome dict of numpy
+    arrays."""
+    return {k: to_numpy(genomes[k]).astype(dtype, copy=False)
+            for k, dtype in _GP_DTYPES.items()}

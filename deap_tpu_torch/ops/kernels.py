@@ -19,6 +19,9 @@ decides between the two, and a CUDA tensor never takes the plain path.
   :func:`dominated_weight_maxes_plain`. On them sit
   :func:`dominated_counts`, :func:`strengths_tiled` and the peeling sort
   :func:`nd_rank_tiled`.
+- :func:`gp_grouped_dispatch` (K9, ``csrc/gp_grouped.cu``): opcode-major
+  GP evaluation of a grouped schedule, one launch per depth level; plain
+  version :func:`gp_grouped_dispatch_plain`, the chunk loop.
 
 ``_u01`` and ``_pair_consistent`` are the shared random-bit conventions
 of the fused kernels (``ops.packed`` and ``ops.kernels_real`` use them
@@ -27,7 +30,8 @@ too), and :func:`fused_bits` draws the streams of their bits-input path.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +43,9 @@ from deap_tpu_torch.ops.variation import apply_variation
 __all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits",
            "fused_variation_eval", "fused_variation_eval_plain",
            "dominated_weight_sums", "dominated_weight_maxes",
-           "dominated_counts", "strengths_tiled", "nd_rank_tiled"]
+           "dominated_counts", "strengths_tiled", "nd_rank_tiled",
+           "GP_DEVICE_OPS", "gp_grouped_dispatch",
+           "gp_grouped_dispatch_plain"]
 
 #: genome dtypes the kernel takes: bool (as one byte) and float32
 KERNEL_DTYPES = (torch.bool, torch.float32)
@@ -508,3 +514,135 @@ def nd_rank_tiled(w: torch.Tensor, max_fronts: Optional[int] = None, *,
                                w.shape[0], w.device, max_fronts, cover_k,
                                fallback)
     return (ranks, peels) if return_peels else ranks
+
+
+# ------------------------------------------- GP opcode-major dispatch ----
+
+#: device op name -> (code in csrc/gp_grouped.cu, arity): the closed table
+#: of primitives K9 implements. ``identity`` is the branch of the empty
+#: mask (only terminals live).
+GP_DEVICE_OPS: Dict[str, Tuple[int, int]] = {
+    "identity": (0, 1),
+    "add": (1, 2),
+    "sub": (2, 2),
+    "mul": (3, 2),
+    "protectedDiv": (4, 2),
+    "neg": (5, 1),
+    "cos": (6, 1),
+    "sin": (7, 1),
+    "and": (8, 2),
+    "or": (9, 2),
+    "not": (10, 1),
+    "xor": (11, 2),
+    "if_then_else": (12, 3),
+}
+
+
+def gp_grouped_dispatch_plain(buf: torch.Tensor, chunk_ops: torch.Tensor,
+                              src_idx: torch.Tensor, src_const: torch.Tensor,
+                              src_isc: torch.Tensor, ops: Sequence, *,
+                              chunk: int, n_args: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gp_grouped_dispatch`: the JAX
+    package's XLA chunk loop, chunk by chunk in order — gather the
+    operand rows, let constants replace them, apply the chunk's
+    primitive, write the chunk's rows. Updates ``buf`` in place."""
+    isc = src_isc.to(torch.bool)
+    for c, b in enumerate(chunk_ops.tolist()):
+        prim = ops[b]
+        rows = slice(c * chunk, (c + 1) * chunk)
+        si, sc, sb = src_idx[rows].to(torch.int64), src_const[rows], isc[rows]
+        ops_in = [torch.where(sb[:, j, None], sc[:, j, None], buf[si[:, j]])
+                  for j in range(prim.arity)]
+        buf[n_args + c * chunk:n_args + (c + 1) * chunk] = prim.fn(*ops_in)
+    return buf
+
+
+#: branches K9 takes at most (``MAX_BRANCHES`` in csrc/gp_grouped.cu)
+GP_MAX_BRANCHES = 16
+
+
+def _branch_codes(ops: Sequence):
+    """The device op code of each branch, as a ctypes int array for the
+    launcher (which passes it by value with each launch)."""
+    if len(ops) > GP_MAX_BRANCHES:
+        raise ValueError(f"the grouped kernel takes at most "
+                         f"{GP_MAX_BRANCHES} primitives, got {len(ops)}")
+    codes = []
+    for p in ops:
+        if p.device_op is None:
+            raise ValueError(
+                f"primitive {p.name!r} has no device op: the grouped "
+                f"kernel implements only {sorted(GP_DEVICE_OPS)}; evaluate "
+                f"this set with mode='scan' (or 'sweep')")
+        codes.append(GP_DEVICE_OPS[p.device_op][0])
+    return (ctypes.c_int * len(codes))(*codes)
+
+
+def gp_grouped_dispatch(buf: torch.Tensor, chunk_ops: torch.Tensor,
+                        src_idx: torch.Tensor, src_const: torch.Tensor,
+                        src_isc: torch.Tensor, ops: Sequence, *, chunk: int,
+                        n_args: int, levels: Sequence[int]) -> torch.Tensor:
+    """Evaluate a grouped GP schedule into its value buffer (K9): for every
+    instruction row ``r`` of chunk ``c = r // chunk``, ``buf[n_args + r] =
+    ops[chunk_ops[c]](x_0, ...)`` with ``x_j = src_const[r, j]`` where
+    ``src_isc[r, j]``, else ``buf[src_idx[r, j]]`` (a select: a gathered
+    NaN never leaks through a constant).
+
+    On the card the kernel launches once per depth level, in order; on the
+    CPU the chunk loop runs (:func:`gp_grouped_dispatch_plain`). Kernel
+    and plain version agree bitwise: each element is one IEEE operation
+    (or ``cosf``/``sinf`` on the card) on the same operands.
+
+    :param buf: ``f32[n_args + nchunks·chunk, P]``, argument rows filled;
+        updated in place and returned.
+    :param chunk_ops: ``int32[nchunks]`` branch index per chunk.
+    :param src_idx: ``int32[nchunks·chunk, max_ar]`` operand rows, each in
+        ``[0, len(buf))``.
+    :param src_const: ``f32[nchunks·chunk, max_ar]`` inline constants.
+    :param src_isc: ``bool[nchunks·chunk, max_ar]`` operand-is-constant.
+    :param ops: the branches, ``gp.pset`` primitives (``fn``, ``arity``,
+        ``device_op``); on the card each needs a device op.
+    :param levels: chunk indices where each dependency level starts, then
+        ``nchunks`` (``build_grouped_schedule``'s ``level_starts``): a
+        level reads only argument rows and rows of earlier levels.
+    """
+    if buf.device.type == "cpu":
+        return gp_grouped_dispatch_plain(buf, chunk_ops, src_idx, src_const,
+                                         src_isc, ops, chunk=chunk,
+                                         n_args=n_args)
+    if buf.device.type != "cuda":
+        raise ValueError(f"no kernel for device {buf.device}")
+    dev = buf.device
+    codes = _branch_codes(ops)
+    nchunks = chunk_ops.shape[0]
+    total, max_ar = nchunks * chunk, src_idx.shape[1]
+    R, P = buf.shape
+    if R != n_args + total or R * P > _INT_MAX:
+        raise ValueError(f"buf must have n_args + nchunks*chunk = "
+                         f"{n_args + total} rows and fewer than 2^31 "
+                         f"elements, got {tuple(buf.shape)}")
+    _check_cuda("buf", dev, torch.float32, (R, P), buf)
+    _check_cuda("chunk_ops", dev, torch.int32, (nchunks,), chunk_ops)
+    _check_cuda("src_idx", dev, torch.int32, (total, max_ar), src_idx)
+    _check_cuda("src_const", dev, torch.float32, (total, max_ar), src_const)
+    _check_cuda("src_isc", dev, torch.bool, (total, max_ar), src_isc)
+    levels = [int(v) for v in levels]
+    if (len(levels) < 2 or levels[0] != 0 or levels[-1] != nchunks
+            or any(b <= a for a, b in zip(levels, levels[1:]))):
+        raise ValueError(f"levels must rise strictly from 0 to nchunks="
+                         f"{nchunks}, got {levels}")
+    nlevels = len(levels) - 1
+    bounds = (ctypes.c_int * len(levels))(*levels)
+    PT, I = _build.PTR, _build.INT
+    fn = _build.function("gp_grouped", "gp_grouped_dispatch",
+                         [PT] * 7 + [I] * 7 + [PT])
+    err = fn(buf.data_ptr(), chunk_ops.data_ptr(), ctypes.addressof(codes),
+             src_idx.data_ptr(), src_const.data_ptr(), src_isc.data_ptr(),
+             ctypes.addressof(bounds), nlevels, n_args, R, P, max_ar, chunk,
+             len(ops), torch.cuda.current_stream(dev).cuda_stream)
+    gp_grouped_dispatch.launches += nlevels
+    _build.check("gp_grouped", err, "gp_grouped_dispatch")
+    return buf
+
+
+gp_grouped_dispatch.launches = 0

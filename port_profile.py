@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin]
+                            [--rastrigin] [--gp]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -28,7 +28,12 @@ run):
   warm-up;
 - ``--rastrigin``: ``bench_suite.py``'s fused Rastrigin loop (rank
   tournament, row gather, K6) at pop 100k, 30 genes, 50 generations
-  after 5 of warm-up.
+  after 5 of warm-up;
+- ``--gp``: ``bench_gp.py``'s symbolic regression loop (pop 4096, width
+  64, 256 points; grouped evaluation through K9) for 10 generations after
+  5 of warm-up, with the host's share split by the loop's spans
+  (``gp/host_schedule``, ``gp/schedule_upload``, ``gp/grouped_dispatch``,
+  ``gp/select``, ``gp/vary``).
 
 For each it prints the wall time per generation (host clock around work
 that ends in a synchronise), the device time per generation summed over
@@ -46,7 +51,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N, L = 100_000, 100
 
 
-def profile(name, run, warm, steps, out_dir, facts):
+def profile(name, run, warm, steps, out_dir, facts, spans=None,
+            kernels=()):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -59,8 +65,11 @@ def profile(name, run, warm, steps, out_dir, facts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    # a record_function span also shows on the device timeline as an
+    # annotation; it is not kernel time
+    events = [e for e in prof.key_averages() if e.device_type == cuda
+              and not (spans and e.key.startswith(spans))]
     device_us = sum(e.self_device_time_total for e in events)
     print(f"[{facts}] {name}: wall {wall / steps * 1e3:.3f} ms/gen, "
           f"device {device_us / steps / 1e3:.3f} ms/gen, busy share "
@@ -68,6 +77,18 @@ def profile(name, run, warm, steps, out_dir, facts):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / steps:10.1f} us/gen "
               f"{e.count / steps:6.1f} calls/gen  {e.key[:90]}")
+    for e in events:
+        if any(k in e.key for k in kernels):
+            print(f"    kernel {e.key[:60]}: {e.self_device_time_total / steps:.1f}"
+                  f" us/gen {e.count / steps:.1f} launches/gen")
+    if spans:
+        # host time inside the loop's record_function spans (nested spans
+        # count in each enclosing one)
+        for e in sorted((e for e in prof.key_averages()
+                         if e.key.startswith(spans) and e.device_type != cuda),
+                        key=lambda e: e.key):
+            print(f"    span {e.key}: host {e.cpu_time_total / steps:10.1f} "
+                  f"us/gen {e.count / steps:6.1f} calls/gen")
     # the same window without the profiler, for its overhead
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -161,8 +182,30 @@ def profile_rastrigin(dev, out_dir, facts):
     profile("rastrigin_fused", run, 5, RA_NGEN, out_dir, facts)
 
 
+def profile_gp(dev, out_dir, facts):
+    from chip_smoke import GP_NGEN, GP_POP, symbreg_start
+    from deap_tpu_torch.ops import kernels
+
+    g, start, run = symbreg_start(dev, 1, GP_POP)
+    state = run.init_state(start, GP_NGEN)
+
+    def run_gens(steps):
+        for _ in range(steps):
+            run.advance(g, state)
+
+    before = kernels.gp_grouped_dispatch.launches
+    profile("gp_symbreg", run_gens, 5, 10, out_dir, facts, spans="gp/",
+            kernels=("gp_level_kernel",))
+    # profile() runs warm-up, profiled and unprofiled windows: 25 gens
+    print(f"    K9 launches per generation "
+          f"{(kernels.gp_grouped_dispatch.launches - before) / 25:.2f}; "
+          f"best MSE after {state['gen']} generations "
+          f"{-state['best_fitness']:.6f}")
+
+
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
-            "evolve": profile_evolve, "rastrigin": profile_rastrigin}
+            "evolve": profile_evolve, "rastrigin": profile_rastrigin,
+            "gp": profile_gp}
 
 
 def main():
@@ -177,6 +220,8 @@ def main():
                         help="profile evolve_packed (K5)")
     parser.add_argument("--rastrigin", action="store_true",
                         help="profile the fused Rastrigin loop (K6)")
+    parser.add_argument("--gp", action="store_true",
+                        help="profile the GP symbolic regression loop (K9)")
     args = parser.parse_args()
     chosen = [name for name in PROFILES if getattr(args, name)]
     import torch

@@ -17,7 +17,7 @@ rise by one per call.
 import pytest
 import torch
 
-from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
+from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, mo, ops
 from deap_tpu_torch.core.population import init_population
 from deap_tpu_torch.device import make_generator
 from deap_tpu_torch.ops import kernels, kernels_real, packed, variation
@@ -278,3 +278,90 @@ def test_var_and_with_gaussian_goes_through_the_add_kind(card):
     want = algorithms.var_and(make_generator(1, card), pop, tb, 0.5, 0.2,
                               fused=False)
     assert _same(got.genomes, want.genomes)
+
+
+# -------------------------------------------------- K9 gp_grouped_dispatch --
+
+def _grouped_case(card, pset, n, width, P, chunk, seed, max_depth=4):
+    """The grouped schedule of a generated population on the card, its
+    argument rows and both evaluations of the whole buffer."""
+    gen = make_generator(seed, card)
+    pop = gp.gen_half_and_half(pset, width, 0, max_depth)(gen, n)
+    interp = gp.make_batch_interpreter(pset, width, mode="grouped",
+                                       chunk=chunk)
+    sched, _ = interp.schedule(pop)
+    X = torch.rand((P, pset.n_args), generator=gen, device=card) * 4 - 2
+    if pset.name == "BOOL":
+        X = (X > 0).float()
+    nrows = pset.n_args + sched["nchunks"] * chunk
+    buf = torch.zeros((nrows, P), device=card)
+    buf[:pset.n_args] = X.T
+    args = [torch.from_numpy(sched[k]).to(card) for k in
+            ("chunk_ops", "src_idx", "src_const", "src_isc")]
+    before = kernels.gp_grouped_dispatch.launches
+    got = kernels.gp_grouped_dispatch(buf.clone(), *args, interp.branches,
+                                      chunk=chunk, n_args=pset.n_args,
+                                      levels=sched["level_starts"])
+    want = kernels.gp_grouped_dispatch_plain(buf.clone(), *args,
+                                             interp.branches, chunk=chunk,
+                                             n_args=pset.n_args)
+    torch.cuda.synchronize()
+    assert kernels.gp_grouped_dispatch.launches == (
+        before + len(sched["level_starts"]) - 1)
+    return got, want
+
+
+@pytest.mark.parametrize("pset_name,n,width,P,chunk", [
+    ("math1", 37, 24, 7, 128),
+    ("math2", 200, 48, 33, 16),
+    ("math1", 512, 64, 256, 128),
+    ("bool3", 64, 32, 8, 8),
+    ("bool6", 301, 48, 65, 32),
+])
+def test_gp_grouped_kernel_equals_plain(card, pset_name, n, width, P, chunk):
+    pset = (gp.math_set(int(pset_name[-1])) if pset_name.startswith("math")
+            else gp.bool_set(int(pset_name[-1])))
+    got, want = _grouped_case(card, pset, n, width, P, chunk, n + P)
+    assert _same(got, want)
+
+
+def test_gp_grouped_kernel_empty_mask_runs_the_identity(card):
+    """Trees of one terminal: no instruction, the pad chunks run the
+    identity branch in one launch."""
+    got, want = _grouped_case(card, gp.math_set(1), 50, 16, 9, 8, 3,
+                              max_depth=0)
+    assert _same(got, want)
+
+
+def test_gp_grouped_kernel_refuses_a_primitive_without_device_op(card):
+    pset = gp.math_set(1)
+    pset.add_primitive(torch.tanh, 1, "tanh")
+    pop = gp.from_string("tanh(ARG0)", pset, 8, device=card)
+    X = torch.linspace(-1, 1, 5, device=card)[:, None]
+    with pytest.raises(ValueError, match="tanh.*mode='scan'"):
+        gp.make_batch_interpreter(pset, 8, mode="grouped")(pop, X)
+    want = torch.tanh(X[:, 0])
+    assert _same(gp.make_batch_interpreter(pset, 8, mode="scan")(pop, X)[0],
+                 want)
+
+
+def test_symbreg_on_the_card_goes_through_k9(card):
+    pset = gp.math_set(1)
+    X = torch.linspace(-1, 1, 64, device=card)[:, None]
+    y = X[:, 0] ** 2 + X[:, 0]
+    runs = []
+    for plain in (False, True):
+        gen = make_generator(5, card)
+        pop = gp.gen_half_and_half(pset, 48, 1, 2)(gen, 256)
+        run = gp.make_symbreg_loop(pset, 48, X, y, device=card)
+        if plain:
+            run.interpreter.grouped_dispatch = (
+                lambda *a, levels, **k: kernels.gp_grouped_dispatch_plain(
+                    *a, **k))
+        before = kernels.gp_grouped_dispatch.launches
+        runs.append(run(gen, pop, 4))
+        launched = kernels.gp_grouped_dispatch.launches - before
+        assert launched == (0 if plain else run.interpreter.levels_run)
+    for k in ("nodes", "consts", "length"):
+        assert _same(runs[0]["genomes"][k], runs[1]["genomes"][k])
+    assert _same(runs[0]["fitness"], runs[1]["fitness"])

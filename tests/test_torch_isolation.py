@@ -48,6 +48,13 @@ def test_port_runs_without_jax_or_the_jax_package():
                                             stats=fitness_stats(),
                                             halloffame_size=1, device="cpu")
         assert len(lb) == 4
+        from deap_tpu_torch import gp
+        X = torch.linspace(-1, 1, 16)[:, None]
+        run = gp.make_symbreg_loop(gp.math_set(1), 24, X, X[:, 0] ** 2,
+                                   device="cpu")
+        trees = gp.gen_half_and_half(gp.math_set(1), 24, 1, 2)(gen, 32)
+        res = run(gen, trees, 3)
+        assert len(res["nevals"]) == 4 and run.interpreter.levels_run > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "deap_tpu" or m.startswith("deap_tpu."))
@@ -94,6 +101,19 @@ def test_entry_points_raise_without_a_card(no_card):
         talg.ea_simple_packed(gen, torch.zeros((4, 1), dtype=torch.uint32),
                               torch.zeros(4), 8, 1, cxpb=0.5, mutpb=0.2,
                               indpb=0.05)
+
+
+def test_gp_entry_points_raise_without_a_card(no_card):
+    from deap_tpu_torch import gp
+    pset = gp.math_set(1)
+    X = torch.linspace(-1, 1, 8)[:, None]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp.make_symbreg_loop(pset, 16, X, X[:, 0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp.make_gp_loop(pset, 16, lambda g: g["length"].float(), cxpb=0.5,
+                        mutpb=0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp.from_string("add(ARG0, ARG0)", pset, 16)
 
 
 def test_generator_must_live_on_the_run_device():
