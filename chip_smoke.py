@@ -20,9 +20,10 @@ Phases (any failure ends the script with a non-zero exit code):
    small run that must equal the plain versions bit for bit, and the same
    step with the rank-based tournament;
 5. K2 on byte genomes: bitwise against its plain version at pop 100k and
-   L 100 (and in float32 at a small odd n), then ``bench.py``'s fused
-   OneMax loop (tournament, row gather, K2) for 200 generations at pop
-   100k, after a 5-generation run at n 1001 that must equal the plain
+   L 100 (and in float32 at a small odd n), both through its vector
+   variant, and at L 33 (bool and float32) through its scalar one, then ``bench.py``'s fused OneMax loop (tournament, row
+   gather, K2) for 200 generations at pop 100k, every launch the vector
+   variant, after a 5-generation run at n 1001 that must equal the plain
    versions bit for bit;
 6. K5, the resident whole-GA loop: bitwise against its plain version for
    5 generations at pop 100k and at a small odd n, then 200 generations
@@ -36,8 +37,10 @@ Phases (any failure ends the script with a non-zero exit code):
 8. the dominance kernels K7 and K8 against their plain versions on
    3-objective DTLZ2 data at the NSGA-II path's shapes (100k rows; K8
    as the prefix chain reduction calls it, 512 queries against the 50k
-   ranked rows before them): bitwise where the sums are exact, timed
-   against the card's compare rate;
+   ranked rows before them): bitwise where the sums are exact, K7's
+   SPEA2 raw sums within ``kernels.K7_RTOL`` and equal from launch to
+   launch, timed against the card's compare rate over the pairs each
+   compares (K7 also at 50k rows, the DCD sort's size);
 9. the non-dominated sorting engines agree on the card at n 8192
    (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
    and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
@@ -92,10 +95,10 @@ GP_MSE_GATE, GP_SMALL_POP, GP_SMALL_NGEN = 0.05, 256, 5
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 compares issued per SM per clock (4 schedulers x 32 lanes)
 COMPARES_PER_SM_CLOCK = 128
+# clocks the card spins before each timed call (about 1 ms): the host
+# enqueues the call meanwhile, so its events time device work only
+SPIN_CYCLES = 2_000_000
 EXACT = 2.0 ** 24  # float32 integers are exact below this
-# K7 sums past 2^24 round in another order than the plain version's:
-# a stated relative tolerance there
-K7_RTOL = 1e-5
 
 
 def fail(msg):
@@ -137,14 +140,46 @@ def max_sm_clock_hz():
     return float(out.stdout.split()[0]) * 1e6
 
 
+def ptxas_report(log):
+    """``(kernel, "registers ...; spills ...")`` for each kernel in an
+    ``nvcc -Xptxas -v`` log, the kernel's mangled name shortened to its
+    name and template argument."""
+    import re
+    out, kernel, spill = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"\d+([a-z_]+kernel[a-z_]*)(?:ILi(\d+)E|I(\w)E)?",
+                             entry.group(1))
+            kernel = entry.group(1) if name is None else name.group(1) + (
+                f"<{name.group(2) or name.group(3)}>"
+                if name.group(2) or name.group(3) else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append((kernel, line.split(":", 1)[-1].strip() + "; "
+                        + spill))
+    return out
+
+
+def compare_rate(dev):
+    """float32 compares per second: SMs x 128 lanes x the max SM clock."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * COMPARES_PER_SM_CLOCK * max_sm_clock_hz()
+
+
 def time_ms(fn, flush, reps=25):
-    """Median device time of one call, each call after an L2 flush."""
+    """Median device time of one call, each call after an L2 flush and a
+    spin of the card during which the host enqueues the call's work (a
+    wrapper's host work does not enter the time)."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -153,6 +188,19 @@ def time_ms(fn, flush, reps=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def k7_pairs(kernels, w, rows=None):
+    """The (query, row) pairs K7 compares on ``w``: each block of ``rows``
+    queries (by default the kernel's) against the sorted rows up to its
+    prune limit."""
+    import torch
+    n, m = w.shape
+    rows = rows or kernels._DOM_THREADS * kernels._k7_rows_per_thread(m)
+    _, limit = kernels._k7_order(w, rows)
+    block_rows = torch.full_like(limit, rows)
+    block_rows[-1] = n - rows * (limit.shape[0] - 1)
+    return float((limit.double() * block_rows).sum())
 
 
 def main():
@@ -177,10 +225,10 @@ def main():
     tag = f"[{facts}]"
     clock = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    compare_rate = sms * COMPARES_PER_SM_CLOCK * clock
+    compares_per_s = compare_rate(dev)
     print(f"card: {facts}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; memory rate for bounds {rate / 1e12} TB/s; "
-          f"{sms} SMs at max {clock / 1e6:.0f} MHz = {compare_rate:.4e} "
+          f"{sms} SMs at max {clock / 1e6:.0f} MHz = {compares_per_s:.4e} "
           f"float32 compares/s")
 
     # ------------------------------------------------------------ build --
@@ -190,9 +238,8 @@ def main():
           f"{len(seconds)} kernels "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for kernel, report_line in ptxas_report(_build.build_log(src)):
+            print(f"  ptxas {src} {kernel}: {report_line}")
 
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
     report = {}
@@ -202,7 +249,7 @@ def main():
         """One kernel's line; the bound is the larger of its bytes over the
         memory rate and its float32 compares over the compare rate."""
         bytes_ms = nbytes / rate * 1e3
-        compares_ms = compares / compare_rate * 1e3
+        compares_ms = compares / compares_per_s * 1e3
         bound_ms = max(bytes_ms, compares_ms)
         bound_by = "bytes" if bytes_ms >= compares_ms else "operations"
         report[key] = {"name": name, "route": "cuda", "source": source,
@@ -427,8 +474,10 @@ def launch_counters():
 
 def reset_counts():
     """Set every launch count to 0 just before a main-path run."""
+    from deap_tpu_torch.ops import kernels
     for fn in launch_counters():
         fn.launches = 0
+    kernels.fused_variation_eval.vector_launches = 0
 
 
 def whole_generation_phases(torch, dev, tag, report, record):
@@ -446,19 +495,30 @@ def whole_generation_phases(torch, dev, tag, report, record):
 
     # ----------------------------------- K2 fused_variation_eval check --
     worst = 0.0
-    for n, dtype in ((1001, torch.float32), (N, torch.bool)):
-        g = (torch.rand((n, L), generator=gen, device=dev) < 0.5).to(dtype)
-        bits = kernels.fused_bits(gen, n, L)
+    # L % 4 == 0 takes the vector variant, L 33 the scalar one; the main
+    # path's case comes last and is the one timed
+    for n, length, dtype in ((1001, 33, torch.bool),
+                             (1001, 33, torch.float32),
+                             (1001, L, torch.float32), (N, L, torch.bool)):
+        variant = "vector" if length % 4 == 0 else "scalar"
+        g = (torch.rand((n, length), generator=gen, device=dev)
+             < 0.5).to(dtype)
+        bits = kernels.fused_bits(gen, n, length)
+        before = kernels.fused_variation_eval.vector_launches
         got = kernels.fused_variation_eval(g, *bits, **probs)
+        if (kernels.fused_variation_eval.vector_launches - before
+                != (variant == "vector")):
+            fail(f"fused_variation_eval[{dtype}] at L={length} did not take "
+                 f"the {variant} variant")
         want = kernels.fused_variation_eval_plain(g, *bits, **probs)
         torch.cuda.synchronize()
         for a, b, what in zip(got, want, ("children", "fitness")):
             if not bitwise_equal(a, b):
                 fail(f"fused_variation_eval[{dtype}] {what} differ from the "
-                     f"plain version at n={n}")
+                     f"plain version at n={n}, L={length}")
             worst = max(worst, max_abs_err(a, b))
-        print(f"{tag} fused_variation_eval[{dtype}] == plain bitwise at "
-              f"n={n}, L={L}")
+        print(f"{tag} fused_variation_eval[{dtype}] ({variant} variant) == "
+              f"plain bitwise at n={n}, L={length}")
     n_cx, n_mut = pairs_mating(bits[0], CXPB), rows_below(bits[1], MUTPB)
     # what this run's draws need: genomes in and out, fitness out, pair
     # word 0 of every pair and words 1-2 of mating pairs, row bits, gene
@@ -506,9 +566,11 @@ def whole_generation_phases(torch, dev, tag, report, record):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     report["k2"]["launches"] = kernels.fused_variation_eval.launches
-    if kernels.fused_variation_eval.launches != FUSED_NGEN:
-        fail(f"K2 launched {kernels.fused_variation_eval.launches} times in "
-             f"{FUSED_NGEN} generations")
+    vector = kernels.fused_variation_eval.vector_launches
+    if not (kernels.fused_variation_eval.launches == vector == FUSED_NGEN):
+        fail(f"K2 launched {kernels.fused_variation_eval.launches} times "
+             f"({vector} of them the vector variant) in {FUSED_NGEN} "
+             f"generations")
     if not (torch.equal(fit, genomes.sum(1).to(torch.float32))
             and means[-1] > means[0] + 10):
         fail(f"the fused OneMax loop's fitness is wrong or did not climb: "
@@ -517,7 +579,8 @@ def whole_generation_phases(torch, dev, tag, report, record):
           f"{wall:.3f} s = {FUSED_NGEN / wall:.2f} gens/s (the mean reads "
           f"included); mean fitness every 50 gens "
           + " -> ".join(f"{m:.3f}" for m in means)
-          + f"; K2 launches {report['k2']['launches']}")
+          + f"; K2 launches {report['k2']['launches']}, all of the vector "
+          f"variant")
 
     # ------------------------------------------- K5 evolve_packed check --
     W = packed.words_for(L)
@@ -744,22 +807,54 @@ def mo_phases(torch, dev, tag, report, record):
         fail("strengths_tiled differs from the plain version")
     raw = kernels.dominated_weight_sums(w, strength)     # SPEA2 raw
     raw_plain = kernels.dominated_weight_sums_plain(w, strength)
+    raw_again = kernels.dominated_weight_sums(w, strength)
     torch.cuda.synchronize()
     exact = raw_plain < EXACT
     rel = float(((raw - raw_plain).abs() / raw_plain.clamp_min(1.0)).max())
-    if not (bitwise_equal(raw[exact], raw_plain[exact]) and rel <= K7_RTOL):
+    if not (bitwise_equal(raw[exact], raw_plain[exact])
+            and rel <= kernels.K7_RTOL):
         fail(f"dominated_weight_sums (SPEA2 strengths) differs from the "
              f"plain version (max relative error {rel})")
+    if not bitwise_equal(raw, raw_again):
+        fail("dominated_weight_sums (SPEA2 strengths) differs from itself "
+             "from launch to launch")
+    splits = {k: kernels._k7_splits(k, m, torch.cuda.get_device_properties(
+        dev).multi_processor_count) for k in (MO_POP, n2)}
     print(f"{tag} dominated_weight_sums == plain bitwise at n={n2}, m={m} "
           f"(0/1 weights, counts up to {int(want.max())}; strengths); SPEA2 "
           f"raw bitwise on the {int(exact.sum())} rows below 2^24, max "
-          f"relative error {rel:.3e} on the {int((~exact).sum())} above")
+          f"relative error {rel:.3e} on the {int((~exact).sum())} above; "
+          f"two launches bitwise equal; j split in {splits[n2]} ranges "
+          f"({splits[MO_POP]} at n={MO_POP})")
+    # the bound counts the pairs K7 compares: each block of queries
+    # against the sorted rows up to its prune limit
+    rows = kernels._DOM_THREADS * kernels._k7_rows_per_thread(m)
+    pairs = k7_pairs(kernels, w)
+    print(f"  K7 sorts the rows by objective 0 and compares a block of "
+          f"{rows} queries only with the rows up to its prune limit: "
+          f"{pairs:.4e} of the {float(n2) ** 2:.4e} pairs "
+          f"({pairs / n2 ** 2:.1%}); its bound counts these")
+    # the DCD sort of the parents calls K7 at mu rows
+    wp, onesp = w[:MO_POP].contiguous(), ones[:MO_POP]
+    pairs_half = k7_pairs(kernels, wp)
+    ms_half = time_ms(lambda: kernels.dominated_weight_sums(wp, onesp), flush)
+    bound_half = 2 * m * pairs_half / compare_rate(dev) * 1e3
+    all_half = 2 * m * MO_POP ** 2 / compare_rate(dev) * 1e3
+    print(f"{tag} dominated_weight_sums at n={MO_POP}, m={m}: "
+          f"{ms_half * 1e3:.2f} us (bound {bound_half * 1e3:.2f} us by "
+          f"operations over the {pairs_half:.4e} pairs compared, "
+          f"{bound_half / ms_half:.1%} of it; all {float(MO_POP) ** 2:.4e} "
+          f"pairs would bound it at {all_half * 1e3:.2f} us, "
+          f"{all_half / ms_half:.1%})")
+    ms = time_ms(lambda: kernels.dominated_weight_sums(w, ones), flush)
     record("k7", "dominated_weight_sums", "deap_tpu_torch/csrc/dominance.cu",
-           "deap_tpu/ops/kernels.py:106", err,
-           time_ms(lambda: kernels.dominated_weight_sums(w, ones), flush),
+           "deap_tpu/ops/kernels.py:106", err, ms,
            time_ms(lambda: kernels.dominated_weight_sums_plain(w, ones),
                    flush, reps=3),
-           4 * (n2 * m + 2 * n2), compares=2 * m * n2 * n2)
+           4 * (n2 * m + 2 * n2), compares=2 * m * pairs)
+    all_ms = 2 * m * n2 * n2 / compare_rate(dev) * 1e3
+    print(f"  all {float(n2) ** 2:.4e} pairs would bound K7 at "
+          f"{all_ms * 1e3:.2f} us, {all_ms / ms:.1%} of its time")
 
     # ----------------------------------- K8 dominated_weight_maxes check --
     # one cross step of nd_rank_prefix as it calls K8: the block of 512

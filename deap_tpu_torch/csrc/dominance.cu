@@ -16,21 +16,53 @@
 // TPU kernels' result.
 //
 // Bound on the H100: operations. n_i * n_j pairs of 2 m float32 compares
-// each, against a few MB of input.
+// each, against a few MB of input (K7 at n 100k, m 3: 6e10 compares).
 //
-// Design: one thread per query row, whose m values stay in registers
-// (a template unrolls m <= 8; larger m loops over a local array). Each
-// block stages [TJ] rows of w column by column (structure of arrays, the
-// TPU's wp.T) and their weights in shared memory; every thread of the
-// block reads the same staged row at once, a broadcast without bank
-// conflicts. K7 adds in ascending j, so its sums are deterministic (and
-// exact for integer weights below 2^24 in any order). K8 is called by
-// the prefix chain reduction with a few hundred queries against up to
-// 100k rows, so one block of queries alone would leave most SMs idle:
-// it also splits j across blocks (gridDim.y) and combines the partial
-// maxima with atomicMax on the int bits of the output, which the wrapper
-// zeroes first. Non-negative floats order like their bits, so the
-// combine is exact and order-free.
+// K7 design. The first design gave each thread one query row and, for
+// every staged row j, loaded j's m values and its weight as m + 1 scalar
+// broadcasts from shared memory: shared-load issue (about one warp
+// instruction per SM clock) and the predicate logic around the compares
+// held it at 30% of the compare bound. Now, for m <= 8:
+// - each thread holds R query rows in registers (R 8 for m <= 4, 4 for
+//   m 5-8), so one staged row is compared against R queries;
+// - a staged row is V float4s, its m values then its weight
+//   ({w0, w1, w2, weight} at m 3), read with V broadcast LDS.128s;
+// - per pair one predicate chain: the OR of the m `>` then the AND of the
+//   m `>=` (non-short-circuit bool ops), which compiles to 2 m chained
+//   FSETPs and one predicated FADD (at m 3, 7.4 instructions per pair
+//   with the loads). FSETP goes to the ALU pipe, which issues 64 lanes
+//   per SM clock, not the 128 compares the bound counts (inferred from
+//   the measured times, PERF.md; no profiler reads the pipes there), so
+//   the chain caps the kernel near 50% of its compare bound;
+// - so the wrapper cuts the pairs instead: it sorts the rows by objective
+//   0, descending, rows with a NaN last, and gives each block of queries
+//   a prune limit: only the rows at least as large in objective 0 as the
+//   block's last query can dominate one of its queries, and the block
+//   stages no row past it (about half the pairs at n 100k; the bound
+//   counts only the pairs compared);
+// - the rows j are split across gridDim.y into S ranges of whole tiles
+//   (chosen by the wrapper, ops/kernels.py::_k7_splits), so n 50k and
+//   100k give thousands of blocks although a block holds 128 R queries.
+//   Each block writes its range's partial sums to row blockIdx.y of a
+//   [S, n] scratch (the output itself when S = 1); a block whose range
+//   starts past its prune limit returns at once, and a second kernel adds
+//   each row's partials of the ranges below the limit.
+// Summation order, for each query: within a range, the sorted order
+// (descending objective 0, ties in row order); then the ranges in
+// ascending order. No atomics, so the result is the same bits from run to
+// run, and exact for integer weights while every partial and total stays
+// below 2^24 in magnitude (so bitwise equal to the plain version there).
+// Query rows past n are NaN, which no row dominates. m 9-32 takes the
+// generic kernel: one query row per thread, the tile staged column by
+// column (structure of arrays) and read by scalar broadcasts, with the
+// same order, prune limit, split and combine.
+//
+// K8 dominated_weight_maxes keeps the first design: one thread per query
+// and scalar staging. It is called by the prefix chain reduction with a
+// few hundred queries against up to 100k rows, so it splits j across
+// blocks too and combines the partial maxima with atomicMax on the int
+// bits of the output, which the wrapper zeroes first. Non-negative floats
+// order like their bits, so that combine is exact and order-free.
 #include "common.cuh"
 
 namespace {
@@ -74,32 +106,146 @@ __device__ __forceinline__ bool dominated_by(const float* tile, int r,
   return ge && gt;
 }
 
+// Query rows per thread of K7 at m <= 4; a build may set another count
+// (port_profile.py --k7-variants times them), which the wrapper must be
+// told (ops/kernels.py::_k7_rows_per_thread).
+#ifndef DTT_K7_ROWS
+#define DTT_K7_ROWS 8
+#endif
+
+// K7's shape for m <= 8: V float4s per staged row (its m values, then
+// its weight), R query rows per thread.
+template <int M>
+struct SumsShape {
+  static constexpr int V = (M + 4) / 4;
+  static constexpr int R = M <= 4 ? DTT_K7_ROWS : 4;
+};
+
+// Sum over the rows [blockIdx.y * rows_per_split, +rows_per_split) of w
+// that dominate each of the block's 128 R query rows, into row blockIdx.y
+// of dst ([gridDim.y, n]).
 template <int M>
 __global__ void __launch_bounds__(THREADS)
 dom_sums_kernel(const float* __restrict__ w, const float* __restrict__ weights,
-                float* __restrict__ out, int n, int m_rt) {
+                const int* __restrict__ limit, float* __restrict__ dst, int n,
+                int rows_per_split) {
+  constexpr int V = SumsShape<M>::V;
+  constexpr int R = SumsShape<M>::R;
+  __shared__ float4 tile[TJ * V];
+  // row indices below n fit an int, which keeps the loop's registers few
+  const int jbeg = blockIdx.y * rows_per_split;
+  const int jlim = min(jbeg + rows_per_split, limit[blockIdx.x]);
+  if (jbeg >= jlim) return;  // past the prune limit: the sum skips this range
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * (THREADS * R) + threadIdx.x;
+  float a[R][M];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const long long i = i0 + q * THREADS;
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      a[q][k] = i < n ? w[i * M + k] : __int_as_float(0x7fc00000);  // NaN
+  }
+  float acc[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) acc[q] = 0.0f;
+  for (int j0 = jbeg; j0 < jlim; j0 += TJ) {
+    const int cnt = min(jlim - j0, TJ);
+    __syncthreads();
+    for (int t = threadIdx.x; t < cnt * V; t += THREADS) {
+      const int r = t / V;
+      const int v = t - r * V;
+      const float* row = w + static_cast<long long>(j0 + r) * M;
+      float e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = 4 * v + c;
+        e[c] = k < M ? row[k] : (k == M ? weights[j0 + r] : 0.0f);
+      }
+      tile[t] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int r = 0; r < cnt; ++r) {
+      float b[4 * V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float4 t4 = tile[r * V + v];
+        b[4 * v] = t4.x;
+        b[4 * v + 1] = t4.y;
+        b[4 * v + 2] = t4.z;
+        b[4 * v + 3] = t4.w;
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        // one predicate chain: OR of the m `>`, then AND of the m `>=`
+        bool dom = b[0] > a[q][0];
+#pragma unroll
+        for (int k = 1; k < M; ++k) dom = dom | (b[k] > a[q][k]);
+#pragma unroll
+        for (int k = 0; k < M; ++k) dom = dom & (b[k] >= a[q][k]);
+        if (dom) acc[q] += b[M];
+      }
+    }
+  }
+  float* out = dst + static_cast<long long>(blockIdx.y) * n;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const long long i = i0 + q * THREADS;
+    if (i < n) out[i] = acc[q];
+  }
+}
+
+// K7 for any m <= MAX_M: one query row per thread, scalar staging; the
+// same split of j as dom_sums_kernel.
+__global__ void __launch_bounds__(THREADS)
+dom_sums_generic_kernel(const float* __restrict__ w,
+                        const float* __restrict__ weights,
+                        const int* __restrict__ limit,
+                        float* __restrict__ dst, int n, int m,
+                        int rows_per_split) {
   extern __shared__ float smem[];
-  const int m = M > 0 ? M : m_rt;
   float* tile = smem;
   float* tw = smem + m * TJ;
+  const long long jbeg = static_cast<long long>(blockIdx.y) * rows_per_split;
+  const long long jlim = min(jbeg + rows_per_split,
+                             static_cast<long long>(limit[blockIdx.x]));
+  if (jbeg >= jlim) return;
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   const bool active = i < n;
-  float wi[M > 0 ? M : MAX_M];
+  float wi[MAX_M];
   if (active)
     for (int k = 0; k < m; ++k) wi[k] = w[i * m + k];
   float acc = 0.0f;
-  for (long long j0 = 0; j0 < n; j0 += TJ) {
-    const int cnt = static_cast<int>(n - j0 < TJ ? n - j0 : TJ);
+  for (long long j0 = jbeg; j0 < jlim; j0 += TJ) {
+    const int cnt = static_cast<int>(jlim - j0 < TJ ? jlim - j0 : TJ);
     __syncthreads();
     stage(w, weights, tile, tw, j0, cnt, m);
     __syncthreads();
     if (active) {
 #pragma unroll 4
       for (int r = 0; r < cnt; ++r)
-        acc += dominated_by<M>(tile, r, wi, m) ? tw[r] : 0.0f;
+        acc += dominated_by<0>(tile, r, wi, m) ? tw[r] : 0.0f;
     }
   }
-  if (active) out[i] = acc;
+  if (active) dst[static_cast<long long>(blockIdx.y) * n + i] = acc;
+}
+
+// out[i] = the partial sums of row i over the ranges below its block's
+// prune limit (the ranges a block of the sums kernel wrote), added in
+// ascending order.
+__global__ void __launch_bounds__(256)
+sum_splits_kernel(const float* __restrict__ partial,
+                  const int* __restrict__ limit, float* __restrict__ out,
+                  int n, int rows_per_block, int rows_per_split) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  const int ranges =
+      (limit[i / rows_per_block] + rows_per_split - 1) / rows_per_split;
+  float s = partial[i];
+  for (int k = 1; k < ranges; ++k)
+    s += partial[static_cast<long long>(k) * n + i];
+  out[i] = s;
 }
 
 template <int M>
@@ -140,23 +286,52 @@ size_t smem_bytes(int m) { return sizeof(float) * static_cast<size_t>(m + 1) * T
 
 }  // namespace
 
+// w and weights hold the rows in descending order of objective 0, rows
+// with a NaN last (the wrapper sorts them), and limit[b] is how many of
+// them can dominate a query of block b (those at least as large in
+// objective 0 as the block's last query, or n). Rows of w are split into
+// `nsplit` ranges of whole tiles, one per gridDim.y; nsplit must be
+// ceil(tiles / ceil(tiles / nsplit)), so that no range is empty. With
+// nsplit > 1, `partial` holds nsplit * n floats of scratch; with nsplit 1
+// it is not read. `out` is in the sorted order too.
 extern "C" int dominated_weight_sums(const void* w, const void* weights,
-                                     void* out, int n, int m, void* stream) {
-  if (m < 1 || m > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(grid_for(n, THREADS, 1 << 30));
-  const size_t smem = smem_bytes(m);
+                                     const void* limit, void* out,
+                                     void* partial, int n, int m, int nsplit,
+                                     void* stream) {
+  const int tiles = (n + TJ - 1) / TJ;
+  if (m < 1 || m > MAX_M || n < 1 || nsplit < 1 || nsplit > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (tiles + nsplit - 1) / nsplit;
+  if ((tiles + per - 1) / per != nsplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_per_split = per * TJ;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pw = static_cast<const float*>(w);
   const float* pt = static_cast<const float*>(weights);
+  const int* pl = static_cast<const int*>(limit);
   float* po = static_cast<float*>(out);
+  float* dst = nsplit == 1 ? po : static_cast<float*>(partial);
+  int rows_per_block = THREADS;
   switch (m) {
-#define DTT_SUMS(M) \
-    case M: dom_sums_kernel<M><<<grid, THREADS, smem, s>>>(pw, pt, po, n, m); break;
+#define DTT_SUMS(M)                                                      \
+    case M: dom_sums_kernel<M><<<dim3(grid_for(n, THREADS * SumsShape<M>::R, \
+                                               1 << 30), nsplit),        \
+                                 THREADS, 0, s>>>(pw, pt, pl, dst, n,     \
+                                                  rows_per_split);        \
+      rows_per_block = THREADS * SumsShape<M>::R;                         \
+      break;
     DTT_SUMS(1) DTT_SUMS(2) DTT_SUMS(3) DTT_SUMS(4)
     DTT_SUMS(5) DTT_SUMS(6) DTT_SUMS(7) DTT_SUMS(8)
 #undef DTT_SUMS
-    default: dom_sums_kernel<0><<<grid, THREADS, smem, s>>>(pw, pt, po, n, m);
+    default:
+      dom_sums_generic_kernel<<<dim3(grid_for(n, THREADS, 1 << 30), nsplit),
+                                THREADS, smem_bytes(m), s>>>(
+          pw, pt, pl, dst, n, m, rows_per_split);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  sum_splits_kernel<<<grid_for(n, 256, 1 << 30), 256, 0, s>>>(
+      dst, pl, po, n, rows_per_block, rows_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 

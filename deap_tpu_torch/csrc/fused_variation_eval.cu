@@ -15,14 +15,32 @@
 // row with rowu < mutpb; a float gene flips as 1 - x.
 //
 // Bound on the H100: bytes. The gene-bit stream is 4 bytes per gene, 4x a
-// byte genome; a row that does not mutate needs none of it.
+// byte genome; a row that does not mutate needs none of it. The partner
+// row is read only where the pair mates and the gene bits only where the
+// row mutates, so the kernel moves only the bytes this generation's draws
+// need.
 //
-// Design: one warp per row, its lanes over the genes (L 100 is 4 strided
-// passes), so the row, its partner and its gene bits are read coalesced.
-// The partner row is read only where the pair mates and the gene bits only
-// where the row mutates, so the kernel moves only the bytes this
-// generation's draws need. The fitness is a warp sum of per-lane sums:
-// exact for 0/1 genes in any order.
+// The first design (one warp per row, one gene per lane per pass, L 100
+// in four passes of 1-byte loads, each after the row's draw loads, grid
+// capped at 132 x 64 blocks) was bound by latency: too few bytes in
+// flight, a chain of dependent round trips to device memory per row.
+// Two variants now, chosen by the launcher (takes_vector), which tells
+// the caller which one it launched:
+// - vector, for L % 4 == 0 with the genomes (and children) 4-byte (bool)
+//   or 16-byte (float32) aligned and the gene bits 16-byte aligned: lane
+//   c of a warp owns genes 4c..4c+3, one uint32 word of a bool row or one
+//   float4 of a float32 row (L 100: 25 lanes, one pass). It reads one
+//   word of the row, one of the partner where the segment covers it and
+//   one uint4 of gene bits where the row mutates; the segment and flip
+//   masks are built per byte or per component. The grid is one wave of
+//   resident warps, each walking rows; the draws of a warp's next row load
+//   while it works on this one, so a row's loads all issue at once, with
+//   no wait on its own draws. At n 100k, L 100 it runs at about 30% of
+//   the byte bound; what holds it there is not known yet (PERF.md).
+// - scalar, any other shape or alignment: one warp per row, its lanes
+//   over the genes in strided passes (the first design).
+// The fitness is a warp sum of per-lane sums: exact for 0/1 genes in any
+// order.
 #include "common.cuh"
 
 namespace {
@@ -32,6 +50,7 @@ __device__ __forceinline__ float flip(float x) { return 1.0f - x; }
 __device__ __forceinline__ float value(uint8_t x) { return x ? 1.0f : 0.0f; }
 __device__ __forceinline__ float value(float x) { return x; }
 
+// The scalar variant.
 template <typename T>
 __global__ void __launch_bounds__(256)
 fused_variation_eval_kernel(const T* __restrict__ g,
@@ -73,23 +92,187 @@ fused_variation_eval_kernel(const T* __restrict__ g,
   }
 }
 
+// One word of 4 genes: a uint32 of 4 bool bytes, or a float4.
+template <typename T> struct Word;
+template <> struct Word<uint8_t> {
+  using type = uint32_t;
+  // genes [lo, hi) of the 4 from e0 come from y
+  static __device__ __forceinline__ uint32_t segment(uint32_t x, uint32_t y,
+                                                     int e0, int lo, int hi) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (e0 + b >= lo && e0 + b < hi) m |= 0xFFu << (8 * b);
+    return (x & ~m) | (y & m);
+  }
+  // gene b flips (to x == 0) where its gene bits give u < indpb
+  static __device__ __forceinline__ uint32_t mutate(uint32_t x, uint4 gb,
+                                                    float indpb) {
+    const uint32_t u[4] = {gb.x, gb.y, gb.z, gb.w};
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (u01(u[b]) < indpb) m |= 0xFFu << (8 * b);
+    const uint32_t flipped = __vcmpeq4(x, 0u) & 0x01010101u;
+    return (x & ~m) | (flipped & m);
+  }
+  static __device__ __forceinline__ float value(uint32_t x) {
+    return static_cast<float>(__popc(__vcmpne4(x, 0u) & 0x01010101u));
+  }
+};
+template <> struct Word<float> {
+  using type = float4;
+  static __device__ __forceinline__ float4 segment(float4 x, float4 y, int e0,
+                                                   int lo, int hi) {
+    float4 r;
+    r.x = (e0 >= lo && e0 < hi) ? y.x : x.x;
+    r.y = (e0 + 1 >= lo && e0 + 1 < hi) ? y.y : x.y;
+    r.z = (e0 + 2 >= lo && e0 + 2 < hi) ? y.z : x.z;
+    r.w = (e0 + 3 >= lo && e0 + 3 < hi) ? y.w : x.w;
+    return r;
+  }
+  static __device__ __forceinline__ float4 mutate(float4 x, uint4 gb,
+                                                  float indpb) {
+    float4 r;
+    r.x = u01(gb.x) < indpb ? 1.0f - x.x : x.x;
+    r.y = u01(gb.y) < indpb ? 1.0f - x.y : x.y;
+    r.z = u01(gb.z) < indpb ? 1.0f - x.z : x.z;
+    r.w = u01(gb.w) < indpb ? 1.0f - x.w : x.w;
+    return r;
+  }
+  static __device__ __forceinline__ float value(float4 x) {
+    return ((x.x + x.y) + x.z) + x.w;
+  }
+};
+
+// A row's draws as loaded: pair words 0-2 of its pair's even row, its row
+// word.
+struct RowDraws {
+  uint32_t cx, p1, p2, mut;
+};
+
+__device__ __forceinline__ RowDraws load_draws(
+    const uint32_t* __restrict__ pairbits, const uint32_t* __restrict__ rowbits,
+    int r, int n) {
+  RowDraws d = {0xFFFFFFFFu, 0u, 0u, 0xFFFFFFFFu};  // no crossover, no mutation
+  if (r < n) {
+    const uint32_t* pb = pairbits + static_cast<size_t>(r & ~1) * 4;
+    d.cx = pb[0];
+    d.p1 = pb[1];
+    d.p2 = pb[2];
+    d.mut = rowbits[r];
+  }
+  return d;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+fused_variation_eval_vector_kernel(const T* __restrict__ g,
+                                   const uint32_t* __restrict__ pairbits,
+                                   const uint32_t* __restrict__ rowbits,
+                                   const uint32_t* __restrict__ genebits,
+                                   T* __restrict__ out,
+                                   float* __restrict__ fit, int n, int L,
+                                   float cxpb, float mutpb, float indpb) {
+  using W = typename Word<T>::type;
+  const W* gw = reinterpret_cast<const W*>(g);
+  const uint4* bw = reinterpret_cast<const uint4*>(genebits);
+  W* ow = reinterpret_cast<W*>(out);
+  const int words = L >> 2;
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  // r is the same for every lane of a warp, so the warp stays converged;
+  // the draws of the warp's next row load while this row's genes do
+  int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  RowDraws d = load_draws(pairbits, rowbits, r, n);
+  for (; r < n; r += warps) {
+    const RowDraws next = load_draws(pairbits, rowbits, r + warps, n);
+    const bool do_cx = (r | 1) < n && u01(d.cx) < cxpb;
+    int lo = 0, hi = 0;
+    if (do_cx) {
+      const int p1 = 1 + static_cast<int>(u01(d.p1) * static_cast<float>(L));
+      int p2 = 1 + static_cast<int>(u01(d.p2) * static_cast<float>(L - 1));
+      if (p2 >= p1) p2 += 1;
+      lo = min(p1, p2);
+      hi = max(p1, p2);
+    }
+    const bool do_mut = u01(d.mut) < mutpb;
+    const W* row = gw + static_cast<size_t>(r) * words;
+    const W* mate = gw + static_cast<size_t>(r ^ 1) * words;
+    const uint4* bits = bw + static_cast<size_t>(r) * words;
+    W* dst = ow + static_cast<size_t>(r) * words;
+    float sum = 0.0f;
+    for (int c = lane; c < words; c += 32) {
+      const int e0 = 4 * c;
+      W v = row[c];
+      if (do_cx && lo < e0 + 4 && hi > e0)
+        v = Word<T>::segment(v, mate[c], e0, lo, hi);
+      if (do_mut) v = Word<T>::mutate(v, bits[c], indpb);
+      dst[c] = v;
+      sum += Word<T>::value(v);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) fit[r] = sum;
+    d = next;
+  }
+}
+
+// The vector variant's conditions: whole words per row, and every word
+// (genomes, children, gene bits) aligned for its load or store.
+template <typename T>
+bool takes_vector(const void* g, const void* genebits, const void* out,
+                  int L) {
+  const uintptr_t align = 4 * sizeof(T);
+  return L % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
+         reinterpret_cast<uintptr_t>(out) % align == 0 &&
+         reinterpret_cast<uintptr_t>(genebits) % 16 == 0;
+}
+
 template <typename T>
 int launch(const void* g, const void* pairbits, const void* rowbits,
            const void* genebits, void* out, void* fit, int n, int L,
-           float cxpb, float mutpb, float indpb, void* stream) {
-  const int threads = 256;  // 8 rows per block
-  const int blocks = grid_for(static_cast<long long>(n) * 32, threads,
-                              132 * 64);
-  fused_variation_eval_kernel<T><<<blocks, threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const uint32_t*>(pairbits),
-      static_cast<const uint32_t*>(rowbits),
-      static_cast<const uint32_t*>(genebits), static_cast<T*>(out),
-      static_cast<float*>(fit), n, L, cxpb, mutpb, indpb);
+           float cxpb, float mutpb, float indpb, void* stream,
+           int* vector) {
+  const int threads = 256;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* pg = static_cast<const T*>(g);
+  const uint32_t* pp = static_cast<const uint32_t*>(pairbits);
+  const uint32_t* pr = static_cast<const uint32_t*>(rowbits);
+  const uint32_t* pb = static_cast<const uint32_t*>(genebits);
+  T* po = static_cast<T*>(out);
+  float* pf = static_cast<float*>(fit);
+  const bool vec = takes_vector<T>(g, genebits, out, L);
+  if (vector != nullptr) *vector = vec;
+  if (vec) {
+    // as many warps as the card holds at once, each walking rows
+    static int resident = 0;
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_variation_eval_vector_kernel<T>, threads, 0);
+      resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    fused_variation_eval_vector_kernel<T>
+        <<<grid_for(n, threads / 32, resident), threads, 0, s>>>(
+            pg, pp, pr, pb, po, pf, n, L, cxpb, mutpb, indpb);
+  } else {
+    // 8 rows per block
+    const int blocks = grid_for(static_cast<long long>(n) * 32, threads,
+                                132 * 64);
+    fused_variation_eval_kernel<T><<<blocks, threads, 0, s>>>(
+        pg, pp, pr, pb, po, pf, n, L, cxpb, mutpb, indpb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// Each entry sets *vector (when not null) to 1 where it launched the vector
+// variant, else 0.
 
 // Genomes of bool (one byte, 0 or 1).
 extern "C" int fused_variation_eval_u8(const void* g, const void* pairbits,
@@ -97,9 +280,9 @@ extern "C" int fused_variation_eval_u8(const void* g, const void* pairbits,
                                        const void* genebits, void* out,
                                        void* fit, int n, int L, float cxpb,
                                        float mutpb, float indpb,
-                                       void* stream) {
+                                       void* stream, int* vector) {
   return launch<uint8_t>(g, pairbits, rowbits, genebits, out, fit, n, L, cxpb,
-                         mutpb, indpb, stream);
+                         mutpb, indpb, stream, vector);
 }
 
 // Genomes of float32.
@@ -108,7 +291,8 @@ extern "C" int fused_variation_eval_f32(const void* g, const void* pairbits,
                                         const void* genebits, void* out,
                                         void* fit, int n, int L, float cxpb,
                                         float mutpb, float indpb,
-                                        void* stream) {
+                                        void* stream, int* vector) {
   return launch<float>(g, pairbits, rowbits, genebits, out, fit, n, L, cxpb,
-                       mutpb, indpb, stream);
+                       mutpb, indpb, stream, vector);
 }
+

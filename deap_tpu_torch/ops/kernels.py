@@ -252,6 +252,15 @@ def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
     Fitness sums are exact for 0/1 genomes, so kernel and plain version
     agree bitwise there.
 
+    On the card the launcher picks one of two variants of the kernel by
+    shape and alignment: the vector variant (4 genes per lane, a warp per
+    row, the next row's draws loading while it works) where ``L % 4 ==
+    0``, the genomes are 4-byte (bool) or 16-byte (float32) aligned and
+    the gene bits 16-byte aligned, the scalar one (a gene per lane)
+    otherwise. Both compute the same bits;
+    ``fused_variation_eval.vector_launches`` counts the launches the
+    launcher reports as vector ones (within ``launches``).
+
     :param genomes: ``[n, L]`` bool or float32.
     :param pairbits, rowbits, genebits: ``uint32`` ``[n, 4]``, ``[n, 1]``,
         ``[n, L]``, e.g. from ``fused_bits(generator, n, L)``.
@@ -281,17 +290,20 @@ def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
         else "fused_variation_eval_f32"
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
     fn = _build.function("fused_variation_eval", lib_fn,
-                         [P] * 6 + [I, I, F, F, F, P])
+                         [P] * 6 + [I, I, F, F, F, P, ctypes.POINTER(I)])
+    vector = I(0)  # the launcher sets it to 1 where it took that variant
     err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
              genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, L,
              _f32(cxpb), _f32(mutpb), _f32(indpb),
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(vector))
     fused_variation_eval.launches += 1
+    fused_variation_eval.vector_launches += vector.value
     _build.check("fused_variation_eval", err, "fused_variation_eval")
     return out, fit
 
 
 fused_variation_eval.launches = 0
+fused_variation_eval.vector_launches = 0
 
 
 # ------------------------------------------------ dominance reductions ----
@@ -302,11 +314,23 @@ fused_variation_eval.launches = 0
 # TPU kernels multiply the 0/1 dominance by the weight, which turns an
 # infinite weight of a row that does not dominate into NaN).
 
+#: K7 sums past 2^24 (or of non-integer weights) round in another order
+#: than the plain version's: the relative tolerance stated for them
+K7_RTOL = 1e-5
 #: objectives the dominance kernels take (``MAX_M`` of csrc/dominance.cu)
 DOMINANCE_MAX_NOBJ = 32
 #: query rows per step of the plain versions: a ``[1024, n, m]`` compare
 _PLAIN_CHUNK = 1024
 _K8_BLOCKS_PER_SM = 4
+#: threads per block and rows per staged tile of csrc/dominance.cu
+_DOM_THREADS, _DOM_TILE = 128, 256
+#: K7 aims at this many blocks per SM (several waves) and at most this
+#: many ranges of j
+_K7_BLOCKS_PER_SM, _K7_MAX_SPLITS = 96, 128
+
+
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _dominators(queries: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -366,15 +390,58 @@ def _dominance_inputs(what: str, w: torch.Tensor, weights: torch.Tensor,
     return w, weights, queries
 
 
+def _k7_rows_per_thread(m: int) -> int:
+    """Query rows each thread of K7 holds (``SumsShape<M>::R`` in
+    csrc/dominance.cu; 1 in its generic kernel for m > 8)."""
+    return 8 if m <= 4 else 4 if m <= 8 else 1
+
+
+def _k7_order(w: torch.Tensor, rows_per_block: int):
+    """K7's row order and prune limits: ``order`` sorts the rows by
+    objective 0, descending and stable, rows holding a NaN last (they
+    dominate nothing and nothing dominates them); ``limit[b]`` counts the
+    sorted rows whose key is at least that of block ``b``'s last query
+    (``rows_per_block`` queries a block), the only rows that can dominate
+    a query of the block. ``int32``, one per block."""
+    n = w.shape[0]
+    key = torch.where(torch.isnan(w).any(1), -torch.inf, w[:, 0])
+    key, order = torch.sort(key, descending=True, stable=True)
+    last = torch.arange(rows_per_block, n + rows_per_block, rows_per_block,
+                        device=w.device).clamp_(max=n) - 1
+    limit = torch.searchsorted(-key, -key[last], right=True)
+    return order, limit.to(torch.int32)
+
+
+def _k7_splits(n: int, m: int, sms: int) -> int:
+    """How many ranges of whole ``j`` tiles K7 splits its rows into
+    (``gridDim.y``): enough for ``_K7_BLOCKS_PER_SM`` blocks per SM, at
+    most ``_K7_MAX_SPLITS`` (the ``[S, n]`` scratch) and one tile each,
+    rounded so that no range is empty (the launcher refuses another
+    count)."""
+    query_blocks = -(-n // (_DOM_THREADS * _k7_rows_per_thread(m)))
+    tiles = -(-n // _DOM_TILE)
+    want = -(-_K7_BLOCKS_PER_SM * sms // query_blocks)
+    want = max(1, min(want, tiles, _K7_MAX_SPLITS))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
 def dominated_weight_sums(w: torch.Tensor,
                           weights: torch.Tensor) -> torch.Tensor:
     """``out[i] = Σ_{j dominates i} weights[j]`` without the ``[n, n]``
     dominance matrix (K7). With 0/1 weights this counts dominators; with
     SPEA2 strengths it is the raw fitness.
 
-    Sums of integer-valued weights below 2²⁴ are exact, so kernel and
-    plain version agree bitwise there; otherwise they add in different
-    orders (the kernel in ascending ``j``) and agree to a relative 1e-5.
+    On the card the rows go to the kernel sorted by objective 0,
+    descending (:func:`_k7_order`), so a block of queries compares only
+    the prefix of rows at least as large in objective 0 as its last
+    query — about half the pairs. The kernel splits that order into
+    ``S`` ranges (:func:`_k7_splits`), adds each range in order into a
+    ``[S, n]`` scratch, then adds the ranges in ascending order: no
+    atomics, so a launch gives the same bits every time. Sums of
+    integer-valued weights stay exact while below 2²⁴, so kernel and plain
+    version agree bitwise there; otherwise they add in different orders
+    and agree to a relative 1e-5 (``K7_RTOL``).
 
     :param w: ``f32[n, nobj]`` weighted values (maximisation).
     :param weights: ``f32[n]`` finite per-dominator weights (bools
@@ -390,21 +457,25 @@ def dominated_weight_sums(w: torch.Tensor,
     out = torch.empty(n, dtype=torch.float32, device=w.device)
     if n == 0:
         return out
+    order, limit = _k7_order(w, _DOM_THREADS * _k7_rows_per_thread(m))
+    ws, wts = w[order].contiguous(), weights[order].contiguous()
+    sums = torch.empty(n, dtype=torch.float32, device=w.device)
+    nsplit = _k7_splits(n, m, _multiprocessors(w.device))
+    partial = sums if nsplit == 1 else torch.empty(
+        (nsplit, n), dtype=torch.float32, device=w.device)
     P, I = _build.PTR, _build.INT
     fn = _build.function("dominance", "dominated_weight_sums",
-                         [P, P, P, I, I, P])
-    err = fn(w.data_ptr(), weights.data_ptr(), out.data_ptr(), n, m,
+                         [P, P, P, P, P, I, I, I, P])
+    err = fn(ws.data_ptr(), wts.data_ptr(), limit.data_ptr(), sums.data_ptr(),
+             partial.data_ptr(), n, m, nsplit,
              torch.cuda.current_stream(w.device).cuda_stream)
     dominated_weight_sums.launches += 1
     _build.check("dominance", err, "dominated_weight_sums")
+    out[order] = sums
     return out
 
 
 dominated_weight_sums.launches = 0
-
-
-def _multiprocessors(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dominated_weight_maxes(w: torch.Tensor, weights: torch.Tensor,
@@ -436,8 +507,8 @@ def dominated_weight_maxes(w: torch.Tensor, weights: torch.Tensor,
         return out
     # split the rows of w across blocks until the card holds a few blocks
     # per SM (a few hundred queries alone fill a handful of SMs)
-    query_blocks = -(-nq // 128)
-    tiles = -(-n // 256)
+    query_blocks = -(-nq // _DOM_THREADS)
+    tiles = -(-n // _DOM_TILE)
     want = -(-_K8_BLOCKS_PER_SM * _multiprocessors(w.device) // query_blocks)
     nsplit = max(1, min(tiles, want, 65535))
     P, I = _build.PTR, _build.INT

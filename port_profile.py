@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin] [--gp]
+                            [--rastrigin] [--gp] [--sass] [--k7-variants]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -35,11 +35,18 @@ run):
   (``gp/host_schedule``, ``gp/schedule_upload``, ``gp/grouped_dispatch``,
   ``gp/select``, ``gp/vary``).
 
-For each it prints the wall time per generation (host clock around work
-that ends in a synchronise), the device time per generation summed over
-kernels, the device's busy share (device time over wall time; one stream,
-so kernels do not overlap), and the kernels that take the most device
-time. The chrome traces go to ``DIR`` (default ``build/profile``).
+``--sass`` prints the instructions per pair of K7's inner loop at m 3
+(``cuobjdump -sass`` of the built kernel; the listing goes to ``DIR``);
+``--k7-variants`` times K7 at the NSGA-II path's sizes in builds with 4,
+8 and 16 query rows per thread and with the prune off, and the wrapper's
+sort and gathers alone.
+
+For each profile it prints the wall time per generation (host clock
+around work that ends in a synchronise), the device time per generation
+summed over kernels, the device's busy share (device time over wall
+time; one stream, so kernels do not overlap), and the kernels that take
+the most device time. The chrome traces go to ``DIR`` (default
+``build/profile``).
 """
 
 import argparse
@@ -203,6 +210,151 @@ def profile_gp(dev, out_dir, facts):
           f"{-state['best_fitness']:.6f}")
 
 
+def k7_variants(dev, facts, rows=(4, 8, 16), reps=10):
+    """K7 on 3-objective DTLZ2 rows at the NSGA-II path's sizes (n 50k,
+    the DCD sort, and 100k, the union) in builds of csrc/dominance.cu with
+    ``rows`` query rows per thread (``-DDTT_K7_ROWS``) and, at the
+    default's rows, with the prune off (every block compares every row);
+    each bitwise against the default build with 0/1 weights, timed in
+    turns (forward, then backward) as ``chip_smoke.time_ms`` times, with
+    its share of the compare bound over the pairs it compares. Also the
+    wrapper's sort, limit search and gathers alone."""
+    import ctypes
+    import subprocess
+    import torch
+    from chip_smoke import (MO_DIM, MO_NOBJ, MO_POP, bitwise_equal,
+                            compare_rate, k7_pairs, ptxas_report, time_ms)
+    from deap_tpu_torch import _build
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    builds = {}
+    for r in rows:  # one nvcc each, all started together
+        lib = str(_build.BUILD_DIR / f"libdominance-rows{r}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DDTT_K7_ROWS={r}",
+               "-o", lib, str(_build.CSRC / "dominance.cu")]
+        builds[r] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     lib)
+    libs = {}
+    for r, (proc, lib) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -DDTT_K7_ROWS={r} failed:\n{log}")
+        for kernel, line in ptxas_report(log):
+            if kernel == f"dom_sums_kernel<{MO_NOBJ}>":
+                print(f"  ptxas rows {r} {kernel}: {line}")
+        libs[r] = ctypes.CDLL(lib)
+        libs[r].dtt_error_string.argtypes = [_build.INT]
+        libs[r].dtt_error_string.restype = ctypes.c_char_p
+
+    default_lib = _build.library("dominance")
+    default_rows = kernels._k7_rows_per_thread
+    default_order = kernels._k7_order
+    default_r = default_rows(MO_NOBJ)
+
+    def all_rows(w, rows_per_block):
+        order, limit = default_order(w, rows_per_block)
+        return order, torch.full_like(limit, w.shape[0])
+
+    def variant(r, prune):
+        def call(w, weights):
+            _build._LIBS["dominance"] = libs[r]
+            kernels._k7_rows_per_thread = (
+                lambda m: r if m <= 4 else default_rows(m))
+            kernels._k7_order = default_order if prune else all_rows
+            try:
+                return kernels.dominated_weight_sums(w, weights)
+            finally:
+                _build._LIBS["dominance"] = default_lib
+                kernels._k7_rows_per_thread = default_rows
+                kernels._k7_order = default_order
+        return call
+
+    variants = {f"rows {r}": (variant(r, True), r) for r in rows}
+    variants[f"rows {default_r}, no prune"] = (variant(default_r, False),
+                                               None)
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    rate = compare_rate(dev)
+    gen = make_generator(11, dev)
+    w = -bm.dtlz2(torch.rand((2 * MO_POP, MO_DIM), generator=gen,
+                             device=dev), MO_NOBJ)
+    for n in (MO_POP, 2 * MO_POP):
+        wn = w[:n].contiguous()
+        ones = torch.ones(n, device=dev)
+        want = kernels.dominated_weight_sums(wn, ones)
+        for name, (fn, r) in variants.items():
+            if not bitwise_equal(fn(wn, ones), want):
+                raise RuntimeError(f"K7 {name} differs from the default "
+                                   f"build at n={n}")
+        times = {name: [] for name in variants}
+        for name in list(variants) + list(variants)[::-1]:
+            fn = variants[name][0]
+            times[name].append(time_ms(lambda: fn(wn, ones), flush,
+                                       reps=reps))
+        every = 2 * MO_NOBJ * float(n) ** 2 / rate
+        for name, (_, r) in variants.items():
+            pairs = (k7_pairs(kernels, wn, kernels._DOM_THREADS * r)
+                     if r else float(n) ** 2)
+            ms = times[name]
+            bound = 2 * MO_NOBJ * pairs / rate
+            print(f"[{facts}] K7 n={n} {name}: "
+                  + ", ".join(f"{t * 1e3:.2f}" for t in ms)
+                  + f" us ({pairs:.4e} pairs compared; "
+                  f"{bound / (min(ms) * 1e-3):.1%} of their bound "
+                  f"{bound * 1e6:.2f} us, {every / (min(ms) * 1e-3):.1%} "
+                  f"of all pairs' {every * 1e6:.2f} us)")
+
+        def prepare():
+            order, _ = kernels._k7_order(
+                wn, kernels._DOM_THREADS * default_r)
+            return wn[order].contiguous(), ones[order].contiguous()
+        print(f"[{facts}] K7 n={n}: the wrapper's sort, limit search and "
+              f"gathers alone {time_ms(prepare, flush, reps=reps) * 1e3:.2f}"
+              f" us")
+
+
+def sass_k7(out_dir, facts, m=3):
+    """The inner loop of K7's kernel for ``m`` objectives, from
+    ``cuobjdump -sass`` of the built library: the basic block with the
+    most float compares, its opcode counts and its instructions per
+    (query, staged row) pair (2 m compares each). The whole listing goes
+    to ``DIR/dominance.sass``."""
+    import re
+    import subprocess
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.ops import kernels
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target(
+        "dominance"))], check=True, capture_output=True, text=True).stdout
+    with open(os.path.join(out_dir, "dominance.sass"), "w") as f:
+        f.write(sass)
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs
+                if re.match(rf"\S*dom_sums_kernelILi{m}E", f))
+    # (address, opcode, branch target) of each instruction
+    code = []
+    for line in body.splitlines():
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_]+)[^;]*?(0x[0-9a-f]+)?\s*;", line)
+        if ins:
+            code.append((int(ins.group(1), 16), ins.group(3),
+                         int(ins.group(4), 16) if ins.group(4) else None))
+    # the loops: a backward branch and the code from its target to it;
+    # the inner loop is the one densest in float compares
+    loops = [[op for a, op, _ in code if target <= a <= at]
+             for at, op, target in code
+             if op == "BRA" and target is not None and target < at]
+    loop = max(loops, key=lambda b: b.count("FSETP") / len(b))
+    counts = {op: loop.count(op) for op in sorted(set(loop))}
+    pairs = loop.count("FSETP") / (2 * m)
+    print(f"[{facts}] K7 (m={m}, {kernels._k7_rows_per_thread(m)} query "
+          f"rows per thread) inner loop: {len(loop)} instructions for "
+          f"{pairs:g} pairs = {len(loop) / pairs:.3f} per pair; "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+
+
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
             "gp": profile_gp}
@@ -222,6 +374,11 @@ def main():
                         help="profile the fused Rastrigin loop (K6)")
     parser.add_argument("--gp", action="store_true",
                         help="profile the GP symbolic regression loop (K9)")
+    parser.add_argument("--sass", action="store_true",
+                        help="count the instructions of K7's inner loop")
+    parser.add_argument("--k7-variants", action="store_true",
+                        help="time K7 with 4, 8 and 16 query rows per "
+                             "thread and with the prune off")
     args = parser.parse_args()
     chosen = [name for name in PROFILES if getattr(args, name)]
     import torch
@@ -239,7 +396,11 @@ def main():
     facts = gpu_facts()
     _build.build()
     dev = torch.device("cuda")
-    if chosen:
+    if args.sass:
+        sass_k7(args.out, facts)
+    if args.k7_variants:
+        k7_variants(dev, facts)
+    if chosen or args.sass or args.k7_variants:
         for name in chosen:
             PROFILES[name](dev, args.out, facts)
         print(facts)

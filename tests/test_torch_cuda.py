@@ -156,6 +156,30 @@ def test_dominance_kernels_equal_plain(card, n, m):
         assert _same(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 2, 129, 1001, 50_000])
+@pytest.mark.parametrize("m", [1, 3, 5, 9])
+def test_dominance_sums_across_splits(card, n, m):
+    """K7 at sizes that are not multiples of its rows per thread, its tile
+    or its split of j, with NaN and -inf rows: bitwise for integer
+    weights; for non-integer ones two launches give the same bits and
+    stay within K7_RTOL of the plain version."""
+    w = _fitness_on(card, 3 * n + m, n, m)
+    gen = make_generator(n + 7, card)
+    ints = torch.randint(-3, 4, (n,), generator=gen, device=card).float()
+    assert _same(kernels.dominated_weight_sums(w, ints),
+                 kernels.dominated_weight_sums_plain(w, ints))
+    weights = torch.rand(n, generator=gen, device=card)
+    before = kernels.dominated_weight_sums.launches
+    got = kernels.dominated_weight_sums(w, weights)
+    again = kernels.dominated_weight_sums(w, weights)
+    want = kernels.dominated_weight_sums_plain(w, weights)
+    torch.cuda.synchronize()
+    assert kernels.dominated_weight_sums.launches == before + 2
+    assert _same(got, again)
+    rel = (got - want).abs() / want.abs().clamp_min(1.0)
+    assert float(rel.max()) <= kernels.K7_RTOL
+
+
 def test_dominance_kernels_on_a_wide_population(card):
     """Many tiles and, for K8, many blocks over the rows of w."""
     w = -torch.rand((20_000, 3), generator=make_generator(3, card),
@@ -195,6 +219,43 @@ def test_fused_variation_eval_kernel_equals_plain(card, n, L, dtype):
     want = kernels.fused_variation_eval_plain(g, *bits, **probs)
     torch.cuda.synchronize()
     assert kernels.fused_variation_eval.launches == before + 1
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("L", [1, 4, 31, 33, 100])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+def test_fused_variation_eval_variants(card, L, dtype):
+    """L % 4 == 0 on aligned tensors takes the vector variant, other
+    lengths the scalar one; both equal the plain version."""
+    n = 1001
+    gen = make_generator(L, card)
+    g = (torch.rand((n, L), generator=gen, device=card) < 0.5).to(dtype)
+    bits = kernels.fused_bits(gen, n, L)
+    probs = dict(cxpb=0.6, mutpb=0.5, indpb=0.1)
+    before = (kernels.fused_variation_eval.launches,
+              kernels.fused_variation_eval.vector_launches)
+    got = kernels.fused_variation_eval(g, *bits, **probs)
+    want = kernels.fused_variation_eval_plain(g, *bits, **probs)
+    torch.cuda.synchronize()
+    assert (kernels.fused_variation_eval.launches,
+            kernels.fused_variation_eval.vector_launches) == (
+        before[0] + 1, before[1] + (L % 4 == 0))
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+def test_fused_variation_eval_misaligned_view_takes_scalar(card, dtype):
+    n, L = 513, 100
+    gen = make_generator(5, card)
+    g = torch.empty(n * L + 1, dtype=dtype, device=card)[1:].view(n, L)
+    g.copy_(torch.rand((n, L), generator=gen, device=card) < 0.5)
+    bits = kernels.fused_bits(gen, n, L)
+    probs = dict(cxpb=0.6, mutpb=0.5, indpb=0.1)
+    before = kernels.fused_variation_eval.vector_launches
+    got = kernels.fused_variation_eval(g, *bits, **probs)
+    want = kernels.fused_variation_eval_plain(g, *bits, **probs)
+    torch.cuda.synchronize()
+    assert kernels.fused_variation_eval.vector_launches == before
     assert _same(got[0], want[0]) and _same(got[1], want[1])
 
 

@@ -147,3 +147,61 @@ def test_dominance_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="no kernel"):
         tk.dominated_weight_sums(torch.zeros((3, 2), device="meta"),
                                  torch.zeros(3, device="meta"))
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("m", [1, 3, 5, 9, 32])
+def test_k7_split_choice(sms, m):
+    """K7's split of j: between 1 and min(tiles, the scratch cap), a count
+    the launcher takes (no empty range), and at the NSGA-II path's sizes
+    several blocks per SM."""
+    for n in (1, 2, 129, 255, 256, 257, 1001, 8192, 50_000, 100_000):
+        s = tk._k7_splits(n, m, sms)
+        tiles = -(-n // tk._DOM_TILE)
+        assert 1 <= s <= min(tiles, tk._K7_MAX_SPLITS)
+        per = -(-tiles // s)
+        assert -(-tiles // per) == s
+        assert (s - 1) * per < tiles  # the last range holds a tile
+        if n >= 50_000 and sms == 132 and m <= 8:
+            rows = tk._DOM_THREADS * tk._k7_rows_per_thread(m)
+            assert -(-n // rows) * s >= 16 * sms
+
+
+@pytest.mark.parametrize("seed,n,m", [(0, 300, 3), (1, 257, 2), (2, 1001, 5),
+                                      (3, 129, 1), (4, 700, 9)])
+def test_k7_prune_limits_keep_every_dominator(seed, n, m):
+    """K7 compares a block of queries only against the rows of its prune
+    limit in its sorted order: every dominator of every query lies there
+    (ties, duplicates, -inf and NaN rows included)."""
+    w = fitness_set(seed, n, m, nan=True)
+    w[:4, 0] = [-0.0, 0.0, -0.0, 0.0]     # equal in IEEE, not in bits
+    if m > 1:
+        w[n // 2, m - 1] = np.nan         # a NaN in one objective only
+    w = T(w)
+    for rows in (128, 512, 1024):
+        order, limit = tk._k7_order(w, rows)
+        ws = w[order]
+        dom = tk._dominators(ws, ws)          # [query, row], sorted order
+        pos = torch.arange(n)
+        for b in range(limit.shape[0]):
+            q = dom[b * rows:(b + 1) * rows]
+            assert not bool((q & (pos >= int(limit[b]))).any())
+        assert int(limit[-1]) <= n and bool((limit[1:] >= limit[:-1]).all())
+
+
+@pytest.mark.parametrize("n,rows", [(1, 128), (300, 1), (300, 128),
+                                    (1001, 512), (1001, 1024)])
+def test_k7_pairs_counts_each_block_up_to_its_limit(n, rows):
+    """``chip_smoke.k7_pairs``, the pair count of K7's bound: with
+    distinct values in objective 0 a block's limit is the rows up to its
+    last query, so block b of ``size_b`` queries compares
+    ``size_b * min(n, (b + 1) * rows)`` pairs (one query per block:
+    n (n + 1) / 2; one block: n²)."""
+    import chip_smoke
+    rng = np.random.default_rng(n + rows)
+    w = rng.normal(size=(n, 3)).astype(np.float32)
+    w[:, 0] = rng.permutation(n)
+    blocks = -(-n // rows)
+    want = sum(min(rows, n - b * rows) * min(n, (b + 1) * rows)
+               for b in range(blocks))
+    assert chip_smoke.k7_pairs(tk, T(w), rows) == want
