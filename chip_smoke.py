@@ -34,24 +34,39 @@ Phases (any failure ends the script with a non-zero exit code):
    genes exact, mutated genes and fitness at the stated tolerances), the
    fused Rastrigin loop for 50 generations and unfused ``ea_simple``
    (``cx_blend``, ``mut_gaussian``, ``sel_tournament``) for 10;
-8. the dominance kernels K7 and K8 against their plain versions on
+8. the ``prng='hw'`` paths of K2-K5, Philox4x32-10 in the kernel
+   (``csrc/philox.cuh``): the device function against Random123's known
+   answers and the plain ``ops.philox.philox4x32_10``; each path bitwise
+   against its plain version on ``ops.philox``'s streams (K2 bool and
+   float32 at L 100 and L 33, n 100k and 1001; K3 and K4 at n 100k; K5
+   5 generations at n 100k and 1001), the layout's invariants (K3-hw ==
+   packed K2-hw; one K5-hw generation == K4-hw then K3-hw), one key twice
+   equal and two keys different; the fused OneMax loop,
+   ``ea_simple_packed`` (``gather``, ``sorted``, ``binned``) and
+   ``evolve_packed`` (200 generations in 4 calls) with ``prng='hw'`` and
+   ``'auto'``, each Philox launch counted; peak memory of a 50-generation
+   ``evolve_packed`` call, ``'input'`` against ``'hw'``; ``'hw'`` against
+   ``'input'`` in distribution (4 seeds, 20 generations, final best and
+   average fitness within 3 standard errors); ``counting_order_desc``
+   (``'scan'`` and ``'mxu'``) against ``lex_sort_desc``;
+9. the dominance kernels K7 and K8 against their plain versions on
    3-objective DTLZ2 data at the NSGA-II path's shapes (100k rows; K8
    as the prefix chain reduction calls it, 512 queries against the 50k
    ranked rows before them): bitwise where the sums are exact, K7's
    SPEA2 raw sums within ``kernels.K7_RTOL`` and equal from launch to
    launch, timed against the card's compare rate over the pairs each
    compares (K7 also at 50k rows, the DCD sort's size);
-9. the non-dominated sorting engines agree on the card at n 8192
-   (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
-   and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
-   16,384-row union;
-10. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
+10. the non-dominated sorting engines agree on the card at n 8192
+    (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
+    and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
+    16,384-row union;
+11. NSGA-II on 3-objective DTLZ2 (``bench.py``'s generation: DCD mating
     selection, Gaussian variation clipped to [0, 1], evaluation,
     ``sel_nsga2`` over the union): a small run whose survivors through
     K7 equal those through the dominance matrix, then mu 50,000 (union
     100k, 12 variables) for 3 generations after one of warm-up, with K7
     launched once per front peeled;
-11. K9, the GP grouped evaluator: bitwise against its plain version on
+12. K9, the GP grouped evaluator: bitwise against its plain version on
     the grouped schedule of a ``gen_half_and_half`` population under
     ``math_set(1)`` (pop 4096, width 64, 256 points, deduped as the loop
     builds it) and on a small odd case, then ``bench_gp.py``'s symbolic
@@ -95,6 +110,27 @@ GP_MSE_GATE, GP_SMALL_POP, GP_SMALL_NGEN = 0.05, 256, 5
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 compares issued per SM per clock (4 schedulers x 32 lanes)
 COMPARES_PER_SM_CLOCK = 128
+# 32-bit integer multiply-adds per SM per clock on compute capability 9.0
+# (CUDA C Programming Guide, arithmetic instruction throughput), and the
+# integer multiplies of one Philox4x32-10 call (10 rounds x 2 products x
+# hi and lo halves)
+IMADS_PER_SM_CLOCK, PHILOX_IMADS = 64, 40
+# Random123's known answers for Philox4x32-10: (counter, key, output)
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+# the libraries whose kernels draw with Philox (each carries the device
+# function and its known-answer entry)
+PHILOX_LIBRARIES = ("fused_variation_eval", "packed_variation",
+                    "selgather_packed", "evolve_packed")
+# seeds and generations of the in-distribution check of 'hw' against
+# 'input'
+DIST_SEEDS, DIST_NGEN = 4, 20
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -226,10 +262,11 @@ def main():
     clock = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     compares_per_s = compare_rate(dev)
+    imads_per_s = sms * IMADS_PER_SM_CLOCK * clock
     print(f"card: {facts}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; memory rate for bounds {rate / 1e12} TB/s; "
           f"{sms} SMs at max {clock / 1e6:.0f} MHz = {compares_per_s:.4e} "
-          f"float32 compares/s")
+          f"float32 compares/s, {imads_per_s:.4e} integer multiplies/s")
 
     # ------------------------------------------------------------ build --
     t0 = time.perf_counter()
@@ -245,13 +282,14 @@ def main():
     report = {}
 
     def record(key, name, source, replaces, err, ms, plain_ms, nbytes,
-               compares=0):
+               compares=0, imads=0):
         """One kernel's line; the bound is the larger of its bytes over the
-        memory rate and its float32 compares over the compare rate."""
+        memory rate and its operations (float32 compares, or the integer
+        multiplies of its Philox calls) over their rate."""
         bytes_ms = nbytes / rate * 1e3
-        compares_ms = compares / compares_per_s * 1e3
-        bound_ms = max(bytes_ms, compares_ms)
-        bound_by = "bytes" if bytes_ms >= compares_ms else "operations"
+        ops_ms = (compares / compares_per_s + imads / imads_per_s) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         report[key] = {"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": None,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -259,7 +297,8 @@ def main():
                        "library_ms": None}
         print(f"{tag} {name}: {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} "
               f"us by {bound_by}: {nbytes / 1e6:.2f} MB, {compares:.3e} "
-              f"compares; plain {plain_ms * 1e3:.2f} us), max_abs_err {err}")
+              f"compares, {imads:.3e} integer multiplies; plain "
+              f"{plain_ms * 1e3:.2f} us), max_abs_err {err}")
 
     # ----------------------------------------- K1 fused_variation check --
     gen = make_generator(1, dev)
@@ -448,12 +487,14 @@ def main():
               f"{float(fit.mean()):.3f}; launches K3 {k3}, K4 {k4}")
 
     whole_generation_phases(torch, dev, tag, report, record)
+    hw_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
     gp_phases(torch, dev, tag, report, record)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
-                                   "k8", "k9")]}))
+                                   "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
+                                   "k5_hw")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -473,11 +514,16 @@ def launch_counters():
 
 
 def reset_counts():
-    """Set every launch count to 0 just before a main-path run."""
-    from deap_tpu_torch.ops import kernels
+    """Set every launch count to 0 just before a main-path run (the
+    Philox and vector launches counted within them too)."""
+    from deap_tpu_torch.ops import kernels, packed
     for fn in launch_counters():
         fn.launches = 0
     kernels.fused_variation_eval.vector_launches = 0
+    for fn in (kernels.fused_variation_eval,
+               packed.fused_variation_eval_packed,
+               packed.sel_tournament_gather_packed, packed.evolve_packed):
+        fn.hw_launches = 0
 
 
 def whole_generation_phases(torch, dev, tag, report, record):
@@ -730,6 +776,437 @@ def whole_generation_phases(torch, dev, tag, report, record):
           f"{mins[-1]:.4f}")
 
 
+def hw_phases(torch, dev, tag, report, record):
+    """Phase 8: the ``prng='hw'`` paths of K2-K5 (Philox in the kernel):
+    the known answers of the device function, each path bitwise against
+    its plain version, the invariants of the counter layout, ``bench.py``'s
+    OneMax loops with ``'hw'`` and ``'auto'``, peak memory of an
+    ``evolve_packed`` call, ``'hw'`` against ``'input'`` in distribution,
+    and the binned selector."""
+    from deap_tpu_torch import algorithms, ops
+    from deap_tpu_torch.core.fitness import lex_sort_desc
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, packed, philox, selection
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    gen = make_generator(53, dev)
+    W = packed.words_for(L)
+    gene_calls = -(-L // 4)
+    u32 = torch.uint32
+
+    def same(a, b, what):
+        for x, y, part in zip(a, b, ("children", "fitness")):
+            if not bitwise_equal(x, y):
+                fail(f"{what}: {part} differ")
+
+    # ------------------------------------------------ known answers --
+    ctr = torch.tensor([c for c, _, _ in PHILOX_KAT]).to(u32).to(dev)
+    keys = torch.tensor([k for _, k, _ in PHILOX_KAT]).to(u32).to(dev)
+    want = torch.tensor([o for _, _, o in PHILOX_KAT]).to(u32).to(dev)
+    rctr = philox._u32(torch.randint(0, 2**32, (4096, 4), generator=gen,
+                                     device=dev, dtype=torch.int64))
+    rkey = philox._u32(torch.randint(0, 2**32, (4096, 2), generator=gen,
+                                     device=dev, dtype=torch.int64))
+    rwant = philox.philox4x32_10(rctr, rkey).to(u32)
+    if not bitwise_equal(philox.philox4x32_10(ctr, keys).to(u32), want):
+        fail("ops.philox.philox4x32_10 misses Random123's known answers")
+    for lib in PHILOX_LIBRARIES:
+        if not bitwise_equal(kernels.philox_kat(ctr, keys, lib), want):
+            fail(f"philox4x32_10 in lib{lib} misses the known answers")
+        if not bitwise_equal(kernels.philox_kat(rctr.to(u32), rkey.to(u32),
+                                                lib), rwant):
+            fail(f"philox4x32_10 in lib{lib} differs from the plain version")
+    print(f"{tag} philox4x32_10 on the card (in each of "
+          f"{', '.join(PHILOX_LIBRARIES)}): Random123's 3 known answers, and "
+          f"== ops.philox.philox4x32_10 on 4096 random counters and keys")
+
+    # ------------------------------------------------- K2 Philox path --
+    worst = 0.0
+    for n, length, dtype in ((1001, 33, torch.bool), (1001, 33, torch.float32),
+                             (N, 33, torch.bool), (N, 33, torch.float32),
+                             (1001, L, torch.bool), (1001, L, torch.float32),
+                             (N, L, torch.float32), (N, L, torch.bool)):
+        variant = "vector" if length % 4 == 0 else "scalar"
+        g = (torch.rand((n, length), generator=gen, device=dev)
+             < 0.5).to(dtype)
+        key = kernels.philox_key(gen)
+        fn = kernels.fused_variation_eval
+        before = (fn.vector_launches, fn.hw_launches)
+        got = fn(g, prng="hw", key=key, **probs)
+        if (fn.vector_launches - before[0] != (variant == "vector")
+                or fn.hw_launches - before[1] != 1):
+            fail(f"fused_variation_eval(prng='hw')[{dtype}] at L={length} "
+                 f"did not take the {variant} variant of the Philox path")
+        bits = philox.hw_fused_bits(key, n, length)
+        want = kernels.fused_variation_eval_plain(g, *bits, **probs)
+        torch.cuda.synchronize()
+        same(got, want, f"fused_variation_eval(prng='hw')[{dtype}] at "
+             f"n={n}, L={length}")
+        worst = max(worst, max_abs_err(got[0], want[0]),
+                    max_abs_err(got[1], want[1]))
+        print(f"{tag} fused_variation_eval(prng='hw')[{dtype}] ({variant} "
+              f"variant) == plain on ops.philox's streams bitwise at n={n}, "
+              f"L={length}")
+    # the main path's case (N, L, bool) is the last and the one timed
+    again = kernels.fused_variation_eval(g, prng="hw", key=key, **probs)
+    other = kernels.fused_variation_eval(g, prng="hw", key=other_key(key),
+                                         **probs)
+    if bitwise_equal(got[0], other[0]):
+        fail("fused_variation_eval(prng='hw') gave the same children for "
+             "two keys")
+    same(got, again, "fused_variation_eval(prng='hw') twice with one key")
+    n_mut = rows_below(bits[1], MUTPB)
+    record("k2_hw", "fused_variation_eval (prng='hw')",
+           "deap_tpu_torch/csrc/fused_variation_eval.cu",
+           "deap_tpu/ops/kernels.py:609", worst,
+           time_ms(lambda: kernels.fused_variation_eval(
+               g, prng="hw", key=key, **probs), flush),
+           time_ms(lambda: kernels.fused_variation_eval_plain(
+               g, *philox.hw_fused_bits(key, N, L), **probs), flush),
+           2 * N * L + 4 * N,
+           imads=PHILOX_IMADS * (N + n_mut * gene_calls))
+    print(f"  (of {N} rows {n_mut} mutate: {N + n_mut * gene_calls} Philox "
+          f"calls; one key twice bitwise equal, two keys differ)")
+
+    # ---------------------------------------------- K3 and K4 Philox --
+    bools = torch.rand((N, L), generator=gen, device=dev) < 0.5
+    pk = packed.pack_genomes(bools)
+    key = kernels.philox_key(gen)
+    got = packed.fused_variation_eval_packed(pk, L, prng="hw", key=key,
+                                             **probs)
+    bits = philox.hw_packed_bits(key, N, W, L)
+    want = packed.fused_variation_eval_packed_plain(pk, L, *bits, **probs)
+    torch.cuda.synchronize()
+    same(got, want, "fused_variation_eval_packed(prng='hw')")
+    k3_err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    # invariant: K3-hw on packed rows == K2-hw on the rows, packed
+    byte = kernels.fused_variation_eval(bools, prng="hw", key=key, **probs)
+    same(got, (packed.pack_genomes(byte[0]), byte[1]),
+         "K3-hw on pack_genomes(g) against pack_genomes of K2-hw on g")
+    print(f"{tag} fused_variation_eval_packed(prng='hw') == plain on "
+          f"ops.philox's streams bitwise at n={N}, W={W}; == "
+          f"pack_genomes(K2-hw) with the same key, fitness too")
+    n_mut = rows_below(bits[1], MUTPB)
+    record("k3_hw", "fused_variation_eval_packed (prng='hw')",
+           "deap_tpu_torch/csrc/packed_variation.cu",
+           "deap_tpu/ops/packed.py:239", k3_err,
+           time_ms(lambda: packed.fused_variation_eval_packed(
+               pk, L, prng="hw", key=key, **probs), flush),
+           time_ms(lambda: packed.fused_variation_eval_packed_plain(
+               pk, L, *philox.hw_packed_bits(key, N, W, L), **probs), flush),
+           2 * N * W * 4 + 4 * N,
+           imads=PHILOX_IMADS * (N + n_mut * gene_calls))
+
+    fit = packed.packed_fitness(pk)
+    got = packed.sel_tournament_gather_packed(pk, fit, prng="hw", key=key,
+                                              tournsize=TOURNSIZE)
+    draws = philox.hw_tournament_bits(key, TOURNSIZE, N)
+    want = packed.sel_tournament_gather_packed_plain(pk, fit, draws)
+    torch.cuda.synchronize()
+    if not bitwise_equal(got, want):
+        fail("sel_tournament_gather_packed(prng='hw') differs from the plain "
+             "version")
+    print(f"{tag} sel_tournament_gather_packed(prng='hw') == plain on "
+          f"ops.philox's streams bitwise at n={N}, tournsize={TOURNSIZE}")
+    record("k4_hw", "sel_tournament_gather_packed (prng='hw')",
+           "deap_tpu_torch/csrc/selgather_packed.cu",
+           "deap_tpu/ops/packed.py:331", max_abs_err(got, want),
+           time_ms(lambda: packed.sel_tournament_gather_packed(
+               pk, fit, prng="hw", key=key, tournsize=TOURNSIZE), flush),
+           time_ms(lambda: packed.sel_tournament_gather_packed_plain(
+               pk, fit, philox.hw_tournament_bits(key, TOURNSIZE, N)), flush),
+           4 * (N + 2 * N * W),
+           imads=PHILOX_IMADS * N * -(-TOURNSIZE // 4))
+
+    # ------------------------------------------------- K5 Philox path --
+    worst = 0.0
+    for n in (1001, N):
+        g = make_generator(59, dev)
+        pkn = packed.pack_genomes(ops.bernoulli_genome(L)(g, n))
+        fitn = packed.packed_fitness(pkn)
+        key = kernels.philox_key(g)
+        got = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw", key=key,
+                                   **probs)
+        want = packed.evolve_packed_plain(
+            pkn, fitn, L, *philox.hw_evolve_bits(key, 5, TOURNSIZE, n, L),
+            **probs)
+        torch.cuda.synchronize()
+        same(got, want, f"evolve_packed(prng='hw') after 5 generations at "
+             f"n={n}")
+        worst = max(worst, max_abs_err(got[0], want[0]),
+                    max_abs_err(got[1], want[1]))
+        # invariant: one generation of K5-hw == K4-hw then K3-hw, one key
+        one = packed.evolve_packed(pkn, fitn, L, ngen=1, prng="hw", key=key,
+                                   **probs)
+        parents = packed.sel_tournament_gather_packed(
+            pkn, fitn, prng="hw", key=key, tournsize=TOURNSIZE)
+        same(one, packed.fused_variation_eval_packed(
+            parents, L, prng="hw", key=key, **probs),
+            f"evolve_packed(prng='hw', ngen=1) against K4-hw then K3-hw at "
+            f"n={n}")
+        print(f"{tag} evolve_packed(prng='hw') == plain on ops.philox's "
+              f"streams bitwise after 5 generations at n={n}; one generation "
+              f"== K4-hw then K3-hw with the same key")
+    again = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw", key=key,
+                                 **probs)
+    other = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw",
+                                 key=other_key(key), **probs)
+    same(got, again, "evolve_packed(prng='hw') twice with one key")
+    if bitwise_equal(got[0], other[0]):
+        fail("evolve_packed(prng='hw') gave the same population for two "
+             "keys")
+    g = make_generator(23, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, N))
+    fit = packed.packed_fitness(pk)
+    key = kernels.philox_key(g)
+    calls = 0
+    for gi in range(EVOLVE_CALL):
+        mut = philox.draws(key, torch.arange(N, device=dev), 0, gi,
+                           philox.PAIR_ROW)[:, 3].to(u32)
+        calls += N * (1 + -(-TOURNSIZE // 4)) + rows_below(mut, MUTPB) \
+            * gene_calls
+    record("k5_hw", "evolve_packed (prng='hw')",
+           "deap_tpu_torch/csrc/evolve_packed.cu",
+           "deap_tpu/ops/packed.py:462", worst,
+           time_ms(lambda: packed.evolve_packed(
+               pk, fit, L, ngen=EVOLVE_CALL, prng="hw", key=key, **probs),
+               flush, reps=10),
+           time_ms(lambda: packed.evolve_packed_plain(
+               pk, fit, L, *philox.hw_evolve_bits(key, EVOLVE_CALL, TOURNSIZE,
+                                                  N, L), **probs),
+               flush, reps=3),
+           2 * (4 * N * W + 4 * N), imads=PHILOX_IMADS * calls)
+    print(f"  K5-hw: {calls} Philox calls in {EVOLVE_CALL} generations "
+          f"({calls / EVOLVE_CALL:.0f} a generation); one key twice bitwise "
+          f"equal, two keys differ")
+    del flush
+
+    # ---------------------------------------- memory of one K5 call --
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+    g = make_generator(67, dev)
+    mem_in = peak(lambda: packed.evolve_packed(
+        pk, fit, L, *packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, W),
+        **probs))
+    mem_hw = peak(lambda: packed.evolve_packed(
+        pk, fit, L, ngen=EVOLVE_CALL, prng="hw", generator=g, **probs))
+    print(f"{tag} peak device memory of one {EVOLVE_CALL}-generation "
+          f"evolve_packed call at n={N} above what was allocated before: "
+          f"prng='input' {mem_in / 1e9:.4f} GB (its draws included), "
+          f"prng='hw' {mem_hw / 1e9:.6f} GB")
+
+    # ----------------------------------- the loops, 'hw' and 'auto' --
+    def onemax_start(seed, n):
+        g = make_generator(seed, dev)
+        genomes = ops.bernoulli_genome(L)(g, n)
+        return g, genomes, genomes.sum(1).to(torch.float32)
+
+    def plain_hw(genomes, prng, generator, **kw):
+        key = kernels.philox_key(generator)
+        return kernels.fused_variation_eval_plain(
+            genomes, *philox.hw_fused_bits(key, *genomes.shape), **kw)
+
+    runs = []
+    for variation in (None, plain_hw):
+        g, genomes, fit = onemax_start(13, 1001)
+        for _ in range(5):
+            genomes, fit = fused_onemax_generation(g, genomes, fit, variation,
+                                                   prng="hw")
+        runs.append((genomes, fit))
+    same(runs[0], runs[1], "the fused OneMax loop through K2-hw against its "
+         "plain version")
+    print(f"{tag} fused OneMax loop (n=1001, 5 gens) through K2-hw == plain "
+          f"version bitwise")
+
+    def timed(run):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for prng in ("hw", "auto"):
+        g, genomes, fit = onemax_start(17, N)
+        start_mean = float(fit.mean())
+
+        def fused_loop():
+            gg, ff = genomes, fit
+            for _ in range(FUSED_NGEN):
+                gg, ff = fused_onemax_generation(g, gg, ff, prng=prng)
+            return gg, ff
+        (gg, ff), wall = timed(fused_loop)
+        fn = kernels.fused_variation_eval
+        if not (fn.launches == fn.hw_launches == fn.vector_launches
+                == FUSED_NGEN):
+            fail(f"fused OneMax loop (prng={prng!r}): K2 launches "
+                 f"{fn.launches}, Philox {fn.hw_launches}, vector "
+                 f"{fn.vector_launches} in {FUSED_NGEN} generations")
+        if not (torch.equal(ff, gg.sum(1).to(torch.float32))
+                and float(ff.mean()) > start_mean + 10):
+            fail(f"fused OneMax loop (prng={prng!r}): fitness wrong or flat")
+        if prng == "hw":
+            report["k2_hw"]["launches"] = fn.hw_launches
+        print(f"{tag} fused OneMax loop prng={prng!r} n={N} L={L}: "
+              f"{FUSED_NGEN} generations in {wall:.3f} s = "
+              f"{FUSED_NGEN / wall:.2f} gens/s; mean fitness "
+              f"{start_mean:.3f} -> {float(ff.mean()):.3f}; K2 launches "
+              f"{fn.launches}, Philox {fn.hw_launches}")
+
+    def packed_start(seed, n):
+        g = make_generator(seed, dev)
+        pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, n))
+        return g, pk, packed.packed_fitness(pk)
+
+    # small reference: three generations equal the plain versions in turn
+    g, pk, fit = packed_start(3, 1001)
+    got = algorithms.ea_simple_packed(g, pk, fit, L, 3, **probs, prng="hw",
+                                      device=dev)
+    g, want_pk, want_fit = packed_start(3, 1001)
+    for _ in range(3):
+        key = kernels.philox_key(g)
+        parents = packed.sel_tournament_gather_packed_plain(
+            want_pk, want_fit, philox.hw_tournament_bits(key, TOURNSIZE, 1001))
+        want_pk, want_fit = packed.fused_variation_eval_packed_plain(
+            parents, L, *philox.hw_packed_bits(key, 1001, W, L), **probs)
+    same(got, (want_pk, want_fit), "ea_simple_packed(prng='hw') against the "
+         "plain versions")
+    print(f"{tag} ea_simple_packed(prng='hw', n=1001, 3 gens) through the "
+          f"Philox kernels == plain versions bitwise")
+
+    for select in ("gather", "sorted", "binned"):
+        for prng in ("hw", "auto"):
+            g, pk, fit = packed_start(5, N)
+            start_mean = float(fit.mean())
+            (pk, fit), wall = timed(lambda: algorithms.ea_simple_packed(
+                g, pk, fit, L, PACKED_NGEN, tournsize=TOURNSIZE,
+                select=select, prng=prng, **probs, device=dev))
+            k3, k4 = (packed.fused_variation_eval_packed,
+                      packed.sel_tournament_gather_packed)
+            want_k4 = PACKED_NGEN if select == "gather" else 0
+            if not (k3.launches == k3.hw_launches == PACKED_NGEN
+                    and k4.launches == k4.hw_launches == want_k4):
+                fail(f"ea_simple_packed select={select} prng={prng!r}: K3 "
+                     f"launches {k3.launches} (Philox {k3.hw_launches}), K4 "
+                     f"{k4.launches} (Philox {k4.hw_launches})")
+            if not (torch.equal(fit, packed.packed_fitness(pk))
+                    and float(fit.mean()) > start_mean + 10):
+                fail(f"ea_simple_packed select={select} prng={prng!r}: "
+                     f"fitness wrong or flat")
+            if select == "gather" and prng == "hw":
+                report["k3_hw"]["launches"] = k3.hw_launches
+                report["k4_hw"]["launches"] = k4.hw_launches
+            print(f"{tag} ea_simple_packed select={select} prng={prng!r} "
+                  f"n={N}: {PACKED_NGEN} generations in {wall:.3f} s = "
+                  f"{PACKED_NGEN / wall:.2f} gens/s; mean fitness "
+                  f"{start_mean:.3f} -> {float(fit.mean()):.3f}; K3 Philox "
+                  f"launches {k3.hw_launches}, K4 {k4.hw_launches}")
+
+    for prng in ("hw", "auto"):
+        g, pk, fit = packed_start(29, N)
+        start_mean = float(fit.mean())
+
+        def evolve_loop():
+            p, f = pk, fit
+            for _ in range(EVOLVE_NGEN // EVOLVE_CALL):
+                p, f = packed.evolve_packed(p, f, L, ngen=EVOLVE_CALL,
+                                            prng=prng, generator=g, **probs)
+            return p, f
+        (p, f), wall = timed(evolve_loop)
+        k5 = packed.evolve_packed
+        if not k5.launches == k5.hw_launches == EVOLVE_NGEN // EVOLVE_CALL:
+            fail(f"evolve_packed prng={prng!r}: launches {k5.launches} "
+                 f"(Philox {k5.hw_launches}) for {EVOLVE_NGEN} generations")
+        if not (torch.equal(f, packed.packed_fitness(p))
+                and float(f.mean()) > start_mean + 10):
+            fail(f"evolve_packed prng={prng!r}: fitness wrong or flat")
+        if prng == "hw":
+            report["k5_hw"]["launches"] = k5.hw_launches
+        print(f"{tag} evolve_packed prng={prng!r} n={N}: {EVOLVE_NGEN} "
+              f"generations in {EVOLVE_NGEN // EVOLVE_CALL} calls of "
+              f"{EVOLVE_CALL} in {wall:.3f} s = {EVOLVE_NGEN / wall:.2f} "
+              f"gens/s; mean fitness {start_mean:.3f} -> "
+              f"{float(f.mean()):.3f}; K5 Philox launches {k5.hw_launches}")
+
+    # ----------------------------------- 'hw' against 'input' in law --
+    def fused_final(seed, prng):
+        g, genomes, fit = onemax_start(1000 + seed, N)
+        for _ in range(DIST_NGEN):
+            genomes, fit = fused_onemax_generation(g, genomes, fit,
+                                                   prng=prng)
+        return fit
+
+    def evolve_final(seed, prng):
+        g, pk, fit = packed_start(2000 + seed, N)
+        if prng == "input":
+            return packed.evolve_packed(pk, fit, L, *packed.evolve_bits(
+                g, DIST_NGEN, TOURNSIZE, N, W), **probs)[1]
+        return packed.evolve_packed(pk, fit, L, ngen=DIST_NGEN, prng=prng,
+                                    generator=g, **probs)[1]
+
+    for name, final in (("fused OneMax", fused_final),
+                        ("evolve_packed", evolve_final)):
+        fits = {prng: [final(s, prng) for s in range(DIST_SEEDS)]
+                for prng in ("hw", "input")}
+        parts = []
+        for stat, reduce in (("best", torch.amax), ("average", torch.mean)):
+            a = [float(reduce(f)) for f in fits["hw"]]
+            b = [float(reduce(f)) for f in fits["input"]]
+            se = (statistics.variance(a) / DIST_SEEDS
+                  + statistics.variance(b) / DIST_SEEDS) ** 0.5
+            diff = abs(statistics.mean(a) - statistics.mean(b))
+            if diff > 3 * se:
+                fail(f"{name}: final {stat} fitness with prng='hw' "
+                     f"({statistics.mean(a)}) and 'input' "
+                     f"({statistics.mean(b)}) differ by {diff}, more than 3 "
+                     f"standard errors ({se})")
+            parts.append(f"{stat} {statistics.mean(a):.4f} against "
+                         f"{statistics.mean(b):.4f} (3 SE {3 * se:.4f})")
+        print(f"{tag} {name} n={N}, {DIST_NGEN} gens, {DIST_SEEDS} seeds, "
+              f"prng='hw' against 'input': " + "; ".join(parts))
+
+    # ------------------------------------------------ binned selector --
+    # on the evolved population's fitness: 101 buckets, many ties
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    v = f.clone()
+    w = v[:, None]
+    want = lex_sort_desc(w)
+    times = {"lex_sort_desc": time_ms(lambda: lex_sort_desc(w), flush)}
+    for mode in ("scan", "mxu"):
+        got = selection.counting_order_desc(v, 0, L, mode)
+        if not bitwise_equal(got, want):
+            fail(f"counting_order_desc(mode={mode!r}) differs from "
+                 f"lex_sort_desc")
+        times[mode] = time_ms(lambda: selection.counting_order_desc(
+            v, 0, L, mode), flush)
+    g1, g2 = make_generator(71, dev), make_generator(71, dev)
+    if not bitwise_equal(selection.sel_tournament_binned(g1, w, N, TOURNSIZE,
+                                                         0, L),
+                         selection.sel_tournament_sorted(g2, w, N,
+                                                         TOURNSIZE)):
+        fail("sel_tournament_binned differs from sel_tournament_sorted")
+    faster = min(("scan", "mxu"), key=times.get)
+    print(f"{tag} counting_order_desc at n={N} over {L + 1} buckets: 'scan' "
+          f"and 'mxu' == lex_sort_desc bitwise; sel_tournament_binned == "
+          f"sel_tournament_sorted from one generator state; us "
+          + ", ".join(f"{k} {t * 1e3:.2f}" for k, t in times.items())
+          + f"; faster: {faster!r}; 'auto' takes "
+          f"{selection.AUTO_COUNTING_MODE!r}")
+    del flush
+
+
+def other_key(key):
+    """A Philox key that differs from ``key`` in one bit."""
+    from deap_tpu_torch.ops import philox
+    return (philox._u32(key) ^ 1).to(key.dtype)
+
+
 def rows_below(bits, p):
     """How many uint32 draws of ``bits`` give a uniform below ``p``."""
     from deap_tpu_torch.ops import kernels
@@ -777,7 +1254,7 @@ def k9_bytes(sched, prims, P):
 
 
 def mo_phases(torch, dev, tag, report, record):
-    """Phases 5-7: K7 and K8 at the NSGA-II path's shapes, the engines'
+    """Phases 9-11: K7 and K8 at the NSGA-II path's shapes, the engines'
     agreement, and the NSGA-II 3-objective DTLZ2 run."""
     from deap_tpu_torch import benchmarks as bm
     from deap_tpu_torch import mo
@@ -990,7 +1467,7 @@ def mo_phases(torch, dev, tag, report, record):
 
 
 def gp_phases(torch, dev, tag, report, record):
-    """Phase 11: K9 at the GP path's shapes, and bench_gp.py's symbolic
+    """Phase 12: K9 at the GP path's shapes, and bench_gp.py's symbolic
     regression through it."""
     from deap_tpu_torch import gp
     from deap_tpu_torch.device import make_generator
@@ -1195,17 +1672,23 @@ def nsga2_generation(g, x, w, nd="standard", inputs=None):
     return xall[keep], wall[keep]
 
 
-def fused_onemax_generation(g, genomes, fit, variation=None):
+def fused_onemax_generation(g, genomes, fit, variation=None, prng="input"):
     """``bench.py``'s ``make_run_fused`` step: tournament 3 on the fitness,
     the gather of the parents' rows, then K2 (or ``variation``, its plain
-    version). Returns the children and their fitness."""
+    version) with bits drawn from ``g`` (``prng='input'``) or made in the
+    kernel from a key drawn from ``g`` (``'hw'``, and ``'auto'`` on the
+    card; ``bench.py`` passes ``prng="hw"``). Returns the children and
+    their fitness."""
     from deap_tpu_torch.ops import kernels
     from deap_tpu_torch.ops.selection import sel_tournament
     variation = variation or kernels.fused_variation_eval
     n, length = genomes.shape
     idx = sel_tournament(g, fit[:, None], n, TOURNSIZE)
-    return variation(genomes[idx], *kernels.fused_bits(g, n, length),
-                     cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    if prng == "input":
+        return variation(genomes[idx], *kernels.fused_bits(g, n, length),
+                         **probs)
+    return variation(genomes[idx], prng=prng, generator=g, **probs)
 
 
 def rastrigin_fused_generation(g, genomes, fit):

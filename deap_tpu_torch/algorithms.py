@@ -34,8 +34,12 @@ from deap_tpu_torch.ops.kernels import (
     KERNEL_DTYPES,
     _resolve_prng,
     fused_variation,
+    philox_key,
 )
-from deap_tpu_torch.ops.selection import sel_tournament_sorted
+from deap_tpu_torch.ops.selection import (
+    sel_tournament_binned,
+    sel_tournament_sorted,
+)
 from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
 from deap_tpu_torch.support.stats import Statistics
@@ -279,35 +283,59 @@ def ea_simple_packed(generator: torch.Generator, packed: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ngen`` OneMax eaSimple generations on bit-packed genomes:
     tournament selection, then :func:`ops.packed.fused_variation_eval_packed`
-    (two-point crossover, flip-bit mutation, popcount fitness).
+    (two-point crossover, flip-bit mutation, popcount fitness) — the
+    generations of the JAX package's ``bench.py`` candidates
+    ``make_run_selgather`` (``select='gather'``) and ``make_run_packed``
+    (``'sorted'``, and ``'binned'`` for ``packed_binned``).
 
     ``select='gather'`` selects and gathers the parents in one kernel
-    (:func:`ops.packed.sel_tournament_gather_packed`, draw order: aspirant
-    bits, then variation bits); ``select='sorted'`` uses the rank-based
-    :func:`ops.selection.sel_tournament_sorted` and an index gather.
-    Random bits are drawn with ``generator`` and streamed into the kernels
-    (``prng='input'``); in-kernel generation (``prng='hw'``, and
-    ``'auto'`` on the card) is not available yet and raises.
+    (:func:`ops.packed.sel_tournament_gather_packed`); ``select='sorted'``
+    uses the rank-based :func:`ops.selection.sel_tournament_sorted` and an
+    index gather; ``select='binned'`` is ``'sorted'`` with the counting
+    sort (:func:`ops.selection.sel_tournament_binned` over the integer
+    fitness range ``[0, length]``), the same winners.
+
+    ``prng='input'`` draws each generation's bits with ``generator`` and
+    streams them into the kernels (draw order: aspirant bits or ranks,
+    then variation bits); ``prng='hw'`` draws one Philox key per
+    generation (then the ranks of ``'sorted'``/``'binned'``), which the
+    generation's kernels share: the select-and-gather kernel, then the
+    variation kernel. ``'auto'`` is ``'hw'`` on the card, ``'input'`` on
+    the CPU.
 
     :param packed: ``uint32[n, W]`` rows (:func:`ops.packed.pack_genomes`).
     :param fit: ``f32[n]`` fitness (:func:`ops.packed.packed_fitness`).
     :returns: ``(packed, fit)`` after ``ngen`` generations.
     """
-    if select not in ("gather", "sorted"):
+    if select not in ("gather", "sorted", "binned"):
         raise ValueError(f"unknown select {select!r}")
     dev = resolve_device(device)
-    _resolve_prng(prng, dev)
+    mode = _resolve_prng(prng, dev)
     check_generator(generator, dev)
     packed, fit = packed.to(dev), fit.to(dev)
     n, W = packed.shape
+    probs = dict(cxpb=cxpb, mutpb=mutpb, indpb=indpb)
     for _ in range(ngen):
-        if select == "gather":
+        key = philox_key(generator) if mode == "hw" else None
+        if select == "gather" and key is not None:
+            parents = _packed.sel_tournament_gather_packed(
+                packed, fit, tournsize=tournsize, prng="hw", key=key)
+        elif select == "gather":
             parents = _packed.sel_tournament_gather_packed(
                 packed, fit, _packed.tournament_bits(generator, tournsize, n))
         else:
-            idx = sel_tournament_sorted(generator, fit[:, None], n, tournsize)
+            if select == "sorted":
+                idx = sel_tournament_sorted(generator, fit[:, None], n,
+                                            tournsize)
+            else:
+                idx = sel_tournament_binned(generator, fit[:, None], n,
+                                            tournsize, 0, length)
             parents = packed.view(torch.int32)[idx].view(torch.uint32)
-        packed, fit = _packed.fused_variation_eval_packed(
-            parents, length, *_packed.variation_bits(generator, n, W),
-            cxpb=cxpb, mutpb=mutpb, indpb=indpb)
+        if key is not None:
+            packed, fit = _packed.fused_variation_eval_packed(
+                parents, length, key=key, prng="hw", **probs)
+        else:
+            packed, fit = _packed.fused_variation_eval_packed(
+                parents, length, *_packed.variation_bits(generator, n, W),
+                **probs)
     return packed, fit

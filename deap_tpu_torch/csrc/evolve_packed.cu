@@ -30,9 +30,19 @@
 // them, mutates each child (reading gene bits only where it mutates) and
 // writes both children and their popcounts. Buffers written inside the
 // kernel are read through plain loads, never the read-only cache.
+//
+// The Philox path (evolve_hw_kernel, replacing _evolve_kernel_hw of
+// deap_tpu/ops/packed.py) takes no draw tensors: the thread of pair p
+// makes its draws in registers from the key (csrc/philox.cuh, counter word
+// g = the generation inside this call): the two tournaments, one pair+row
+// call for the even lane and one for the odd lane's mutation gate, and
+// ceil(L / 4) gene calls for each lane that mutates. Its plain version is
+// the bits-input plain version fed ops/philox.py::hw_evolve_bits. Bound
+// there: the integer multiplies of the Philox calls (40 each).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -142,6 +152,88 @@ evolve_kernel(const uint32_t* __restrict__ pop0, const float* __restrict__ fit0,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+evolve_hw_kernel(const uint32_t* __restrict__ pop0,
+                 const float* __restrict__ fit0,
+                 const uint32_t* __restrict__ key_ptr, uint32_t* pops,
+                 float* fits, int n, int W, int L, int ngen, int tournsize,
+                 float cxpb, float mutpb, float indpb) {
+  cg::grid_group grid = cg::this_grid();
+  const uint2 key = load_key(key_ptr);
+  const size_t lanes = static_cast<size_t>(n);
+  const int npairs = (n + 1) / 2;
+  for (int gen = 0; gen < ngen; ++gen) {
+    const int prev = (gen - 1) & 1;
+    const uint32_t* src = gen == 0 ? pop0 : pops + prev * lanes * W;
+    const float* fsrc = gen == 0 ? fit0 : fits + prev * lanes;
+    uint32_t* dst = pops + (gen & 1) * lanes * W;
+    float* fdst = fits + (gen & 1) * lanes;
+    const uint32_t g = static_cast<uint32_t>(gen);
+    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < npairs;
+         p += gridDim.x * blockDim.x) {
+      const int a = 2 * p, b = a + 1;
+      const bool has_b = b < n;
+      const size_t pa = hw_tournament(fsrc, a, g, n, tournsize, key);
+      const size_t pb =
+          has_b ? hw_tournament(fsrc, b, g, n, tournsize, key) : pa;
+      const uint4 da = draw(a, 0u, g, kPairRow, key);
+      const bool do_cx = has_b && u01(da.x) < cxpb;
+      int lo = 0, hi = 0;
+      if (do_cx) cut_segment(da.y, da.z, L, &lo, &hi);
+      const bool mut_a = u01(da.w) < mutpb;
+      const bool mut_b = has_b && u01(draw(b, 0u, g, kPairRow, key).w) < mutpb;
+      int count_a = 0, count_b = 0;
+      for (int w = 0; w < W; ++w) {
+        const int start = 32 * w;
+        uint32_t xa = src[pa * W + w];
+        uint32_t xb = src[pb * W + w];
+        if (do_cx) {
+          const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
+          const uint32_t ya = (xa & ~seg) | (xb & seg);
+          xb = (xb & ~seg) | (xa & seg);
+          xa = ya;
+        }
+        if (mut_a) xa ^= hw_flip_word(a, w, g, L, indpb, key);
+        dst[static_cast<size_t>(a) * W + w] = xa;
+        count_a += __popc(xa);
+        if (has_b) {
+          if (mut_b) xb ^= hw_flip_word(b, w, g, L, indpb, key);
+          dst[static_cast<size_t>(b) * W + w] = xb;
+          count_b += __popc(xb);
+        }
+      }
+      fdst[a] = static_cast<float>(count_a);
+      if (has_b) fdst[b] = static_cast<float>(count_b);
+    }
+    grid.sync();  // generation gen is finished before gen + 1 selects
+  }
+}
+
+// Launch `kernel` cooperatively with `args`: one thread per pair of
+// lanes, at most as many blocks as the card holds at once.
+int launch_resident(const void* kernel, void** args, int n, void* stream) {
+  int device = 0, sms = 0, per_sm = 0, cooperative = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!cooperative) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const int needed = grid_for((n + 1) / 2, kThreads, 1 << 30);
+  const int blocks = needed < per_sm * sms ? needed : per_sm * sms;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
+                                    args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // pops [2, n, W] and fits [2, n] are the double buffers; generation g
@@ -152,21 +244,6 @@ extern "C" int evolve_packed(const void* pop0, const void* fit0,
                              void* fits, int n, int W, int L, int ngen,
                              int tournsize, float cxpb, float mutpb,
                              float indpb, void* stream) {
-  int device = 0, sms = 0, per_sm = 0, cooperative = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch,
-                               device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!cooperative) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, evolve_kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int needed = grid_for((n + 1) / 2, kThreads, 1 << 30);
-  const int blocks = needed < per_sm * sms ? needed : per_sm * sms;
   const uint32_t* pop0_ = static_cast<const uint32_t*>(pop0);
   const float* fit0_ = static_cast<const float*>(fit0);
   const uint32_t* sel_ = static_cast<const uint32_t*>(sel);
@@ -178,9 +255,23 @@ extern "C" int evolve_packed(const void* pop0, const void* fit0,
   void* args[] = {&pop0_, &fit0_, &sel_, &pair_, &row_, &gene_, &pops_,
                   &fits_, &n, &W, &L, &ngen, &tournsize, &cxpb, &mutpb,
                   &indpb};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(evolve_kernel),
-                                    dim3(blocks), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_resident(reinterpret_cast<const void*>(evolve_kernel), args,
+                         n, stream);
+}
+
+// The Philox path: key is uint32[2] on the card; the same double buffers.
+extern "C" int evolve_packed_hw(const void* pop0, const void* fit0,
+                                const void* key, void* pops, void* fits,
+                                int n, int W, int L, int ngen, int tournsize,
+                                float cxpb, float mutpb, float indpb,
+                                void* stream) {
+  const uint32_t* pop0_ = static_cast<const uint32_t*>(pop0);
+  const float* fit0_ = static_cast<const float*>(fit0);
+  const uint32_t* key_ = static_cast<const uint32_t*>(key);
+  uint32_t* pops_ = static_cast<uint32_t*>(pops);
+  float* fits_ = static_cast<float*>(fits);
+  void* args[] = {&pop0_, &fit0_, &key_, &pops_, &fits_, &n, &W, &L,
+                  &ngen, &tournsize, &cxpb, &mutpb, &indpb};
+  return launch_resident(reinterpret_cast<const void*>(evolve_hw_kernel),
+                         args, n, stream);
 }

@@ -41,7 +41,19 @@
 //   over the genes in strided passes (the first design).
 // The fitness is a warp sum of per-lane sums: exact for 0/1 genes in any
 // order.
+//
+// The Philox path (replacing _fused_kernel_hw of deap_tpu/ops/kernels.py)
+// has the same two variants, its draws made in registers from the key
+// (csrc/philox.cuh, g = 0) and no draw tensor read: lane 0 of the row's
+// warp makes the pair+row call of the pair's even row, lane 1 that of the
+// row itself (the same call for an even row), and the warp takes the
+// crossover words from lane 0 and the mutation word from lane 1 by
+// shuffles; in a row that mutates, one gene call gives the 4 genes of a
+// vector lane (the scalar lane takes word c % 4 of call c / 4). Its plain
+// version is the bits-input plain version fed ops/philox.py::hw_fused_bits.
+// Bound there: bytes of the genomes in and out (no draw touches memory).
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -269,6 +281,138 @@ int launch(const void* g, const void* pairbits, const void* rowbits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Lane 0's pair+row call of the pair's even row and lane 1's of row r,
+// shared by shuffles: (crossover gate, cut 1, cut 2, row r's mutation word).
+__device__ __forceinline__ uint4 hw_row_words(int r, int lane, uint2 key) {
+  const uint32_t i = static_cast<uint32_t>(lane == 1 ? r : (r & ~1));
+  const uint4 own = draw(i, 0u, 0u, kPairRow, key);
+  return make_uint4(__shfl_sync(0xffffffffu, own.x, 0),
+                    __shfl_sync(0xffffffffu, own.y, 0),
+                    __shfl_sync(0xffffffffu, own.z, 0),
+                    __shfl_sync(0xffffffffu, own.w, 1));
+}
+
+// The scalar variant of the Philox path.
+template <typename T>
+__global__ void __launch_bounds__(256)
+fused_variation_eval_hw_kernel(const T* __restrict__ g,
+                               const uint32_t* __restrict__ key_ptr,
+                               T* __restrict__ out, float* __restrict__ fit,
+                               int n, int L, float cxpb, float mutpb,
+                               float indpb) {
+  const uint2 key = load_key(key_ptr);
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < n;
+       r += warps) {
+    const uint4 d = hw_row_words(r, lane, key);
+    const bool do_cx = (r | 1) < n && u01(d.x) < cxpb;
+    int lo = 0, hi = 0;
+    if (do_cx) cut_segment(d.y, d.z, L, &lo, &hi);
+    const bool do_mut = u01(d.w) < mutpb;
+    const size_t base = static_cast<size_t>(r) * L;
+    const T* mate = g + static_cast<size_t>(r ^ 1) * L;
+    float sum = 0.0f;
+    for (int c = lane; c < L; c += 32) {
+      T x = (do_cx && c >= lo && c < hi) ? mate[c] : g[base + c];
+      if (do_mut &&
+          u01(word_of(draw(r, static_cast<uint32_t>(c >> 2), 0u, kGenes, key),
+                      c & 3)) < indpb)
+        x = flip(x);
+      out[base + c] = x;
+      sum += value(x);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    }
+    if (lane == 0) fit[r] = sum;
+  }
+}
+
+// The vector variant of the Philox path.
+template <typename T>
+__global__ void __launch_bounds__(256)
+fused_variation_eval_vector_hw_kernel(const T* __restrict__ g,
+                                      const uint32_t* __restrict__ key_ptr,
+                                      T* __restrict__ out,
+                                      float* __restrict__ fit, int n, int L,
+                                      float cxpb, float mutpb, float indpb) {
+  using W = typename Word<T>::type;
+  const uint2 key = load_key(key_ptr);
+  const W* gw = reinterpret_cast<const W*>(g);
+  W* ow = reinterpret_cast<W*>(out);
+  const int words = L >> 2;
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < n;
+       r += warps) {
+    const uint4 d = hw_row_words(r, lane, key);
+    const bool do_cx = (r | 1) < n && u01(d.x) < cxpb;
+    int lo = 0, hi = 0;
+    if (do_cx) cut_segment(d.y, d.z, L, &lo, &hi);
+    const bool do_mut = u01(d.w) < mutpb;
+    const W* row = gw + static_cast<size_t>(r) * words;
+    const W* mate = gw + static_cast<size_t>(r ^ 1) * words;
+    W* dst = ow + static_cast<size_t>(r) * words;
+    float sum = 0.0f;
+    for (int c = lane; c < words; c += 32) {
+      const int e0 = 4 * c;
+      W v = row[c];
+      if (do_cx && lo < e0 + 4 && hi > e0)
+        v = Word<T>::segment(v, mate[c], e0, lo, hi);
+      if (do_mut)
+        v = Word<T>::mutate(v, draw(r, static_cast<uint32_t>(c), 0u, kGenes,
+                                    key),
+                            indpb);
+      dst[c] = v;
+      sum += Word<T>::value(v);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) fit[r] = sum;
+  }
+}
+
+// Blocks of `threads` that the card holds at once for `kernel`.
+int resident_blocks(const void* kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <typename T>
+int launch_hw(const void* g, const void* key, void* out, void* fit, int n,
+              int L, float cxpb, float mutpb, float indpb, void* stream,
+              int* vector) {
+  const int threads = 256;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* pg = static_cast<const T*>(g);
+  const uint32_t* pk = static_cast<const uint32_t*>(key);
+  T* po = static_cast<T*>(out);
+  float* pf = static_cast<float*>(fit);
+  // no gene bits: only the genomes' alignment decides
+  const bool vec = takes_vector<T>(g, nullptr, out, L);
+  if (vector != nullptr) *vector = vec;
+  if (vec) {
+    static const int resident = resident_blocks(
+        reinterpret_cast<const void*>(fused_variation_eval_vector_hw_kernel<T>),
+        threads);
+    fused_variation_eval_vector_hw_kernel<T>
+        <<<grid_for(n, threads / 32, resident), threads, 0, s>>>(
+            pg, pk, po, pf, n, L, cxpb, mutpb, indpb);
+  } else {
+    const int blocks = grid_for(static_cast<long long>(n) * 32, threads,
+                                132 * 64);
+    fused_variation_eval_hw_kernel<T><<<blocks, threads, 0, s>>>(
+        pg, pk, po, pf, n, L, cxpb, mutpb, indpb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry sets *vector (when not null) to 1 where it launched the vector
@@ -296,3 +440,22 @@ extern "C" int fused_variation_eval_f32(const void* g, const void* pairbits,
                        mutpb, indpb, stream, vector);
 }
 
+
+// The Philox path, key uint32[2] on the card; *vector as above.
+extern "C" int fused_variation_eval_hw_u8(const void* g, const void* key,
+                                          void* out, void* fit, int n, int L,
+                                          float cxpb, float mutpb,
+                                          float indpb, void* stream,
+                                          int* vector) {
+  return launch_hw<uint8_t>(g, key, out, fit, n, L, cxpb, mutpb, indpb,
+                            stream, vector);
+}
+
+extern "C" int fused_variation_eval_hw_f32(const void* g, const void* key,
+                                           void* out, void* fit, int n, int L,
+                                           float cxpb, float mutpb,
+                                           float indpb, void* stream,
+                                           int* vector) {
+  return launch_hw<float>(g, key, out, fit, n, L, cxpb, mutpb, indpb, stream,
+                          vector);
+}

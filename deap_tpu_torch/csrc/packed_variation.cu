@@ -22,7 +22,17 @@
 // fitness is __popc summed. The partner row (r ^ 1) is read only when the
 // pair mates and the gene bits only when the row mutates, so the kernel
 // moves only the bytes this generation's draws need.
+//
+// The Philox path (packed_variation_hw_kernel, replacing _packed_kernel_hw
+// of deap_tpu/ops/packed.py) makes the draws in registers from the key
+// (csrc/philox.cuh, g = 0): each thread one pair+row call for its own row,
+// the odd row of a pair taking the crossover words from its even
+// neighbour's lane by a shuffle, and 8 gene calls per word of a row that
+// mutates (fewer for the last word: only genes below L). Its plain version
+// is the bits-input plain version fed ops/philox.py::hw_packed_bits. Bound
+// there: bytes of the rows in and out (no draw touches memory).
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -77,6 +87,44 @@ packed_variation_kernel(const uint32_t* __restrict__ g,
   fit[r] = static_cast<float>(count);
 }
 
+__global__ void __launch_bounds__(256)
+packed_variation_hw_kernel(const uint32_t* __restrict__ g,
+                           const uint32_t* __restrict__ key_ptr,
+                           uint32_t* __restrict__ out, float* __restrict__ fit,
+                           int n, int W, int L, float cxpb, float mutpb,
+                           float indpb) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint2 key = load_key(key_ptr);
+  // blockDim.x is a multiple of 32, so the rows of a pair sit in lanes
+  // (2k, 2k + 1) of one warp; every lane draws before any leaves
+  const uint4 own = draw(static_cast<uint32_t>(r), 0u, 0u, kPairRow, key);
+  const int even = (threadIdx.x & 31) & ~1;
+  const uint32_t cx_word = __shfl_sync(0xffffffffu, own.x, even);
+  const uint32_t u1 = __shfl_sync(0xffffffffu, own.y, even);
+  const uint32_t u2 = __shfl_sync(0xffffffffu, own.z, even);
+  if (r >= n) return;
+  const bool do_cx = (r | 1) < n && u01(cx_word) < cxpb;
+  int lo = 0, hi = 0;
+  if (do_cx) cut_segment(u1, u2, L, &lo, &hi);
+  const bool do_mut = u01(own.w) < mutpb;
+  const uint32_t* self = g + static_cast<size_t>(r) * W;
+  const uint32_t* mate = g + static_cast<size_t>(r ^ 1) * W;
+  uint32_t* dst = out + static_cast<size_t>(r) * W;
+  int count = 0;
+  for (int j = 0; j < W; ++j) {
+    const int start = 32 * j;
+    uint32_t child = self[j];
+    if (do_cx) {
+      const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
+      child = (child & ~seg) | (mate[j] & seg);
+    }
+    if (do_mut) child ^= hw_flip_word(r, j, 0u, L, indpb, key);
+    dst[j] = child;
+    count += __popc(child);
+  }
+  fit[r] = static_cast<float>(count);
+}
+
 }  // namespace
 
 extern "C" int packed_variation(const void* g, const void* pairbits,
@@ -92,5 +140,19 @@ extern "C" int packed_variation(const void* g, const void* pairbits,
       static_cast<const uint32_t*>(rowbits),
       static_cast<const uint32_t*>(genebits), static_cast<uint32_t*>(out),
       static_cast<float*>(fit), n, W, L, cxpb, mutpb, indpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Philox path: key is uint32[2] on the card.
+extern "C" int packed_variation_hw(const void* g, const void* key, void* out,
+                                   void* fit, int n, int W, int L, float cxpb,
+                                   float mutpb, float indpb, void* stream) {
+  const int threads = 256;
+  const int blocks = grid_for(n, threads, 1 << 30);
+  packed_variation_hw_kernel<<<blocks, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(g), static_cast<const uint32_t*>(key),
+      static_cast<uint32_t*>(out), static_cast<float*>(fit), n, W, L, cxpb,
+      mutpb, indpb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,7 @@ from deap_tpu_torch.ops.kernels import (
     fused_variation,
     fused_variation_eval,
     nd_rank_tiled,
+    philox_key,
     strengths_tiled,
 )
 from deap_tpu_torch.ops.kernels_real import (
@@ -53,7 +54,9 @@ from deap_tpu_torch.ops.packed import (
     unpack_genomes,
 )
 from deap_tpu_torch.ops.selection import (
+    counting_order_desc,
     sel_tournament,
+    sel_tournament_binned,
     sel_tournament_sorted,
     tournament_aspirants,
 )

@@ -11,7 +11,8 @@ decides between the two, and a CUDA tensor never takes the plain path.
   one OneMax generation on byte or float32 genomes — adjacent-pair
   two-point crossover, flip-bit mutation, sum-of-genes fitness; plain
   version :func:`fused_variation_eval_plain`, random bits from
-  :func:`fused_bits`.
+  :func:`fused_bits` (``prng='input'``) or made inside the kernel by
+  Philox (``prng='hw'``, :mod:`deap_tpu_torch.ops.philox`).
 - :func:`dominated_weight_sums` (K7) and :func:`dominated_weight_maxes`
   (K8), ``csrc/dominance.cu``: Pareto-dominance reductions over all
   pairs without the ``[n, n]`` matrix; plain versions
@@ -25,7 +26,17 @@ decides between the two, and a CUDA tensor never takes the plain path.
 
 ``_u01`` and ``_pair_consistent`` are the shared random-bit conventions
 of the fused kernels (``ops.packed`` and ``ops.kernels_real`` use them
-too), and :func:`fused_bits` draws the streams of their bits-input path.
+too), :func:`fused_bits` draws the streams of their bits-input path, and
+``_prng_mode`` and :func:`philox_key` set up their Philox path.
+
+``prng`` modes, as in the JAX package: ``'input'`` streams bits drawn
+outside the kernel into it (they are arguments); ``'hw'`` makes them inside
+the kernel, from a key of two uint32 words that the wrapper draws from the
+caller's ``generator`` (or takes as ``key``), with Philox4x32-10 in the
+counter layout of :mod:`deap_tpu_torch.ops.philox`; ``'auto'`` is ``'hw'``
+on the card and ``'input'`` on the CPU. On a CPU tensor ``'hw'`` runs the
+plain version on the bits :mod:`~deap_tpu_torch.ops.philox` expands from
+the key, the same bits the kernel makes.
 """
 
 from __future__ import annotations
@@ -38,9 +49,11 @@ import torch
 from deap_tpu_torch.core.fitness import dominates
 
 from deap_tpu_torch import _build
+from deap_tpu_torch.ops import philox
 from deap_tpu_torch.ops.variation import apply_variation
 
-__all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits",
+__all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits", "philox_key",
+           "PrngError", "philox_kat",
            "fused_variation_eval", "fused_variation_eval_plain",
            "dominated_weight_sums", "dominated_weight_maxes",
            "dominated_counts", "strengths_tiled", "nd_rank_tiled",
@@ -114,19 +127,90 @@ def fused_bits(generator: torch.Generator, n: int, gene_cols: int):
             _uint32_bits(generator, (n, gene_cols)))
 
 
-def _resolve_prng(prng: str, device: torch.device) -> None:
-    """Only the bits-input path (``'input'``) is ported. ``'hw'``, and
-    ``'auto'`` on the card, where it means ``'hw'``, need in-kernel
-    Philox."""
+class PrngError(ValueError, NotImplementedError):
+    """A ``prng`` mode and the random-bit arguments disagree: ``'hw'``
+    with bits passed in, ``'input'`` without them, ``'hw'`` without a
+    generator or key. A ``ValueError``; also a ``NotImplementedError``,
+    as which the port refused every ``'hw'`` request before its Philox
+    path existed, so callers that caught that keep catching it."""
+
+
+def _resolve_prng(prng: str, device: torch.device) -> str:
+    """``'auto'`` → ``'hw'`` on the card, ``'input'`` elsewhere (the JAX
+    package's ``'auto'`` is ``'hw'`` on hardware, ``'input'`` under the
+    interpreter); ``'hw'`` and ``'input'`` stay."""
     if prng == "auto":
-        prng = "hw" if device.type == "cuda" else "input"
-    if prng == "hw":
-        raise NotImplementedError(
-            "prng='hw' needs in-kernel Philox, which is not ported yet "
-            "(ROADMAP.md B5: 'In-kernel Philox for the hw path'); use "
-            "prng='input'")
-    if prng != "input":
+        return "hw" if device.type == "cuda" else "input"
+    if prng not in ("hw", "input"):
         raise ValueError(f"unknown prng mode {prng!r}")
+    return prng
+
+
+def philox_key(generator: torch.Generator) -> torch.Tensor:
+    """A Philox key, ``uint32[2]`` on the generator's device: the one draw
+    a ``prng='hw'`` kernel takes from the generator. The kernel reads it
+    through a pointer, so drawing it never waits for the card."""
+    return _uint32_bits(generator, (2,))
+
+
+def _prng_mode(what: str, prng: Optional[str], device: torch.device,
+               bits: Sequence, generator: Optional[torch.Generator],
+               key: Optional[torch.Tensor]):
+    """Check a wrapper's random-bit arguments against its mode: returns
+    ``(mode, key)`` with ``key`` the Philox key (``uint32[2]`` on
+    ``device``) for ``'hw'`` and ``None`` for ``'input'``. ``prng=None``
+    is ``'input'`` when bits are passed, else ``'auto'``."""
+    given = [b is not None for b in bits]
+    if prng is None:
+        prng = "input" if any(given) else "auto"
+    mode = _resolve_prng(prng, device)
+    if mode == "input":
+        if not all(given):
+            raise PrngError(
+                f"{what}: prng='input' streams bits into the kernel, so "
+                f"they must all be passed; prng='hw' makes them in the "
+                f"kernel (Philox) from a generator or key")
+        return mode, None
+    if any(given):
+        raise PrngError(
+            f"{what}: prng={prng!r} makes the bits inside the kernel "
+            f"(Philox) and takes none; pass prng='input' to stream these in")
+    if (generator is None) == (key is None):
+        raise PrngError(f"{what}: prng='hw' needs a generator or a key "
+                        f"(Philox), exactly one of them")
+    if key is None:
+        if generator.device.type != device.type:
+            raise ValueError(f"{what}: generator lives on "
+                             f"{generator.device}, the genomes on {device}")
+        key = philox_key(generator)
+    if key.device != device or key.dtype != torch.uint32 or key.shape != (2,):
+        raise ValueError(f"{what}: a Philox key is uint32[2] on {device}, "
+                         f"got {key.dtype}{tuple(key.shape)} on {key.device}")
+    return mode, key
+
+
+def philox_kat(counter: torch.Tensor, key: torch.Tensor,
+               library: str = "evolve_packed") -> torch.Tensor:
+    """The device function ``philox4x32_10`` of ``csrc/philox.cuh`` as
+    built into ``library`` (every library of a Philox kernel has it):
+    ``uint32 [c, 4]`` for counters ``uint32 [c, 4]`` and keys ``uint32
+    [c, 2]`` on the card, one thread each. A check of the device function
+    against :func:`deap_tpu_torch.ops.philox.philox4x32_10`, not a kernel
+    of any path."""
+    dev = counter.device
+    if dev.type != "cuda":
+        raise ValueError("philox_kat runs the device function: it needs "
+                         "tensors on the card")
+    c = counter.shape[0]
+    _check_cuda("counter", dev, torch.uint32, (c, 4), counter)
+    _check_cuda("key", dev, torch.uint32, (c, 2), key)
+    out = torch.empty((c, 4), dtype=torch.uint32, device=dev)
+    P, I = _build.PTR, _build.INT
+    fn = _build.function(library, "philox_kat", [P, P, P, I, P])
+    err = fn(counter.data_ptr(), key.data_ptr(), out.data_ptr(), c,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(library, err, "philox_kat")
+    return out
 
 
 def _pair_decisions(pairbits: torch.Tensor, L: int, cxpb: float):
@@ -236,10 +320,14 @@ def fused_variation_eval_plain(genomes, pairbits, rowbits, genebits, *,
     return child, child.to(torch.float32).sum(1)
 
 
-def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
-                         rowbits: torch.Tensor, genebits: torch.Tensor, *,
+def fused_variation_eval(genomes: torch.Tensor,
+                         pairbits: Optional[torch.Tensor] = None,
+                         rowbits: Optional[torch.Tensor] = None,
+                         genebits: Optional[torch.Tensor] = None, *,
                          cxpb: float, mutpb: float, indpb: float,
-                         prng: str = "input",
+                         prng: Optional[str] = None,
+                         generator: Optional[torch.Generator] = None,
+                         key: Optional[torch.Tensor] = None,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One OneMax generation on 0/1 genomes (K2): adjacent pairs (0,1),
     (2,3), ... swap a two-point segment with probability ``cxpb`` (the
@@ -259,43 +347,60 @@ def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
     the gene bits 16-byte aligned, the scalar one (a gene per lane)
     otherwise. Both compute the same bits;
     ``fused_variation_eval.vector_launches`` counts the launches the
-    launcher reports as vector ones (within ``launches``).
+    launcher reports as vector ones (within ``launches``), and
+    ``fused_variation_eval.hw_launches`` those of the Philox path.
 
     :param genomes: ``[n, L]`` bool or float32.
     :param pairbits, rowbits, genebits: ``uint32`` ``[n, 4]``, ``[n, 1]``,
-        ``[n, L]``, e.g. from ``fused_bits(generator, n, L)``.
-    :param prng: only ``'input'`` (these bits) is ported; ``'hw'`` raises
-        ``NotImplementedError``.
+        ``[n, L]``, e.g. from ``fused_bits(generator, n, L)``: the bits
+        of ``prng='input'``.
+    :param prng: ``'input'`` (the default where bits are passed),
+        ``'hw'`` (Philox in the kernel, keyed from ``generator`` or
+        ``key``; bits refused) or ``'auto'`` (the default without bits:
+        ``'hw'`` on the card, ``'input'`` on the CPU).
     :returns: ``(children [n, L] in the genomes' dtype, fitness f32[n])``.
     """
-    _resolve_prng(prng, genomes.device)
+    dev = genomes.device
+    mode, key = _prng_mode("fused_variation_eval", prng, dev,
+                           (pairbits, rowbits, genebits), generator, key)
     if genomes.dtype not in KERNEL_DTYPES:
         raise TypeError(f"fused_variation_eval takes bool or float32 "
                         f"genomes, got {genomes.dtype}")
-    if genomes.device.type == "cpu":
+    n, L = genomes.shape
+    if dev.type == "cpu":
+        if mode == "hw":
+            pairbits, rowbits, genebits = philox.hw_fused_bits(key, n, L)
         return fused_variation_eval_plain(genomes, pairbits, rowbits,
                                           genebits, cxpb=cxpb, mutpb=mutpb,
                                           indpb=indpb)
-    if genomes.device.type != "cuda":
-        raise ValueError(f"no kernel for device {genomes.device}")
-    n, L = genomes.shape
-    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     _check_cuda("genomes", dev, genomes.dtype, (n, L), genomes)
-    _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
-    _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
-    _check_cuda("genebits", dev, torch.uint32, (n, L), genebits)
+    if mode == "input":
+        _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
+        _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
+        _check_cuda("genebits", dev, torch.uint32, (n, L), genebits)
     out = torch.empty((n, L), dtype=genomes.dtype, device=dev)
     fit = torch.empty((n,), dtype=torch.float32, device=dev)
-    lib_fn = "fused_variation_eval_u8" if genomes.dtype == torch.bool \
-        else "fused_variation_eval_f32"
+    suffix = "u8" if genomes.dtype == torch.bool else "f32"
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    fn = _build.function("fused_variation_eval", lib_fn,
-                         [P] * 6 + [I, I, F, F, F, P, ctypes.POINTER(I)])
+    probs = (_f32(cxpb), _f32(mutpb), _f32(indpb))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     vector = I(0)  # the launcher sets it to 1 where it took that variant
-    err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
-             genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, L,
-             _f32(cxpb), _f32(mutpb), _f32(indpb),
-             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(vector))
+    if mode == "hw":
+        fn = _build.function("fused_variation_eval",
+                             f"fused_variation_eval_hw_{suffix}",
+                             [P] * 4 + [I, I, F, F, F, P, ctypes.POINTER(I)])
+        err = fn(genomes.data_ptr(), key.data_ptr(), out.data_ptr(),
+                 fit.data_ptr(), n, L, *probs, stream, ctypes.byref(vector))
+        fused_variation_eval.hw_launches += 1
+    else:
+        fn = _build.function("fused_variation_eval",
+                             f"fused_variation_eval_{suffix}",
+                             [P] * 6 + [I, I, F, F, F, P, ctypes.POINTER(I)])
+        err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
+                 genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, L,
+                 *probs, stream, ctypes.byref(vector))
     fused_variation_eval.launches += 1
     fused_variation_eval.vector_launches += vector.value
     _build.check("fused_variation_eval", err, "fused_variation_eval")
@@ -304,6 +409,7 @@ def fused_variation_eval(genomes: torch.Tensor, pairbits: torch.Tensor,
 
 fused_variation_eval.launches = 0
 fused_variation_eval.vector_launches = 0
+fused_variation_eval.hw_launches = 0
 
 
 # ------------------------------------------------ dominance reductions ----

@@ -153,11 +153,15 @@ def fused_variation_eval_real(
         callable cannot be compiled into CUDA: the kernel then runs the
         variation with its evaluation switched off and the callable is
         applied to the children in PyTorch afterwards.
-    :param prng: only ``'input'`` (these bits) is ported; ``'hw'`` raises
-        ``NotImplementedError``.
+    :param prng: only ``'input'`` (these bits) is ported; ``'hw'``, and
+        ``'auto'`` on the card, raise ``NotImplementedError``.
     :returns: ``(children f32[n, L], fitness f32[n])``.
     """
-    _resolve_prng(prng, genomes.device)
+    if _resolve_prng(prng, genomes.device) == "hw":
+        raise NotImplementedError(
+            "fused_variation_eval_real: prng='hw' needs in-kernel Philox "
+            "for K6's gamma, gate and Box-Muller draws, which is not ported "
+            "yet (ROADMAP.md B5); use prng='input'")
     if isinstance(evaluate, str) and evaluate not in _EVALS:
         raise ValueError(f"unknown evaluate {evaluate!r}; built-ins are "
                          f"{sorted(_EVALS)} (or pass a callable)")

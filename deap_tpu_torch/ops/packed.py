@@ -13,11 +13,15 @@ words) and three CUDA kernels,
   generations of both in one launch, the population resident on the
   card.
 
-All take their random bits explicitly, as uint32 tensors in the layout
-of the TPU kernels' bits-input path; :func:`variation_bits`,
+Each takes its random bits as uint32 tensors in the layout of the TPU
+kernels' bits-input path (``prng='input'``; :func:`variation_bits`,
 :func:`tournament_bits` and :func:`evolve_bits` draw them with a
-``torch.Generator``. Each runs its kernel on CUDA tensors and its plain
-PyTorch version (``*_plain``) on CPU tensors.
+``torch.Generator``), or makes them inside the kernel with Philox from a
+key drawn from a generator (``prng='hw'``; the counter layout of
+:mod:`deap_tpu_torch.ops.philox`). Each runs its kernel on CUDA tensors
+and its plain PyTorch version (``*_plain``) on CPU tensors; under
+``'hw'`` the plain version takes the bits ``ops.philox`` expands from the
+key, the same bits the kernel makes.
 
 Packed words are ``torch.uint32`` at every public boundary. torch's
 uint32 has no shifts, adds, modulo or comparisons, so the plain versions
@@ -26,18 +30,19 @@ compute on int64 copies of the words (``& 0xFFFFFFFF``) and convert back.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from deap_tpu_torch import _build
+from deap_tpu_torch.ops import philox
 from deap_tpu_torch.ops.crossover import _two_points
 from deap_tpu_torch.ops.kernels import (
     _check_cuda,
     _f32,
     _pair_decisions,
     _partner_rows,
-    _resolve_prng,
+    _prng_mode,
     _u01,
     _uint32_bits,
     _words,
@@ -239,9 +244,13 @@ def fused_variation_eval_packed_plain(packed, length, pairbits, rowbits,
 
 
 def fused_variation_eval_packed(packed: torch.Tensor, length: int,
-                                pairbits: torch.Tensor, rowbits: torch.Tensor,
-                                genebits: torch.Tensor, *, cxpb: float,
-                                mutpb: float, indpb: float,
+                                pairbits: Optional[torch.Tensor] = None,
+                                rowbits: Optional[torch.Tensor] = None,
+                                genebits: Optional[torch.Tensor] = None, *,
+                                cxpb: float, mutpb: float, indpb: float,
+                                prng: Optional[str] = None,
+                                generator: Optional[torch.Generator] = None,
+                                key: Optional[torch.Tensor] = None,
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One OneMax generation on packed rows: adjacent pairs (0,1),
     (2,3), ... swap a two-point segment with probability ``cxpb`` (the
@@ -252,40 +261,61 @@ def fused_variation_eval_packed(packed: torch.Tensor, length: int,
     :param packed: ``uint32[n, W]`` rows from :func:`pack_genomes`.
     :param pairbits, rowbits, genebits: ``uint32`` ``[n, 4]``, ``[n, 1]``,
         ``[n, 32 W]`` (bit plane ``b`` of word ``j`` in column ``b W + j``),
-        e.g. from :func:`variation_bits`.
-    :returns: ``(children uint32[n, W], fitness f32[n])``.
+        e.g. from :func:`variation_bits`: the bits of ``prng='input'``.
+    :param prng, generator, key: as in
+        :func:`deap_tpu_torch.ops.kernels.fused_variation_eval`; a
+        generation of the packed loop passes the ``key`` its
+        :func:`sel_tournament_gather_packed` used.
+    :returns: ``(children uint32[n, W], fitness f32[n])``; the wrapper's
+        ``launches`` counts every launch, ``hw_launches`` those of the
+        Philox path.
     """
-    if packed.device.type == "cpu":
+    dev = packed.device
+    mode, key = _prng_mode("fused_variation_eval_packed", prng, dev,
+                           (pairbits, rowbits, genebits), generator, key)
+    n, W = packed.shape
+    if dev.type == "cpu":
+        if mode == "hw":
+            pairbits, rowbits, genebits = philox.hw_packed_bits(key, n, W,
+                                                                length)
         return fused_variation_eval_packed_plain(
             packed, length, pairbits, rowbits, genebits, cxpb=cxpb,
             mutpb=mutpb, indpb=indpb)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no kernel for device {packed.device}")
-    n, W = packed.shape
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     if not 0 < length <= W * WORD:
         raise ValueError(f"length {length} does not fit {W} words")
-    dev = packed.device
     _check_cuda("packed", dev, torch.uint32, (n, W), packed)
-    _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
-    _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
-    _check_cuda("genebits", dev, torch.uint32, (n, WORD * W), genebits)
+    if mode == "input":
+        _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
+        _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
+        _check_cuda("genebits", dev, torch.uint32, (n, WORD * W), genebits)
     out = torch.empty((n, W), dtype=torch.uint32, device=dev)
     fit = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out, fit
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    fn = _build.function("packed_variation", "packed_variation",
-                         [P] * 6 + [I, I, I, F, F, F, P])
-    err = fn(packed.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
-             genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, W,
-             length, _f32(cxpb), _f32(mutpb), _f32(indpb),
-             torch.cuda.current_stream(dev).cuda_stream)
+    probs = (_f32(cxpb), _f32(mutpb), _f32(indpb))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mode == "hw":
+        fn = _build.function("packed_variation", "packed_variation_hw",
+                             [P] * 4 + [I, I, I, F, F, F, P])
+        err = fn(packed.data_ptr(), key.data_ptr(), out.data_ptr(),
+                 fit.data_ptr(), n, W, length, *probs, stream)
+        fused_variation_eval_packed.hw_launches += 1
+    else:
+        fn = _build.function("packed_variation", "packed_variation",
+                             [P] * 6 + [I, I, I, F, F, F, P])
+        err = fn(packed.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
+                 genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, W,
+                 length, *probs, stream)
     fused_variation_eval_packed.launches += 1
     _build.check("packed_variation", err, "fused_variation_eval_packed")
     return out, fit
 
 
 fused_variation_eval_packed.launches = 0
+fused_variation_eval_packed.hw_launches = 0
 
 
 # ------------------------------------------------ selection + gather ----
@@ -306,43 +336,68 @@ def sel_tournament_gather_packed_plain(packed: torch.Tensor, fit: torch.Tensor,
 
 
 def sel_tournament_gather_packed(packed: torch.Tensor, fit: torch.Tensor,
-                                 draws: torch.Tensor) -> torch.Tensor:
+                                 draws: Optional[torch.Tensor] = None, *,
+                                 tournsize: int = 3,
+                                 prng: Optional[str] = None,
+                                 generator: Optional[torch.Generator] = None,
+                                 key: Optional[torch.Tensor] = None,
+                                 ) -> torch.Tensor:
     """Tournament-select ``n`` parents and gather their rows: child slot
     ``j``'s aspirant ``t`` is ``draws[t, j] % n``; a strictly greater
     fitness wins, so the first drawn wins ties.
 
     :param packed: ``uint32[n, W]``; ``fit``: ``f32[n]`` (weighted first
         objective); ``draws``: ``uint32[tournsize, n]``, e.g. from
-        :func:`tournament_bits`.
-    :returns: ``uint32[n, W]`` parent rows, one per child slot.
+        :func:`tournament_bits`: the bits of ``prng='input'``, whose
+        first size is the tournament size.
+    :param tournsize: aspirants per tournament under ``prng='hw'``.
+    :param prng, generator, key: as in
+        :func:`deap_tpu_torch.ops.kernels.fused_variation_eval`.
+    :returns: ``uint32[n, W]`` parent rows, one per child slot; the
+        wrapper's ``launches`` counts every launch, ``hw_launches`` those
+        of the Philox path.
     """
-    if packed.device.type == "cpu":
-        return sel_tournament_gather_packed_plain(packed, fit, draws)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no kernel for device {packed.device}")
+    dev = packed.device
+    mode, key = _prng_mode("sel_tournament_gather_packed", prng, dev,
+                           (draws,), generator, key)
     n, W = packed.shape
-    tournsize = draws.shape[0]
+    if mode == "input":
+        tournsize = draws.shape[0]
     if tournsize < 1:
         raise ValueError("tournsize must be at least 1")
-    dev = packed.device
+    if dev.type == "cpu":
+        if mode == "hw":
+            draws = philox.hw_tournament_bits(key, tournsize, n)
+        return sel_tournament_gather_packed_plain(packed, fit, draws)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     _check_cuda("packed", dev, torch.uint32, (n, W), packed)
     _check_cuda("fit", dev, torch.float32, (n,), fit)
-    _check_cuda("draws", dev, torch.uint32, (tournsize, n), draws)
+    if mode == "input":
+        _check_cuda("draws", dev, torch.uint32, (tournsize, n), draws)
     out = torch.empty((n, W), dtype=torch.uint32, device=dev)
     if n == 0:
         return out
     P, I = _build.PTR, _build.INT
-    fn = _build.function("selgather_packed", "selgather_packed",
-                         [P] * 4 + [I, I, I, P])
-    err = fn(packed.data_ptr(), fit.data_ptr(), draws.data_ptr(),
-             out.data_ptr(), n, W, tournsize,
-             torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mode == "hw":
+        fn = _build.function("selgather_packed", "selgather_packed_hw",
+                             [P] * 4 + [I, I, I, P])
+        err = fn(packed.data_ptr(), fit.data_ptr(), key.data_ptr(),
+                 out.data_ptr(), n, W, tournsize, stream)
+        sel_tournament_gather_packed.hw_launches += 1
+    else:
+        fn = _build.function("selgather_packed", "selgather_packed",
+                             [P] * 4 + [I, I, I, P])
+        err = fn(packed.data_ptr(), fit.data_ptr(), draws.data_ptr(),
+                 out.data_ptr(), n, W, tournsize, stream)
     sel_tournament_gather_packed.launches += 1
     _build.check("selgather_packed", err, "sel_tournament_gather_packed")
     return out
 
 
 sel_tournament_gather_packed.launches = 0
+sel_tournament_gather_packed.hw_launches = 0
 
 
 # ------------------------------------------------- whole generations ----
@@ -362,63 +417,91 @@ def evolve_packed_plain(packed, fit, length, sel, pair, row, gene, *, cxpb,
 
 
 def evolve_packed(packed: torch.Tensor, fit: torch.Tensor, length: int,
-                  sel: torch.Tensor, pair: torch.Tensor, row: torch.Tensor,
-                  gene: torch.Tensor, *, cxpb: float, mutpb: float,
-                  indpb: float, prng: str = "input",
+                  sel: Optional[torch.Tensor] = None,
+                  pair: Optional[torch.Tensor] = None,
+                  row: Optional[torch.Tensor] = None,
+                  gene: Optional[torch.Tensor] = None, *, cxpb: float,
+                  mutpb: float, indpb: float, ngen: Optional[int] = None,
+                  tournsize: int = 3, prng: Optional[str] = None,
+                  generator: Optional[torch.Generator] = None,
+                  key: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ngen`` whole OneMax eaSimple generations in one launch (K5):
     tournament selection (aspirant ``t`` of child lane ``c`` is
     ``sel[g, t, c] % n``, a strictly greater fitness wins, so the first
     drawn wins ties), then :func:`fused_variation_eval_packed`'s two-point
     crossover, flip-bit mutation and popcount fitness, with the
-    population resident on the card between generations. ``ngen`` and
-    ``tournsize`` are the draws' first two sizes; ``ngen == 0`` returns
-    the inputs.
+    population resident on the card between generations. ``ngen == 0``
+    returns the inputs.
 
     :param packed: ``uint32[n, W]`` rows from :func:`pack_genomes`.
     :param fit: ``f32[n]`` their fitness (e.g. :func:`packed_fitness`).
     :param sel, pair, row, gene: ``uint32`` ``[ngen, tournsize, n]``,
         ``[ngen, 3, n]``, ``[ngen, 1, n]``, ``[ngen, 32 W, n]``, e.g. from
-        :func:`evolve_bits`.
-    :param prng: only ``'input'`` (these bits) is ported; ``'hw'`` raises
-        ``NotImplementedError``.
+        :func:`evolve_bits`: the bits of ``prng='input'``, whose first two
+        sizes are ``ngen`` and ``tournsize``.
+    :param ngen, tournsize: the generations and aspirants under
+        ``prng='hw'`` (``ngen`` required there).
+    :param prng, generator, key: as in
+        :func:`deap_tpu_torch.ops.kernels.fused_variation_eval`; one key
+        serves the whole call (generation ``g`` is a word of each
+        counter), so a call draws one key from ``generator``.
     :returns: ``(population uint32[n, W], fitness f32[n])`` after
-        ``ngen`` generations.
+        ``ngen`` generations; the wrapper's ``launches`` counts every
+        launch, ``hw_launches`` those of the Philox path.
     """
-    _resolve_prng(prng, packed.device)
+    dev = packed.device
+    mode, key = _prng_mode("evolve_packed", prng, dev, (sel, pair, row, gene),
+                           generator, key)
+    if mode == "input":
+        if ngen is not None and ngen != sel.shape[0]:
+            raise ValueError(f"ngen={ngen}, but the draws hold "
+                             f"{sel.shape[0]} generations")
+        ngen, tournsize = sel.shape[:2]
+    elif ngen is None:
+        raise ValueError("evolve_packed(prng='hw') needs ngen")
     fit = fit.to(torch.float32)
-    ngen = sel.shape[0]
     if ngen == 0:
         return packed, fit
-    if packed.device.type == "cpu":
+    n, W = packed.shape
+    if dev.type == "cpu":
+        if mode == "hw":
+            sel, pair, row, gene = philox.hw_evolve_bits(key, ngen,
+                                                         tournsize, n, length)
         return evolve_packed_plain(packed, fit, length, sel, pair, row, gene,
                                    cxpb=cxpb, mutpb=mutpb, indpb=indpb)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no kernel for device {packed.device}")
-    n, W = packed.shape
-    tournsize = sel.shape[1]
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     if tournsize < 1:
         raise ValueError("tournsize must be at least 1")
     if not 0 < length <= W * WORD:
         raise ValueError(f"length {length} does not fit {W} words")
-    dev = packed.device
     fit = fit.contiguous()
     _check_cuda("packed", dev, torch.uint32, (n, W), packed)
     _check_cuda("fit", dev, torch.float32, (n,), fit)
-    _check_cuda("sel", dev, torch.uint32, (ngen, tournsize, n), sel)
-    _check_cuda("pair", dev, torch.uint32, (ngen, 3, n), pair)
-    _check_cuda("row", dev, torch.uint32, (ngen, 1, n), row)
-    _check_cuda("gene", dev, torch.uint32, (ngen, WORD * W, n), gene)
+    if mode == "input":
+        _check_cuda("sel", dev, torch.uint32, (ngen, tournsize, n), sel)
+        _check_cuda("pair", dev, torch.uint32, (ngen, 3, n), pair)
+        _check_cuda("row", dev, torch.uint32, (ngen, 1, n), row)
+        _check_cuda("gene", dev, torch.uint32, (ngen, WORD * W, n), gene)
     pops = torch.empty((2, n, W), dtype=torch.uint32, device=dev)
     fits = torch.empty((2, n), dtype=torch.float32, device=dev)
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    fn = _build.function("evolve_packed", "evolve_packed",
-                         [P] * 8 + [I] * 5 + [F] * 3 + [P])
-    err = fn(packed.data_ptr(), fit.data_ptr(), sel.data_ptr(),
-             pair.data_ptr(), row.data_ptr(), gene.data_ptr(),
-             pops.data_ptr(), fits.data_ptr(), n, W, length, ngen, tournsize,
-             _f32(cxpb), _f32(mutpb), _f32(indpb),
-             torch.cuda.current_stream(dev).cuda_stream)
+    sizes = (n, W, length, ngen, tournsize)
+    probs = (_f32(cxpb), _f32(mutpb), _f32(indpb))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mode == "hw":
+        fn = _build.function("evolve_packed", "evolve_packed_hw",
+                             [P] * 5 + [I] * 5 + [F] * 3 + [P])
+        err = fn(packed.data_ptr(), fit.data_ptr(), key.data_ptr(),
+                 pops.data_ptr(), fits.data_ptr(), *sizes, *probs, stream)
+        evolve_packed.hw_launches += 1
+    else:
+        fn = _build.function("evolve_packed", "evolve_packed",
+                             [P] * 8 + [I] * 5 + [F] * 3 + [P])
+        err = fn(packed.data_ptr(), fit.data_ptr(), sel.data_ptr(),
+                 pair.data_ptr(), row.data_ptr(), gene.data_ptr(),
+                 pops.data_ptr(), fits.data_ptr(), *sizes, *probs, stream)
     evolve_packed.launches += 1
     _build.check("evolve_packed", err, "evolve_packed")
     last = (ngen - 1) % 2  # generation g writes buffer g % 2
@@ -426,3 +509,4 @@ def evolve_packed(packed: torch.Tensor, fit: torch.Tensor, length: int,
 
 
 evolve_packed.launches = 0
+evolve_packed.hw_launches = 0

@@ -4,7 +4,8 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin] [--gp] [--sass] [--k7-variants]
+                            [--rastrigin] [--gp] [--hw] [--sass]
+                            [--k7-variants]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -35,8 +36,22 @@ run):
   (``gp/host_schedule``, ``gp/schedule_upload``, ``gp/grouped_dispatch``,
   ``gp/select``, ``gp/vary``).
 
+``--hw`` profiles ``bench.py``'s OneMax loops with the kernels' bits made
+by Philox inside them (``prng='hw'``) beside the same loops with their
+bits drawn by ``torch.randint`` and streamed in (``'input'``), in turns:
+the fused loop (K2; 100 generations after 10), the packed loop
+(``ea_simple_packed`` with the select-and-gather kernel, K4 then K3; 100
+after 10) and ``evolve_packed`` (K5; 200 generations in calls of 50 after
+one call).
+
+Every profile also prints the device time of the random-number kernels
+(``torch.randint``, ``torch.rand``, and the key draws of ``'hw'``) and
+their share of the device time.
+
 ``--sass`` prints the instructions per pair of K7's inner loop at m 3
-(``cuobjdump -sass`` of the built kernel; the listing goes to ``DIR``);
+and the instructions of one Philox4x32-10 call (the known-answer kernel
+of ``csrc/philox.cuh``) by opcode (``cuobjdump -sass`` of the built
+kernels; the listings go to ``DIR``);
 ``--k7-variants`` times K7 at the NSGA-II path's sizes in builds with 4,
 8 and 16 query rows per thread and with the prune off, and the wrapper's
 sort and gathers alone.
@@ -81,6 +96,11 @@ def profile(name, run, warm, steps, out_dir, facts, spans=None,
     print(f"[{facts}] {name}: wall {wall / steps * 1e3:.3f} ms/gen, "
           f"device {device_us / steps / 1e3:.3f} ms/gen, busy share "
           f"{device_us / 1e6 / wall:.3f}")
+    # torch's random-number kernels (randint, rand, randperm's draws)
+    draws_us = sum(e.self_device_time_total for e in events
+                   if "random" in e.key or "distribution" in e.key)
+    print(f"    random-number kernels {draws_us / steps:.1f} us/gen, "
+          f"{draws_us / max(device_us, 1e-9):.1%} of the device time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / steps:10.1f} us/gen "
               f"{e.count / steps:6.1f} calls/gen  {e.key[:90]}")
@@ -129,7 +149,7 @@ def profile_nsga2(dev, out_dir, facts):
           f"{(kernels.dominated_weight_sums.launches - before) / 3:.1f}")
 
 
-def profile_fused(dev, out_dir, facts):
+def profile_fused(dev, out_dir, facts, prng="input"):
     import torch
     from chip_smoke import L, N, fused_onemax_generation
     from deap_tpu_torch import ops
@@ -141,13 +161,34 @@ def profile_fused(dev, out_dir, facts):
 
     def run(steps):
         for _ in range(steps):
-            state["g"], state["f"] = fused_onemax_generation(gen, state["g"],
-                                                             state["f"])
+            state["g"], state["f"] = fused_onemax_generation(
+                gen, state["g"], state["f"], prng=prng)
 
-    profile("fused_onemax", run, 10, 100, out_dir, facts)
+    suffix = "" if prng == "input" else f"_{prng}"
+    profile(f"fused_onemax{suffix}", run, 10, 100, out_dir, facts)
 
 
-def profile_evolve(dev, out_dir, facts):
+def profile_packed(dev, out_dir, facts, prng="input"):
+    from chip_smoke import CXPB, INDPB, L, MUTPB, N, TOURNSIZE
+    from deap_tpu_torch import algorithms, ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import packed
+
+    gen = make_generator(5, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(gen, N))
+    state = {"pk": pk, "fit": packed.packed_fitness(pk)}
+
+    def run(steps):
+        state["pk"], state["fit"] = algorithms.ea_simple_packed(
+            gen, state["pk"], state["fit"], L, steps, cxpb=CXPB,
+            mutpb=MUTPB, indpb=INDPB, tournsize=TOURNSIZE, prng=prng,
+            device=dev)
+
+    suffix = "" if prng == "input" else f"_{prng}"
+    profile(f"ea_simple_packed{suffix}", run, 10, 100, out_dir, facts)
+
+
+def profile_evolve(dev, out_dir, facts, prng="input"):
     from chip_smoke import (CXPB, EVOLVE_CALL, INDPB, L, MUTPB, N,
                             TOURNSIZE)
     from deap_tpu_torch import ops
@@ -158,16 +199,31 @@ def profile_evolve(dev, out_dir, facts):
     pk = packed.pack_genomes(ops.bernoulli_genome(L)(gen, N))
     state = {"pk": pk, "fit": packed.packed_fitness(pk)}
     W = pk.shape[1]
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
 
     def run(steps):  # steps generations, in calls of EVOLVE_CALL
         for _ in range(steps // EVOLVE_CALL):
-            state["pk"], state["fit"] = packed.evolve_packed(
-                state["pk"], state["fit"], L,
-                *packed.evolve_bits(gen, EVOLVE_CALL, TOURNSIZE, N, W),
-                cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+            if prng == "input":
+                state["pk"], state["fit"] = packed.evolve_packed(
+                    state["pk"], state["fit"], L,
+                    *packed.evolve_bits(gen, EVOLVE_CALL, TOURNSIZE, N, W),
+                    **probs)
+            else:
+                state["pk"], state["fit"] = packed.evolve_packed(
+                    state["pk"], state["fit"], L, ngen=EVOLVE_CALL,
+                    tournsize=TOURNSIZE, prng=prng, generator=gen, **probs)
 
-    profile("evolve_packed", run, EVOLVE_CALL, 4 * EVOLVE_CALL, out_dir,
-            facts)
+    suffix = "" if prng == "input" else f"_{prng}"
+    profile(f"evolve_packed{suffix}", run, EVOLVE_CALL, 4 * EVOLVE_CALL,
+            out_dir, facts)
+
+
+def profile_hw(dev, out_dir, facts):
+    """The three OneMax loops with ``prng='input'`` and ``'hw'``, in
+    turns."""
+    for fn in (profile_fused, profile_packed, profile_evolve):
+        for prng in ("input", "hw"):
+            fn(dev, out_dir, facts, prng)
 
 
 def profile_rastrigin(dev, out_dir, facts):
@@ -355,9 +411,38 @@ def sass_k7(out_dir, facts, m=3):
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
 
+def sass_philox(out_dir, facts, library="evolve_packed"):
+    """The instructions of one Philox4x32-10 call: the body of
+    ``philox_kat_kernel`` (``csrc/philox.cuh``, one call a thread) in
+    ``library``, by opcode with its modifiers, from ``cuobjdump -sass``;
+    the listing goes to ``DIR/philox.sass``. Its integer multiplies
+    (``IMAD.HI``, ``IMAD`` and ``IMUL`` forms) are what the kernels'
+    operations bound counts, 40 a call."""
+    import re
+    import subprocess
+    from deap_tpu_torch import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target(library))],
+                          check=True, capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs if "philox_kat_kernel" in f.split("\n")[0])
+    with open(os.path.join(out_dir, "philox.sass"), "w") as f:
+        f.write(body)
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     body)
+    counts = {op: ops.count(op) for op in sorted(set(ops))}
+    muls = sum(v for k, v in counts.items()
+               if k.startswith(("IMAD", "IMUL")) and not k.startswith(
+                   ("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")))
+    print(f"[{facts}] Philox4x32-10 (philox_kat_kernel in lib{library}): "
+          f"{len(ops)} instructions, {muls} integer multiplies (IMAD/IMUL "
+          f"forms other than moves, shifts and adds); "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+
+
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
-            "gp": profile_gp}
+            "gp": profile_gp, "hw": profile_hw}
 
 
 def main():
@@ -374,8 +459,12 @@ def main():
                         help="profile the fused Rastrigin loop (K6)")
     parser.add_argument("--gp", action="store_true",
                         help="profile the GP symbolic regression loop (K9)")
+    parser.add_argument("--hw", action="store_true",
+                        help="profile the OneMax loops with prng='hw' "
+                             "beside prng='input'")
     parser.add_argument("--sass", action="store_true",
-                        help="count the instructions of K7's inner loop")
+                        help="count the instructions of K7's inner loop "
+                             "and of one Philox call")
     parser.add_argument("--k7-variants", action="store_true",
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
@@ -398,6 +487,7 @@ def main():
     dev = torch.device("cuda")
     if args.sass:
         sass_k7(args.out, facts)
+        sass_philox(args.out, facts)
     if args.k7_variants:
         k7_variants(dev, facts)
     if chosen or args.sass or args.k7_variants:

@@ -222,8 +222,25 @@ def test_ea_simple_packed_gather_is_the_two_kernels_in_turn():
 
 
 def test_ea_simple_packed_hw_prng_is_not_ported():
+    # the packed loop's Philox path is ported: on the CPU it runs the plain
+    # versions on ops.philox's streams, one key per generation
+    from deap_tpu_torch.ops import kernels as tkernels, philox
     gen = make_generator(0, "cpu")
     packed = torch.zeros((4, 4), dtype=torch.uint32)
+    got = talg.ea_simple_packed(gen, packed, torch.zeros(4), 100, 1,
+                                cxpb=0.5, mutpb=0.2, indpb=0.05, prng="hw",
+                                device="cpu")
+    key = tkernels.philox_key(make_generator(0, "cpu"))
+    parents = tpacked.sel_tournament_gather_packed_plain(
+        packed, torch.zeros(4), philox.hw_tournament_bits(key, 3, 4))
+    want = tpacked.fused_variation_eval_packed_plain(
+        parents, 100, *philox.hw_packed_bits(key, 4, 4, 100), cxpb=0.5,
+        mutpb=0.2, indpb=0.05)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # K6's (the Rastrigin kernel's) is not ported yet
+    from deap_tpu_torch.ops import kernels_real
+    g = torch.zeros((4, 3))
     with pytest.raises(NotImplementedError, match="Philox"):
-        talg.ea_simple_packed(gen, packed, torch.zeros(4), 100, 1, cxpb=0.5,
-                              mutpb=0.2, indpb=0.05, prng="hw", device="cpu")
+        kernels_real.fused_variation_eval_real(
+            g, *kernels_real.real_bits(gen, 4, 3), cxpb=0.5, mutpb=0.2,
+            indpb=0.1, prng="hw")

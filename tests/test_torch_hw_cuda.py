@@ -1,0 +1,164 @@
+"""The Philox (``prng='hw'``) paths of K2-K5 against their plain
+versions, on the card.
+
+These tests need a CUDA card and the CUDA toolkit; they skip without a
+card. On a machine with one:
+
+    python -m pytest tests/test_torch_hw_cuda.py -m cuda -q --noconftest
+
+Each Philox path is held bitwise against its bits-input plain version fed
+the streams :mod:`deap_tpu_torch.ops.philox` expands from the same key, at
+small odd shapes; the device function against Random123's known answers;
+the layout's invariants; and the launch counters (``launches`` and
+``hw_launches``, one each per call).
+"""
+
+import pytest
+import torch
+
+from deap_tpu_torch import algorithms
+from deap_tpu_torch.device import make_generator
+from deap_tpu_torch.ops import kernels, packed, philox
+
+pytestmark = pytest.mark.cuda
+
+PROBS = dict(cxpb=0.6, mutpb=0.5, indpb=0.1)
+KAT = (((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                                0x9B00DBD8)),
+       ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+        (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+       ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+        (0xA4093822, 0x299F31D0),
+        (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    if a.dtype in (torch.float32, torch.uint32):
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("library", ["fused_variation_eval",
+                                     "packed_variation", "selgather_packed",
+                                     "evolve_packed"])
+def test_device_philox_gives_the_known_answers(card, library):
+    u32 = torch.uint32
+    ctr = torch.tensor([c for c, _, _ in KAT]).to(u32).to(card)
+    key = torch.tensor([k for _, k, _ in KAT]).to(u32).to(card)
+    want = torch.tensor([o for _, _, o in KAT]).to(u32).to(card)
+    assert _same(kernels.philox_kat(ctr, key, library), want)
+    gen = make_generator(3, card)
+    rc = torch.randint(0, 2**32, (999, 4), generator=gen, device=card)
+    rk = torch.randint(0, 2**32, (999, 2), generator=gen, device=card)
+    assert _same(kernels.philox_kat(rc.to(u32), rk.to(u32), library),
+                 philox.philox4x32_10(rc, rk).to(u32))
+
+
+@pytest.mark.parametrize("n,L", [(1, 8), (2, 33), (65, 100), (1001, 31),
+                                 (1000, 64)])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+def test_k2_hw_equals_plain(card, n, L, dtype):
+    gen = make_generator(n + L, card)
+    g = (torch.rand((n, L), generator=gen, device=card) < 0.5).to(dtype)
+    key = kernels.philox_key(gen)
+    fn = kernels.fused_variation_eval
+    before = (fn.launches, fn.hw_launches, fn.vector_launches)
+    got = fn(g, prng="hw", key=key, **PROBS)
+    want = kernels.fused_variation_eval_plain(
+        g, *philox.hw_fused_bits(key, n, L), **PROBS)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.hw_launches - before[1],
+            fn.vector_launches - before[2]) == (1, 1, int(L % 4 == 0))
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,L", [(1, 100), (2, 33), (65, 32), (1001, 100),
+                                 (257, 70)])
+def test_k3_k4_hw_equal_plain_and_k2(card, n, L):
+    gen = make_generator(n, card)
+    bools = torch.rand((n, L), generator=gen, device=card) < 0.5
+    pk = packed.pack_genomes(bools)
+    W = pk.shape[1]
+    key = kernels.philox_key(gen)
+    k3, k4 = packed.fused_variation_eval_packed, packed.sel_tournament_gather_packed
+    before = (k3.hw_launches, k4.hw_launches)
+    got = k3(pk, L, prng="hw", key=key, **PROBS)
+    want = packed.fused_variation_eval_packed_plain(
+        pk, L, *philox.hw_packed_bits(key, n, W, L), **PROBS)
+    byte = kernels.fused_variation_eval(bools, prng="hw", key=key, **PROBS)
+    fit = packed.packed_fitness(pk)
+    sel = k4(pk, fit, prng="hw", key=key, tournsize=5)
+    sel_want = packed.sel_tournament_gather_packed_plain(
+        pk, fit, philox.hw_tournament_bits(key, 5, n))
+    torch.cuda.synchronize()
+    assert (k3.hw_launches - before[0], k4.hw_launches - before[1]) == (1, 1)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(got[0], packed.pack_genomes(byte[0]))
+    assert _same(got[1], byte[1])
+    assert _same(sel, sel_want)
+
+
+@pytest.mark.parametrize("n,L,ngen,tournsize", [(1, 100, 2, 3),
+                                                (201, 33, 3, 2),
+                                                (1000, 100, 4, 5)])
+def test_k5_hw_equals_plain_and_k4_then_k3(card, n, L, ngen, tournsize):
+    gen = make_generator(n + ngen, card)
+    pk = packed.pack_genomes(torch.rand((n, L), generator=gen, device=card)
+                             < 0.5)
+    fit = packed.packed_fitness(pk)
+    key = kernels.philox_key(gen)
+    before = packed.evolve_packed.hw_launches
+    got = packed.evolve_packed(pk, fit, L, ngen=ngen, tournsize=tournsize,
+                               prng="hw", key=key, **PROBS)
+    want = packed.evolve_packed_plain(
+        pk, fit, L, *philox.hw_evolve_bits(key, ngen, tournsize, n, L),
+        **PROBS)
+    one = packed.evolve_packed(pk, fit, L, ngen=1, tournsize=tournsize,
+                               prng="hw", key=key, **PROBS)
+    parents = packed.sel_tournament_gather_packed(
+        pk, fit, prng="hw", key=key, tournsize=tournsize)
+    two = packed.fused_variation_eval_packed(parents, L, prng="hw", key=key,
+                                             **PROBS)
+    torch.cuda.synchronize()
+    assert packed.evolve_packed.hw_launches == before + 2
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(one[0], two[0]) and _same(one[1], two[1])
+
+
+def test_auto_is_hw_on_the_card_and_refuses_bits(card):
+    gen = make_generator(5, card)
+    g = torch.zeros((6, 8), dtype=torch.bool, device=card)
+    before = kernels.fused_variation_eval.hw_launches
+    kernels.fused_variation_eval(g, generator=gen, **PROBS)
+    kernels.fused_variation_eval(g, prng="auto", generator=gen, **PROBS)
+    assert kernels.fused_variation_eval.hw_launches == before + 2
+    with pytest.raises(kernels.PrngError, match="Philox"):
+        kernels.fused_variation_eval(g, *kernels.fused_bits(gen, 6, 8),
+                                     prng="auto", **PROBS)
+    with pytest.raises(ValueError, match="generator lives on"):
+        kernels.fused_variation_eval(g, prng="hw",
+                                     generator=make_generator(0, "cpu"),
+                                     **PROBS)
+
+
+@pytest.mark.parametrize("select", ["gather", "sorted", "binned"])
+def test_ea_simple_packed_hw_counts_its_philox_launches(card, select):
+    gen = make_generator(11, card)
+    pk = packed.pack_genomes(torch.rand((301, 100), generator=gen,
+                                        device=card) < 0.5)
+    k3, k4 = packed.fused_variation_eval_packed, packed.sel_tournament_gather_packed
+    before = (k3.hw_launches, k4.hw_launches)
+    out, fit = algorithms.ea_simple_packed(
+        gen, pk, packed.packed_fitness(pk), 100, 4, select=select,
+        prng="auto", cxpb=0.5, mutpb=0.2, indpb=0.05, device=card)
+    torch.cuda.synchronize()
+    assert (k3.hw_launches - before[0], k4.hw_launches - before[1]) == (
+        4, 4 if select == "gather" else 0)
+    assert torch.equal(fit, packed.packed_fitness(out))
