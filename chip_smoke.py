@@ -36,7 +36,8 @@ Phases (any failure ends the script with a non-zero exit code):
    (``cx_blend``, ``mut_gaussian``, ``sel_tournament``) for 10;
 8. the ``prng='hw'`` paths of K2-K5, Philox4x32-10 in the kernel
    (``csrc/philox.cuh``): the device function against Random123's known
-   answers and the plain ``ops.philox.philox4x32_10``; each path bitwise
+   answers and the plain ``ops.philox.philox4x32_10`` (in each library
+   that includes it, K6's too); each path bitwise
    against its plain version on ``ops.philox``'s streams (K2 bool and
    float32 at L 100 and L 33, n 100k and 1001; K3 and K4 at n 100k; K5
    5 generations at n 100k and 1001), the layout's invariants (K3-hw ==
@@ -73,7 +74,23 @@ Phases (any failure ends the script with a non-zero exit code):
     regression (the quartic on 256 points, pop 4096, width 64, cxpb 0.5,
     mutpb 0.1) for 50 generations: best MSE at most 0.05, K9 launched
     once per depth level evaluated, after a 5-generation run at pop 256
-    that must equal the same run through the plain version bit for bit.
+    that must equal the same run through the plain version bit for bit;
+13. K6's Philox path (``prng='hw'``, ``bench_suite.py``'s call): against
+    its plain version on ``ops.philox.hw_real_bits``' streams at pop 100k
+    and at n 1001 (crossed genes bitwise, mutated genes and fitness at
+    K6's tolerances), one key twice equal and two keys different, timed
+    beside its bound from the Philox calls and bytes it needs; the fused
+    Rastrigin loop with ``'hw'`` and ``'auto'`` for 50 generations (K6
+    launches = Philox launches = 50); the peak memory of one generation
+    in each mode; ``'hw'`` against ``'input'`` in distribution (4 seeds, 20
+    generations, final best and average within 3 standard errors);
+14. ``bench_suite.py``'s cmaes_n100_lam4096 (Hansen CMA-ES on sphere, dim
+    100, lambda 4096, sigma 0.5 from 5.0): 50 generations through
+    ``ea_generate_update`` (hall of fame 1, fitness statistics) and as the
+    bare generate / evaluate / update loop, gens/s of both, the best
+    falling, C finite and symmetric, its eigendecomposition reconstructing
+    it within 1e-3; one update on the card against the same update on
+    the CPU at ``strategies.cma``'s stated tolerances.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -127,10 +144,14 @@ PHILOX_KAT = (
 # the libraries whose kernels draw with Philox (each carries the device
 # function and its known-answer entry)
 PHILOX_LIBRARIES = ("fused_variation_eval", "packed_variation",
-                    "selgather_packed", "evolve_packed")
+                    "selgather_packed", "evolve_packed",
+                    "fused_variation_real")
 # seeds and generations of the in-distribution check of 'hw' against
 # 'input'
 DIST_SEEDS, DIST_NGEN = 4, 20
+# bench_suite.py's cmaes_n100_lam4096: Hansen CMA-ES on sphere, dim 100,
+# lambda 4096, centroid 5.0, sigma 0.5, 50 generations (NGEN)
+CMA_DIM, CMA_LAMBDA, CMA_START, CMA_SIGMA, CMA_NGEN = 100, 4096, 5.0, 0.5, 50
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -185,11 +206,13 @@ def ptxas_report(log):
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"\d+([a-z_]+kernel[a-z_]*)(?:ILi(\d+)E|I(\w)E)?",
+            name = re.search(r"\d+([a-z_]+kernel[a-z_]*)"
+                             r"(?:ILi(\d+)E|ILb([01])E|I(\w)E)?",
                              entry.group(1))
+            arg = name and (name.group(2) or name.group(4) or (
+                name.group(3) and ("false", "true")[int(name.group(3))]))
             kernel = entry.group(1) if name is None else name.group(1) + (
-                f"<{name.group(2) or name.group(3)}>"
-                if name.group(2) or name.group(3) else "")
+                f"<{arg}>" if arg else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -490,11 +513,13 @@ def main():
     hw_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
     gp_phases(torch, dev, tag, report, record)
+    real_hw_phases(torch, dev, tag, report, record)
+    cma_phases(torch, dev, tag, report, record)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
                                    "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
-                                   "k5_hw")]}))
+                                   "k5_hw", "k6_hw")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -516,13 +541,14 @@ def launch_counters():
 def reset_counts():
     """Set every launch count to 0 just before a main-path run (the
     Philox and vector launches counted within them too)."""
-    from deap_tpu_torch.ops import kernels, packed
+    from deap_tpu_torch.ops import kernels, kernels_real, packed
     for fn in launch_counters():
         fn.launches = 0
     kernels.fused_variation_eval.vector_launches = 0
     for fn in (kernels.fused_variation_eval,
                packed.fused_variation_eval_packed,
-               packed.sel_tournament_gather_packed, packed.evolve_packed):
+               packed.sel_tournament_gather_packed, packed.evolve_packed,
+               kernels_real.fused_variation_eval_real):
         fn.hw_launches = 0
 
 
@@ -1201,6 +1227,251 @@ def hw_phases(torch, dev, tag, report, record):
     del flush
 
 
+def real_hw_phases(torch, dev, tag, report, record):
+    """Phase 13: K6's Philox path (``prng='hw'``) against its plain version
+    on ``ops.philox.hw_real_bits``' streams, ``bench_suite.py``'s fused
+    Rastrigin loop with ``'hw'`` and ``'auto'``, the memory a generation
+    saves, and ``'hw'`` against ``'input'`` in distribution."""
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, kernels_real, philox
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    ra = dict(cxpb=RA_CXPB, mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA,
+              sigma=RA_SIGMA, evaluate="rastrigin")
+    tol = dict(mutpb=RA_MUTPB, indpb=RA_INDPB, mu=0.0, sigma=RA_SIGMA)
+    fn = kernels_real.fused_variation_eval_real
+    gen = make_generator(73, dev)
+    init = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)
+
+    # ------------------------------------------------- K6 Philox path --
+    worst = 0.0
+    for n in (1001, RA_N):  # the main path's case last: the one timed
+        genomes = init(gen, n)
+        key = kernels.philox_key(gen)
+        before = (fn.launches, fn.hw_launches)
+        got = fn(genomes, prng="hw", key=key, **ra)
+        if (fn.launches - before[0], fn.hw_launches - before[1]) != (1, 1):
+            fail("fused_variation_eval_real(prng='hw') did not launch its "
+                 "Philox path once")
+        bits = philox.hw_real_bits(key, n, RA_DIM)
+        want = kernels_real.fused_variation_eval_real_plain(genomes, *bits,
+                                                            **ra)
+        torch.cuda.synchronize()
+        errs = kernels_real.real_kernel_errors(got, want, *bits, **tol)
+        if not errs["ok"]:
+            fail(f"fused_variation_eval_real(prng='hw') differs from the "
+                 f"plain version on ops.philox's streams at n={n}: {errs}")
+        worst = max(worst, errs["max_abs"], errs["max_fit_abs"])
+        print(f"{tag} fused_variation_eval_real(prng='hw') vs plain on "
+              f"ops.philox's streams at n={n}, L={RA_DIM}: "
+              f"{errs['unmutated']} crossed or untouched genes bitwise; "
+              f"{errs['mutated']} mutated genes within "
+              f"{kernels_real.STEP_ULPS} ulp of the step + 1 of the gene, "
+              f"largest {errs['max_ulps']} ulp ({errs['max_abs']:.3e} "
+              f"absolute); fitness largest relative error "
+              f"{errs['max_fit_rel']:.3e}")
+    again = fn(genomes, prng="hw", key=key, **ra)
+    other = fn(genomes, prng="hw", key=other_key(key), **ra)
+    for a, b, part in zip(got, again, ("children", "fitness")):
+        if not bitwise_equal(a, b):
+            fail(f"fused_variation_eval_real(prng='hw') twice with one key: "
+                 f"{part} differ")
+    if bitwise_equal(got[0], other[0]):
+        fail("fused_variation_eval_real(prng='hw') gave the same children "
+             "for two keys")
+    # the Philox calls this run's decisions need: a pair+row call a row,
+    # ceil(L/4) gamma calls a mating pair, ceil(L/4) gate calls a mutating
+    # row, a normal call a mutated gene
+    calls4 = -(-RA_DIM // 4)
+    n_cx = pairs_mating(bits[0], RA_CXPB)
+    n_mut = rows_below(bits[1], RA_MUTPB)
+    calls = RA_N + calls4 * (n_cx + n_mut) + errs["mutated"]
+    record("k6_hw", "fused_variation_eval_real (prng='hw')",
+           "deap_tpu_torch/csrc/fused_variation_real.cu",
+           "deap_tpu/ops/kernels_real.py:124", worst,
+           time_ms(lambda: fn(genomes, prng="hw", key=key, **ra), flush),
+           time_ms(lambda: kernels_real.fused_variation_eval_real_plain(
+               genomes, *philox.hw_real_bits(key, RA_N, RA_DIM), **ra),
+               flush),
+           8 * RA_N * RA_DIM + 4 * RA_N, imads=PHILOX_IMADS * calls)
+    print(f"  (of {RA_N} rows {n_mut} mutate, of {RA_N // 2} pairs {n_cx} "
+          f"mate, {errs['mutated']} genes mutated: {calls} Philox calls; one "
+          f"key twice bitwise equal, two keys differ)")
+    del flush
+
+    # ------------------------------- the fused loop, 'hw' and 'auto' --
+    def start(seed, n):
+        g = make_generator(seed, dev)
+        genomes = init(g, n)
+        return g, genomes, kernels_real.eval_rastrigin(genomes)
+
+    for prng in ("hw", "auto"):
+        g, genomes, fit = start(37, RA_N)
+        best0 = float(fit.min())
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RA_NGEN):
+            genomes, fit = rastrigin_fused_generation(g, genomes, fit,
+                                                      prng=prng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not fn.launches == fn.hw_launches == RA_NGEN:
+            fail(f"fused Rastrigin loop (prng={prng!r}): K6 launches "
+                 f"{fn.launches}, Philox {fn.hw_launches} in {RA_NGEN} "
+                 f"generations")
+        best = float(fit.min())
+        check = kernels_real.eval_rastrigin(genomes)
+        if not (bool(torch.isfinite(fit).all()) and best < best0
+                and torch.allclose(fit, check, rtol=kernels_real.FIT_RTOL,
+                                   atol=1e-3)):
+            fail(f"fused Rastrigin loop (prng={prng!r}): fitness wrong or "
+                 f"did not fall: best {best0} -> {best}")
+        if prng == "hw":
+            report["k6_hw"]["launches"] = fn.hw_launches
+        print(f"{tag} fused Rastrigin loop prng={prng!r} n={RA_N} "
+              f"dim={RA_DIM}: {RA_NGEN} generations in {wall:.3f} s = "
+              f"{RA_NGEN / wall:.2f} gens/s; best {best0:.4f} -> "
+              f"{best:.4f}, mean {float(fit.mean()):.4f}; K6 launches "
+              f"{fn.launches}, Philox {fn.hw_launches}")
+
+    # ------------------------------------------- memory of a generation --
+    def peak(prng):
+        g, genomes, fit = start(79, RA_N)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rastrigin_fused_generation(g, genomes, fit, prng=prng)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+    mem = {prng: peak(prng) for prng in ("input", "hw")}
+    print(f"{tag} peak device memory of one fused Rastrigin generation at "
+          f"n={RA_N} above what was allocated before: prng='input' "
+          f"{mem['input'] / 1e6:.3f} MB (its draws included), 'hw' "
+          f"{mem['hw'] / 1e6:.3f} MB")
+
+    # ----------------------------------- 'hw' against 'input' in law --
+    def final(seed, prng):
+        g, genomes, fit = start(3000 + seed, RA_N)
+        for _ in range(DIST_NGEN):
+            genomes, fit = rastrigin_fused_generation(g, genomes, fit,
+                                                      prng=prng)
+        return fit
+
+    fits = {prng: [final(s, prng) for s in range(DIST_SEEDS)]
+            for prng in ("hw", "input")}
+    parts = []
+    for stat, reduce in (("best", torch.amin), ("average", torch.mean)):
+        a = [float(reduce(f)) for f in fits["hw"]]
+        b = [float(reduce(f)) for f in fits["input"]]
+        se = (statistics.variance(a) / DIST_SEEDS
+              + statistics.variance(b) / DIST_SEEDS) ** 0.5
+        diff = abs(statistics.mean(a) - statistics.mean(b))
+        if diff > 3 * se:
+            fail(f"fused Rastrigin: final {stat} fitness with prng='hw' "
+                 f"({statistics.mean(a)}) and 'input' ({statistics.mean(b)}) "
+                 f"differ by {diff}, more than 3 standard errors ({se})")
+        parts.append(f"{stat} {statistics.mean(a):.4f} against "
+                     f"{statistics.mean(b):.4f} (3 SE {3 * se:.4f})")
+    print(f"{tag} fused Rastrigin n={RA_N}, {DIST_NGEN} gens, {DIST_SEEDS} "
+          f"seeds, prng='hw' against 'input': " + "; ".join(parts))
+
+
+def cma_phases(torch, dev, tag, report, record):
+    """Phase 14: ``bench_suite.py``'s cmaes_n100_lam4096, Hansen CMA-ES on
+    sphere, through ``ea_generate_update`` and as the bare generate /
+    evaluate / update loop ``bench_suite.bench_cmaes`` runs; one update on
+    the card against the same update on the CPU."""
+    from deap_tpu_torch import Toolbox, algorithms, benchmarks, convert
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    if not (torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32):
+        fail("float32 matmuls are not at full precision (TF32 is on)")
+    args = (torch.full((CMA_DIM,), CMA_START),)
+    kw = dict(sigma=CMA_SIGMA, lambda_=CMA_LAMBDA)
+    strat = cma.Strategy(*args, **kw, device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.sphere)
+    tb.register("generate", strat.generate)
+    tb.register("update", strat.update)
+
+    def bare(g, st, ngen):
+        for _ in range(ngen):
+            pop = strat.generate(g, st)
+            st = strat.update(st, pop, benchmarks.sphere(pop))
+        return st
+
+    # warm-up: the first calls load cuBLAS, cuSOLVER and the kernels
+    algorithms.ea_generate_update(
+        make_generator(1, dev), strat.initial_state(), tb, 3, strat.spec,
+        stats=fitness_stats(), halloffame_size=1, device=dev)
+    bare(make_generator(1, dev), strat.initial_state(), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logbook, hof = algorithms.ea_generate_update(
+        make_generator(83, dev), strat.initial_state(), tb, CMA_NGEN,
+        strat.spec, stats=fitness_stats(), halloffame_size=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mins = logbook.select("min")
+    C = state.C
+    asym = float((C - C.T).abs().max() / C.abs().max())
+    recon = cma.reconstruction_error(state)
+    if not (len(logbook) == CMA_NGEN and mins[-1] < mins[0]
+            and float(hof.fitness[0, 0]) == min(mins)
+            and bool(torch.isfinite(C).all()) and asym <= 1e-5
+            and recon <= cma.RECON_TOL):
+        fail(f"CMA-ES through ea_generate_update: best {mins[0]} -> "
+             f"{mins[-1]}, hall of fame {float(hof.fitness[0, 0])}, C "
+             f"asymmetry {asym}, reconstruction {recon}")
+    print(f"{tag} CMA-ES ea_generate_update dim={CMA_DIM} "
+          f"lambda={CMA_LAMBDA} on sphere: {CMA_NGEN} generations in "
+          f"{wall:.3f} s = {CMA_NGEN / wall:.2f} gens/s "
+          f"({wall / CMA_NGEN * 1e3:.3f} ms/gen, logbook and hall of fame "
+          f"included); best {mins[0]:.4f} "
+          f"-> {mins[-1]:.4f}; sigma {float(state.sigma):.5f}, cond "
+          f"{float(state.cond):.4f}; C symmetric to {asym:.2e} of its "
+          f"largest entry, ||B D^2 B^T - C|| / ||C|| = {recon:.3e}")
+
+    g = make_generator(89, dev)
+    st = strat.initial_state()
+    best0 = float(benchmarks.sphere(strat.generate(g, st)).min())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = bare(g, st, CMA_NGEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    best = float(benchmarks.sphere(strat.generate(g, st)).min())
+    if not (best < best0 and bool(torch.isfinite(st.C).all())):
+        fail(f"CMA-ES bare loop: best {best0} -> {best}")
+    print(f"{tag} CMA-ES bare generate/evaluate/update loop (bench_suite's "
+          f"bench_cmaes), after 3 of warm-up like the loop above: "
+          f"{CMA_NGEN} generations in {wall:.3f} s = "
+          f"{CMA_NGEN / wall:.2f} gens/s ({wall / CMA_NGEN * 1e3:.3f} "
+          f"ms/gen); sampled best {best0:.4f} -> {best:.4f}")
+
+    # one update on the card against the same update on the CPU
+    genomes = strat.generate(g, st)
+    values = benchmarks.sphere(genomes)
+    got = strat.update(st, genomes, values)
+    cpu = cma.Strategy(*args, **kw, device="cpu")
+    want = cpu.update(convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(st), device="cpu"), genomes.cpu(),
+        values.cpu())
+    got_cpu = convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(got), device="cpu")
+    errs = cma.state_errors(got_cpu, want)
+    if not errs["ok"]:
+        fail(f"CMA-ES update on the card differs from it on the CPU: {errs}")
+    print(f"{tag} CMA-ES update on the card == on the CPU within the stated "
+          f"tolerances: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()
+                                      if k != "ok"))
+
+
 def other_key(key):
     """A Philox key that differs from ``key`` in one bit."""
     from deap_tpu_torch.ops import philox
@@ -1691,19 +1962,26 @@ def fused_onemax_generation(g, genomes, fit, variation=None, prng="input"):
     return variation(genomes[idx], prng=prng, generator=g, **probs)
 
 
-def rastrigin_fused_generation(g, genomes, fit):
+def rastrigin_fused_generation(g, genomes, fit, variation=None,
+                               prng="input"):
     """``bench_suite.py``'s fused Rastrigin step: the rank-based tournament
     3 on the (minimised) fitness, the gather of the parents' rows, then K6
-    with blend and Gaussian variation and Rastrigin evaluated in the
-    kernel."""
+    (or ``variation``, its plain version) with blend and Gaussian
+    variation and Rastrigin evaluated in the kernel, its bits drawn from
+    ``g`` (``prng='input'``) or made in the kernel from a key drawn from
+    ``g`` (``'hw'``, and ``'auto'`` on the card; ``bench_suite.py`` passes
+    ``prng="hw"``). Returns the children and their fitness."""
     from deap_tpu_torch.ops import kernels_real
     from deap_tpu_torch.ops.selection import sel_tournament_sorted
+    variation = variation or kernels_real.fused_variation_eval_real
     n, length = genomes.shape
     idx = sel_tournament_sorted(g, -fit[:, None], n, TOURNSIZE)
-    return kernels_real.fused_variation_eval_real(
-        genomes[idx], *kernels_real.real_bits(g, n, length), cxpb=RA_CXPB,
-        mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA, sigma=RA_SIGMA,
-        evaluate="rastrigin")
+    kw = dict(cxpb=RA_CXPB, mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA,
+              sigma=RA_SIGMA, evaluate="rastrigin")
+    if prng == "input":
+        return variation(genomes[idx], *kernels_real.real_bits(g, n, length),
+                         **kw)
+    return variation(genomes[idx], prng=prng, generator=g, **kw)
 
 
 def rastrigin_toolbox():

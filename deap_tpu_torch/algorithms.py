@@ -1,6 +1,7 @@
 """Algorithms — the generational loops as Python loops over tensor steps.
 
-Port of the ``ea_simple`` path of :mod:`deap_tpu.algorithms`. Each
+Port of the ``ea_simple`` and ``ea_generate_update`` paths of
+:mod:`deap_tpu.algorithms`. Each
 generation is select → var_and → evaluate invalid → archive/stats on
 the device; ``lax.scan`` becomes a loop over generations. The toolbox
 convention, batched:
@@ -17,15 +18,20 @@ written, and ``nevals`` counts exactly those.
 :func:`ea_simple_packed` is the OneMax generation on bit-packed genomes
 that the JAX package's ``bench.py`` races (``make_run_selgather``,
 ``make_run_packed``), as a user-facing loop.
+
+:func:`ea_generate_update` is the ask-tell loop of the strategies
+(:mod:`deap_tpu_torch.strategies`): ``toolbox.generate(generator, state)
+-> genomes``, ``toolbox.update(state, genomes, values) -> state``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
+from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population, gather
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
 from deap_tpu_torch.ops import packed as _packed
@@ -339,3 +345,105 @@ def ea_simple_packed(generator: torch.Generator, packed: torch.Tensor,
                 parents, length, *_packed.variation_bits(generator, n, W),
                 **probs)
     return packed, fit
+
+
+# ------------------------------------------------- ask-tell (strategies) ----
+
+def _generate_update_init(genomes, values: torch.Tensor, spec: FitnessSpec,
+                          halloffame_size: int):
+    """``(lam, hof)`` from the first generation's genomes and values: λ is
+    their leading size and the hall of fame is shaped on them, so learning
+    them spends no draw and no evaluation (the JAX package traces the
+    shapes with ``jax.eval_shape``)."""
+    lam = pytree.tree_leaves(genomes)[0].shape[0]
+    template = Population(genomes=genomes, fitness=values.to(torch.float32),
+                          valid=torch.ones(lam, dtype=torch.bool,
+                                           device=values.device), spec=spec)
+    hof = hof_init(halloffame_size, template) if halloffame_size else None
+    return lam, hof
+
+
+def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
+                                 stats: Optional[Statistics] = None
+                                 ) -> Callable:
+    """The ask-tell generation step ``(generator, state, hof) -> (state,
+    hof, record)``: generate → evaluate → update. ``step.tell(state, hof,
+    genomes, values)`` is its second half, for genomes already generated
+    and evaluated."""
+
+    def tell(state, hof, genomes, values):
+        pop = Population(genomes=genomes, fitness=values.to(torch.float32),
+                         valid=torch.ones(lam, dtype=torch.bool,
+                                          device=values.device), spec=spec)
+        new_state = toolbox.update(state, genomes, values)
+        if hof is not None:
+            hof = hof_update(hof, pop)
+        return new_state, hof, {"nevals": lam, **_maybe_stats(stats, pop)}
+
+    def step(generator, state, hof):
+        genomes = toolbox.generate(generator, state)
+        return tell(state, hof, genomes, _as2d(toolbox.evaluate(genomes)))
+
+    step.tell = tell
+    return step
+
+
+def _build_gu_logbook(records, stats) -> Logbook:
+    """The ask-tell loop's logbook: one row per generation from gen 0 (no
+    separate founder record), moved to the host at the end."""
+    logbook = Logbook()
+    logbook.header = ["gen", "nevals"] + (list(stats.fields) if stats
+                                          else [])
+    for gen, rec in enumerate(records):
+        logbook.record(gen=gen, **_host(rec))
+    return logbook
+
+
+def ea_generate_update(generator: torch.Generator, state: Any, toolbox,
+                       ngen: int, spec: FitnessSpec,
+                       stats: Optional[Statistics] = None,
+                       halloffame_size: int = 0, verbose: bool = False,
+                       telemetry=None, probes=(), fused="auto", plan=None,
+                       device: DeviceLike = None,
+                       ) -> Tuple[Any, Logbook, Optional[HallOfFame]]:
+    """The ask-tell loop (the reference's eaGenerateUpdate) driving
+    CMA-ES-style strategies on ``device`` (the card unless
+    ``device="cpu"``; ``generator`` and the state must live there):
+
+    - ``toolbox.generate``: ``(generator, state) -> genomes``
+    - ``toolbox.evaluate``: ``genomes -> values [λ] | [λ, nobj]``
+    - ``toolbox.update``:   ``(state, genomes, values) -> state``
+
+    Each generation is generate → evaluate → update, then the hall of
+    fame and the statistics. The records stay on the device until the
+    loop ends, so the loop itself never waits for the card (a strategy's
+    update may: CMA-ES's ``torch.linalg.eigh`` does). ``fused`` is
+    accepted, as in the JAX package, and inert: this loop's variation is
+    the strategy's ``generate``. ``telemetry=``, ``probes=`` and
+    ``plan=`` are not ported and raise.
+    """
+    del fused  # no variation plane in the ask-tell loop
+    if telemetry is not None or probes:
+        raise NotImplementedError(
+            "telemetry= and probes= are not ported yet (ROADMAP A11)")
+    if plan is not None:
+        raise NotImplementedError(
+            "plan= (sharding) is not ported yet (ROADMAP A12)")
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    step, hof, records = None, None, []
+    for _ in range(ngen):
+        if step is None:
+            genomes = toolbox.generate(generator, state)
+            values = _as2d(toolbox.evaluate(genomes))
+            lam, hof = _generate_update_init(genomes, values, spec,
+                                             halloffame_size)
+            step = make_ea_generate_update_step(toolbox, spec, lam, stats)
+            state, hof, rec = step.tell(state, hof, genomes, values)
+        else:
+            state, hof, rec = step(generator, state, hof)
+        records.append(rec)
+    logbook = _build_gu_logbook(records, stats)
+    if verbose:
+        print(logbook.stream)
+    return state, logbook, hof

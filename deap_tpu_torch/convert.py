@@ -1,5 +1,5 @@
-"""Carry population, hall-of-fame, Pareto-archive and GP-genome state
-between the two packages.
+"""Carry population, hall-of-fame, Pareto-archive, GP-genome and CMA-ES
+state between the two packages.
 
 The port never imports the JAX package, so state crosses as numpy arrays
 plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
@@ -18,6 +18,7 @@ from torch.utils import _pytree as pytree
 from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population
 from deap_tpu_torch.device import DeviceLike, resolve_device
+from deap_tpu_torch.strategies.cma import CMAState
 from deap_tpu_torch.support.hof import HallOfFame
 from deap_tpu_torch.support.pareto import ParetoArchive
 
@@ -101,3 +102,24 @@ def gp_genomes_to_arrays(genomes: Dict[str, torch.Tensor]
     arrays."""
     return {k: to_numpy(genomes[k]).astype(dtype, copy=False)
             for k, dtype in _GP_DTYPES.items()}
+
+
+#: the fields of a CMA-ES state and their dtypes
+CMA_FIELDS = {"centroid": np.float32, "sigma": np.float32, "C": np.float32,
+              "B": np.float32, "diagD": np.float32, "ps": np.float32,
+              "pc": np.float32, "count": np.int32}
+
+
+def cma_state_from_arrays(centroid, sigma, C, B, diagD, ps, pc, count,
+                          device: DeviceLike = None) -> CMAState:
+    """The port's CMA-ES state from the JAX package's ``CMAState`` fields
+    as numpy arrays (``B`` as the reference computed it, signs and all)."""
+    fields = dict(centroid=centroid, sigma=sigma, C=C, B=B, diagD=diagD,
+                  ps=ps, pc=pc, count=count)
+    return CMAState(**{k: to_tensor(np.asarray(v, CMA_FIELDS[k]), device)
+                       for k, v in fields.items()})
+
+
+def cma_state_to_arrays(state: CMAState) -> Dict[str, np.ndarray]:
+    """The CMA-ES state's fields as numpy arrays, by name."""
+    return {k: to_numpy(getattr(state, k)) for k in CMA_FIELDS}

@@ -3,7 +3,8 @@
 // Replaces the TPU core's own generator (pltpu.prng_seed /
 // pltpu.prng_random_bits) of the JAX package's hw bodies: _fused_kernel_hw
 // (deap_tpu/ops/kernels.py), _packed_kernel_hw, _selgather_kernel_hw and
-// _evolve_kernel_hw (deap_tpu/ops/packed.py). The plain version, which
+// _evolve_kernel_hw (deap_tpu/ops/packed.py), _real_kernel_hw
+// (deap_tpu/ops/kernels_real.py). The plain version, which
 // draws the same bits, is deap_tpu_torch/ops/philox.py::philox4x32_10; both
 // hold this one written-out definition (Random123's Philox4x32 with 10
 // rounds: multipliers 0xD2511F53 and 0xCD9E8D57, key bumps 0x9E3779B9 and
@@ -16,7 +17,12 @@
 //   cut points (read from the even row of each pair for both rows), word 3
 //   row r's mutation gate;
 // - kGenes (row r, i / 4, g, 1): word i % 4 is gene i's flip draw;
-// - kTournament (child c, t / 4, g, 2): word t % 4 is aspirant t, % n.
+// - kTournament (child c, t / 4, g, 2): word t % 4 is aspirant t, % n;
+// - kRealGamma (row r & ~1, i / 4, g, 3): word i % 4 is K6's blend draw of
+//   gene i, one for both rows of a pair;
+// - kRealNormal (row r, i, g, 4): words 0 and 1 are K6's Box-Muller u1 and
+//   u2 of gene i.
+// K6 takes its gene gates from kGenes, at the flip draws' coordinates.
 // g is the generation inside one evolve_packed call, 0 elsewhere. A draw
 // depends only on its coordinates, so a kernel makes just the draws its
 // decisions need and block shapes may change without changing a result.
@@ -28,7 +34,13 @@
 
 #include "common.cuh"
 
-enum : uint32_t { kPairRow = 0u, kGenes = 1u, kTournament = 2u };
+enum : uint32_t {
+  kPairRow = 0u,
+  kGenes = 1u,
+  kTournament = 2u,
+  kRealGamma = 3u,
+  kRealNormal = 4u
+};
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll

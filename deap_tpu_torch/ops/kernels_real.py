@@ -7,7 +7,9 @@ fitness function in one pass over the ``[n, L]`` float32 genomes.
 
 - :func:`fused_variation_eval_real` (K6, ``csrc/fused_variation_real.cu``),
   plain version :func:`fused_variation_eval_real_plain`, random bits from
-  :func:`real_bits`.
+  :func:`real_bits` (``prng='input'``) or made inside the kernel by
+  Philox (``prng='hw'``; the streams of
+  :func:`deap_tpu_torch.ops.philox.hw_real_bits`).
 
 Semantics, per adjacent pair (the even row's draws decide for both rows;
 an odd last row never mates):
@@ -32,19 +34,20 @@ by the last bits of ``log1p``, ``cos`` and the order of the sum.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from deap_tpu_torch import _build
 from deap_tpu_torch import benchmarks
+from deap_tpu_torch.ops import philox
 from deap_tpu_torch.ops.kernels import (
     _check_cuda,
     _f32,
     _pair_consistent,
     _pair_decisions,
     _partner_rows,
-    _resolve_prng,
+    _prng_mode,
     _u01,
     _words,
     fused_bits,
@@ -135,10 +138,14 @@ def fused_variation_eval_real_plain(genomes, pairbits, rowbits, genebits, *,
 
 
 def fused_variation_eval_real(
-        genomes: torch.Tensor, pairbits: torch.Tensor, rowbits: torch.Tensor,
-        genebits: torch.Tensor, *, cxpb: float, mutpb: float, indpb: float,
-        alpha: float = 0.5, mu: float = 0.0, sigma: float = 1.0,
-        evaluate: Union[str, Callable] = "rastrigin", prng: str = "input",
+        genomes: torch.Tensor, pairbits: Optional[torch.Tensor] = None,
+        rowbits: Optional[torch.Tensor] = None,
+        genebits: Optional[torch.Tensor] = None, *, cxpb: float,
+        mutpb: float, indpb: float, alpha: float = 0.5, mu: float = 0.0,
+        sigma: float = 1.0, evaluate: Union[str, Callable] = "rastrigin",
+        prng: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+        key: Optional[torch.Tensor] = None,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused eaSimple variation and evaluation pass over float32
     genomes (K6): ``var_and`` with ``cx_blend(alpha)`` and
@@ -147,21 +154,26 @@ def fused_variation_eval_real(
 
     :param genomes: ``f32[n, L]``.
     :param pairbits, rowbits, genebits: ``uint32`` ``[n, 4]``, ``[n, 1]``,
-        ``[n, 4 L]``, e.g. from :func:`real_bits`.
+        ``[n, 4 L]``, e.g. from :func:`real_bits`: the bits of
+        ``prng='input'``.
     :param evaluate: ``"rastrigin"`` or ``"sphere"``, evaluated inside the
         kernel; or a callable ``fn(children f32[n, L]) -> f32[n]``. A
         callable cannot be compiled into CUDA: the kernel then runs the
         variation with its evaluation switched off and the callable is
         applied to the children in PyTorch afterwards.
-    :param prng: only ``'input'`` (these bits) is ported; ``'hw'``, and
-        ``'auto'`` on the card, raise ``NotImplementedError``.
+    :param prng: ``'input'`` (the default where bits are passed), ``'hw'``
+        (Philox in the kernel, keyed from ``generator`` or ``key``, in the
+        streams of :func:`deap_tpu_torch.ops.philox.hw_real_bits`; bits
+        refused) or ``'auto'`` (the default without bits: ``'hw'`` on the
+        card, ``'input'`` on the CPU), as K2's
+        :func:`~deap_tpu_torch.ops.kernels.fused_variation_eval`.
+        ``fused_variation_eval_real.hw_launches`` counts the Philox
+        launches (within ``launches``).
     :returns: ``(children f32[n, L], fitness f32[n])``.
     """
-    if _resolve_prng(prng, genomes.device) == "hw":
-        raise NotImplementedError(
-            "fused_variation_eval_real: prng='hw' needs in-kernel Philox "
-            "for K6's gamma, gate and Box-Muller draws, which is not ported "
-            "yet (ROADMAP.md B5); use prng='input'")
+    dev = genomes.device
+    mode, key = _prng_mode("fused_variation_eval_real", prng, dev,
+                           (pairbits, rowbits, genebits), generator, key)
     if isinstance(evaluate, str) and evaluate not in _EVALS:
         raise ValueError(f"unknown evaluate {evaluate!r}; built-ins are "
                          f"{sorted(_EVALS)} (or pass a callable)")
@@ -170,28 +182,39 @@ def fused_variation_eval_real(
                         f"got {genomes.dtype}")
     kw = dict(cxpb=cxpb, mutpb=mutpb, indpb=indpb, alpha=alpha, mu=mu,
               sigma=sigma, evaluate=evaluate)
-    if genomes.device.type == "cpu":
+    n, L = genomes.shape
+    if dev.type == "cpu":
+        if mode == "hw":
+            pairbits, rowbits, genebits = philox.hw_real_bits(key, n, L)
         return fused_variation_eval_real_plain(genomes, pairbits, rowbits,
                                                genebits, **kw)
-    if genomes.device.type != "cuda":
-        raise ValueError(f"no kernel for device {genomes.device}")
-    n, L = genomes.shape
-    dev = genomes.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     _check_cuda("genomes", dev, torch.float32, (n, L), genomes)
-    _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
-    _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
-    _check_cuda("genebits", dev, torch.uint32, (n, PLANES * L), genebits)
+    if mode == "input":
+        _check_cuda("pairbits", dev, torch.uint32, (n, 4), pairbits)
+        _check_cuda("rowbits", dev, torch.uint32, (n, 1), rowbits)
+        _check_cuda("genebits", dev, torch.uint32, (n, PLANES * L),
+                    genebits)
     out = torch.empty((n, L), dtype=torch.float32, device=dev)
     fit = torch.empty((n,), dtype=torch.float32, device=dev)
     code = _EVAL_CODES[evaluate] if isinstance(evaluate, str) else 0
     P, I, F = _build.PTR, _build.INT, _build.FLOAT
-    fn = _build.function("fused_variation_real", "fused_variation_real",
-                         [P] * 6 + [I, I, F, F, F, F, F, F, F, I, P])
-    err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
-             genebits.data_ptr(), out.data_ptr(), fit.data_ptr(), n, L,
-             _f32(cxpb), _f32(mutpb), _f32(indpb), _f32(1.0 + 2.0 * alpha),
-             _f32(alpha), _f32(mu), _f32(sigma), code,
-             torch.cuda.current_stream(dev).cuda_stream)
+    params = (n, L, _f32(cxpb), _f32(mutpb), _f32(indpb),
+              _f32(1.0 + 2.0 * alpha), _f32(alpha), _f32(mu), _f32(sigma),
+              code, torch.cuda.current_stream(dev).cuda_stream)
+    if mode == "hw":
+        fn = _build.function("fused_variation_real", "fused_variation_real_hw",
+                             [P] * 4 + [I, I] + [F] * 7 + [I, P])
+        err = fn(genomes.data_ptr(), key.data_ptr(), out.data_ptr(),
+                 fit.data_ptr(), *params)
+        fused_variation_eval_real.hw_launches += 1
+    else:
+        fn = _build.function("fused_variation_real", "fused_variation_real",
+                             [P] * 6 + [I, I] + [F] * 7 + [I, P])
+        err = fn(genomes.data_ptr(), pairbits.data_ptr(), rowbits.data_ptr(),
+                 genebits.data_ptr(), out.data_ptr(), fit.data_ptr(),
+                 *params)
     fused_variation_eval_real.launches += 1
     _build.check("fused_variation_real", err, "fused_variation_eval_real")
     if code == 0:
@@ -200,6 +223,7 @@ def fused_variation_eval_real(
 
 
 fused_variation_eval_real.launches = 0
+fused_variation_eval_real.hw_launches = 0
 
 
 def real_kernel_errors(got, want, pairbits, rowbits, genebits, *, mutpb,

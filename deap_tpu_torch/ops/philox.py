@@ -20,7 +20,19 @@ for the one-generation kernels); ``tag`` names the stream:
 - ``GENES`` ``(row r, i // 4, g, 1)``: word ``i % 4`` is gene ``i``'s flip
   draw;
 - ``TOURNAMENT`` ``(child c, t // 4, g, 2)``: word ``t % 4`` is aspirant
-  ``t``, taken ``% n``.
+  ``t``, taken ``% n``;
+- ``REAL_GAMMA`` ``(row r & ~1, i // 4, g, 3)``: word ``i % 4`` is the
+  blend γ draw of gene ``i`` of K6, shared by the two rows of a pair (the
+  counter names the even row);
+- ``REAL_NORMAL`` ``(row r, i, g, 4)``: words 0 and 1 are the Box–Muller
+  uniforms u1 and u2 of gene ``i`` of K6 (words 2 and 3 are unused).
+
+K6 (the real-valued generation) takes its crossover gate from word 0 of
+the even row's ``PAIR_ROW`` call, its mutation gate from word 3 of the
+row's own, and each gene's mutation gate from ``GENES`` at K2's flip
+coordinates. Each stream is drawn only where it decides something: γ
+where the pair mates, the gene gates where the row mutates, the normals
+where the gene's gate fires.
 
 A draw depends on its coordinates alone, never on the block or thread
 that makes it, so a kernel computes only the draws its decisions need
@@ -28,9 +40,10 @@ that makes it, so a kernel computes only the draws its decisions need
 other draw stays what it would have been.
 
 :func:`hw_fused_bits`, :func:`hw_packed_bits`, :func:`hw_tournament_bits`
-and :func:`hw_evolve_bits` expand a key into the bits-input layouts of
-the four kernels (``fused_bits``, ``variation_bits``, ``tournament_bits``
-and ``evolve_bits``), so each kernel's bits-input plain version, fed with
+, :func:`hw_evolve_bits` and :func:`hw_real_bits` expand a key into the
+bits-input layouts of the five kernels (``fused_bits``,
+``variation_bits``, ``tournament_bits``, ``evolve_bits`` and
+``real_bits``), so each kernel's bits-input plain version, fed with
 them, is the plain version of its Philox path. Columns a kernel never
 reads (the gene planes past ``L`` of packed rows) are zeros.
 """
@@ -40,8 +53,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["philox4x32_10", "mulhilo32", "PAIR_ROW", "GENES", "TOURNAMENT",
-           "draws", "hw_fused_bits", "hw_packed_bits", "hw_tournament_bits",
-           "hw_evolve_bits"]
+           "REAL_GAMMA", "REAL_NORMAL", "draws", "hw_fused_bits",
+           "hw_packed_bits", "hw_tournament_bits", "hw_evolve_bits",
+           "hw_real_bits"]
 
 MASK32 = 0xFFFFFFFF
 #: Philox4x32's round multipliers and Weyl key increments (Random123)
@@ -49,7 +63,7 @@ PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 ROUNDS = 10
 #: the stream tags, the counter's last word
-PAIR_ROW, GENES, TOURNAMENT = 0, 1, 2
+PAIR_ROW, GENES, TOURNAMENT, REAL_GAMMA, REAL_NORMAL = 0, 1, 2, 3, 4
 WORD = 32
 
 
@@ -106,11 +120,16 @@ def _as_uint32(words: torch.Tensor) -> torch.Tensor:
     return words.to(torch.uint32)
 
 
-def _gene_words(key, n: int, length: int, g: int) -> torch.Tensor:
-    """Gene ``i``'s flip draw of each row: ``int64 [n, length]``."""
-    rows = torch.arange(n, device=key.device)[:, None]
+def _gene_words(key, n: int, length: int, g: int, tag: int = GENES,
+                rows=None) -> torch.Tensor:
+    """Word ``i % 4`` of call ``i // 4`` of the stream ``tag`` for each
+    gene ``i`` of each row (the counter's row word ``rows``, by default
+    the row itself): ``int64 [n, length]``."""
+    if rows is None:
+        rows = torch.arange(n, device=key.device)
     calls = torch.arange(-(-length // 4), device=key.device)[None, :]
-    return draws(key, rows, calls, g, GENES).reshape(n, -1)[:, :length]
+    words = draws(key, rows[:, None], calls, g, tag)
+    return words.reshape(n, -1)[:, :length]
 
 
 def _pair_row_words(key, n: int, g: int) -> torch.Tensor:
@@ -176,3 +195,22 @@ def hw_evolve_bits(key: torch.Tensor, ngen: int, tournsize: int, n: int,
         row.append(r.T)
         gene.append(gb.T)
     return tuple(torch.stack(s).contiguous() for s in (sel, pair, row, gene))
+
+
+def hw_real_bits(key: torch.Tensor, n: int, L: int, g: int = 0):
+    """The Philox streams of one K6 generation on ``[n, L]`` float32
+    genomes, in :func:`ops.kernels_real.real_bits`' layout: ``(pairbits
+    [n, 4], rowbits [n, 1], genebits [n, 4 L])``, uint32, gene planes γ,
+    gate, u1, u2 in columns ``[p L, (p+1) L)``. Row ``r``'s γ plane is its
+    pair's (the ``REAL_GAMMA`` calls of row ``r & ~1``), its gate plane
+    the ``GENES`` words, u1 and u2 words 0 and 1 of its ``REAL_NORMAL``
+    calls. The kernel makes only the draws its decisions need; this
+    expands every one."""
+    rows = torch.arange(n, device=key.device)
+    pr = _pair_row_words(key, n, g)
+    gamma = _gene_words(key, n, L, g, REAL_GAMMA, rows & ~1)
+    gate = _gene_words(key, n, L, g, GENES)
+    normal = draws(key, rows[:, None], torch.arange(L, device=key.device),
+                   g, REAL_NORMAL)
+    genebits = torch.cat([gamma, gate, normal[..., 0], normal[..., 1]], 1)
+    return _as_uint32(pr), _as_uint32(pr[:, 3:4]), _as_uint32(genebits)

@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin] [--gp] [--hw] [--sass]
+                            [--rastrigin] [--gp] [--cmaes] [--hw] [--sass]
                             [--k7-variants]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
@@ -34,15 +34,22 @@ run):
   64, 256 points; grouped evaluation through K9) for 10 generations after
   5 of warm-up, with the host's share split by the loop's spans
   (``gp/host_schedule``, ``gp/schedule_upload``, ``gp/grouped_dispatch``,
-  ``gp/select``, ``gp/vary``).
+  ``gp/select``, ``gp/vary``);
+- ``--cmaes``: ``bench_suite.py``'s cmaes_n100_lam4096 (Hansen CMA-ES on
+  sphere, dim 100, lambda 4096) as the bare generate / evaluate / update
+  loop, 50 generations after 5, and each part of a generation timed alone
+  on the card at the loop's shapes (``chip_smoke.time_ms``): generate,
+  evaluate, the sort, the rank-mu product, ``eigh``, the whole update;
+  the host time of ``eigh`` and of the update while the card is busy.
 
-``--hw`` profiles ``bench.py``'s OneMax loops with the kernels' bits made
-by Philox inside them (``prng='hw'``) beside the same loops with their
-bits drawn by ``torch.randint`` and streamed in (``'input'``), in turns:
-the fused loop (K2; 100 generations after 10), the packed loop
-(``ea_simple_packed`` with the select-and-gather kernel, K4 then K3; 100
-after 10) and ``evolve_packed`` (K5; 200 generations in calls of 50 after
-one call).
+``--hw`` profiles the chosen loops that have a ``prng`` mode (``--fused``,
+``--evolve``, ``--rastrigin``) with the kernels' bits made by Philox
+inside them (``prng='hw'``) beside the same loops with their bits drawn by
+``torch.randint`` and streamed in (``'input'``), in turns. Alone it takes
+``bench.py``'s three OneMax loops: the fused loop (K2; 100 generations
+after 10), the packed loop (``ea_simple_packed`` with the
+select-and-gather kernel, K4 then K3; 100 after 10) and
+``evolve_packed`` (K5; 200 generations in calls of 50 after one call).
 
 Every profile also prints the device time of the random-number kernels
 (``torch.randint``, ``torch.rand``, and the key draws of ``'hw'``) and
@@ -71,6 +78,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N, L = 100_000, 100
+# clocks the card spins while the host times a call that may wait for it
+# (about 20 ms): a call that returns sooner did not synchronise
+SYNC_SPIN_CYCLES = 40_000_000
 
 
 def profile(name, run, warm, steps, out_dir, facts, spans=None,
@@ -218,15 +228,7 @@ def profile_evolve(dev, out_dir, facts, prng="input"):
             out_dir, facts)
 
 
-def profile_hw(dev, out_dir, facts):
-    """The three OneMax loops with ``prng='input'`` and ``'hw'``, in
-    turns."""
-    for fn in (profile_fused, profile_packed, profile_evolve):
-        for prng in ("input", "hw"):
-            fn(dev, out_dir, facts, prng)
-
-
-def profile_rastrigin(dev, out_dir, facts):
+def profile_rastrigin(dev, out_dir, facts, prng="input"):
     from chip_smoke import (RA_DIM, RA_LOW, RA_N, RA_NGEN, RA_UP,
                             rastrigin_fused_generation)
     from deap_tpu_torch import ops
@@ -240,9 +242,71 @@ def profile_rastrigin(dev, out_dir, facts):
     def run(steps):
         for _ in range(steps):
             state["g"], state["f"] = rastrigin_fused_generation(
-                gen, state["g"], state["f"])
+                gen, state["g"], state["f"], prng=prng)
 
-    profile("rastrigin_fused", run, 5, RA_NGEN, out_dir, facts)
+    suffix = "" if prng == "input" else f"_{prng}"
+    profile(f"rastrigin_fused{suffix}", run, 5, RA_NGEN, out_dir, facts)
+
+
+def waits_for_card(fn):
+    """Host milliseconds of ``fn()`` called while the card spins about 20
+    ms: near 20 means it synchronised with the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SYNC_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e3
+
+
+def profile_cmaes(dev, out_dir, facts):
+    """The bare CMA-ES loop profiled, then its parts timed alone."""
+    import torch
+    from chip_smoke import (CMA_DIM, CMA_LAMBDA, CMA_NGEN, CMA_SIGMA,
+                            CMA_START, time_ms)
+    from deap_tpu_torch import benchmarks
+    from deap_tpu_torch.core.fitness import lex_sort_desc
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.strategies import cma
+
+    strat = cma.Strategy(torch.full((CMA_DIM,), CMA_START), sigma=CMA_SIGMA,
+                         lambda_=CMA_LAMBDA, device=dev)
+    gen = make_generator(89, dev)
+    state = {"st": strat.initial_state()}
+
+    def run(steps):
+        for _ in range(steps):
+            pop = strat.generate(gen, state["st"])
+            state["st"] = strat.update(state["st"], pop,
+                                       benchmarks.sphere(pop))
+
+    profile("cmaes_n100_lam4096", run, 5, CMA_NGEN, out_dir, facts)
+    st = state["st"]
+    genomes = strat.generate(gen, st)
+    values = benchmarks.sphere(genomes)
+    w = strat.spec.wvalues(values)
+    artmp = genomes[: strat.mu] - st.centroid
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    parts = {
+        "generate": lambda: strat.generate(gen, st),
+        "evaluate": lambda: benchmarks.sphere(genomes),
+        "sort": lambda: lex_sort_desc(w),
+        "rank-mu product": lambda: (strat.weights * artmp.T) @ artmp,
+        "eigh": lambda: torch.linalg.eigh(st.C),
+        "update": lambda: strat.update(st, genomes, values),
+    }
+    times = {k: time_ms(fn, flush) for k, fn in parts.items()}
+    print(f"[{facts}] cmaes parts alone, device us (median of 25, L2 "
+          f"flushed): " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                    for k, v in times.items()))
+    host = {k: waits_for_card(parts[k])
+            for k in ("eigh", "update", "generate")}
+    spin = waits_for_card(torch.cuda.synchronize)
+    print(f"[{facts}] cmaes host ms of a call while the card spins (a "
+          f"synchronise waits {spin:.3f} ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
 
 def profile_gp(dev, out_dir, facts):
@@ -442,7 +506,10 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
 
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
-            "gp": profile_gp, "hw": profile_hw}
+            "gp": profile_gp, "cmaes": profile_cmaes}
+#: the loops with a prng mode, which --hw runs in both modes
+HW_LOOPS = {"fused": profile_fused, "packed": profile_packed,
+            "evolve": profile_evolve, "rastrigin": profile_rastrigin}
 
 
 def main():
@@ -459,9 +526,12 @@ def main():
                         help="profile the fused Rastrigin loop (K6)")
     parser.add_argument("--gp", action="store_true",
                         help="profile the GP symbolic regression loop (K9)")
+    parser.add_argument("--cmaes", action="store_true",
+                        help="profile CMA-ES at dim 100, lambda 4096 and "
+                             "time its parts")
     parser.add_argument("--hw", action="store_true",
-                        help="profile the OneMax loops with prng='hw' "
-                             "beside prng='input'")
+                        help="profile the chosen loops (alone: the OneMax "
+                             "loops) with prng='hw' beside prng='input'")
     parser.add_argument("--sass", action="store_true",
                         help="count the instructions of K7's inner loop "
                              "and of one Philox call")
@@ -490,9 +560,15 @@ def main():
         sass_philox(args.out, facts)
     if args.k7_variants:
         k7_variants(dev, facts)
+    if args.hw and not any(name in HW_LOOPS for name in chosen):
+        chosen += ["fused", "packed", "evolve"]
     if chosen or args.sass or args.k7_variants:
         for name in chosen:
-            PROFILES[name](dev, args.out, facts)
+            if args.hw and name in HW_LOOPS:
+                for prng in ("input", "hw"):
+                    HW_LOOPS[name](dev, args.out, facts, prng)
+            else:
+                PROFILES[name](dev, args.out, facts)
         print(facts)
         return 0
 

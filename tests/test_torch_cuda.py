@@ -426,3 +426,54 @@ def test_symbreg_on_the_card_goes_through_k9(card):
     for k in ("nodes", "consts", "length"):
         assert _same(runs[0]["genomes"][k], runs[1]["genomes"][k])
     assert _same(runs[0]["fitness"], runs[1]["fitness"])
+
+
+# ------------------------------------------------------------ CMA-ES ----
+
+def test_cma_update_on_the_card_equals_it_on_the_cpu(card):
+    """One update from the same state and offspring, at
+    ``strategies.cma``'s stated tolerances (not bitwise: cuBLAS and the
+    CPU sum the float32 products in other orders, and cuSOLVER and LAPACK
+    iterate differently)."""
+    from deap_tpu_torch import benchmarks, convert
+    from deap_tpu_torch.strategies import cma
+    assert torch.get_float32_matmul_precision() == "highest"
+    strat = cma.Strategy(torch.full((30,), 5.0), sigma=0.5, lambda_=256,
+                         device=card)
+    gen = make_generator(3, card)
+    state = strat.initial_state()
+    for _ in range(5):
+        pop = strat.generate(gen, state)
+        state = strat.update(state, pop, benchmarks.sphere(pop))
+    genomes = strat.generate(gen, state)
+    values = benchmarks.sphere(genomes)
+    got = strat.update(state, genomes, values)
+    cpu = cma.Strategy(torch.full((30,), 5.0), sigma=0.5, lambda_=256,
+                       device="cpu")
+    want = cpu.update(convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(state), device="cpu"), genomes.cpu(),
+        values.cpu())
+    errs = cma.state_errors(convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(got), device="cpu"), want)
+    assert errs["ok"], errs
+
+
+def test_ea_generate_update_runs_on_the_card(card):
+    from deap_tpu_torch import benchmarks
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support.stats import fitness_stats
+    strat = cma.Strategy(torch.full((10,), 5.0), sigma=0.5, lambda_=20,
+                         device=card)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.sphere)
+    tb.register("generate", strat.generate)
+    tb.register("update", strat.update)
+    state, logbook, hof = algorithms.ea_generate_update(
+        make_generator(0, card), strat.initial_state(), tb, 100, strat.spec,
+        stats=fitness_stats(), halloffame_size=1, device=card)
+    mins = logbook.select("min")
+    # from ~230 to 1e-7..3e-6 in 100 generations on the CPU over 8 seeds
+    assert mins[-1] < 1e-4 and mins[0] > 100
+    assert float(hof.fitness[0, 0]) == min(mins)
+    assert state.C.device.type == "cuda"
+    assert cma.reconstruction_error(state) <= cma.RECON_TOL

@@ -18,7 +18,7 @@ import torch
 
 from deap_tpu_torch import algorithms
 from deap_tpu_torch.device import make_generator
-from deap_tpu_torch.ops import kernels, packed, philox
+from deap_tpu_torch.ops import kernels, kernels_real, packed, philox
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +162,53 @@ def test_ea_simple_packed_hw_counts_its_philox_launches(card, select):
     assert (k3.hw_launches - before[0], k4.hw_launches - before[1]) == (
         4, 4 if select == "gather" else 0)
     assert torch.equal(fit, packed.packed_fitness(out))
+
+
+# ------------------------------------------------- K6's Philox path ----
+
+def test_k6_library_philox_gives_the_known_answers(card):
+    u32 = torch.uint32
+    ctr = torch.tensor([c for c, _, _ in KAT]).to(u32).to(card)
+    key = torch.tensor([k for _, k, _ in KAT]).to(u32).to(card)
+    want = torch.tensor([o for _, _, o in KAT]).to(u32).to(card)
+    assert _same(kernels.philox_kat(ctr, key, "fused_variation_real"), want)
+
+
+@pytest.mark.parametrize("n,L,evaluate", [(1, 30, "rastrigin"),
+                                          (2, 5, "sphere"),
+                                          (129, 30, "rastrigin"),
+                                          (1001, 40, "sphere"),
+                                          (1001, 30, "rastrigin")])
+def test_k6_hw_equals_plain_on_the_philox_streams(card, n, L, evaluate):
+    """Crossed and untouched genes bitwise, mutated genes and fitness at
+    K6's tolerance (``kernels_real.real_kernel_errors``)."""
+    gen = make_generator(n + L, card)
+    g = torch.rand((n, L), generator=gen, device=card) * 10.24 - 5.12
+    key = kernels.philox_key(gen)
+    kw = dict(cxpb=0.7, mutpb=0.6, indpb=0.3, alpha=0.3, mu=0.1, sigma=0.3,
+              evaluate=evaluate)
+    fn = kernels_real.fused_variation_eval_real
+    before = (fn.launches, fn.hw_launches)
+    got = fn(g, prng="hw", key=key, **kw)
+    bits = philox.hw_real_bits(key, n, L)
+    want = kernels_real.fused_variation_eval_real_plain(g, *bits, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.hw_launches - before[1]) == (1, 1)
+    errs = kernels_real.real_kernel_errors(got, want, *bits, mutpb=0.6,
+                                           indpb=0.3, mu=0.1, sigma=0.3)
+    assert errs["ok"], errs
+    again = fn(g, prng="hw", key=key, **kw)
+    assert _same(got[0], again[0]) and _same(got[1], again[1])
+
+
+def test_k6_auto_is_hw_on_the_card(card):
+    gen = make_generator(5, card)
+    g = torch.rand((64, 30), generator=gen, device=card)
+    fn = kernels_real.fused_variation_eval_real
+    kw = dict(cxpb=0.5, mutpb=0.2, indpb=0.1)
+    before = fn.hw_launches
+    fn(g, generator=gen, **kw)
+    fn(g, prng="auto", generator=gen, **kw)
+    assert fn.hw_launches == before + 2
+    with pytest.raises(kernels.PrngError, match="Philox"):
+        fn(g, *kernels_real.real_bits(gen, 64, 30), prng="auto", **kw)
