@@ -39,10 +39,13 @@ Phases (any failure ends the script with a non-zero exit code):
    answers and the plain ``ops.philox.philox4x32_10`` (in each library
    that includes it, K6's too); each path bitwise
    against its plain version on ``ops.philox``'s streams (K2 bool and
-   float32 at L 100 and L 33, n 100k and 1001; K3 and K4 at n 100k; K5
-   5 generations at n 100k and 1001), the layout's invariants (K3-hw ==
-   packed K2-hw; one K5-hw generation == K4-hw then K3-hw), one key twice
-   equal and two keys different; the fused OneMax loop,
+   float32 at L 33 and 100, n 100k and 1001, and the vector variant's
+   edges, L 4, 200, 300 and 1000, n 1, 3 and odd; K3 and K4 at n 100k;
+   K5 5 generations at n 1, 3, 1001 and 100k, L 33, 70 and 100,
+   tournament 3 and 5, and one 50-generation call at n 100k), the
+   layout's invariants (K3-hw == packed K2-hw; one K5-hw generation ==
+   K4-hw then K3-hw), one key twice equal and two keys different; K5-hw's
+   grid and its grid barrier's cost a generation; the fused OneMax loop,
    ``ea_simple_packed`` (``gather``, ``sorted``, ``binned``) and
    ``evolve_packed`` (200 generations in 4 calls) with ``prng='hw'`` and
    ``'auto'``, each Philox launch counted; peak memory of a 50-generation
@@ -207,10 +210,12 @@ def ptxas_report(log):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = re.search(r"\d+([a-z_]+kernel[a-z_]*)"
-                             r"(?:ILi(\d+)E|ILb([01])E|I(\w)E)?",
-                             entry.group(1))
-            arg = name and (name.group(2) or name.group(4) or (
-                name.group(3) and ("false", "true")[int(name.group(3))]))
+                             r"(?:I(\w)Li(\d+)E|ILi(\d+)E|ILb([01])E"
+                             r"|I(\w)E)?", entry.group(1))
+            arg = name and (
+                (name.group(2) and f"{name.group(2)},{name.group(3)}")
+                or name.group(4) or name.group(6) or (
+                    name.group(5) and ("false", "true")[int(name.group(5))]))
             kernel = entry.group(1) if name is None else name.group(1) + (
                 f"<{arg}>" if arg else "")
         elif "spill" in line:
@@ -849,10 +854,17 @@ def hw_phases(torch, dev, tag, report, record):
 
     # ------------------------------------------------- K2 Philox path --
     worst = 0.0
+    # the vector variant's edges: L 4 (one word), L 200 and 300 (more
+    # words than lanes: two slots a lane, then two chunks), L 1000, odd n
+    # and n 1; the main path's case (N, L, bool) is the last
+    edges = [(n, length, dtype) for dtype in (torch.bool, torch.float32)
+             for n, length in ((1, 4), (1, L), (3, 4), (1001, 4), (1001, 200),
+                               (999, 300), (257, 1000), (N - 1, L))]
     for n, length, dtype in ((1001, 33, torch.bool), (1001, 33, torch.float32),
                              (N, 33, torch.bool), (N, 33, torch.float32),
                              (1001, L, torch.bool), (1001, L, torch.float32),
-                             (N, L, torch.float32), (N, L, torch.bool)):
+                             *edges, (N, L, torch.float32),
+                             (N, L, torch.bool)):
         variant = "vector" if length % 4 == 0 else "scalar"
         g = (torch.rand((n, length), generator=gen, device=dev)
              < 0.5).to(dtype)
@@ -947,33 +959,40 @@ def hw_phases(torch, dev, tag, report, record):
 
     # ------------------------------------------------- K5 Philox path --
     worst = 0.0
-    for n in (1001, N):
+    # (n, L, tournsize): one pair (n 1) and an odd lane (n 3), a ragged
+    # last word (L 33, 70), two tournament calls (tournsize 5), the small
+    # odd case, and the main path's size last
+    for n, length, ts in ((1, L, TOURNSIZE), (3, L, TOURNSIZE), (1, 33, 5),
+                          (3, 70, 5), (1001, 33, TOURNSIZE), (1001, 70, 5),
+                          (1001, L, TOURNSIZE), (N, 70, 5),
+                          (N, L, TOURNSIZE)):
         g = make_generator(59, dev)
-        pkn = packed.pack_genomes(ops.bernoulli_genome(L)(g, n))
+        pkn = packed.pack_genomes(ops.bernoulli_genome(length)(g, n))
         fitn = packed.packed_fitness(pkn)
         key = kernels.philox_key(g)
-        got = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw", key=key,
-                                   **probs)
+        got = packed.evolve_packed(pkn, fitn, length, ngen=5, tournsize=ts,
+                                   prng="hw", key=key, **probs)
         want = packed.evolve_packed_plain(
-            pkn, fitn, L, *philox.hw_evolve_bits(key, 5, TOURNSIZE, n, L),
+            pkn, fitn, length, *philox.hw_evolve_bits(key, 5, ts, n, length),
             **probs)
         torch.cuda.synchronize()
+        what = f"n={n}, L={length}, tournsize={ts}"
         same(got, want, f"evolve_packed(prng='hw') after 5 generations at "
-             f"n={n}")
+             f"{what}")
         worst = max(worst, max_abs_err(got[0], want[0]),
                     max_abs_err(got[1], want[1]))
         # invariant: one generation of K5-hw == K4-hw then K3-hw, one key
-        one = packed.evolve_packed(pkn, fitn, L, ngen=1, prng="hw", key=key,
-                                   **probs)
+        one = packed.evolve_packed(pkn, fitn, length, ngen=1, tournsize=ts,
+                                   prng="hw", key=key, **probs)
         parents = packed.sel_tournament_gather_packed(
-            pkn, fitn, prng="hw", key=key, tournsize=TOURNSIZE)
+            pkn, fitn, prng="hw", key=key, tournsize=ts)
         same(one, packed.fused_variation_eval_packed(
-            parents, L, prng="hw", key=key, **probs),
+            parents, length, prng="hw", key=key, **probs),
             f"evolve_packed(prng='hw', ngen=1) against K4-hw then K3-hw at "
-            f"n={n}")
+            f"{what}")
         print(f"{tag} evolve_packed(prng='hw') == plain on ops.philox's "
-              f"streams bitwise after 5 generations at n={n}; one generation "
-              f"== K4-hw then K3-hw with the same key")
+              f"streams bitwise after 5 generations at {what}; one "
+              f"generation == K4-hw then K3-hw with the same key")
     again = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw", key=key,
                                  **probs)
     other = packed.evolve_packed(pkn, fitn, L, ngen=5, prng="hw",
@@ -992,6 +1011,25 @@ def hw_phases(torch, dev, tag, report, record):
                            philox.PAIR_ROW)[:, 3].to(u32)
         calls += N * (1 + -(-TOURNSIZE // 4)) + rows_below(mut, MUTPB) \
             * gene_calls
+    # one whole call of the main path against the plain version
+    got = packed.evolve_packed(pk, fit, L, ngen=EVOLVE_CALL, prng="hw",
+                               key=key, **probs)
+    want = packed.evolve_packed_plain(
+        pk, fit, L, *philox.hw_evolve_bits(key, EVOLVE_CALL, TOURNSIZE, N, L),
+        **probs)
+    torch.cuda.synchronize()
+    same(got, want, f"evolve_packed(prng='hw') after {EVOLVE_CALL} "
+         f"generations at n={N}")
+    worst = max(worst, max_abs_err(got[0], want[0]),
+                max_abs_err(got[1], want[1]))
+    del got, want
+    print(f"{tag} evolve_packed(prng='hw') == plain on ops.philox's streams "
+          f"bitwise after {EVOLVE_CALL} generations at n={N}")
+    blocks, per_sm, tiles = packed._k5_hw_grid(N)
+    barrier_ms = (
+        time_ms(lambda: packed._k5_hw_barrier(key, N, EVOLVE_CALL), flush,
+                reps=10)
+        - time_ms(lambda: packed._k5_hw_barrier(key, N, 0), flush, reps=10))
     record("k5_hw", "evolve_packed (prng='hw')",
            "deap_tpu_torch/csrc/evolve_packed.cu",
            "deap_tpu/ops/packed.py:462", worst,
@@ -1005,7 +1043,12 @@ def hw_phases(torch, dev, tag, report, record):
            2 * (4 * N * W + 4 * N), imads=PHILOX_IMADS * calls)
     print(f"  K5-hw: {calls} Philox calls in {EVOLVE_CALL} generations "
           f"({calls / EVOLVE_CALL:.0f} a generation); one key twice bitwise "
-          f"equal, two keys differ")
+          f"equal, two keys differ; grid {blocks} blocks of 256 children "
+          f"({tiles} tiles at n={N}, {per_sm} blocks a SM at most); grid "
+          f"barrier {barrier_ms / EVOLVE_CALL * 1e3:.3f} us a generation "
+          f"(the same kernel on the same grid with no child, "
+          f"{EVOLVE_CALL} generations less 0), "
+          f"{barrier_ms / report['k5_hw']['ms']:.1%} of the call")
     del flush
 
     # ---------------------------------------- memory of one K5 call --

@@ -25,6 +25,16 @@ __device__ __forceinline__ float u01(uint32_t bits) {
   return static_cast<float>(static_cast<int>(bits >> 8)) * (1.0f / 16777216.0f);
 }
 
+// The integer form of u01(bits) < p: u01(bits) < p exactly where
+// (bits >> 8) < u01_threshold(p), since u01 is (bits >> 8) 2^-24 with no
+// rounding and p 2^24 is exact in float32 (NaN and p <= 0 never hit, p >= 1
+// always does).
+__device__ __forceinline__ uint32_t u01_threshold(float p) {
+  if (!(p > 0.0f)) return 0u;
+  if (p >= 1.0f) return 1u << 24;
+  return static_cast<uint32_t>(ceilf(p * 16777216.0f));
+}
+
 // uint32 with bits [0, clip(k, 0, 32)) set (deap_tpu/ops/packed.py::_bits_below).
 __device__ __forceinline__ uint32_t bits_below(int k) {
   if (k >= 32) return 0xFFFFFFFFu;

@@ -32,13 +32,47 @@
 // kernel are read through plain loads, never the read-only cache.
 //
 // The Philox path (evolve_hw_kernel, replacing _evolve_kernel_hw of
-// deap_tpu/ops/packed.py) takes no draw tensors: the thread of pair p
-// makes its draws in registers from the key (csrc/philox.cuh, counter word
-// g = the generation inside this call): the two tournaments, one pair+row
-// call for the even lane and one for the odd lane's mutation gate, and
-// ceil(L / 4) gene calls for each lane that mutates. Its plain version is
-// the bits-input plain version fed ops/philox.py::hw_evolve_bits. Bound
-// there: the integer multiplies of the Philox calls (40 each).
+// deap_tpu/ops/packed.py) takes no draw tensors: each child makes its
+// draws in registers from the key (csrc/philox.cuh, counter word g = the
+// generation inside this call): its tournament calls, its pair+row call
+// (the even child's words 0-2 decide the pair's crossover, each child's
+// word 3 its mutation) and, where it mutates, ceil(L / 4) gene calls. Its
+// plain version is the bits-input plain version fed
+// ops/philox.py::hw_evolve_bits. Bound on the H100: the integer multiplies
+// of the Philox calls (40 each; 83.79 us for a 50-generation call at pop
+// 100k, L 100, tournament 3).
+//
+// Its design answers the three things that held the first one (a thread
+// per pair, 50k threads in 196 blocks):
+// - Divergent gene calls. Only ~20% of children mutate, so a thread that
+//   made its own child's 25 gene calls left most of its warp idle. A tile
+//   (a block of 256 children) lists its mutating children in shared memory
+//   (a ballot in each warp, a scan of the warps' counts), then spreads the
+//   (child, gene call) items over all its threads, call-major, so adjacent
+//   threads OR into different children's flip words; a call gives 4 flip
+//   bits at a fixed place, and OR commutes, so the result is bitwise the
+//   plain version's whatever the order.
+// - A lopsided grid. A thread per child; a pair's children sit in adjacent
+//   lanes and take the even lane's crossover words and the partner
+//   parent's words by shuffles. At pop 100k the 391 tiles are resident at
+//   once (5 blocks an SM fit), 2.96 a SM.
+// - The barrier. grid.sync() stays, measured: chip_smoke.py times this
+//   kernel on this grid with no child (evolve_packed_hw_barrier). Fewer,
+//   larger blocks (one an SM) make the barrier alone cheaper but the call
+//   slower: one block's warps then wait for each other at every tile
+//   barrier, where independent blocks on an SM overlap their phases.
+// The first tournament call's fitness loads issue before the pair+row call
+// and are waited on only after the list's first barrier, the parent rows
+// load as uint4 while the gene calls run, the key's round keys are
+// computed once (csrc/philox.cuh::RoundKeys) rather than in every call, and
+// a draw is tested against an integer threshold (u01_threshold), which is
+// exact.
+// On an H100 (700 W) a 50-generation call at pop 100k takes ~413 us, ~20%
+// of its bound. Its phase clock (-DDTT_K5_PHASES, port_profile.py
+// --kernel-times) puts a block's generation at ~28% draws and tournament
+// loads, ~25% gene calls and ~35% at the grid barrier, about half of that
+// the barrier itself (~1.5 us a generation) and half the wait for slower
+// blocks: the chain of dependent steps, not the multiplies, bounds it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -48,7 +82,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the bits body: one thread per pair of lanes
+constexpr int kTile = 256;     // the Philox path: children of a tile (a block)
+constexpr int kFlipWords = 8;  // flip words of a work-list chunk (256 genes)
 
 // Winning population index of lane c's tournament.
 __device__ __forceinline__ uint32_t tournament(const float* fit,
@@ -152,16 +188,76 @@ evolve_kernel(const uint32_t* __restrict__ pop0, const float* __restrict__ fit0,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Mutating children of a tile, compacted: thread t of each warp writes its
+// slot in the tile's list (ballot within the warp, a scan of the warps'
+// counts across the block). Returns the list's length; the block has
+// passed a barrier, and `slots` is complete after the caller's next one.
+__device__ __forceinline__ int compact_mutants(bool mut, int* slots,
+                                               int* warp_counts) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, mut);
+  if (lane == 0) warp_counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int k = 0; k < kTile / 32; ++k) {
+    const int v = warp_counts[k];
+    before += k < warp ? v : 0;
+    total += v;
+  }
+  if (mut) slots[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
+  return total;
+}
+
+// The phase clock of the Philox path, built only with -DDTT_K5_PHASES
+// (port_profile.py --kernel-times): thread 0 of each block adds the SM
+// clocks since its last mark to the phase it ends, so the totals split a
+// block's generations into 0 the first tournament call and its loads'
+// issue, the pair+row call and the list's ballot up to its first barrier,
+// 1 the winner (the wait for the fitness loads), the list and the parent
+// loads' issue, 2 the gene calls, 3 thread 0's crossover, flips and
+// stores, 4 the grid barrier (with the wait for the block's and the
+// grid's slower threads).
+constexpr int kPhases = 5;
+#ifdef DTT_K5_PHASES
+__device__ unsigned long long k5_phase_clocks[kPhases];
+#define K5_MARK(phase)                                                   \
+  if (threadIdx.x == 0) {                                                \
+    const long long now = clock64();                                     \
+    atomicAdd(&k5_phase_clocks[phase],                                   \
+              static_cast<unsigned long long>(now - mark));              \
+    mark = now;                                                          \
+  }
+#else
+#define K5_MARK(phase)
+#endif
+
+__global__ void __launch_bounds__(kTile)
 evolve_hw_kernel(const uint32_t* __restrict__ pop0,
                  const float* __restrict__ fit0,
                  const uint32_t* __restrict__ key_ptr, uint32_t* pops,
                  float* fits, int n, int W, int L, int ngen, int tournsize,
                  float cxpb, float mutpb, float indpb) {
+  // flip words of the tile's children, word-major (conflict-free reads)
+  __shared__ uint32_t flips[kFlipWords * kTile];
+  __shared__ int slots[kTile];
+  __shared__ int warp_counts[kTile / 32];
   cg::grid_group grid = cg::this_grid();
-  const uint2 key = load_key(key_ptr);
+  const RoundKeys key = round_keys(load_key(key_ptr));
+  const int tid = threadIdx.x;
+  const int tiles = (n + kTile - 1) / kTile;
+  const int calls = (L + 3) >> 2;  // gene calls of a mutating child
   const size_t lanes = static_cast<size_t>(n);
-  const int npairs = (n + 1) / 2;
+  // rows of whole uint4s, aligned: one 16-byte load or store a row chunk
+  const bool vec4 = W % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(pop0) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(pops) % 16 == 0;
+  const uint32_t cx_below = u01_threshold(cxpb);
+  const uint32_t mut_below = u01_threshold(mutpb);
+  const uint32_t gene_below = u01_threshold(indpb);
+#ifdef DTT_K5_PHASES
+  long long mark = clock64();
+#endif
   for (int gen = 0; gen < ngen; ++gen) {
     const int prev = (gen - 1) & 1;
     const uint32_t* src = gen == 0 ? pop0 : pops + prev * lanes * W;
@@ -169,50 +265,136 @@ evolve_hw_kernel(const uint32_t* __restrict__ pop0,
     uint32_t* dst = pops + (gen & 1) * lanes * W;
     float* fdst = fits + (gen & 1) * lanes;
     const uint32_t g = static_cast<uint32_t>(gen);
-    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < npairs;
-         p += gridDim.x * blockDim.x) {
-      const int a = 2 * p, b = a + 1;
-      const bool has_b = b < n;
-      const size_t pa = hw_tournament(fsrc, a, g, n, tournsize, key);
-      const size_t pb =
-          has_b ? hw_tournament(fsrc, b, g, n, tournsize, key) : pa;
-      const uint4 da = draw(a, 0u, g, kPairRow, key);
-      const bool do_cx = has_b && u01(da.x) < cxpb;
+    // the tile index is the same for the whole block, so every thread
+    // reaches each barrier and each shuffle
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int c = tile * kTile + tid;
+      const bool valid = c < n;
+      const uint32_t uc = static_cast<uint32_t>(c);
+      // the first tournament call's fitness loads, then child c's pair+row
+      // call while they are in flight: words 0-2 of the even child decide
+      // the pair's crossover, word 3 this child's mutation
+      const Aspirants first =
+          aspirants(fsrc, uc, 0, g, n, tournsize, valid, key);
+      const uint4 d = draw(uc, 0u, g, kPairRow, key);
+      const int even = (threadIdx.x & 31) & ~1;
+      const uint32_t cx = __shfl_sync(0xffffffffu, d.x, even);
+      const uint32_t u1 = __shfl_sync(0xffffffffu, d.y, even);
+      const uint32_t u2 = __shfl_sync(0xffffffffu, d.z, even);
+      const bool do_cx = (c | 1) < n && (cx >> 8) < cx_below;
       int lo = 0, hi = 0;
-      if (do_cx) cut_segment(da.y, da.z, L, &lo, &hi);
-      const bool mut_a = u01(da.w) < mutpb;
-      const bool mut_b = has_b && u01(draw(b, 0u, g, kPairRow, key).w) < mutpb;
-      int count_a = 0, count_b = 0;
-      for (int w = 0; w < W; ++w) {
-        const int start = 32 * w;
-        uint32_t xa = src[pa * W + w];
-        uint32_t xb = src[pb * W + w];
-        if (do_cx) {
-          const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
-          const uint32_t ya = (xa & ~seg) | (xb & seg);
-          xb = (xb & ~seg) | (xa & seg);
-          xa = ya;
+      if (do_cx) cut_segment(u1, u2, L, &lo, &hi);
+      const bool mut = valid && (d.w >> 8) < mut_below;
+      const int mutants = compact_mutants(mut, slots, warp_counts);
+      K5_MARK(0);
+      // the winner after the list's barrier, so the fitness loads' latency
+      // overlaps the block's wait there
+      const size_t parent =
+          valid ? hw_tournament(first, fsrc, uc, g, n, tournsize, key) : 0u;
+      int count = 0;
+      for (int w0 = 0; w0 < W; w0 += kFlipWords) {
+        // this chunk's parent words load while the gene calls run (as
+        // uint4 where whole rows of 4 words are aligned)
+        uint32_t x[kFlipWords];
+#pragma unroll
+        for (int k = 0; k < kFlipWords; k += 4) {
+          const uint32_t* row = src + parent * W + w0 + k;
+          if (vec4) {
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (valid && w0 + k < W) v = *reinterpret_cast<const uint4*>(row);
+            x[k] = v.x;
+            x[k + 1] = v.y;
+            x[k + 2] = v.z;
+            x[k + 3] = v.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              x[k + j] = valid && w0 + k + j < W ? row[j] : 0u;
+          }
         }
-        if (mut_a) xa ^= hw_flip_word(a, w, g, L, indpb, key);
-        dst[static_cast<size_t>(a) * W + w] = xa;
-        count_a += __popc(xa);
-        if (has_b) {
-          if (mut_b) xb ^= hw_flip_word(b, w, g, L, indpb, key);
-          dst[static_cast<size_t>(b) * W + w] = xb;
-          count_b += __popc(xb);
+#pragma unroll
+        for (int k = 0; k < kFlipWords; ++k)
+          if (mut) flips[k * kTile + tid] = 0u;
+        __syncthreads();  // the list and the cleared words are in place
+        K5_MARK(1);
+        // the work list: (mutating child, gene call of this chunk) items,
+        // spread evenly over the tile's threads; one Philox call gives 4
+        // flip bits at a fixed place in the child's flip word, and OR in
+        // shared memory commutes, so the order of the items is free
+        const int q0 = 8 * w0;
+        const int chunk_calls = min(calls - q0, 8 * kFlipWords);
+        const int items = mutants * chunk_calls;
+        // item i is (call i / mutants, slot i % mutants), walked in steps of
+        // kTile without a division per item: adjacent threads take
+        // different children, so their ORs go to different words
+        int q = tid / max(mutants, 1), slot = tid - q * mutants;
+        const int dq = kTile / max(mutants, 1);
+        const int dslot = kTile - dq * mutants;
+        for (int i = tid; i < items; i += kTile) {
+          const int t = slots[slot];
+          const int call = q0 + q;
+          const uint4 f = draw(static_cast<uint32_t>(tile * kTile + t),
+                               static_cast<uint32_t>(call), g, kGenes, key);
+          const uint32_t bits = flip_bits4(f, gene_below) &
+                                bits_below(L - 4 * call);  // genes past L clear
+          if (bits)
+            atomicOr(&flips[((call >> 3) - w0) * kTile + t],
+                     bits << (4 * (call & 7)));
+          slot += dslot;
+          q += dq;
+          if (slot >= mutants) {
+            slot -= mutants;
+            ++q;
+          }
         }
+        __syncthreads();  // the flip words are complete
+        K5_MARK(2);
+#pragma unroll
+        for (int k = 0; k < kFlipWords; ++k) {
+          if (w0 + k >= W) break;  // W is the same for the whole block
+          // the partner's parent word, from the adjacent lane
+          const uint32_t y = __shfl_xor_sync(0xffffffffu, x[k], 1);
+          uint32_t v = x[k];
+          if (do_cx) {
+            const int start = 32 * (w0 + k);
+            const uint32_t seg =
+                bits_below(hi - start) & ~bits_below(lo - start);
+            v = (v & ~seg) | (y & seg);
+          }
+          if (mut) v ^= flips[k * kTile + tid];
+          x[k] = v;
+          count += __popc(v);
+        }
+#pragma unroll
+        for (int k = 0; k < kFlipWords; k += 4) {
+          uint32_t* row = dst + static_cast<size_t>(c) * W + w0 + k;
+          if (vec4) {
+            if (valid && w0 + k < W)
+              *reinterpret_cast<uint4*>(row) =
+                  make_uint4(x[k], x[k + 1], x[k + 2], x[k + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (valid && w0 + k + j < W) row[j] = x[k + j];
+          }
+        }
+        // each thread cleared and read only its own flip words, and the
+        // next writes to the list follow two more barriers: none here
+        K5_MARK(3);
       }
-      fdst[a] = static_cast<float>(count_a);
-      if (has_b) fdst[b] = static_cast<float>(count_b);
+      if (valid) fdst[c] = static_cast<float>(count);
     }
     grid.sync();  // generation gen is finished before gen + 1 selects
+    K5_MARK(4);
   }
 }
 
-// Launch `kernel` cooperatively with `args`: one thread per pair of
-// lanes, at most as many blocks as the card holds at once.
-int launch_resident(const void* kernel, void** args, int n, void* stream) {
-  int device = 0, sms = 0, per_sm = 0, cooperative = 0;
+// The cooperative grid of `kernel`: `needed` blocks of `threads`, at most
+// as many as the card holds at once. Sets *blocks and *per_sm (blocks an
+// SM holds); returns a CUDA error code.
+int resident_grid(const void* kernel, int needed, int threads, int* blocks,
+                  int* per_sm) {
+  int device = 0, sms = 0, cooperative = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch,
@@ -221,17 +403,31 @@ int launch_resident(const void* kernel, void** args, int n, void* stream) {
   if (!cooperative) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int needed = grid_for((n + 1) / 2, kThreads, 1 << 30);
-  const int blocks = needed < per_sm * sms ? needed : per_sm * sms;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
-                                    args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  *blocks = needed < *per_sm * sms ? needed : *per_sm * sms;
+  return 0;
+}
+
+// Launch `kernel` cooperatively with `args` on its resident grid.
+int launch_resident(const void* kernel, void** args, int needed, int threads,
+                    void* stream) {
+  int blocks = 0, per_sm = 0;
+  const int err = resident_grid(kernel, needed, threads, &blocks, &per_sm);
+  if (err) return err;
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      kernel, dim3(blocks), dim3(threads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the Philox path on its grid at n children with `args`.
+int launch_hw(void** args, int n, void* stream) {
+  return launch_resident(reinterpret_cast<const void*>(evolve_hw_kernel),
+                         args, grid_for(n, kTile, 1 << 30), kTile, stream);
 }
 
 }  // namespace
@@ -256,7 +452,8 @@ extern "C" int evolve_packed(const void* pop0, const void* fit0,
                   &fits_, &n, &W, &L, &ngen, &tournsize, &cxpb, &mutpb,
                   &indpb};
   return launch_resident(reinterpret_cast<const void*>(evolve_kernel), args,
-                         n, stream);
+                         grid_for((n + 1) / 2, kThreads, 1 << 30), kThreads,
+                         stream);
 }
 
 // The Philox path: key is uint32[2] on the card; the same double buffers.
@@ -272,6 +469,45 @@ extern "C" int evolve_packed_hw(const void* pop0, const void* fit0,
   float* fits_ = static_cast<float*>(fits);
   void* args[] = {&pop0_, &fit0_, &key_, &pops_, &fits_, &n, &W, &L,
                   &ngen, &tournsize, &cxpb, &mutpb, &indpb};
-  return launch_resident(reinterpret_cast<const void*>(evolve_hw_kernel),
-                         args, n, stream);
+  return launch_hw(args, n, stream);
 }
+
+// The grid of the Philox path at n children: out[0] blocks, out[1] the
+// blocks an SM holds, out[2] tiles of kTile children (a tile a block).
+extern "C" int evolve_packed_hw_grid(int n, int* out) {
+  out[2] = grid_for(n, kTile, 1 << 30);
+  return resident_grid(reinterpret_cast<const void*>(evolve_hw_kernel),
+                       out[2], kTile, &out[0], &out[1]);
+}
+
+// The Philox path's barrier alone: evolve_hw_kernel on the grid of a call
+// at n children, given no child to breed, so each of its ngen generations
+// is one grid.sync() and the loop around it. Its time over ngen, less that
+// of ngen 0, is the barrier's cost per generation.
+extern "C" int evolve_packed_hw_barrier(const void* key, int n, int ngen,
+                                        void* stream) {
+  const uint32_t* pop0_ = nullptr;
+  const float* fit0_ = nullptr;
+  const uint32_t* key_ = static_cast<const uint32_t*>(key);
+  uint32_t* pops_ = nullptr;
+  float* fits_ = nullptr;
+  int none = 0, one = 1;
+  float zero = 0.0f;
+  void* args[] = {&pop0_, &fit0_, &key_, &pops_, &fits_, &none, &one, &one,
+                  &ngen, &one, &zero, &zero, &zero};
+  return launch_hw(args, n, stream);
+}
+
+#ifdef DTT_K5_PHASES
+// The phase clocks' totals since the last reset: out[kPhases]; reset != 0
+// clears them after the read.
+extern "C" int evolve_packed_hw_phases(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k5_phase_clocks,
+                                         sizeof(k5_phase_clocks));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(k5_phase_clocks, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+#endif

@@ -36,7 +36,11 @@
 //   resident warps, each walking rows; the draws of a warp's next row load
 //   while it works on this one, so a row's loads all issue at once, with
 //   no wait on its own draws. At n 100k, L 100 it runs at about 30% of
-//   the byte bound; what holds it there is not known yet (PERF.md).
+//   the byte bound. A torch copy of the genomes alone takes about half its
+//   time, and the Philox variant below, which loads no draws, runs at that
+//   copy's speed with crossover and mutation off: what the genome bytes
+//   cost is near the floor, the rest is the draws' bytes and each row's
+//   work (port_profile.py --kernel-times; PERF.md).
 // - scalar, any other shape or alignment: one warp per row, its lanes
 //   over the genes in strided passes (the first design).
 // The fitness is a warp sum of per-lane sums: exact for 0/1 genes in any
@@ -44,14 +48,27 @@
 //
 // The Philox path (replacing _fused_kernel_hw of deap_tpu/ops/kernels.py)
 // has the same two variants, its draws made in registers from the key
-// (csrc/philox.cuh, g = 0) and no draw tensor read: lane 0 of the row's
-// warp makes the pair+row call of the pair's even row, lane 1 that of the
-// row itself (the same call for an even row), and the warp takes the
-// crossover words from lane 0 and the mutation word from lane 1 by
-// shuffles; in a row that mutates, one gene call gives the 4 genes of a
-// vector lane (the scalar lane takes word c % 4 of call c / 4). Its plain
-// version is the bits-input plain version fed ops/philox.py::hw_fused_bits.
-// Bound there: bytes of the genomes in and out (no draw touches memory).
+// (csrc/philox.cuh, g = 0) and no draw tensor read; in a row that mutates,
+// one gene call gives the 4 genes of a vector lane (the scalar lane takes
+// word c % 4 of call c / 4). Its plain version is the bits-input plain
+// version fed ops/philox.py::hw_fused_bits. Bound there: bytes of the
+// genomes in and out (no draw touches memory; 6.09 us at n 100k, L 100).
+// - scalar: lane 0 of the row's warp makes the pair+row call of the pair's
+//   even row, lane 1 that of the row itself, shared by shuffles.
+// - vector: a warp per pair of rows, which answers what held the first
+//   design (a warp per row, whose crossover decision waited on its own
+//   Philox call before the partner's load could issue, with one row in
+//   flight, 7 of 32 lanes idle at L 100 and the partner row read twice):
+//   the words of both rows load together, the next two pairs' words load
+//   while the warp works on this one, the pair+row calls of 16 pairs are
+//   one call per lane made ahead, and each pair's rows are read once. The
+//   per-pair work is kept lean (a segment per pair by shuffle, mutation
+//   bits by one ballot, integer thresholds for the draws, a one-instruction
+//   integer sum for bool rows), since with the genome bytes near a copy's
+//   speed what is left is the instructions a pair costs. On an H100 (700
+//   W) at n 100k, L 100 bool it takes ~20.4 us, 30% of the byte bound:
+//   ~16.8 with crossover and mutation off, against ~15.5 for a torch copy
+//   of the genomes (port_profile.py --kernel-times).
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -117,19 +134,26 @@ template <> struct Word<uint8_t> {
       if (e0 + b >= lo && e0 + b < hi) m |= 0xFFu << (8 * b);
     return (x & ~m) | (y & m);
   }
-  // gene b flips (to x == 0) where its gene bits give u < indpb
+  // gene b flips (to x == 0) where its gene bits draw below the gene rate:
+  // (bits >> 8) < below, below = u01_threshold(indpb) (exactly
+  // u01(bits) < indpb)
   static __device__ __forceinline__ uint32_t mutate(uint32_t x, uint4 gb,
-                                                    float indpb) {
-    const uint32_t u[4] = {gb.x, gb.y, gb.z, gb.w};
-    uint32_t m = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (u01(u[b]) < indpb) m |= 0xFFu << (8 * b);
+                                                    uint32_t below) {
+    const uint32_t m = ((gb.x >> 8) < below ? 0xFFu : 0u) |
+                       ((gb.y >> 8) < below ? 0xFF00u : 0u) |
+                       ((gb.z >> 8) < below ? 0xFF0000u : 0u) |
+                       ((gb.w >> 8) < below ? 0xFF000000u : 0u);
     const uint32_t flipped = __vcmpeq4(x, 0u) & 0x01010101u;
     return (x & ~m) | (flipped & m);
   }
-  static __device__ __forceinline__ float value(uint32_t x) {
-    return static_cast<float>(__popc(__vcmpne4(x, 0u) & 0x01010101u));
+  // a lane's share of a row sum, and the warp's total of the shares (an
+  // integer count: exact in any order)
+  using sum_type = unsigned;
+  static __device__ __forceinline__ unsigned value(uint32_t x) {
+    return __popc(__vcmpne4(x, 0u) & 0x01010101u);
+  }
+  static __device__ __forceinline__ float total(unsigned s) {
+    return static_cast<float>(__reduce_add_sync(0xffffffffu, s));
   }
 };
 template <> struct Word<float> {
@@ -144,16 +168,24 @@ template <> struct Word<float> {
     return r;
   }
   static __device__ __forceinline__ float4 mutate(float4 x, uint4 gb,
-                                                  float indpb) {
+                                                  uint32_t below) {
     float4 r;
-    r.x = u01(gb.x) < indpb ? 1.0f - x.x : x.x;
-    r.y = u01(gb.y) < indpb ? 1.0f - x.y : x.y;
-    r.z = u01(gb.z) < indpb ? 1.0f - x.z : x.z;
-    r.w = u01(gb.w) < indpb ? 1.0f - x.w : x.w;
+    r.x = (gb.x >> 8) < below ? 1.0f - x.x : x.x;
+    r.y = (gb.y >> 8) < below ? 1.0f - x.y : x.y;
+    r.z = (gb.z >> 8) < below ? 1.0f - x.z : x.z;
+    r.w = (gb.w >> 8) < below ? 1.0f - x.w : x.w;
     return r;
   }
+  using sum_type = float;
   static __device__ __forceinline__ float value(float4 x) {
     return ((x.x + x.y) + x.z) + x.w;
+  }
+  // the butterfly sum of the lanes' shares, in a fixed order
+  static __device__ __forceinline__ float total(float s) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    return s;
   }
 };
 
@@ -190,6 +222,7 @@ fused_variation_eval_vector_kernel(const T* __restrict__ g,
   const W* gw = reinterpret_cast<const W*>(g);
   const uint4* bw = reinterpret_cast<const uint4*>(genebits);
   W* ow = reinterpret_cast<W*>(out);
+  const uint32_t gene_below = u01_threshold(indpb);
   const int words = L >> 2;
   const int lane = threadIdx.x & 31;
   const int warps = (gridDim.x * blockDim.x) >> 5;
@@ -213,20 +246,18 @@ fused_variation_eval_vector_kernel(const T* __restrict__ g,
     const W* mate = gw + static_cast<size_t>(r ^ 1) * words;
     const uint4* bits = bw + static_cast<size_t>(r) * words;
     W* dst = ow + static_cast<size_t>(r) * words;
-    float sum = 0.0f;
+    typename Word<T>::sum_type sum = 0;
     for (int c = lane; c < words; c += 32) {
       const int e0 = 4 * c;
       W v = row[c];
       if (do_cx && lo < e0 + 4 && hi > e0)
         v = Word<T>::segment(v, mate[c], e0, lo, hi);
-      if (do_mut) v = Word<T>::mutate(v, bits[c], indpb);
+      if (do_mut) v = Word<T>::mutate(v, bits[c], gene_below);
       dst[c] = v;
       sum += Word<T>::value(v);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) fit[r] = sum;
+    const float total = Word<T>::total(sum);
+    if (lane == 0) fit[r] = total;
     d = next;
   }
 }
@@ -330,8 +361,15 @@ fused_variation_eval_hw_kernel(const T* __restrict__ g,
   }
 }
 
-// The vector variant of the Philox path.
-template <typename T>
+// The vector variant of the Philox path: a warp per pair of rows. Lane c
+// holds word c of both rows (kSlots words of each, 32 apart, in chunks of
+// 32 kSlots words), so a pair's rows are read once and both children are
+// written by one warp. The warp walks its pairs with the words of the next
+// two chunks loading while it works on this one; the pair+row calls of its
+// next 16 pairs are one call per lane, made together, their decisions kept
+// as a segment per pair and a ballot of mutation bits; a mutating row's
+// gene calls are made before its words are touched.
+template <typename T, int kSlots>
 __global__ void __launch_bounds__(256)
 fused_variation_eval_vector_hw_kernel(const T* __restrict__ g,
                                       const uint32_t* __restrict__ key_ptr,
@@ -339,39 +377,116 @@ fused_variation_eval_vector_hw_kernel(const T* __restrict__ g,
                                       float* __restrict__ fit, int n, int L,
                                       float cxpb, float mutpb, float indpb) {
   using W = typename Word<T>::type;
+  using S = typename Word<T>::sum_type;
+  constexpr int kSpan = 32 * kSlots;  // words of a chunk
   const uint2 key = load_key(key_ptr);
-  const W* gw = reinterpret_cast<const W*>(g);
-  W* ow = reinterpret_cast<W*>(out);
+  const uint32_t cx_below = u01_threshold(cxpb);
+  const uint32_t mut_below = u01_threshold(mutpb);
+  const uint32_t gene_below = u01_threshold(indpb);
   const int words = L >> 2;
   const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int warps = (gridDim.x * blockDim.x) >> 5;
-  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < n;
-       r += warps) {
-    const uint4 d = hw_row_words(r, lane, key);
-    const bool do_cx = (r | 1) < n && u01(d.x) < cxpb;
-    int lo = 0, hi = 0;
-    if (do_cx) cut_segment(d.y, d.z, L, &lo, &hi);
-    const bool do_mut = u01(d.w) < mutpb;
-    const W* row = gw + static_cast<size_t>(r) * words;
-    const W* mate = gw + static_cast<size_t>(r ^ 1) * words;
-    W* dst = ow + static_cast<size_t>(r) * words;
-    float sum = 0.0f;
-    for (int c = lane; c < words; c += 32) {
-      const int e0 = 4 * c;
-      W v = row[c];
-      if (do_cx && lo < e0 + 4 && hi > e0)
-        v = Word<T>::segment(v, mate[c], e0, lo, hi);
-      if (do_mut)
-        v = Word<T>::mutate(v, draw(r, static_cast<uint32_t>(c), 0u, kGenes,
-                                    key),
-                            indpb);
-      dst[c] = v;
-      sum += Word<T>::value(v);
+  const int pairs = (n + 1) >> 1;
+  const int chunks = (words + kSpan - 1) / kSpan;
+  // from one of the warp's pairs to its next
+  const size_t step = static_cast<size_t>(2 * warps) * words;
+  // the next item to load: pair lp, chunk lch, row lrow (the same in every
+  // lane); the warp's pairs are warp, warp + warps, ...
+  int lp = warp, lch = 0;
+  const W* lrow =
+      reinterpret_cast<const W*>(g) + static_cast<size_t>(2 * warp) * words;
+  auto load_next = [&](W* a, W* b) {
+    if (lp < pairs) {
+      const bool has_b = 2 * lp + 1 < n;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = lch * kSpan + 32 * s + lane;
+        if (c < words) {
+          a[s] = lrow[c];
+          if (has_b) b[s] = lrow[words + c];
+        }
+      }
+    }
+    if (++lch == chunks) {
+      lch = 0;
+      lp += warps;
+      lrow += step;
+    }
+  };
+  W a0[kSlots], b0[kSlots], a1[kSlots], b1[kSlots];
+  load_next(a0, b0);
+  load_next(a1, b1);
+  W* da = reinterpret_cast<W*>(out) + static_cast<size_t>(2 * warp) * words;
+  // lane j's decisions for row j & 1 of the warp's pair k + j / 2 of a batch
+  // of 16: the pair's segment [lo, hi) (empty without crossover) on its even
+  // lane, every row's mutation as a bit of `muts`
+  int lo_j = 0, hi_j = 0;
+  unsigned muts = 0u;
+  S sum_a = 0, sum_b = 0;
+  for (int p = warp, ch = 0, k = 0; p < pairs;) {
+    W a2[kSlots], b2[kSlots];
+    load_next(a2, b2);
+    if (ch == 0 && (k & 15) == 0) {
+      const int row = 2 * (p + (lane >> 1) * warps) + (lane & 1);
+      const uint4 d = draw(static_cast<uint32_t>(row), 0u, 0u, kPairRow, key);
+      lo_j = hi_j = 0;
+      if ((row | 1) < n && (d.x >> 8) < cx_below)
+        cut_segment(d.y, d.z, L, &lo_j, &hi_j);
+      muts = __ballot_sync(0xffffffffu, (d.w >> 8) < mut_below);
+    }
+    const int slot = 2 * (k & 15);
+    const int lo = __shfl_sync(0xffffffffu, lo_j, slot);
+    const int hi = __shfl_sync(0xffffffffu, hi_j, slot);
+    const int ra = 2 * p;
+    const bool has_b = ra + 1 < n;
+    const bool mut_a = (muts >> slot) & 1u;
+    const bool mut_b = has_b && ((muts >> (slot + 1)) & 1u);
+    // the gene calls of the mutating rows, before the words are touched
+    uint4 fa[kSlots], fb[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const uint32_t c = static_cast<uint32_t>(ch * kSpan + 32 * s + lane);
+      if (mut_a) fa[s] = draw(static_cast<uint32_t>(ra), c, 0u, kGenes, key);
+      if (mut_b)
+        fb[s] = draw(static_cast<uint32_t>(ra + 1), c, 0u, kGenes, key);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) fit[r] = sum;
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = ch * kSpan + 32 * s + lane;
+      if (c < words) {
+        const int e0 = 4 * c;
+        W va = a0[s], vb = b0[s];
+        if (lo < e0 + 4 && hi > e0) {
+          const W t = Word<T>::segment(va, vb, e0, lo, hi);
+          vb = Word<T>::segment(vb, va, e0, lo, hi);
+          va = t;
+        }
+        if (mut_a) va = Word<T>::mutate(va, fa[s], gene_below);
+        da[c] = va;
+        sum_a += Word<T>::value(va);
+        if (has_b) {
+          if (mut_b) vb = Word<T>::mutate(vb, fb[s], gene_below);
+          da[words + c] = vb;
+          sum_b += Word<T>::value(vb);
+        }
+      }
+      a0[s] = a1[s];
+      b0[s] = b1[s];
+      a1[s] = a2[s];
+      b1[s] = b2[s];
+    }
+    if (++ch == chunks) {
+      const float fa_sum = Word<T>::total(sum_a);
+      const float fb_sum = Word<T>::total(sum_b);
+      if (lane == 0) fit[ra] = fa_sum;
+      if (lane == 1 && has_b) fit[ra + 1] = fb_sum;
+      sum_a = sum_b = 0;
+      ch = 0;
+      p += warps;
+      ++k;
+      da += step;
+    }
   }
 }
 
@@ -398,12 +513,27 @@ int launch_hw(const void* g, const void* key, void* out, void* fit, int n,
   const bool vec = takes_vector<T>(g, nullptr, out, L);
   if (vector != nullptr) *vector = vec;
   if (vec) {
-    static const int resident = resident_blocks(
-        reinterpret_cast<const void*>(fused_variation_eval_vector_hw_kernel<T>),
-        threads);
-    fused_variation_eval_vector_hw_kernel<T>
-        <<<grid_for(n, threads / 32, resident), threads, 0, s>>>(
-            pg, pk, po, pf, n, L, cxpb, mutpb, indpb);
+    // one slot of words per lane up to L 128, two above (chunks of 64
+    // words past L 256); as many warps as the card holds, each walking
+    // pairs
+    const int pairs = (n + 1) / 2;
+    if (L <= 128) {
+      static const int resident = resident_blocks(
+          reinterpret_cast<const void*>(
+              fused_variation_eval_vector_hw_kernel<T, 1>),
+          threads);
+      fused_variation_eval_vector_hw_kernel<T, 1>
+          <<<grid_for(pairs, threads / 32, resident), threads, 0, s>>>(
+              pg, pk, po, pf, n, L, cxpb, mutpb, indpb);
+    } else {
+      static const int resident = resident_blocks(
+          reinterpret_cast<const void*>(
+              fused_variation_eval_vector_hw_kernel<T, 2>),
+          threads);
+      fused_variation_eval_vector_hw_kernel<T, 2>
+          <<<grid_for(pairs, threads / 32, resident), threads, 0, s>>>(
+              pg, pk, po, pf, n, L, cxpb, mutpb, indpb);
+    }
   } else {
     const int blocks = grid_for(static_cast<long long>(n) * 32, threads,
                                 132 * 64);

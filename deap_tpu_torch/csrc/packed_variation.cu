@@ -107,6 +107,7 @@ packed_variation_hw_kernel(const uint32_t* __restrict__ g,
   int lo = 0, hi = 0;
   if (do_cx) cut_segment(u1, u2, L, &lo, &hi);
   const bool do_mut = u01(own.w) < mutpb;
+  const uint32_t gene_below = u01_threshold(indpb);
   const uint32_t* self = g + static_cast<size_t>(r) * W;
   const uint32_t* mate = g + static_cast<size_t>(r ^ 1) * W;
   uint32_t* dst = out + static_cast<size_t>(r) * W;
@@ -118,7 +119,7 @@ packed_variation_hw_kernel(const uint32_t* __restrict__ g,
       const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
       child = (child & ~seg) | (mate[j] & seg);
     }
-    if (do_mut) child ^= hw_flip_word(r, j, 0u, L, indpb, key);
+    if (do_mut) child ^= hw_flip_word(r, j, 0u, L, gene_below, key);
     dst[j] = child;
     count += __popc(child);
   }

@@ -29,7 +29,9 @@
 //
 // Cost: 10 rounds of two 32x32-bit products, each a hi and a lo half: 40
 // integer multiplies per call (IMAD.HI and IMAD on sm_90), plus the xors
-// and the key bumps.
+// and the key bumps (none where the round keys are computed once,
+// RoundKeys). There is one body, on round keys; the uint2 form computes
+// them at the call.
 #pragma once
 
 #include "common.cuh"
@@ -42,20 +44,41 @@ enum : uint32_t {
   kRealNormal = 4u
 };
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+// The key's ten round keys (round r adds r bumps). A kernel that makes
+// many calls computes them once and spares each call its key schedule.
+struct RoundKeys {
+  uint32_t x[10], y[10];
+};
+
+__device__ __forceinline__ RoundKeys round_keys(uint2 k) {
+  RoundKeys rk;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
+    rk.x[r] = k.x + static_cast<uint32_t>(r) * 0x9E3779B9u;
+    rk.y[r] = k.y + static_cast<uint32_t>(r) * 0xBB67AE85u;
+  }
+  return rk;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const RoundKeys& k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
     const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
     const uint32_t lo0 = 0xD2511F53u * c.x;
     const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
     const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    c = make_uint4(hi1 ^ c.y ^ k.x[r], lo1, hi0 ^ c.w ^ k.y[r], lo0);
   }
   return c;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  return philox4x32_10(c, round_keys(k));
+}
+
+__device__ __forceinline__ uint4 draw(uint32_t i, uint32_t j, uint32_t g,
+                                      uint32_t tag, const RoundKeys& key) {
+  return philox4x32_10(make_uint4(i, j, g, tag), key);
 }
 
 __device__ __forceinline__ uint2 load_key(const uint32_t* key) {
@@ -83,50 +106,86 @@ __device__ __forceinline__ void cut_segment(uint32_t u1, uint32_t u2, int L,
   *hi = max(p1, p2);
 }
 
-// Winning population index of child c's tournament in generation g: the
-// first aspirant, then each later one with a strictly greater fitness (the
-// first drawn wins ties). fit may be written by the calling kernel, so it
-// is read through plain loads.
+// Tournament call `call` of child c in generation g: aspirants 4 call ..
+// 4 call + 3, drawn % n (those past tournsize, or all where !valid, read
+// as fitness 0), their fitness loads issued together before any compare.
+// fit may be written by the calling kernel, so it is read through plain
+// loads.
+struct Aspirants {
+  uint32_t idx[4];
+  float fit[4];
+};
+
+__device__ __forceinline__ Aspirants aspirants(const float* fit, uint32_t c,
+                                               int call, uint32_t g, int n,
+                                               int tournsize, bool valid,
+                                               const RoundKeys& key) {
+  const uint32_t un = static_cast<uint32_t>(n);
+  const uint4 d = draw(c, static_cast<uint32_t>(call), g, kTournament, key);
+  Aspirants a = {{d.x % un, d.y % un, d.z % un, d.w % un}, {}};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    a.fit[k] = valid && 4 * call + k < tournsize ? fit[a.idx[k]] : 0.0f;
+  return a;
+}
+
+// Winning population index of child c's tournament in generation g, from
+// its first call's aspirants `first` and the calls after it: the first
+// aspirant, then each later one with a strictly greater fitness (the first
+// drawn wins ties). A kernel that has work to do while the first call's
+// loads are in flight makes that call itself (aspirants) and passes it.
+__device__ __forceinline__ uint32_t hw_tournament(Aspirants first,
+                                                  const float* fit,
+                                                  uint32_t c, uint32_t g,
+                                                  int n, int tournsize,
+                                                  const RoundKeys& key) {
+  Aspirants a = first;
+  uint32_t best = a.idx[0];
+  float best_fit = a.fit[0];
+  for (int call = 0;;) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * call + k < tournsize && a.fit[k] > best_fit) {
+        best = a.idx[k];
+        best_fit = a.fit[k];
+      }
+    }
+    if (4 * ++call >= tournsize) return best;
+    a = aspirants(fit, c, call, g, n, tournsize, true, key);
+  }
+}
+
 __device__ __forceinline__ uint32_t hw_tournament(const float* fit,
                                                   uint32_t c, uint32_t g,
                                                   int n, int tournsize,
-                                                  uint2 key) {
-  const uint32_t un = static_cast<uint32_t>(n);
-  uint32_t best = 0u;
-  float best_fit = 0.0f;
-  for (int t0 = 0; t0 < tournsize; t0 += 4) {
-    const uint4 d = draw(c, static_cast<uint32_t>(t0 >> 2), g, kTournament,
-                         key);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (t0 + k >= tournsize) break;
-      const uint32_t idx = word_of(d, k) % un;
-      const float f = fit[idx];
-      if (t0 + k == 0 || f > best_fit) {
-        best = idx;
-        best_fit = f;
-      }
-    }
-  }
-  return best;
+                                                  const RoundKeys& key) {
+  return hw_tournament(aspirants(fit, c, 0, g, n, tournsize, true, key), fit,
+                       c, g, n, tournsize, key);
+}
+
+// The 4 flip bits of one gene call d: bit k set where word k draws below
+// the gene rate, as (bits >> 8) < below with below = u01_threshold(indpb)
+// (exactly u01(bits) < indpb).
+__device__ __forceinline__ uint32_t flip_bits4(uint4 d, uint32_t below) {
+  return static_cast<uint32_t>((d.x >> 8) < below) |
+         static_cast<uint32_t>((d.y >> 8) < below) << 1 |
+         static_cast<uint32_t>((d.z >> 8) < below) << 2 |
+         static_cast<uint32_t>((d.w >> 8) < below) << 3;
 }
 
 // Flip word w of packed row r in generation g: bit b set where gene
-// 32 w + b (< L) draws below indpb; ceil(nb / 4) calls for the nb genes of
-// the word, and the bits past gene L stay clear.
+// 32 w + b (< L) draws below the gene rate (below = u01_threshold(indpb));
+// ceil(nb / 4) calls for the nb genes of the word, and the bits past gene
+// L stay clear.
 __device__ __forceinline__ uint32_t hw_flip_word(uint32_t r, int w, uint32_t g,
-                                                 int L, float indpb,
+                                                 int L, uint32_t below,
                                                  uint2 key) {
   const int nb = min(32, L - 32 * w);
   uint32_t flip = 0u;
   for (int q = 0; q < nb; q += 4) {
     const uint4 d = draw(r, static_cast<uint32_t>((32 * w + q) >> 2), g,
                          kGenes, key);
-    flip |= (static_cast<uint32_t>(u01(d.x) < indpb) |
-             static_cast<uint32_t>(u01(d.y) < indpb) << 1 |
-             static_cast<uint32_t>(u01(d.z) < indpb) << 2 |
-             static_cast<uint32_t>(u01(d.w) < indpb) << 3)
-            << q;
+    flip |= flip_bits4(d, below) << q;
   }
   return flip & bits_below(nb);
 }

@@ -57,7 +57,7 @@ selgather_hw_kernel(const uint32_t* __restrict__ g,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   const uint32_t best =
-      hw_tournament(fit, j, 0u, n, tournsize, load_key(key_ptr));
+      hw_tournament(fit, j, 0u, n, tournsize, round_keys(load_key(key_ptr)));
   const uint32_t* src = g + static_cast<size_t>(best) * W;
   uint32_t* dst = out + static_cast<size_t>(j) * W;
   for (int w = 0; w < W; ++w) dst[w] = src[w];

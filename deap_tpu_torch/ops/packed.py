@@ -30,6 +30,7 @@ compute on int64 copies of the words (``& 0xFFFFFFFF``) and convert back.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -510,3 +511,26 @@ def evolve_packed(packed: torch.Tensor, fit: torch.Tensor, length: int,
 
 evolve_packed.launches = 0
 evolve_packed.hw_launches = 0
+
+
+def _k5_hw_grid(n: int) -> Tuple[int, int, int]:
+    """``(blocks, blocks an SM holds, tiles of 256 children)`` of
+    :func:`evolve_packed`'s cooperative grid under ``prng='hw'`` at ``n``
+    children (a block a tile), as the card reports it."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.function("evolve_packed", "evolve_packed_hw_grid",
+                         [_build.INT, ctypes.POINTER(ctypes.c_int)])
+    _build.check("evolve_packed", fn(n, out), "evolve_packed_hw_grid")
+    return tuple(out)
+
+
+def _k5_hw_barrier(key: torch.Tensor, n: int, ngen: int) -> None:
+    """Launch :func:`evolve_packed`'s Philox kernel on its grid at ``n``
+    children with no child to breed: ``ngen`` grid barriers and the
+    generation loop around them (its cost per generation, timed against
+    ``ngen == 0``). Not counted in ``launches``."""
+    fn = _build.function("evolve_packed", "evolve_packed_hw_barrier",
+                         [_build.PTR, _build.INT, _build.INT, _build.PTR])
+    err = fn(key.data_ptr(), n, ngen,
+             torch.cuda.current_stream(key.device).cuda_stream)
+    _build.check("evolve_packed", err, "evolve_packed_hw_barrier")

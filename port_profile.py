@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
                             [--rastrigin] [--gp] [--cmaes] [--hw] [--sass]
                             [--k7-variants]
+    python3 port_profile.py --kernel-times [--package-root DIR]
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -62,6 +63,17 @@ kernels; the listings go to ``DIR``);
 ``--k7-variants`` times K7 at the NSGA-II path's sizes in builds with 4,
 8 and 16 query rows per thread and with the prune off, and the wrapper's
 sort and gathers alone.
+
+``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
+generations) and K2-hw and K2 (one generation) at pop 100k and L 100, and
+beside them K5-hw with mutation off, K2-hw with crossover and mutation off
+and a torch copy of the genomes, with the ``deap_tpu_torch`` under
+``--package-root`` (default: this checkout), built into that checkout's
+own ``build/``; where that source has K5-hw's phase clock, it also splits
+K5-hw's generation by phase from a build with ``-DDTT_K5_PHASES``. Two
+versions compare on one card by runs in turns, e.g. with another commit
+unpacked by ``git archive`` into a git-ignored directory: that one, this
+one, this one, that one.
 
 For each profile it prints the wall time per generation (host clock
 around work that ends in a synchronise), the device time per generation
@@ -504,6 +516,137 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
 
+def kernel_times(dev, facts, root, reps=25):
+    """Time K5-hw and K5 (one 50-generation call each) and K2-hw and K2
+    (one generation each) at the main path's shapes, pop 100k and L 100,
+    as ``chip_smoke.time_ms`` does, with the ``deap_tpu_torch`` found under
+    ``root``, beside K5-hw with mutation off, K2-hw with crossover and
+    mutation off and a torch copy of the genomes, and K5-hw's phase split
+    (:func:`k5_hw_phases`) where the package's source has its clock; print
+    the times and a checksum of each result (the same inputs and keys in
+    every package, so equal sums say the same results)."""
+    import json
+    import torch
+    from chip_smoke import (CXPB, EVOLVE_CALL, INDPB, MUTPB, TOURNSIZE,
+                            time_ms)
+    from deap_tpu_torch import _build, ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, packed
+
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    g = make_generator(23, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, N))
+    fit = packed.packed_fitness(pk)
+    key = kernels.philox_key(g)
+    bits = packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, pk.shape[1])
+    bools = torch.rand((N, L), generator=g, device=dev) < 0.5
+    fbits = kernels.fused_bits(g, N, L)
+    copy_to = torch.empty_like(bools)
+    no_fitness = torch.zeros(N, device=dev)
+    calls = {
+        "k5_hw": (lambda: packed.evolve_packed(
+            pk, fit, L, ngen=EVOLVE_CALL, tournsize=TOURNSIZE, prng="hw",
+            key=key, **probs), 10),
+        # K5-hw with mutation off: the share of its gene calls
+        "k5_hw_no_mutation": (lambda: packed.evolve_packed(
+            pk, fit, L, ngen=EVOLVE_CALL, tournsize=TOURNSIZE, prng="hw",
+            key=key, cxpb=CXPB, mutpb=0.0, indpb=INDPB), 10),
+        "k5": (lambda: packed.evolve_packed(pk, fit, L, *bits, **probs), 10),
+        "k2_hw": (lambda: kernels.fused_variation_eval(
+            bools, prng="hw", key=key, **probs), reps),
+        "k2": (lambda: kernels.fused_variation_eval(bools, *fbits, **probs),
+               reps),
+        # K2-hw with crossover and mutation off: its loads and stores of
+        # the genomes, the pair+row calls and the sums, without the work
+        # the draws decide
+        "k2_hw_copy_only": (lambda: kernels.fused_variation_eval(
+            bools, prng="hw", key=key, cxpb=0.0, mutpb=0.0, indpb=INDPB),
+            reps),
+        # a torch copy of the same genomes: the floor of what reading and
+        # writing them costs under this timer
+        "torch_copy": (lambda: (copy_to.copy_(bools), no_fitness), reps),
+    }
+    times = {"package": os.path.relpath(root, ROOT)}
+    for name, (call, n_reps) in calls.items():
+        genomes, fitness = call()
+        times[f"{name}_sum"] = int(genomes.view(torch.uint8).sum()) + int(
+            fitness.double().sum())
+        times[f"{name}_ms"] = time_ms(call, flush, reps=n_reps)
+    if "DTT_K5_PHASES" in (_build.CSRC / "evolve_packed.cu").read_text():
+        times.update(k5_hw_phases(pk, fit, key, flush))
+    print(f"[{facts}] kernel times {json.dumps(times)}")
+
+
+K5_PHASES = ("draws_to_list_barrier", "winner_list_parent_load_issue",
+             "gene_calls", "cross_flip_store_thread0", "grid_barrier")
+
+
+def k5_hw_phases(pk, fit, key, flush, reps=10):
+    """K5-hw's generation split by phase, from a build of
+    csrc/evolve_packed.cu with ``-DDTT_K5_PHASES`` (thread 0 of each block
+    adds the SM clocks of each phase, ``K5_PHASES``, to a device total):
+    the phases' shares of a block's clocks, each share times the
+    instrumented call's time, the clocks per block and generation, and the
+    instrumented call's time (its cost against the uninstrumented one).
+    The instrumented call's result checksum must equal K5-hw's."""
+    import ctypes
+    import subprocess
+    import torch
+    from chip_smoke import CXPB, EVOLVE_CALL, INDPB, MUTPB, TOURNSIZE, time_ms
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.ops import packed
+
+    lib_path = str(_build.BUILD_DIR / "libevolve_packed-phases.so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDTT_K5_PHASES", "-o",
+         lib_path, str(_build.CSRC / "evolve_packed.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc -DDTT_K5_PHASES failed:\n{done.stdout}")
+    lib = ctypes.CDLL(lib_path)
+    P, I, F = _build.PTR, _build.INT, _build.FLOAT
+    run = lib.evolve_packed_hw
+    run.argtypes, run.restype = [P] * 5 + [I] * 5 + [F] * 3 + [P], I
+    read = lib.evolve_packed_hw_phases
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
+    read.restype = I
+    n, W = pk.shape
+    pops = torch.empty((2, n, W), dtype=torch.uint32, device=pk.device)
+    fits = torch.empty((2, n), dtype=torch.float32, device=pk.device)
+    stream = torch.cuda.current_stream(pk.device).cuda_stream
+
+    def call():
+        err = run(pk.data_ptr(), fit.data_ptr(), key.data_ptr(),
+                  pops.data_ptr(), fits.data_ptr(), n, W, L, EVOLVE_CALL,
+                  TOURNSIZE, CXPB, MUTPB, INDPB, stream)
+        if err:
+            raise RuntimeError(f"K5-hw (phases build): CUDA error {err}")
+        return pops[(EVOLVE_CALL - 1) % 2], fits[(EVOLVE_CALL - 1) % 2]
+
+    clocks = (ctypes.c_ulonglong * len(K5_PHASES))()
+    genomes, fitness = call()
+    torch.cuda.synchronize()
+    out = {"k5_hw_phases_sum": int(genomes.view(torch.uint8).sum())
+           + int(fitness.double().sum())}
+    read(clocks, 1)  # clear the first call's totals
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    if read(clocks, 1):
+        raise RuntimeError("K5-hw (phases build): reading the clocks failed")
+    ms = time_ms(call, flush, reps=reps)
+    blocks = packed._k5_hw_grid(n)[0]
+    total = sum(clocks)
+    out["k5_hw_phases_ms"] = ms
+    out["k5_hw_clocks_per_block_gen"] = total / (reps * blocks * EVOLVE_CALL)
+    for name, c in zip(K5_PHASES, clocks):
+        out[f"k5_hw_share_{name}"] = c / total
+        out[f"k5_hw_us_per_gen_{name}"] = c / total * ms * 1e3 / EVOLVE_CALL
+    return out
+
+
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
             "gp": profile_gp, "cmaes": profile_cmaes}
@@ -538,6 +681,13 @@ def main():
     parser.add_argument("--k7-variants", action="store_true",
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="time K5-hw, K5, K2-hw and K2 at pop 100k, "
+                             "L 100 (alone: nothing else runs)")
+    parser.add_argument("--package-root", default=ROOT,
+                        help="the checkout whose deap_tpu_torch "
+                             "--kernel-times builds and times (e.g. an "
+                             "unpacked archive of another commit)")
     args = parser.parse_args()
     chosen = [name for name in PROFILES if getattr(args, name)]
     import torch
@@ -545,6 +695,13 @@ def main():
         print("port_profile: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import chip_smoke  # noqa: F401  (this checkout's, whatever the package)
+    if args.kernel_times:
+        root = os.path.abspath(args.package_root)
+        sys.path.insert(0, root)
+        from deap_tpu_torch.device import gpu_facts
+        kernel_times(torch.device("cuda"), gpu_facts(), root)
+        return 0
     from deap_tpu_torch import FitnessSpec, Toolbox, _build, algorithms, ops
     from deap_tpu_torch.core.population import init_population
     from deap_tpu_torch.device import gpu_facts, make_generator

@@ -164,6 +164,79 @@ def test_ea_simple_packed_hw_counts_its_philox_launches(card, select):
     assert torch.equal(fit, packed.packed_fitness(out))
 
 
+# ------------------------- the edges of K2-hw's and K5-hw's layouts ----
+
+@pytest.mark.parametrize("n,L", [(1, 4), (3, 4), (1001, 4), (1, 100),
+                                 (1001, 200), (999, 300), (257, 1000),
+                                 (4097, 100)])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32])
+def test_k2_hw_vector_edges_equal_plain(card, n, L, dtype):
+    """The vector variant (a warp per pair): one word a row, more words
+    than lanes (two slots a lane, two or more chunks), one row, odd n;
+    fitness bitwise, and one key twice equal."""
+    gen = make_generator(7 * n + L, card)
+    g = (torch.rand((n, L), generator=gen, device=card) < 0.5).to(dtype)
+    key = kernels.philox_key(gen)
+    fn = kernels.fused_variation_eval
+    before = fn.vector_launches
+    got = fn(g, prng="hw", key=key, **PROBS)
+    want = kernels.fused_variation_eval_plain(
+        g, *philox.hw_fused_bits(key, n, L), **PROBS)
+    again = fn(g, prng="hw", key=key, **PROBS)
+    torch.cuda.synchronize()
+    assert fn.vector_launches == before + 2
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(got[0], again[0]) and _same(got[1], again[1])
+
+
+@pytest.mark.parametrize("n,L,ngen,tournsize", [(1, 100, 3, 3),
+                                                (3, 100, 3, 3),
+                                                (1, 33, 2, 5),
+                                                (3, 70, 3, 5),
+                                                (1001, 70, 3, 5),
+                                                (2049, 300, 2, 3),
+                                                (777, 256, 2, 9),
+                                                (4099, 33, 4, 3)])
+def test_k5_hw_edges_equal_plain_and_k4_then_k3(card, n, L, ngen, tournsize):
+    """The tile's work list: a ragged last word, more flip words than one
+    chunk (L 300), several tournament calls, one pair, an odd lane and a
+    last tile part full."""
+    gen = make_generator(3 * n + L, card)
+    pk = packed.pack_genomes(torch.rand((n, L), generator=gen, device=card)
+                             < 0.5)
+    fit = packed.packed_fitness(pk)
+    key = kernels.philox_key(gen)
+    got = packed.evolve_packed(pk, fit, L, ngen=ngen, tournsize=tournsize,
+                               prng="hw", key=key, **PROBS)
+    want = packed.evolve_packed_plain(
+        pk, fit, L, *philox.hw_evolve_bits(key, ngen, tournsize, n, L),
+        **PROBS)
+    one = packed.evolve_packed(pk, fit, L, ngen=1, tournsize=tournsize,
+                               prng="hw", key=key, **PROBS)
+    parents = packed.sel_tournament_gather_packed(
+        pk, fit, prng="hw", key=key, tournsize=tournsize)
+    two = packed.fused_variation_eval_packed(parents, L, prng="hw", key=key,
+                                             **PROBS)
+    torch.cuda.synchronize()
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(one[0], two[0]) and _same(one[1], two[1])
+
+
+def test_k5_hw_grid_and_barrier_entries(card):
+    """K5-hw's grid: a block a tile of 256 children, every tile resident
+    up to the card's capacity; its barrier-only launch runs."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for n in (1, 1001, 100_000, 10 ** 6):
+        blocks, per_sm, tiles = packed._k5_hw_grid(n)
+        assert tiles == -(-n // 256)
+        assert per_sm >= 1 and blocks == min(tiles, per_sm * sms)
+    assert packed._k5_hw_grid(1)[0] == 1
+    key = kernels.philox_key(make_generator(1, card))
+    packed._k5_hw_barrier(key, 100_000, 5)
+    packed._k5_hw_barrier(key, 100_000, 0)
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------- K6's Philox path ----
 
 def test_k6_library_philox_gives_the_known_answers(card):
