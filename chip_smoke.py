@@ -40,7 +40,10 @@ Phases (any failure ends the script with a non-zero exit code):
    that includes it, K6's too); each path bitwise
    against its plain version on ``ops.philox``'s streams (K2 bool and
    float32 at L 33 and 100, n 100k and 1001, and the vector variant's
-   edges, L 4, 200, 300 and 1000, n 1, 3 and odd; K3 and K4 at n 100k;
+   edges, L 4, 200, 300 and 1000, n 1, 3 and odd; K3 at n 1, 3, 255,
+   257, 1001 and 100k by L 2, 31, 33, 100, 257 and 300, and with mutpb 0
+   and 1, timed at n 100k beside a torch copy of the same genomes; K4 at
+   n 100k;
    K5 5 generations at n 1, 3, 1001 and 100k, L 33, 70 and 100,
    tournament 3 and 5, and one 50-generation call at n 100k), the
    layout's invariants (K3-hw == packed K2-hw; one K5-hw generation ==
@@ -76,8 +79,9 @@ Phases (any failure ends the script with a non-zero exit code):
     builds it) and on a small odd case, then ``bench_gp.py``'s symbolic
     regression (the quartic on 256 points, pop 4096, width 64, cxpb 0.5,
     mutpb 0.1) for 50 generations: best MSE at most 0.05, K9 launched
-    once per depth level evaluated, after a 5-generation run at pop 256
-    that must equal the same run through the plain version bit for bit;
+    once per evaluation and its levels counted (= the evaluated trees'
+    heights), after a 5-generation run at pop 256 that must equal the
+    same run through the plain version bit for bit;
 13. K6's Philox path (``prng='hw'``, ``bench_suite.py``'s call): against
     its plain version on ``ops.philox.hw_real_bits``' streams at pop 100k
     and at n 1001 (crossed genes bitwise, mutated genes and fitness at
@@ -224,6 +228,15 @@ def ptxas_report(log):
             out.append((kernel, line.split(":", 1)[-1].strip() + "; "
                         + spill))
     return out
+
+
+def print_ptxas(src, kernel):
+    """Print the registers, spills and shared memory of ``kernel`` (and
+    its instances) in the build of ``csrc/<src>.cu``."""
+    from deap_tpu_torch import _build
+    for name, line in ptxas_report(_build.build_log(src)):
+        if name.startswith(kernel):
+            print(f"  ptxas {src} {name}: {line}")
 
 
 def compare_rate(dev):
@@ -549,6 +562,7 @@ def reset_counts():
     from deap_tpu_torch.ops import kernels, kernels_real, packed
     for fn in launch_counters():
         fn.launches = 0
+    kernels.gp_grouped_dispatch.levels = 0
     kernels.fused_variation_eval.vector_launches = 0
     for fn in (kernels.fused_variation_eval,
                packed.fused_variation_eval_packed,
@@ -908,6 +922,33 @@ def hw_phases(torch, dev, tag, report, record):
           f"calls; one key twice bitwise equal, two keys differ)")
 
     # ---------------------------------------------- K3 and K4 Philox --
+    # K3-hw's tiles of 256 rows: a partial tile, an odd last row, one and
+    # two flip-word chunks (W > 8 from L 257), no row or every row
+    # mutating; each against its plain version and pack_genomes(K2-hw)
+    k3_shapes = [(n, length, MUTPB) for n in (1, 3, 255, 257, 1001, N)
+                 for length in (2, 31, 33, L, 257, 300)]
+    k3_shapes += [(n, length, mutpb) for n, length in ((257, 33), (1001, 300))
+                  for mutpb in (0.0, 1.0)]
+    for n, length, mutpb in k3_shapes:
+        bools = torch.rand((n, length), generator=gen, device=dev) < 0.5
+        pkn = packed.pack_genomes(bools)
+        key = kernels.philox_key(gen)
+        kw = dict(probs, mutpb=mutpb)
+        got = packed.fused_variation_eval_packed(pkn, length, prng="hw",
+                                                 key=key, **kw)
+        want = packed.fused_variation_eval_packed_plain(
+            pkn, length, *philox.hw_packed_bits(key, n, pkn.shape[1],
+                                                length), **kw)
+        byte = kernels.fused_variation_eval(bools, prng="hw", key=key, **kw)
+        torch.cuda.synchronize()
+        what = f"n={n}, L={length}, mutpb={mutpb}"
+        same(got, want, f"fused_variation_eval_packed(prng='hw') at {what}")
+        same(got, (packed.pack_genomes(byte[0]), byte[1]),
+             f"K3-hw against pack_genomes of K2-hw at {what}")
+    print(f"{tag} fused_variation_eval_packed(prng='hw') == plain on "
+          f"ops.philox's streams and == pack_genomes(K2-hw) bitwise at "
+          f"{len(k3_shapes)} shapes: n 1, 3, 255, 257, 1001, {N} by L 2, 31, "
+          f"33, {L}, 257, 300; mutpb 0 and 1 at (257, 33) and (1001, 300)")
     bools = torch.rand((N, L), generator=gen, device=dev) < 0.5
     pk = packed.pack_genomes(bools)
     key = kernels.philox_key(gen)
@@ -935,6 +976,16 @@ def hw_phases(torch, dev, tag, report, record):
                pk, L, *philox.hw_packed_bits(key, N, W, L), **probs), flush),
            2 * N * W * 4 + 4 * N,
            imads=PHILOX_IMADS * (N + n_mut * gene_calls))
+    # the practical floor of moving these genomes under this timer: a
+    # torch copy of the same 1.6 MB (it does not compute the function)
+    copy_to = torch.empty_like(pk)
+    copy_ms = time_ms(lambda: copy_to.copy_(pk), flush)
+    print(f"  K3-hw: of {N} rows {n_mut} mutate, "
+          f"{N + n_mut * gene_calls} Philox calls; a torch copy of the same "
+          f"{pk.numel() * 4 / 1e6:.2f} MB genomes {copy_ms * 1e3:.2f} us "
+          f"under the same timer")
+    print_ptxas("packed_variation", "packed_variation_hw_kernel")
+    del copy_to
 
     fit = packed.packed_fitness(pk)
     got = packed.sel_tournament_gather_packed(pk, fit, prng="hw", key=key,
@@ -1806,7 +1857,10 @@ def gp_phases(torch, dev, tag, report, record):
         buf = torch.zeros((pset.n_args + sched["nchunks"] * chunk,
                            Xk.shape[0]), device=dev)
         buf[:pset.n_args] = Xk.T
+        # the kernel's instruction rows start as NaN: a row read before
+        # its level wrote it would show in the result
         bufs = [buf.clone(), buf.clone()]
+        bufs[0][pset.n_args:] = float("nan")
         kw = dict(chunk=chunk, n_args=pset.n_args)
 
         def kernel():
@@ -1818,14 +1872,22 @@ def gp_phases(torch, dev, tag, report, record):
             return kernels.gp_grouped_dispatch_plain(bufs[1], *args,
                                                      interp.branches, **kw)
 
+        k9 = kernels.gp_grouped_dispatch
+        before = (k9.launches, k9.levels)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
+        nlevels = len(sched["level_starts"]) - 1
+        if (k9.launches, k9.levels) != (before[0] + 1, before[1] + nlevels):
+            fail(f"gp_grouped_dispatch on {what}: {k9.launches - before[0]} "
+                 f"launches over {k9.levels - before[1]} levels, not one "
+                 f"over {nlevels}")
         if not bitwise_equal(got, want):
             fail(f"gp_grouped_dispatch differs from the plain version on "
                  f"{what}")
         err = max_abs_err(got.nan_to_num(), want.nan_to_num())
         print(f"{tag} gp_grouped_dispatch == plain bitwise over the whole "
-              f"value buffer on {what}: {sched['n_instructions']} "
+              f"value buffer on {what}, in one launch: "
+              f"{sched['n_instructions']} "
               f"instructions of {len(sched['root_idx'])} distinct trees "
               f"in {sched['nchunks']} chunks of {chunk}, "
               f"{len(sched['level_starts']) - 1} levels, P {Xk.shape[0]} "
@@ -1844,6 +1906,10 @@ def gp_phases(torch, dev, tag, report, record):
            "deap_tpu/ops/kernels.py:306", max(err, err_small),
            time_ms(kernel, flush), time_ms(plain, flush, reps=5),
            k9_bytes(sched, branches, GP_P))
+    table, _, _ = kernels.k9_work_items(sched["level_starts"], 128, GP_P)
+    print(f"  K9: one launch of {len(table)} work items "
+          f"({table[0, 1] - table[0, 0]} rows x {GP_P} points each)")
+    print_ptxas("gp_grouped", "gp_items_kernel")
 
     # ------------------- a small symbreg run: kernel == plain, bitwise --
     runs = []
@@ -1865,14 +1931,18 @@ def gp_phases(torch, dev, tag, report, record):
             return unique(trees, Xe)
 
         interp.unique = counted
-        before = kernels.gp_grouped_dispatch.launches
+        k9 = kernels.gp_grouped_dispatch
+        before = (k9.launches, k9.levels)
         runs.append(run(g, start, GP_SMALL_NGEN))
-        launched = kernels.gp_grouped_dispatch.launches - before
-        want = 0 if use_plain else sum(heights)
+        launched = (k9.launches - before[0], k9.levels - before[1])
+        # one launch per evaluation, its levels the evaluated heights
+        want = (0, 0) if use_plain else (len(heights), sum(heights))
         if launched != want or interp.levels_run != sum(heights):
             fail(f"symbreg small run (plain={use_plain}): K9 launched "
-                 f"{launched} times, levels {interp.levels_run}, the "
-                 f"evaluated trees' heights sum to {sum(heights)}")
+                 f"{launched[0]} times over {launched[1]} levels, "
+                 f"interp.levels_run {interp.levels_run}, for "
+                 f"{len(heights)} evaluations whose trees' heights sum to "
+                 f"{sum(heights)}")
     same = all(bitwise_equal(runs[0]["genomes"][k], runs[1]["genomes"][k])
                for k in ("nodes", "consts", "length"))
     if not (same and bitwise_equal(runs[0]["fitness"], runs[1]["fitness"])
@@ -1880,8 +1950,9 @@ def gp_phases(torch, dev, tag, report, record):
         fail("symbreg through K9 differs from it through the plain version")
     print(f"{tag} symbreg pop={GP_SMALL_POP}, {GP_SMALL_NGEN} generations: "
           f"through K9 == through the plain version bitwise (genomes, "
-          f"fitness, nevals); K9 launches {sum(heights)} = the evaluated "
-          f"levels")
+          f"fitness, nevals); K9 launches {len(heights)} = the "
+          f"evaluations, its levels {sum(heights)} = the evaluated trees' "
+          f"heights")
 
     # ------------------------------- bench_gp.py's symbreg at full width --
     g, start, run = symbreg_start(dev, 1, GP_POP)
@@ -1899,10 +1970,14 @@ def gp_phases(torch, dev, tag, report, record):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k9 = kernels.gp_grouped_dispatch.launches
+    k9_levels = kernels.gp_grouped_dispatch.levels
+    evaluations = 1 + sum(1 for ne in res["nevals"][1:] if ne)
     report["k9"]["launches"] = k9
-    if k9 != run.interpreter.levels_run or k9 < GP_NGEN + 1:
-        fail(f"K9 launched {k9} times for {run.interpreter.levels_run} "
-             f"levels evaluated in {GP_NGEN} generations")
+    if (k9 != evaluations or k9_levels != run.interpreter.levels_run
+            or k9 < GP_NGEN + 1):
+        fail(f"K9 launched {k9} times over {k9_levels} levels for "
+             f"{evaluations} evaluations of {run.interpreter.levels_run} "
+             f"levels in {GP_NGEN} generations")
     best = -res["best_fitness"]
     fit = res["fitness"]
     # the scan mode, the JAX package's oracle, recomputes every row: NaN in
@@ -1923,15 +1998,17 @@ def gp_phases(torch, dev, tag, report, record):
           f"gen 0 {nevals[0]}, then mean "
           f"{statistics.mean(nevals[1:]):.1f} per generation "
           f"(min {min(nevals[1:])}, max {max(nevals[1:])}); {int(nan.sum())} "
-          f"NaN rows; K9 launches {k9} = "
-          f"{k9 / (GP_NGEN + 1):.2f} levels per evaluation")
+          f"NaN rows; K9 launches {k9} = the evaluations, over {k9_levels} "
+          f"levels = interp.levels_run ({k9_levels / k9:.2f} a launch)")
     print(f"  best tree: {gp.to_string(res['best_genome'], pset)}")
     print(f"  nevals per generation: {nevals}")
 
     # K9 on the evolved population, the shape most generations give it
-    sched, branches, _, kernel, plain = k9_check(
+    sched, branches, err_evolved, kernel, plain = k9_check(
         f"the evolved population after {GP_NGEN} generations",
         res["genomes"], X)
+    report["k9"]["max_abs_err"] = max(report["k9"]["max_abs_err"],
+                                      err_evolved)
     nbytes = k9_bytes(sched, branches, GP_P)
     ms, plain_ms = time_ms(kernel, flush), time_ms(plain, flush, reps=3)
     print(f"{tag} gp_grouped_dispatch on the evolved population: "

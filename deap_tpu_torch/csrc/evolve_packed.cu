@@ -51,7 +51,8 @@
 //   (child, gene call) items over all its threads, call-major, so adjacent
 //   threads OR into different children's flip words; a call gives 4 flip
 //   bits at a fixed place, and OR commutes, so the result is bitwise the
-//   plain version's whatever the order.
+//   plain version's whatever the order. The list and its walk are
+//   csrc/tile_worklist.cuh, which K3-hw shares.
 // - A lopsided grid. A thread per child; a pair's children sit in adjacent
 //   lanes and take the even lane's crossover words and the partner
 //   parent's words by shuffles. At pop 100k the 391 tiles are resident at
@@ -77,6 +78,7 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "tile_worklist.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -188,27 +190,6 @@ evolve_kernel(const uint32_t* __restrict__ pop0, const float* __restrict__ fit0,
   }
 }
 
-// Mutating children of a tile, compacted: thread t of each warp writes its
-// slot in the tile's list (ballot within the warp, a scan of the warps'
-// counts across the block). Returns the list's length; the block has
-// passed a barrier, and `slots` is complete after the caller's next one.
-__device__ __forceinline__ int compact_mutants(bool mut, int* slots,
-                                               int* warp_counts) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, mut);
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int k = 0; k < kTile / 32; ++k) {
-    const int v = warp_counts[k];
-    before += k < warp ? v : 0;
-    total += v;
-  }
-  if (mut) slots[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
-  return total;
-}
-
 // The phase clock of the Philox path, built only with -DDTT_K5_PHASES
 // (port_profile.py --kernel-times): thread 0 of each block adds the SM
 // clocks since its last mark to the phase it ends, so the totals split a
@@ -285,7 +266,7 @@ evolve_hw_kernel(const uint32_t* __restrict__ pop0,
       int lo = 0, hi = 0;
       if (do_cx) cut_segment(u1, u2, L, &lo, &hi);
       const bool mut = valid && (d.w >> 8) < mut_below;
-      const int mutants = compact_mutants(mut, slots, warp_counts);
+      const int mutants = compact_mutants<kTile>(mut, slots, warp_counts);
       K5_MARK(0);
       // the winner after the list's barrier, so the fitness loads' latency
       // overlaps the block's wait there
@@ -293,91 +274,24 @@ evolve_hw_kernel(const uint32_t* __restrict__ pop0,
           valid ? hw_tournament(first, fsrc, uc, g, n, tournsize, key) : 0u;
       int count = 0;
       for (int w0 = 0; w0 < W; w0 += kFlipWords) {
-        // this chunk's parent words load while the gene calls run (as
-        // uint4 where whole rows of 4 words are aligned)
+        // this chunk's parent words load while the gene calls run
         uint32_t x[kFlipWords];
-#pragma unroll
-        for (int k = 0; k < kFlipWords; k += 4) {
-          const uint32_t* row = src + parent * W + w0 + k;
-          if (vec4) {
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (valid && w0 + k < W) v = *reinterpret_cast<const uint4*>(row);
-            x[k] = v.x;
-            x[k + 1] = v.y;
-            x[k + 2] = v.z;
-            x[k + 3] = v.w;
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              x[k + j] = valid && w0 + k + j < W ? row[j] : 0u;
-          }
-        }
+        load_words<kFlipWords>(src + parent * W, w0, W, valid, vec4, x);
 #pragma unroll
         for (int k = 0; k < kFlipWords; ++k)
           if (mut) flips[k * kTile + tid] = 0u;
         __syncthreads();  // the list and the cleared words are in place
         K5_MARK(1);
-        // the work list: (mutating child, gene call of this chunk) items,
-        // spread evenly over the tile's threads; one Philox call gives 4
-        // flip bits at a fixed place in the child's flip word, and OR in
-        // shared memory commutes, so the order of the items is free
-        const int q0 = 8 * w0;
-        const int chunk_calls = min(calls - q0, 8 * kFlipWords);
-        const int items = mutants * chunk_calls;
-        // item i is (call i / mutants, slot i % mutants), walked in steps of
-        // kTile without a division per item: adjacent threads take
-        // different children, so their ORs go to different words
-        int q = tid / max(mutants, 1), slot = tid - q * mutants;
-        const int dq = kTile / max(mutants, 1);
-        const int dslot = kTile - dq * mutants;
-        for (int i = tid; i < items; i += kTile) {
-          const int t = slots[slot];
-          const int call = q0 + q;
-          const uint4 f = draw(static_cast<uint32_t>(tile * kTile + t),
-                               static_cast<uint32_t>(call), g, kGenes, key);
-          const uint32_t bits = flip_bits4(f, gene_below) &
-                                bits_below(L - 4 * call);  // genes past L clear
-          if (bits)
-            atomicOr(&flips[((call >> 3) - w0) * kTile + t],
-                     bits << (4 * (call & 7)));
-          slot += dslot;
-          q += dq;
-          if (slot >= mutants) {
-            slot -= mutants;
-            ++q;
-          }
-        }
+        tile_gene_calls<kTile, kFlipWords>(
+            slots, mutants, w0, calls, static_cast<uint32_t>(tile * kTile),
+            g, L, gene_below, key, flips);
         __syncthreads();  // the flip words are complete
         K5_MARK(2);
-#pragma unroll
-        for (int k = 0; k < kFlipWords; ++k) {
-          if (w0 + k >= W) break;  // W is the same for the whole block
-          // the partner's parent word, from the adjacent lane
-          const uint32_t y = __shfl_xor_sync(0xffffffffu, x[k], 1);
-          uint32_t v = x[k];
-          if (do_cx) {
-            const int start = 32 * (w0 + k);
-            const uint32_t seg =
-                bits_below(hi - start) & ~bits_below(lo - start);
-            v = (v & ~seg) | (y & seg);
-          }
-          if (mut) v ^= flips[k * kTile + tid];
-          x[k] = v;
-          count += __popc(v);
-        }
-#pragma unroll
-        for (int k = 0; k < kFlipWords; k += 4) {
-          uint32_t* row = dst + static_cast<size_t>(c) * W + w0 + k;
-          if (vec4) {
-            if (valid && w0 + k < W)
-              *reinterpret_cast<uint4*>(row) =
-                  make_uint4(x[k], x[k + 1], x[k + 2], x[k + 3]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (valid && w0 + k + j < W) row[j] = x[k + j];
-          }
-        }
+        // the partner's parent words come from the adjacent lane
+        count += cross_flip_words<kTile, kFlipWords>(x, w0, W, do_cx, lo, hi,
+                                                     mut, flips);
+        store_words<kFlipWords>(dst + static_cast<size_t>(c) * W, w0, W,
+                                valid, vec4, x);
         // each thread cleared and read only its own flip words, and the
         // next writes to the list follow two more barriers: none here
         K5_MARK(3);

@@ -15,7 +15,8 @@ predictions ``f32[n, points]`` for a population of trees:
   opcode)`` and padded so every ``chunk``-row block applies ONE primitive.
   The schedule is evaluated by :func:`deap_tpu_torch.ops.kernels.
   gp_grouped_dispatch` (K9): the CUDA kernel on the card, one launch per
-  depth level; its plain chunk loop on the CPU.
+  evaluation that carries the depth levels' order itself; its plain chunk
+  loop on the CPU.
 
 The scan and sweep modes are the bitwise oracles the tests pin the
 grouped mode to. ``specialize='auto'`` restricts the select chain to the
@@ -373,7 +374,8 @@ class BatchInterpreter:
     expansion: ``preds`` has a row per distinct tree, ``inverse`` maps
     each tree to its row (``None`` when nothing was deduplicated).
     ``interp.levels_run`` counts the depth levels the grouped evaluator
-    was given (K9 launches once per level on the card);
+    was given, summed over its calls (K9 launches once per call on the
+    card and evaluates the levels in order inside the launch);
     ``interp.schedule(genomes)`` is the host half of the grouped mode.
     ``interp.grouped_dispatch`` is the grouped evaluator it calls,
     :func:`deap_tpu_torch.ops.kernels.gp_grouped_dispatch` unless a

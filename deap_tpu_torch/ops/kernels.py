@@ -21,8 +21,9 @@ decides between the two, and a CUDA tensor never takes the plain path.
   :func:`dominated_counts`, :func:`strengths_tiled` and the peeling sort
   :func:`nd_rank_tiled`.
 - :func:`gp_grouped_dispatch` (K9, ``csrc/gp_grouped.cu``): opcode-major
-  GP evaluation of a grouped schedule, one launch per depth level; plain
-  version :func:`gp_grouped_dispatch_plain`, the chunk loop.
+  GP evaluation of a grouped schedule, one launch over the work items of
+  :func:`k9_work_items`; plain version :func:`gp_grouped_dispatch_plain`,
+  the chunk loop.
 
 ``_u01`` and ``_pair_consistent`` are the shared random-bit conventions
 of the fused kernels (``ops.packed`` and ``ops.kernels_real`` use them
@@ -44,6 +45,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deap_tpu_torch.core.fitness import dominates
@@ -58,7 +60,7 @@ __all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits", "philox_key",
            "dominated_weight_sums", "dominated_weight_maxes",
            "dominated_counts", "strengths_tiled", "nd_rank_tiled",
            "GP_DEVICE_OPS", "gp_grouped_dispatch",
-           "gp_grouped_dispatch_plain"]
+           "gp_grouped_dispatch_plain", "k9_item_shape", "k9_work_items"]
 
 #: genome dtypes the kernel takes: bool (as one byte) and float32
 KERNEL_DTYPES = (torch.bool, torch.float32)
@@ -736,6 +738,56 @@ def gp_grouped_dispatch_plain(buf: torch.Tensor, chunk_ops: torch.Tensor,
 
 #: branches K9 takes at most (``MAX_BRANCHES`` in csrc/gp_grouped.cu)
 GP_MAX_BRANCHES = 16
+#: K9's work items: points of an item's tile at most, the rows x points an
+#: item aims at, and its rows at most (``kMaxItemRows`` in
+#: csrc/gp_grouped.cu: an item's operand descriptors sit in shared memory)
+K9_ITEM_POINTS = 256
+K9_ITEM_ELEMENTS = 2048
+K9_MAX_ITEM_ROWS = 128
+#: depth levels K9 takes at most (``kMaxLevels`` in csrc/gp_grouped.cu:
+#: the level starts go with the launch, by value)
+K9_MAX_LEVELS = 512
+#: ints of a 128-byte line: K9's workspace gives each level's count one
+#: (``kLine`` in csrc/gp_grouped.cu)
+K9_LINE = 32
+
+
+def k9_item_shape(chunk: int, P: int) -> Tuple[int, int]:
+    """K9's work item at ``chunk`` rows a chunk and ``P`` points: ``(rows,
+    tile)``, about :data:`K9_ITEM_ELEMENTS` rows x points (8 rows at P
+    256), so the first level of a gen-0 schedule gives every SM several
+    items and a one-chunk level still spreads over many."""
+    tile = min(P, K9_ITEM_POINTS)
+    return max(1, min(chunk, K9_MAX_ITEM_ROWS, K9_ITEM_ELEMENTS // tile)), tile
+
+
+def k9_work_items(level_starts: Sequence[int], chunk: int, P: int):
+    """K9's work items for a grouped schedule evaluated at ``P`` points,
+    decoded from their tickets as the kernel decodes them: ``(table
+    int32[n_items, 4], tile, level_first int32[nlevels + 1])``. Item ``i``
+    is rows ``[table[i, 0], table[i, 1])`` (of one chunk, at most
+    :data:`K9_MAX_ITEM_ROWS`) at points ``[table[i, 2], min(table[i, 2] +
+    tile, P))``, of level ``table[i, 3]``. Items are numbered in schedule
+    order (chunk, row run, point tile), the order the kernel hands them
+    out. ``level_first[l]`` is the items of the levels before ``l`` (the
+    wait count of level ``l``: its items start once they are done), and
+    ``level_first[-1]`` the item count.
+
+    :param level_starts: the chunk where each dependency level starts,
+        then the chunk count (``build_grouped_schedule``'s
+        ``level_starts``).
+    """
+    rows, tile = k9_item_shape(chunk, P)
+    ntiles = -(-P // tile)
+    per_chunk = -(-chunk // rows) * ntiles
+    starts = np.asarray(level_starts, np.int64)
+    c, in_chunk = np.divmod(np.arange(int(starts[-1]) * per_chunk), per_chunk)
+    run, t = np.divmod(in_chunk, ntiles)
+    begin = c * chunk + run * rows
+    table = np.stack([begin, np.minimum(begin + rows, (c + 1) * chunk),
+                      t * tile,
+                      np.searchsorted(starts, c, side="right") - 1], 1)
+    return table.astype(np.int32), tile, (starts * per_chunk).astype(np.int32)
 
 
 def _branch_codes(ops: Sequence):
@@ -755,6 +807,23 @@ def _branch_codes(ops: Sequence):
     return (ctypes.c_int * len(codes))(*codes)
 
 
+_K9_COUNTERS: Dict = {}
+
+
+def _k9_counters(dev, stream: int, nlevels: int) -> torch.Tensor:
+    """K9's workspace for launches on ``stream``: the ticket, then each
+    level's finished count, a line each; zeroed when made (or grown), and
+    each launch leaves it at 0 (csrc/gp_grouped.cu). Launches on one
+    stream do not overlap."""
+    key = (dev, stream)
+    size = K9_LINE * (1 + nlevels)
+    counters = _K9_COUNTERS.get(key)
+    if counters is None or counters.numel() < size:
+        counters = _K9_COUNTERS[key] = torch.zeros(size, dtype=torch.int32,
+                                                   device=dev)
+    return counters
+
+
 def gp_grouped_dispatch(buf: torch.Tensor, chunk_ops: torch.Tensor,
                         src_idx: torch.Tensor, src_const: torch.Tensor,
                         src_isc: torch.Tensor, ops: Sequence, *, chunk: int,
@@ -765,10 +834,14 @@ def gp_grouped_dispatch(buf: torch.Tensor, chunk_ops: torch.Tensor,
     ``src_isc[r, j]``, else ``buf[src_idx[r, j]]`` (a select: a gathered
     NaN never leaks through a constant).
 
-    On the card the kernel launches once per depth level, in order; on the
+    On the card the kernel launches once, over the work items of
+    :func:`k9_work_items` (the level starts and item shape go with the
+    launch, by value), and carries the levels' order itself; on the
     CPU the chunk loop runs (:func:`gp_grouped_dispatch_plain`). Kernel
     and plain version agree bitwise: each element is one IEEE operation
-    (or ``cosf``/``sinf`` on the card) on the same operands.
+    (or ``cosf``/``sinf`` on the card) on the same operands. The wrapper's
+    ``launches`` counts the launches (one a call), ``levels`` the levels
+    they evaluated.
 
     :param buf: ``f32[n_args + nchunks·chunk, P]``, argument rows filled;
         updated in place and returned.
@@ -803,23 +876,32 @@ def gp_grouped_dispatch(buf: torch.Tensor, chunk_ops: torch.Tensor,
     _check_cuda("src_idx", dev, torch.int32, (total, max_ar), src_idx)
     _check_cuda("src_const", dev, torch.float32, (total, max_ar), src_const)
     _check_cuda("src_isc", dev, torch.bool, (total, max_ar), src_isc)
-    levels = [int(v) for v in levels]
+    levels = tuple(int(v) for v in levels)
     if (len(levels) < 2 or levels[0] != 0 or levels[-1] != nchunks
             or any(b <= a for a, b in zip(levels, levels[1:]))):
         raise ValueError(f"levels must rise strictly from 0 to nchunks="
-                         f"{nchunks}, got {levels}")
+                         f"{nchunks}, got {list(levels)}")
     nlevels = len(levels) - 1
-    bounds = (ctypes.c_int * len(levels))(*levels)
+    if nlevels > K9_MAX_LEVELS:
+        raise ValueError(f"the grouped kernel takes at most {K9_MAX_LEVELS} "
+                         f"depth levels, got {nlevels}; evaluate this "
+                         f"population with mode='scan'")
+    rows, tile = k9_item_shape(chunk, P)
+    starts = (ctypes.c_int * len(levels))(*levels)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     PT, I = _build.PTR, _build.INT
     fn = _build.function("gp_grouped", "gp_grouped_dispatch",
-                         [PT] * 7 + [I] * 7 + [PT])
+                         [PT] * 7 + [I, PT] + [I] * 8 + [PT])
     err = fn(buf.data_ptr(), chunk_ops.data_ptr(), ctypes.addressof(codes),
              src_idx.data_ptr(), src_const.data_ptr(), src_isc.data_ptr(),
-             ctypes.addressof(bounds), nlevels, n_args, R, P, max_ar, chunk,
-             len(ops), torch.cuda.current_stream(dev).cuda_stream)
-    gp_grouped_dispatch.launches += nlevels
+             ctypes.addressof(starts), nlevels,
+             _k9_counters(dev, stream, nlevels).data_ptr(), n_args, R, P,
+             rows, tile, max_ar, chunk, len(ops), stream)
+    gp_grouped_dispatch.launches += 1
+    gp_grouped_dispatch.levels += nlevels
     _build.check("gp_grouped", err, "gp_grouped_dispatch")
     return buf
 
 
 gp_grouped_dispatch.launches = 0
+gp_grouped_dispatch.levels = 0

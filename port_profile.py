@@ -6,7 +6,13 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
                             [--rastrigin] [--gp] [--cmaes] [--hw] [--sass]
                             [--k7-variants]
+                            [--package-root DIR]
     python3 port_profile.py --kernel-times [--package-root DIR]
+
+``--package-root DIR`` (default: this checkout) picks the
+``deap_tpu_torch`` that every mode builds (into DIR's own ``build/``),
+profiles and times, e.g. another commit unpacked by ``git archive`` into
+a git-ignored directory.
 
 Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
@@ -65,15 +71,15 @@ kernels; the listings go to ``DIR``);
 sort and gathers alone.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
-generations) and K2-hw and K2 (one generation) at pop 100k and L 100, and
-beside them K5-hw with mutation off, K2-hw with crossover and mutation off
-and a torch copy of the genomes, with the ``deap_tpu_torch`` under
-``--package-root`` (default: this checkout), built into that checkout's
-own ``build/``; where that source has K5-hw's phase clock, it also splits
-K5-hw's generation by phase from a build with ``-DDTT_K5_PHASES``. Two
-versions compare on one card by runs in turns, e.g. with another commit
-unpacked by ``git archive`` into a git-ignored directory: that one, this
-one, this one, that one.
+generations) and K2-hw, K2 and K3-hw (one generation) at pop 100k and L
+100, K9 on ``bench_gp.py``'s gen-0 and evolved schedules (after the L2
+flush, and without it), and beside them K5-hw with mutation off, K2-hw
+with crossover and mutation off and torch copies of the byte and the
+packed genomes and of K9's value buffers; where the package's source has
+K5-hw's phase clock, it also splits K5-hw's generation by phase from a
+build with ``-DDTT_K5_PHASES``, and for this checkout's package K9's
+items from a build with ``-DDTT_K9_PHASES``. Two versions compare on one
+card by runs in turns: that one, this one, this one, that one.
 
 For each profile it prints the wall time per generation (host clock
 around work that ends in a synchronise), the device time per generation
@@ -332,12 +338,15 @@ def profile_gp(dev, out_dir, facts):
         for _ in range(steps):
             run.advance(g, state)
 
-    before = kernels.gp_grouped_dispatch.launches
+    k9 = kernels.gp_grouped_dispatch
+    before = (k9.launches, run.interpreter.levels_run)
     profile("gp_symbreg", run_gens, 5, 10, out_dir, facts, spans="gp/",
-            kernels=("gp_level_kernel",))
+            kernels=("gp_",))
     # profile() runs warm-up, profiled and unprofiled windows: 25 gens
+    levels = run.interpreter.levels_run - before[1]
     print(f"    K9 launches per generation "
-          f"{(kernels.gp_grouped_dispatch.launches - before) / 25:.2f}; "
+          f"{(k9.launches - before[0]) / 25:.2f}, levels per generation "
+          f"{levels / 25:.2f}; "
           f"best MSE after {state['gen']} generations "
           f"{-state['best_fitness']:.6f}")
 
@@ -517,12 +526,15 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
 
 
 def kernel_times(dev, facts, root, reps=25):
-    """Time K5-hw and K5 (one 50-generation call each) and K2-hw and K2
-    (one generation each) at the main path's shapes, pop 100k and L 100,
-    as ``chip_smoke.time_ms`` does, with the ``deap_tpu_torch`` found under
-    ``root``, beside K5-hw with mutation off, K2-hw with crossover and
-    mutation off and a torch copy of the genomes, and K5-hw's phase split
-    (:func:`k5_hw_phases`) where the package's source has its clock; print
+    """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2 and
+    K3-hw (one generation each) at the main path's shapes, pop 100k and L
+    100, and K9 on the GP path's gen-0 and evolved schedules (pop 4096,
+    width 64, P 256), as ``chip_smoke.time_ms`` does, with the
+    ``deap_tpu_torch`` found under ``root``, beside K5-hw with mutation
+    off, K2-hw with crossover and mutation off, torch copies of the byte
+    genomes, the packed ones and K9's value buffers, and K5-hw's phase
+    split (:func:`k5_hw_phases`) where the package's source has its clock
+    and K9's (:func:`k9_phases`) for this checkout's package; print
     the times and a checksum of each result (the same inputs and keys in
     every package, so equal sums say the same results)."""
     import json
@@ -543,6 +555,7 @@ def kernel_times(dev, facts, root, reps=25):
     bools = torch.rand((N, L), generator=g, device=dev) < 0.5
     fbits = kernels.fused_bits(g, N, L)
     copy_to = torch.empty_like(bools)
+    packed_to = torch.empty_like(pk)
     no_fitness = torch.zeros(N, device=dev)
     calls = {
         "k5_hw": (lambda: packed.evolve_packed(
@@ -566,16 +579,161 @@ def kernel_times(dev, facts, root, reps=25):
         # a torch copy of the same genomes: the floor of what reading and
         # writing them costs under this timer
         "torch_copy": (lambda: (copy_to.copy_(bools), no_fitness), reps),
+        "k3_hw": (lambda: packed.fused_variation_eval_packed(
+            pk, L, prng="hw", key=key, **probs), reps),
+        # a torch copy of the same packed genomes: K3-hw's practical floor
+        "torch_copy_packed": (lambda: (packed_to.copy_(pk), no_fitness),
+                              reps),
     }
+    # K9 also without the flush (its name ending in _warm): a GP loop
+    # evaluates a schedule it has just uploaded, into a buffer it has just
+    # filled, so it finds them in L2
+    warm = torch.empty(1, dtype=torch.int32, device=dev)
+    cases = k9_cases(dev)
+    for name, call, *_ in cases:
+        calls[name] = (call, reps)
+        calls[f"{name}_warm"] = (call, reps, warm)
+        # a torch copy of a value buffer of the same size: K9's floor
+        buf = call()[0]
+        calls[f"torch_copy_{name}"] = (
+            lambda dst=torch.empty_like(buf), buf=buf: (dst.copy_(buf),
+                                                        no_fitness), reps)
     times = {"package": os.path.relpath(root, ROOT)}
-    for name, (call, n_reps) in calls.items():
+    for name, (call, n_reps, *cold) in calls.items():
         genomes, fitness = call()
         times[f"{name}_sum"] = int(genomes.view(torch.uint8).sum()) + int(
             fitness.double().sum())
-        times[f"{name}_ms"] = time_ms(call, flush, reps=n_reps)
+        times[f"{name}_ms"] = time_ms(call, (cold or [flush])[0],
+                                      reps=n_reps)
     if "DTT_K5_PHASES" in (_build.CSRC / "evolve_packed.cu").read_text():
         times.update(k5_hw_phases(pk, fit, key, flush))
+    if root == ROOT:  # its launch follows this checkout's launcher
+        times.update(k9_phases(cases, flush))
     print(f"[{facts}] kernel times {json.dumps(times)}")
+
+
+def k9_cases(dev):
+    """K9 on the GP path's two schedules: ``bench_gp.py``'s gen-0
+    population (``gen_half_and_half(1, 2)`` at pop 4096, width 64) and
+    the population after its 50 generations, each deduped and at its 256
+    points: ``[(name, call, sched, branches, launch)]``, ``call()``
+    returning the value buffer and an empty fitness (for
+    ``kernel_times``' checksum), ``launch`` the buffer and the schedule's
+    tensors as ``call`` passes them to K9."""
+    import torch
+    from chip_smoke import GP_ML, GP_NGEN, GP_POP, symbreg_data, symbreg_start
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    pset = gp.math_set(1)
+    X, _ = symbreg_data(dev)
+    gen0 = gp.gen_half_and_half(pset, GP_ML, 1, 2)(make_generator(47, dev),
+                                                   GP_POP)
+    g, start, run = symbreg_start(dev, 1, GP_POP)
+    evolved = run(g, start, GP_NGEN)["genomes"]
+    none = torch.zeros(1, device=dev)
+    cases = []
+    for name, genomes in (("k9_gen0", gen0), ("k9_evolved", evolved)):
+        interp = gp.make_batch_interpreter(pset, GP_ML, mode="grouped")
+        sched, _ = interp.schedule(genomes)
+        args = [torch.from_numpy(sched[k]).to(dev) for k in
+                ("chunk_ops", "src_idx", "src_const", "src_isc")]
+        buf = torch.zeros((pset.n_args + sched["nchunks"] * interp.chunk,
+                           X.shape[0]), device=dev)
+        buf[:pset.n_args] = X.T
+
+        def call(buf=buf, args=args, branches=interp.branches,
+                 levels=sched["level_starts"], chunk=interp.chunk):
+            return kernels.gp_grouped_dispatch(
+                buf, *args, branches, chunk=chunk, n_args=pset.n_args,
+                levels=levels), none
+
+        launch = dict(buf=buf, args=args, chunk=interp.chunk,
+                      n_args=pset.n_args, levels=sched["level_starts"])
+        cases.append((name, call, sched, interp.branches, launch))
+    return cases
+
+
+K9_PHASES = ("decode_level_descriptors", "wait", "work", "count_ticket")
+
+
+def k9_phases(cases, flush, reps=25):
+    """K9's items split by phase, from a build of csrc/gp_grouped.cu with
+    ``-DDTT_K9_PHASES`` (thread 0 of each block adds the SM clocks of each
+    phase of its items, ``K9_PHASES``, and the polls of its waits, to
+    device totals), on each of :func:`k9_cases`' schedules: the phases'
+    shares of the clocks, the clocks and polls an item, and the
+    instrumented call's time (its cost against the uninstrumented one).
+    The instrumented call's value buffer must equal K9's bitwise."""
+    import ctypes
+    import subprocess
+    import torch
+    from chip_smoke import time_ms
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.ops import kernels
+
+    lib_path = str(_build.BUILD_DIR / "libgp_grouped-phases.so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDTT_K9_PHASES", "-o",
+         lib_path, str(_build.CSRC / "gp_grouped.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc -DDTT_K9_PHASES failed:\n{done.stdout}")
+    lib = ctypes.CDLL(lib_path)
+    P, I = _build.PTR, _build.INT
+    run = lib.gp_grouped_dispatch
+    run.argtypes, run.restype = [P] * 7 + [I, P] + [I] * 8 + [P], I
+    read = lib.gp_grouped_phases
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
+    read.restype = I
+    out = {}
+    for name, call, _, branches, given in cases:
+        want = call()[0].clone()
+        buf, (src_ops, src_idx, src_const, src_isc) = (given["buf"],
+                                                       given["args"])
+        R, Pts = buf.shape
+        chunk, levels = given["chunk"], [int(v) for v in given["levels"]]
+        rows, tile = kernels.k9_item_shape(chunk, Pts)
+        starts = (ctypes.c_int * len(levels))(*levels)
+        codes = kernels._branch_codes(branches)
+        counters = torch.zeros(kernels.K9_LINE * len(levels),
+                               dtype=torch.int32, device=buf.device)
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+
+        def launch():
+            err = run(buf.data_ptr(), src_ops.data_ptr(),
+                      ctypes.addressof(codes), src_idx.data_ptr(),
+                      src_const.data_ptr(), src_isc.data_ptr(),
+                      ctypes.addressof(starts), len(levels) - 1,
+                      counters.data_ptr(), given["n_args"], R, Pts, rows,
+                      tile, src_idx.shape[1], chunk, len(branches), stream)
+            if err:
+                raise RuntimeError(f"K9 (phases build): CUDA error {err}")
+            return buf, counters
+
+        buf[given["n_args"]:] = float("nan")  # an early read would show
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(buf.view(torch.int32), want.view(torch.int32)):
+            raise RuntimeError(f"K9 (phases build) differs from K9 on {name}")
+        clocks = (ctypes.c_ulonglong * (len(K9_PHASES) + 1))()
+        read(clocks, 1)  # clear the first call's totals
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        if read(clocks, 1):
+            raise RuntimeError("K9 (phases build): reading the clocks failed")
+        n_items = len(kernels.k9_work_items(levels, chunk, Pts)[0])
+        total = sum(clocks[:len(K9_PHASES)])
+        out[f"{name}_phases_ms"] = time_ms(launch, flush, reps=reps)
+        out[f"{name}_clocks_per_item"] = total / (reps * n_items)
+        out[f"{name}_polls_per_item"] = clocks[len(K9_PHASES)] / (
+            reps * n_items)
+        for phase, c in zip(K9_PHASES, clocks):
+            out[f"{name}_share_{phase}"] = c / total
+    return out
 
 
 K5_PHASES = ("draws_to_list_barrier", "winner_list_parent_load_issue",
@@ -682,11 +840,12 @@ def main():
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="time K5-hw, K5, K2-hw and K2 at pop 100k, "
-                             "L 100 (alone: nothing else runs)")
+                        help="time K5-hw, K5, K2-hw, K2 and K3-hw at pop "
+                             "100k, L 100, and K9 on the GP schedules "
+                             "(alone: nothing else runs)")
     parser.add_argument("--package-root", default=ROOT,
-                        help="the checkout whose deap_tpu_torch "
-                             "--kernel-times builds and times (e.g. an "
+                        help="the checkout whose deap_tpu_torch is built, "
+                             "profiled and timed (e.g. an "
                              "unpacked archive of another commit)")
     args = parser.parse_args()
     chosen = [name for name in PROFILES if getattr(args, name)]
@@ -696,9 +855,9 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke  # noqa: F401  (this checkout's, whatever the package)
+    root = os.path.abspath(args.package_root)
+    sys.path.insert(0, root)
     if args.kernel_times:
-        root = os.path.abspath(args.package_root)
-        sys.path.insert(0, root)
         from deap_tpu_torch.device import gpu_facts
         kernel_times(torch.device("cuda"), gpu_facts(), root)
         return 0

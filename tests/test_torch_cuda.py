@@ -359,23 +359,49 @@ def _grouped_case(card, pset, n, width, P, chunk, seed, max_depth=4):
     buf[:pset.n_args] = X.T
     args = [torch.from_numpy(sched[k]).to(card) for k in
             ("chunk_ops", "src_idx", "src_const", "src_isc")]
-    before = kernels.gp_grouped_dispatch.launches
-    got = kernels.gp_grouped_dispatch(buf.clone(), *args, interp.branches,
-                                      chunk=chunk, n_args=pset.n_args,
-                                      levels=sched["level_starts"])
-    want = kernels.gp_grouped_dispatch_plain(buf.clone(), *args,
-                                             interp.branches, chunk=chunk,
-                                             n_args=pset.n_args)
+    return _grouped_both(buf, args, interp.branches, chunk, pset.n_args,
+                         sched["level_starts"])
+
+
+def _grouped_both(buf, args, branches, chunk, n_args, levels):
+    """K9 (one launch, its levels counted) and its plain version on
+    copies of ``buf``; the kernel's instruction rows start as NaN, so a
+    row read before its level wrote it shows in the result."""
+    k9 = kernels.gp_grouped_dispatch
+    before = (k9.launches, k9.levels)
+    kbuf = buf.clone()
+    kbuf[n_args:] = float("nan")
+    got = k9(kbuf, *args, branches, chunk=chunk, n_args=n_args,
+             levels=levels)
+    want = kernels.gp_grouped_dispatch_plain(buf.clone(), *args, branches,
+                                             chunk=chunk, n_args=n_args)
     torch.cuda.synchronize()
-    assert kernels.gp_grouped_dispatch.launches == (
-        before + len(sched["level_starts"]) - 1)
+    assert (k9.launches, k9.levels) == (before[0] + 1,
+                                        before[1] + len(levels) - 1)
     return got, want
+
+
+def _schedule_case(card, pset, pop, width, P, chunk, seed):
+    """K9 and its plain version on the grouped schedule of ``pop``."""
+    gen = make_generator(seed, card)
+    interp = gp.make_batch_interpreter(pset, width, mode="grouped",
+                                       chunk=chunk)
+    sched, _ = interp.schedule(pop)
+    X = torch.rand((P, pset.n_args), generator=gen, device=card) * 4 - 2
+    buf = torch.zeros((pset.n_args + sched["nchunks"] * chunk, P),
+                      device=card)
+    buf[:pset.n_args] = X.T
+    args = [torch.from_numpy(sched[k]).to(card) for k in
+            ("chunk_ops", "src_idx", "src_const", "src_isc")]
+    return sched, _grouped_both(buf, args, interp.branches, chunk,
+                                pset.n_args, sched["level_starts"])
 
 
 @pytest.mark.parametrize("pset_name,n,width,P,chunk", [
     ("math1", 37, 24, 7, 128),
     ("math2", 200, 48, 33, 16),
     ("math1", 512, 64, 256, 128),
+    ("math1", 100, 32, 1, 16),
     ("bool3", 64, 32, 8, 8),
     ("bool6", 301, 48, 65, 32),
 ])
@@ -384,6 +410,84 @@ def test_gp_grouped_kernel_equals_plain(card, pset_name, n, width, P, chunk):
             else gp.bool_set(int(pset_name[-1])))
     got, want = _grouped_case(card, pset, n, width, P, chunk, n + P)
     assert _same(got, want)
+
+
+@pytest.mark.parametrize("P", [1, 7, 33, 256])
+def test_gp_grouped_kernel_sixty_level_chain(card, P):
+    """Chains of unary operators 60 deep beside shorter ones, width 64: 60
+    levels of one chunk each, evaluated in order inside one launch."""
+    pset = gp.math_set(1)
+    names = ("neg", "cos", "sin")
+    trees = []
+    for depth in (60, 59, 45, 30, 3):
+        s = "ARG0"
+        for d in range(depth):
+            s = f"{names[(d + depth) % 3]}({s})"
+        trees.append(gp.from_string(s, pset, 64, device=card))
+    pop = {k: torch.cat([t[k] for t in trees]) for k in trees[0]}
+    sched, (got, want) = _schedule_case(card, pset, pop, 64, P, 128, P)
+    assert len(sched["level_starts"]) - 1 == 60
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("P", [1, 7, 33, 256])
+def test_gp_grouped_kernel_one_level_of_many_chunks(card, P):
+    """Trees of depth 1 only: one level of many chunks."""
+    pset = gp.math_set(2)
+    gen = make_generator(31, card)
+    pop = gp.gen_half_and_half(pset, 8, 1, 1)(gen, 4096)
+    sched, (got, want) = _schedule_case(card, pset, pop, 8, P, 32, 2 * P)
+    assert len(sched["level_starts"]) == 2 and sched["nchunks"] >= 32
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("P", [1, 7, 33, 256])
+def test_gp_grouped_kernel_constant_beside_nan_and_inf(card, P):
+    """An operand row holding NaN and inf beside constants: a constant
+    replaces the row it points at, as in the plain version."""
+    pset = gp.math_set(1, trig=False)
+    add = pset.primitives[0]
+    chunk = 4
+    buf = torch.zeros((1 + 2 * chunk, P), device=card)
+    buf[0] = torch.tensor([float("nan"), float("inf"), 1.0, -float("inf")]
+                          * P, device=card)[:P]
+    src_idx = torch.tensor([[0, 0], [0, 0], [0, 0], [0, 0],
+                            [1, 1], [2, 0], [0, 3], [4, 4]],
+                           dtype=torch.int32, device=card)
+    src_const = torch.full((2 * chunk, 2), 2.0, device=card)
+    src_const[1, 1] = float("inf")
+    src_isc = torch.tensor([[True, True], [True, False], [False, True],
+                            [False, False], [False, True], [True, False],
+                            [False, True], [False, False]], device=card)
+    chunk_ops = torch.zeros(2, dtype=torch.int32, device=card)
+    got, want = _grouped_both(buf, (chunk_ops, src_idx, src_const, src_isc),
+                              [add], chunk, 1, [0, 1, 2])
+    assert _same(got, want)
+    assert got[1].tolist() == [4.0] * P
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_gp_grouped_kernel_takes_its_level_cap_and_refuses_more(card, extra):
+    """A chain of ``neg``, one row a chunk and one chunk a level: the
+    kernel evaluates ``K9_MAX_LEVELS`` levels in one launch (their starts
+    go with the launch, by value) and refuses one more."""
+    neg = gp.math_set(1, trig=False).primitives[4]
+    nlevels, P = kernels.K9_MAX_LEVELS + extra, 33
+    buf = torch.zeros((1 + nlevels, P), device=card)
+    buf[0] = torch.linspace(-2, 2, P, device=card)
+    args = (torch.zeros(nlevels, dtype=torch.int32, device=card),
+            torch.arange(nlevels, dtype=torch.int32, device=card)[:, None],
+            torch.zeros((nlevels, 1), device=card),
+            torch.zeros((nlevels, 1), dtype=torch.bool, device=card))
+    levels = list(range(nlevels + 1))
+    if extra:
+        with pytest.raises(ValueError, match="depth levels"):
+            kernels.gp_grouped_dispatch(buf, *args, [neg], chunk=1,
+                                        n_args=1, levels=levels)
+        return
+    got, want = _grouped_both(buf, args, [neg], 1, 1, levels)
+    assert _same(got, want)
+    assert _same(got[-1], buf[0])  # an even number of negations
 
 
 def test_gp_grouped_kernel_empty_mask_runs_the_identity(card):
@@ -419,10 +523,19 @@ def test_symbreg_on_the_card_goes_through_k9(card):
             run.interpreter.grouped_dispatch = (
                 lambda *a, levels, **k: kernels.gp_grouped_dispatch_plain(
                     *a, **k))
-        before = kernels.gp_grouped_dispatch.launches
+        k9 = kernels.gp_grouped_dispatch
+        before = (k9.launches, k9.levels)
+        calls = []
+        unique = run.interpreter.unique
+        run.interpreter.unique = lambda *a: calls.append(1) or unique(*a)
         runs.append(run(gen, pop, 4))
-        launched = kernels.gp_grouped_dispatch.launches - before
-        assert launched == (0 if plain else run.interpreter.levels_run)
+        launched = (k9.launches - before[0], k9.levels - before[1])
+        # one launch per evaluation (gen 0, then each generation with
+        # something to evaluate), the levels counted beside
+        assert len(calls) == 1 + sum(1 for ne in runs[-1]["nevals"][1:]
+                                     if ne)
+        assert launched == ((0, 0) if plain else
+                            (len(calls), run.interpreter.levels_run))
     for k in ("nodes", "consts", "length"):
         assert _same(runs[0]["genomes"][k], runs[1]["genomes"][k])
     assert _same(runs[0]["fitness"], runs[1]["fitness"])

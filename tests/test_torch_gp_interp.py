@@ -11,6 +11,10 @@ package's.
   ``bool_set``: every element is one IEEE operation or a select.
 - ``cos``/``sin`` round differently in torch and in XLA: they are held
   alone, on bounded inputs, within ``TRIG_ULPS`` ulp.
+- K9's work-item table (``ops.kernels.k9_work_items``, what the kernel
+  reads to carry the levels' order in one launch) covers every row and
+  point of the buffer once, in schedule order, and no item reads a row
+  that an item at or past its wait count writes.
 - The port's scan, sweep and grouped modes, with and without dedup,
   specialisation and point tiles, agree bit for bit with each other (trig
   included: one process, one ``cos``), and the scan mode with the JAX
@@ -21,6 +25,8 @@ The two reference shims (``jax.core.trace_state_clean`` and
 ``pltpu.TPUCompilerParams``, both renamed by jax 0.9) are set in this test
 process only.
 """
+
+import functools
 
 import jax
 import jax._src.core
@@ -35,6 +41,7 @@ from deap_tpu.gp import interpreter as ji
 from deap_tpu.gp import tree as jtree
 from deap_tpu_torch import gp as tgp
 from deap_tpu_torch.convert import gp_genomes_from_arrays
+from deap_tpu_torch.device import make_generator
 from deap_tpu_torch.gp import interpreter as ti
 from deap_tpu_torch.ops import kernels as tk
 
@@ -324,3 +331,73 @@ def test_auto_mode_and_unknown_modes_raise():
         tps.add_primitive(torch.tanh, 1, "tanh", device_op="tanh")
     with pytest.raises(ValueError, match="operands"):
         tps.add_primitive(torch.tanh, 1, "tanh", device_op="add")
+
+
+# ------------------------------------------------- K9's work items ----
+
+@functools.lru_cache(maxsize=None)
+def _item_schedule(case):
+    """A grouped schedule (the port's), its chunk, argument count and
+    branch arities: the ``CASES`` populations, and an evolved shape (deep
+    trees of the port's generator: many levels, the deep ones of one or
+    two chunks)."""
+    if case == "evolved":
+        tps = tgp.math_set(1)
+        gen = make_generator(71, "cpu")
+        pop = tgp.gen_half_and_half(tps, 64, 3, 9)(gen, 300)
+        interp = tgp.make_batch_interpreter(tps, 64, mode="grouped",
+                                            chunk=16)
+        ts, _ = interp.schedule(pop)
+        mask, chunk = interp.mask, 16
+    else:
+        name, n, ml, _, chunk = CASES[case]
+        jps, tps = _psets(name)
+        _, ts, mask = _schedules(jps, tps, _population(jps, n + ml, n, ml),
+                                 chunk)
+    arity = np.asarray([tps.primitives[op].arity for op in mask] or [1])
+    return ts, chunk, tps.n_args, arity
+
+
+@pytest.mark.parametrize("P", [1, 7, 33, 256])
+@pytest.mark.parametrize("case", [*range(len(CASES)), "evolved"])
+def test_k9_work_items_order_cover_and_wait(case, P):
+    ts, chunk, n_args, arity = _item_schedule(case)
+    levels = ts["level_starts"]
+    if case == "evolved":
+        assert len(levels) - 1 >= 8
+    table, tile, level_first = tk.k9_work_items(levels, chunk, P)
+    assert table.dtype == np.int32 and table.shape[1] == 4
+    r0, r1, p0, level = (table[:, k].astype(np.int64) for k in range(4))
+    # each item: rows of one chunk, at most K9_MAX_ITEM_ROWS; a point tile
+    assert (r1 > r0).all() and (r1 - r0 <= tk.K9_MAX_ITEM_ROWS).all()
+    assert (r0 // chunk == (r1 - 1) // chunk).all()
+    assert 1 <= tile <= P and (p0 % tile == 0).all() and (p0 < P).all()
+    # schedule order: rows, then points
+    order = np.lexsort((p0, r0))
+    assert (order == np.arange(len(table))).all()
+    # every row x point of the buffer exactly once
+    total = ts["nchunks"] * chunk
+    cover = np.zeros((total, P), np.int64)
+    for a, b, p in zip(r0, r1, p0):
+        cover[a:b, p:p + tile] += 1
+    assert (cover == 1).all()
+    # each item's level; each level's wait count is the count of items of
+    # earlier levels, the last entry the item count
+    assert (level == np.searchsorted(levels, r0 // chunk, side="right")
+            - 1).all()
+    assert level_first.tolist() == [
+        int((level < lv).sum()) for lv in range(len(levels))]
+    wait = level_first[level]
+    # every real operand row an item reads (within its primitive's arity,
+    # not a constant) was written by an item numbered below its wait
+    writer = np.full((total, P), -1, np.int64)
+    for i, (a, b, p) in enumerate(zip(r0, r1, p0)):
+        writer[a:b, p:p + tile] = i
+    row_ar = np.repeat(arity[ts["chunk_ops"]], chunk)
+    for i, (a, b, p) in enumerate(zip(r0, r1, p0)):
+        idx = ts["src_idx"][a:b]
+        real = ((np.arange(idx.shape[1]) < row_ar[a:b, None])
+                & ~ts["src_isc"][a:b] & (idx >= n_args))
+        src = idx[real] - n_args
+        if src.size:
+            assert writer[src, p:p + tile].max() < wait[i]

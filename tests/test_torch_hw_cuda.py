@@ -105,6 +105,41 @@ def test_k3_k4_hw_equal_plain_and_k2(card, n, L):
     assert _same(sel, sel_want)
 
 
+def _k3_hw_case(card, n, L, probs):
+    """K3-hw against its plain version and against pack_genomes of K2-hw
+    with the same key."""
+    gen = make_generator(n + 7 * L, card)
+    bools = torch.rand((n, L), generator=gen, device=card) < 0.5
+    pk = packed.pack_genomes(bools)
+    key = kernels.philox_key(gen)
+    k3 = packed.fused_variation_eval_packed
+    before = (k3.launches, k3.hw_launches)
+    got = k3(pk, L, prng="hw", key=key, **probs)
+    want = packed.fused_variation_eval_packed_plain(
+        pk, L, *philox.hw_packed_bits(key, n, pk.shape[1], L), **probs)
+    byte = kernels.fused_variation_eval(bools, prng="hw", key=key, **probs)
+    torch.cuda.synchronize()
+    assert (k3.launches - before[0], k3.hw_launches - before[1]) == (1, 1)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert _same(got[0], packed.pack_genomes(byte[0]))
+    assert _same(got[1], byte[1])
+
+
+@pytest.mark.parametrize("L", [2, 31, 33, 100, 257, 300])
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 1001, 100_000])
+def test_k3_hw_tiles_equal_plain_and_k2(card, n, L):
+    """K3-hw's tiles of 256 rows: a partial tile, an odd last row, one and
+    two flip-word chunks (W > 8 from L 257)."""
+    _k3_hw_case(card, n, L, PROBS)
+
+
+@pytest.mark.parametrize("mutpb", [0.0, 1.0])
+@pytest.mark.parametrize("n,L", [(257, 33), (1001, 300)])
+def test_k3_hw_mutation_edges_equal_plain(card, n, L, mutpb):
+    """No row mutates (an empty work list), or every row does."""
+    _k3_hw_case(card, n, L, dict(PROBS, mutpb=mutpb))
+
+
 @pytest.mark.parametrize("n,L,ngen,tournsize", [(1, 100, 2, 3),
                                                 (201, 33, 3, 2),
                                                 (1000, 100, 4, 5)])
