@@ -42,8 +42,11 @@ Phases (any failure ends the script with a non-zero exit code):
    float32 at L 33 and 100, n 100k and 1001, and the vector variant's
    edges, L 4, 200, 300 and 1000, n 1, 3 and odd; K3 at n 1, 3, 255,
    257, 1001 and 100k by L 2, 31, 33, 100, 257 and 300, and with mutpb 0
-   and 1, timed at n 100k beside a torch copy of the same genomes; K4 at
-   n 100k;
+   and 1, timed at n 100k beside a torch copy of the same genomes; K4-hw
+   and K4's bits body at n 1, 3, 257 and 1001 by L 2, 31, 33, 100, 257
+   and 300 (tournament 1, 3, 4, 5 and 9) and at n 100k, K4-hw timed at
+   n 100k beside a torch copy of its output, ``torch.index_select`` of its
+   winners and its own time without the flush;
    K5 5 generations at n 1, 3, 1001 and 100k, L 33, 70 and 100,
    tournament 3 and 5, and one 50-generation call at n 100k), the
    layout's invariants (K3-hw == packed K2-hw; one K5-hw generation ==
@@ -85,8 +88,13 @@ Phases (any failure ends the script with a non-zero exit code):
 13. K6's Philox path (``prng='hw'``, ``bench_suite.py``'s call): against
     its plain version on ``ops.philox.hw_real_bits``' streams at pop 100k
     and at n 1001 (crossed genes bitwise, mutated genes and fitness at
-    K6's tolerances), one key twice equal and two keys different, timed
-    beside its bound from the Philox calls and bytes it needs; the fused
+    K6's tolerances) and bitwise against K6's bits body on the same
+    streams, one key twice equal and two keys different, timed beside its
+    bound from the Philox calls and bytes it needs and a torch copy of
+    its genomes; the same checks at n 1, 2, 3, 63, 64, 65, 127, 129, 257
+    and 1001 by L 1, 4, 30, 31, 33, 64 and 100, with each probability at 0
+    and 1, with no evaluation in the kernel, and at n 100k by L 4, 33 and
+    100; the fused
     Rastrigin loop with ``'hw'`` and ``'auto'`` for 50 generations (K6
     launches = Philox launches = 50); the peak memory of one generation
     in each mode; ``'hw'`` against ``'input'`` in distribution (4 seeds, 20
@@ -987,7 +995,35 @@ def hw_phases(torch, dev, tag, report, record):
     print_ptxas("packed_variation", "packed_variation_hw_kernel")
     del copy_to
 
+    # K4-hw and K4's row copies: uint4 rows (W 4), the warp's word walk
+    # (W 1, 2, 9, 10), a last warp part full, 1-3 Philox calls a
+    # tournament (tournsize 1-9); each bitwise against the plain version
+    k4_shapes = [(n, length, ts) for n in (1, 3, 257, 1001)
+                 for length, ts in ((2, 1), (31, 3), (33, 4), (L, 5),
+                                    (257, 9), (300, 3))]
+    k4_shapes += [(N, length, ts) for length, ts in ((33, 9), (300, 5))]
+    for n, length, ts in k4_shapes:
+        pkn = packed.pack_genomes(torch.rand((n, length), generator=gen,
+                                             device=dev) < 0.5)
+        fitn = torch.randint(0, 8, (n,), generator=gen, device=dev).float()
+        key = kernels.philox_key(gen)
+        got = packed.sel_tournament_gather_packed(pkn, fitn, prng="hw",
+                                                  key=key, tournsize=ts)
+        want = packed.sel_tournament_gather_packed_plain(
+            pkn, fitn, philox.hw_tournament_bits(key, ts, n))
+        draws = packed.tournament_bits(gen, ts, n)
+        body = packed.sel_tournament_gather_packed(pkn, fitn, draws)
+        body_want = packed.sel_tournament_gather_packed_plain(pkn, fitn, draws)
+        torch.cuda.synchronize()
+        if not (bitwise_equal(got, want) and bitwise_equal(body, body_want)):
+            fail(f"sel_tournament_gather_packed differs from the plain "
+                 f"version at n={n}, L={length}, tournsize={ts}")
+    print(f"{tag} sel_tournament_gather_packed (prng='hw' and bits) == plain "
+          f"bitwise at {len(k4_shapes)} shapes: n 1, 3, 257, 1001 by L 2, 31, "
+          f"33, {L}, 257, 300 (tournsize 1, 3, 4, 5, 9), and n {N} at L 33, "
+          f"300")
     fit = packed.packed_fitness(pk)
+    key = kernels.philox_key(gen)
     got = packed.sel_tournament_gather_packed(pk, fit, prng="hw", key=key,
                                               tournsize=TOURNSIZE)
     draws = philox.hw_tournament_bits(key, TOURNSIZE, N)
@@ -998,15 +1034,37 @@ def hw_phases(torch, dev, tag, report, record):
              "version")
     print(f"{tag} sel_tournament_gather_packed(prng='hw') == plain on "
           f"ops.philox's streams bitwise at n={N}, tournsize={TOURNSIZE}")
+
+    def k4_hw():
+        return packed.sel_tournament_gather_packed(
+            pk, fit, prng="hw", key=key, tournsize=TOURNSIZE)
     record("k4_hw", "sel_tournament_gather_packed (prng='hw')",
            "deap_tpu_torch/csrc/selgather_packed.cu",
            "deap_tpu/ops/packed.py:331", max_abs_err(got, want),
-           time_ms(lambda: packed.sel_tournament_gather_packed(
-               pk, fit, prng="hw", key=key, tournsize=TOURNSIZE), flush),
+           time_ms(k4_hw, flush),
            time_ms(lambda: packed.sel_tournament_gather_packed_plain(
                pk, fit, philox.hw_tournament_bits(key, TOURNSIZE, N)), flush),
            4 * (N + 2 * N * W),
            imads=PHILOX_IMADS * N * -(-TOURNSIZE // 4))
+    # its floors under the same timer: a torch copy of its 1.6 MB output,
+    # torch.index_select of the winners (computed beforehand by the plain
+    # rule: the gather half alone), and K4-hw without the flush, as the
+    # packed loop finds the genomes and fitness K3-hw has just written
+    winners = tournament_winners(fit, draws)
+    gathered = torch.index_select(pk.view(torch.int32), 0, winners)
+    if not bitwise_equal(gathered.view(torch.uint32), got):
+        fail("index_select of the plain rule's winners differs from K4-hw")
+    copy_to = torch.empty_like(pk)
+    floors = {
+        "torch copy of the output": time_ms(lambda: copy_to.copy_(pk), flush),
+        "index_select of the winners": time_ms(lambda: torch.index_select(
+            pk.view(torch.int32), 0, winners), flush),
+        "K4-hw unflushed": time_ms(k4_hw, torch.empty(1, device=dev))}
+    print(f"  K4-hw {report['k4_hw']['ms'] * 1e3:.2f} us; under the same "
+          f"timer " + ", ".join(f"{k} {v * 1e3:.2f} us"
+                                for k, v in floors.items()))
+    print_ptxas("selgather_packed", "selgather")
+    del copy_to
 
     # ------------------------------------------------- K5 Philox path --
     worst = 0.0
@@ -1367,10 +1425,15 @@ def real_hw_phases(torch, dev, tag, report, record):
               f"{errs['max_fit_rel']:.3e}")
     again = fn(genomes, prng="hw", key=key, **ra)
     other = fn(genomes, prng="hw", key=other_key(key), **ra)
-    for a, b, part in zip(got, again, ("children", "fitness")):
+    # the bits body on the same streams: one arithmetic, one sum order
+    body = fn(genomes, *bits, **ra)
+    for a, b, c, part in zip(got, again, body, ("children", "fitness")):
         if not bitwise_equal(a, b):
             fail(f"fused_variation_eval_real(prng='hw') twice with one key: "
                  f"{part} differ")
+        if not bitwise_equal(a, c):
+            fail(f"fused_variation_eval_real(prng='hw'): {part} differ from "
+                 f"the bits body's on the same streams")
     if bitwise_equal(got[0], other[0]):
         fail("fused_variation_eval_real(prng='hw') gave the same children "
              "for two keys")
@@ -1389,10 +1452,55 @@ def real_hw_phases(torch, dev, tag, report, record):
                genomes, *philox.hw_real_bits(key, RA_N, RA_DIM), **ra),
                flush),
            8 * RA_N * RA_DIM + 4 * RA_N, imads=PHILOX_IMADS * calls)
+    copy_to = torch.empty_like(genomes)
+    copy_ms = time_ms(lambda: copy_to.copy_(genomes), flush)
     print(f"  (of {RA_N} rows {n_mut} mutate, of {RA_N // 2} pairs {n_cx} "
           f"mate, {errs['mutated']} genes mutated: {calls} Philox calls; one "
-          f"key twice bitwise equal, two keys differ)")
-    del flush
+          f"key twice bitwise equal, two keys differ; children and fitness "
+          f"bitwise equal to the bits body's on the same streams; a torch "
+          f"copy of the same {genomes.numel() * 4 / 1e6:.2f} MB genomes "
+          f"{copy_ms * 1e3:.2f} us under the same timer)")
+    print_ptxas("fused_variation_real", "real_hw_kernel")
+    del flush, copy_to
+
+    # K6-hw's tiles of 64 rows: n below a tile, a partial tile, an odd
+    # last row, one column chunk (L <= 32) and several, empty and full
+    # lists, and each evaluation (none: a callable afterwards); each
+    # against its plain version and the bits body on the same streams
+    k6_shapes = [(n, length, {}, ("rastrigin", "sphere")[(n + length) % 2])
+                 for n in (1, 2, 3, 63, 64, 65, 127, 129, 257, 1001)
+                 for length in (1, 4, 30, 31, 33, 64, 100)]
+    k6_shapes += [(257, length, {prob: value}, "rastrigin")
+                  for length in (30, 70) for prob in ("cxpb", "mutpb", "indpb")
+                  for value in (0.0, 1.0)]
+    k6_shapes += [(1001, length, {}, kernels_real.eval_sphere)
+                  for length in (30, 33)]
+    k6_shapes += [(RA_N, length, {}, "sphere") for length in (4, 33, 100)]
+    for n, length, probs, evaluate in k6_shapes:
+        genomes = init(gen, n) if length == RA_DIM else (
+            torch.rand((n, length), generator=gen, device=dev) * 10.24 - 5.12)
+        key = kernels.philox_key(gen)
+        kw = dict(ra, evaluate=evaluate, **probs)
+        got = fn(genomes, prng="hw", key=key, **kw)
+        bits = philox.hw_real_bits(key, n, length)
+        want = kernels_real.fused_variation_eval_real_plain(genomes, *bits,
+                                                            **kw)
+        body = fn(genomes, *bits, **kw)
+        torch.cuda.synchronize()
+        errs = kernels_real.real_kernel_errors(
+            got, want, *bits, **dict(tol, **{k: v for k, v in probs.items()
+                                              if k in tol}))
+        if not (errs["ok"] and bitwise_equal(got[0], body[0])
+                and bitwise_equal(got[1], body[1])):
+            fail(f"fused_variation_eval_real(prng='hw') at n={n}, L={length}, "
+                 f"{probs}, evaluate={evaluate}: {errs}, bitwise against the "
+                 f"bits body {bitwise_equal(got[0], body[0])}, "
+                 f"{bitwise_equal(got[1], body[1])}")
+    print(f"{tag} fused_variation_eval_real(prng='hw') == plain at K6's "
+          f"tolerance and == the bits body bitwise at {len(k6_shapes)} "
+          f"shapes: n 1, 2, 3, 63, 64, 65, 127, 129, 257, 1001 by L 1, 4, 30, "
+          f"31, 33, 64, 100; cxpb, mutpb, indpb at 0 and 1; evaluation none; "
+          f"n {RA_N} at L 4, 33, 100")
 
     # ------------------------------- the fused loop, 'hw' and 'auto' --
     def start(seed, n):
@@ -1570,6 +1678,21 @@ def other_key(key):
     """A Philox key that differs from ``key`` in one bit."""
     from deap_tpu_torch.ops import philox
     return (philox._u32(key) ^ 1).to(key.dtype)
+
+
+def tournament_winners(fit, draws):
+    """The population index each tournament of ``draws`` (uint32
+    ``[tournsize, n]``, aspirant ``draws % n``) selects by K4's rule: a
+    strictly greater fitness wins, so the first drawn wins ties."""
+    import torch
+    from deap_tpu_torch.ops import kernels
+    aspirants = kernels._words(draws) % fit.shape[0]
+    winners, best_fit = aspirants[0], fit[aspirants[0]]
+    for idx in aspirants[1:]:
+        better = fit[idx] > best_fit
+        winners = torch.where(better, idx, winners)
+        best_fit = torch.where(better, fit[idx], best_fit)
+    return winners
 
 
 def rows_below(bits, p):

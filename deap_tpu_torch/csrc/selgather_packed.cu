@@ -10,57 +10,112 @@
 // Bound on the H100: bytes — the draws, the parents' rows and the output
 // rows, plus tournsize random 4-byte fitness reads per child.
 //
-// Design: one thread per child slot; the draws are read coalesced, the
-// fitness lookups hit the 400 KB fitness vector (L2-resident at 100k),
-// and the winner's W words are copied row-major. The TPU kernel's
-// lane-major [W, n] layout existed only to keep VMEM dense and is not
-// used here.
+// Design: one thread per child slot runs its tournament; the draws are
+// read coalesced, the fitness lookups hit the 400 KB fitness vector
+// (L2-resident at 100k). The winners' rows are then copied whole
+// (copy_rows): as uint4 where W % 4 == 0 and both row arrays are 16-byte
+// aligned (W 4 at L 100: a warp's store writes its 32 children's 512
+// contiguous bytes in one instruction), else warp by warp: the warp's 32
+// winners are shared by shuffles and its lanes walk (child, word) over the
+// warp's 32 W contiguous output words, so each store instruction writes 32
+// contiguous words. The TPU kernel's lane-major [W, n] layout existed only
+// to keep VMEM dense and is not used here.
 //
 // The Philox path (selgather_hw_kernel, replacing _selgather_kernel_hw of
 // deap_tpu/ops/packed.py) draws child j's aspirants in registers from the
-// key (csrc/philox.cuh: (j, t / 4, 0, kTournament), one call for a
-// tournament of up to 4); its plain version is the bits-input plain
-// version fed ops/philox.py::hw_tournament_bits. Bound there: bytes of the
-// parents' and output rows and the fitness reads.
+// key (csrc/philox.cuh::hw_tournament: (j, t / 4, 0, kTournament), one
+// call for each 4 aspirants, their fitness loads issued together); its
+// plain version is the bits-input plain version fed
+// ops/philox.py::hw_tournament_bits. Bound there: bytes of the parents'
+// and output rows and the fitness reads. What is left above a copy of the
+// output's bytes is one dependent round trip: the winner's row can be
+// loaded only once its fitness loads are back.
 #include "common.cuh"
 #include "philox.cuh"
 
 namespace {
 
+// Child j's row := row `best` of g, for the block's children (every thread
+// of the block calls it; `valid` is j < n).
+template <bool kVec4>
+__device__ __forceinline__ void copy_rows(const uint32_t* __restrict__ g,
+                                          uint32_t* __restrict__ out,
+                                          uint32_t best, int j, bool valid,
+                                          int n, int W) {
+  if constexpr (kVec4) {
+    if (!valid) return;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        g + static_cast<size_t>(best) * W);
+    uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(j) * W);
+    for (int w = 0; w < W / 4; ++w) dst[w] = src[w];
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int j0 = j - lane;  // the warp's first child
+    const int words = min(32, n - j0) * W;
+    uint32_t* dst = out + static_cast<size_t>(j0) * W;
+    // word f = lane + 32 i of the warp's output is word f % W of child
+    // f / W, advanced by 32 without a division a step
+    int child = lane / W, w = lane - child * W;
+    const int dchild = 32 / W, dw = 32 - dchild * W;
+    for (int f = 0; f < words; f += 32) {  // the same trip count a lane
+      const uint32_t src = __shfl_sync(0xffffffffu, best, child & 31);
+      if (f + lane < words) dst[f + lane] = g[static_cast<size_t>(src) * W + w];
+      child += dchild;
+      w += dw;
+      if (w >= W) {
+        w -= W;
+        ++child;
+      }
+    }
+  }
+}
+
+template <bool kVec4>
 __global__ void __launch_bounds__(256)
 selgather_kernel(const uint32_t* __restrict__ g, const float* __restrict__ fit,
                  const uint32_t* __restrict__ draws, uint32_t* __restrict__ out,
                  int n, int W, int tournsize) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const uint32_t un = static_cast<uint32_t>(n);
-  uint32_t best = draws[j] % un;
-  float best_fit = fit[best];
-  for (int t = 1; t < tournsize; ++t) {
-    const uint32_t idx = draws[static_cast<size_t>(t) * n + j] % un;
-    const float f = fit[idx];
-    if (f > best_fit) {
-      best = idx;
-      best_fit = f;
+  const bool valid = j < n;
+  if (!kVec4 && j - (threadIdx.x & 31) >= n) return;  // a whole warp past n
+  uint32_t best = 0u;
+  if (valid) {
+    const uint32_t un = static_cast<uint32_t>(n);
+    best = draws[j] % un;
+    float best_fit = fit[best];
+    for (int t = 1; t < tournsize; ++t) {
+      const uint32_t idx = draws[static_cast<size_t>(t) * n + j] % un;
+      const float f = fit[idx];
+      if (f > best_fit) {
+        best = idx;
+        best_fit = f;
+      }
     }
   }
-  const uint32_t* src = g + static_cast<size_t>(best) * W;
-  uint32_t* dst = out + static_cast<size_t>(j) * W;
-  for (int w = 0; w < W; ++w) dst[w] = src[w];
+  copy_rows<kVec4>(g, out, best, j, valid, n, W);
 }
 
+template <bool kVec4>
 __global__ void __launch_bounds__(256)
 selgather_hw_kernel(const uint32_t* __restrict__ g,
                     const float* __restrict__ fit,
                     const uint32_t* __restrict__ key_ptr,
                     uint32_t* __restrict__ out, int n, int W, int tournsize) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const uint32_t best =
-      hw_tournament(fit, j, 0u, n, tournsize, round_keys(load_key(key_ptr)));
-  const uint32_t* src = g + static_cast<size_t>(best) * W;
-  uint32_t* dst = out + static_cast<size_t>(j) * W;
-  for (int w = 0; w < W; ++w) dst[w] = src[w];
+  const bool valid = j < n;
+  if (!kVec4 && j - (threadIdx.x & 31) >= n) return;  // a whole warp past n
+  uint32_t best = 0u;
+  if (valid) {
+    best = hw_tournament(fit, j, 0u, n, tournsize,
+                         round_keys(load_key(key_ptr)));
+  }
+  copy_rows<kVec4>(g, out, best, j, valid, n, W);
+}
+
+// uint4 rows where every row starts 16-byte aligned in both arrays
+bool vec4_rows(const void* g, const void* out, int W) {
+  return W % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
 }  // namespace
@@ -70,10 +125,18 @@ extern "C" int selgather_packed(const void* g, const void* fit,
                                 int tournsize, void* stream) {
   const int threads = 256;
   const int blocks = grid_for(n, threads, 1 << 30);
-  selgather_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(g), static_cast<const float*>(fit),
-      static_cast<const uint32_t*>(draws), static_cast<uint32_t*>(out), n, W,
-      tournsize);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const uint32_t*>(g);
+  const auto* fp = static_cast<const float*>(fit);
+  const auto* dp = static_cast<const uint32_t*>(draws);
+  auto* op = static_cast<uint32_t*>(out);
+  if (vec4_rows(g, out, W)) {
+    selgather_kernel<true><<<blocks, threads, 0, st>>>(gp, fp, dp, op, n, W,
+                                                       tournsize);
+  } else {
+    selgather_kernel<false><<<blocks, threads, 0, st>>>(gp, fp, dp, op, n, W,
+                                                        tournsize);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -83,10 +146,17 @@ extern "C" int selgather_packed_hw(const void* g, const void* fit,
                                    int tournsize, void* stream) {
   const int threads = 256;
   const int blocks = grid_for(n, threads, 1 << 30);
-  selgather_hw_kernel<<<blocks, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(g), static_cast<const float*>(fit),
-      static_cast<const uint32_t*>(key), static_cast<uint32_t*>(out), n, W,
-      tournsize);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const uint32_t*>(g);
+  const auto* fp = static_cast<const float*>(fit);
+  const auto* kp = static_cast<const uint32_t*>(key);
+  auto* op = static_cast<uint32_t*>(out);
+  if (vec4_rows(g, out, W)) {
+    selgather_hw_kernel<true><<<blocks, threads, 0, st>>>(gp, fp, kp, op, n,
+                                                          W, tournsize);
+  } else {
+    selgather_hw_kernel<false><<<blocks, threads, 0, st>>>(gp, fp, kp, op, n,
+                                                           W, tournsize);
+  }
   return static_cast<int>(cudaGetLastError());
 }

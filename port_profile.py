@@ -71,15 +71,18 @@ kernels; the listings go to ``DIR``);
 sort and gathers alone.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
-generations) and K2-hw, K2 and K3-hw (one generation) at pop 100k and L
-100, K9 on ``bench_gp.py``'s gen-0 and evolved schedules (after the L2
-flush, and without it), and beside them K5-hw with mutation off, K2-hw
-with crossover and mutation off and torch copies of the byte and the
-packed genomes and of K9's value buffers; where the package's source has
-K5-hw's phase clock, it also splits K5-hw's generation by phase from a
-build with ``-DDTT_K5_PHASES``, and for this checkout's package K9's
-items from a build with ``-DDTT_K9_PHASES``. Two versions compare on one
-card by runs in turns: that one, this one, this one, that one.
+generations) and K2-hw, K2, K3-hw and K4-hw (one generation) at pop 100k
+and L 100, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
+gen-0 and evolved schedules (after the L2 flush, and K4-hw and K9 also
+without it), and beside them K5-hw with mutation off, K2-hw and K6-hw
+with crossover and mutation off, ``torch.index_select`` of K4-hw's
+winners (computed beforehand) and torch copies of the byte, the packed
+and the float32 genomes and of K9's value buffers; where the package's
+source has K5-hw's phase clock, it also splits K5-hw's generation by
+phase from a build with ``-DDTT_K5_PHASES``, and for this checkout's
+package K9's items from a build with ``-DDTT_K9_PHASES``. Two versions
+compare on one card by runs in turns: that one, this one, this one, that
+one.
 
 For each profile it prints the wall time per generation (host clock
 around work that ends in a synchronise), the device time per generation
@@ -526,24 +529,29 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
 
 
 def kernel_times(dev, facts, root, reps=25):
-    """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2 and
-    K3-hw (one generation each) at the main path's shapes, pop 100k and L
-    100, and K9 on the GP path's gen-0 and evolved schedules (pop 4096,
-    width 64, P 256), as ``chip_smoke.time_ms`` does, with the
+    """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2, K3-hw
+    and K4-hw (one generation each) at the main path's shapes, pop 100k
+    and L 100, K6-hw and K6 at ``bench_suite.py``'s Rastrigin shape (pop
+    100k, 30 genes), and K9 on the GP path's gen-0 and evolved schedules
+    (pop 4096, width 64, P 256), as ``chip_smoke.time_ms`` does, with the
     ``deap_tpu_torch`` found under ``root``, beside K5-hw with mutation
-    off, K2-hw with crossover and mutation off, torch copies of the byte
-    genomes, the packed ones and K9's value buffers, and K5-hw's phase
+    off, K2-hw and K6-hw with crossover and mutation off, K4-hw and K9
+    without the flush (``_warm``), ``torch.index_select`` of K4-hw's
+    winners, torch copies of the byte genomes, the packed ones, the
+    float32 ones and K9's value buffers, and K5-hw's phase
     split (:func:`k5_hw_phases`) where the package's source has its clock
     and K9's (:func:`k9_phases`) for this checkout's package; print
     the times and a checksum of each result (the same inputs and keys in
     every package, so equal sums say the same results)."""
     import json
     import torch
-    from chip_smoke import (CXPB, EVOLVE_CALL, INDPB, MUTPB, TOURNSIZE,
-                            time_ms)
+    from chip_smoke import (CXPB, EVOLVE_CALL, INDPB, MUTPB, RA_ALPHA,
+                            RA_CXPB, RA_DIM, RA_INDPB, RA_LOW, RA_MUTPB, RA_N,
+                            RA_SIGMA, RA_UP, TOURNSIZE, time_ms,
+                            tournament_winners)
     from deap_tpu_torch import _build, ops
     from deap_tpu_torch.device import make_generator
-    from deap_tpu_torch.ops import kernels, packed
+    from deap_tpu_torch.ops import kernels, kernels_real, packed, philox
 
     probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
@@ -557,6 +565,16 @@ def kernel_times(dev, facts, root, reps=25):
     copy_to = torch.empty_like(bools)
     packed_to = torch.empty_like(pk)
     no_fitness = torch.zeros(N, device=dev)
+    # K4-hw's winners, computed beforehand by the plain tournament rule
+    winners = tournament_winners(
+        fit, philox.hw_tournament_bits(key, TOURNSIZE, N))
+    # a 4-byte "flush": the _warm entries find their inputs in L2
+    warm = torch.empty(1, dtype=torch.int32, device=dev)
+    ra = dict(cxpb=RA_CXPB, mutpb=RA_MUTPB, indpb=RA_INDPB, alpha=RA_ALPHA,
+              sigma=RA_SIGMA, evaluate="rastrigin")
+    real = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(g, RA_N)
+    rbits = kernels_real.real_bits(g, RA_N, RA_DIM)
+    real_to = torch.empty_like(real)
     calls = {
         "k5_hw": (lambda: packed.evolve_packed(
             pk, fit, L, ngen=EVOLVE_CALL, tournsize=TOURNSIZE, prng="hw",
@@ -584,11 +602,33 @@ def kernel_times(dev, facts, root, reps=25):
         # a torch copy of the same packed genomes: K3-hw's practical floor
         "torch_copy_packed": (lambda: (packed_to.copy_(pk), no_fitness),
                               reps),
+        "k4_hw": (lambda: (packed.sel_tournament_gather_packed(
+            pk, fit, prng="hw", key=key, tournsize=TOURNSIZE), no_fitness),
+            reps),
+        # as the packed loop runs it: just after K3-hw wrote the fitness
+        # and the genomes, which it finds in L2
+        "k4_hw_warm": (lambda: (packed.sel_tournament_gather_packed(
+            pk, fit, prng="hw", key=key, tournsize=TOURNSIZE), no_fitness),
+            reps, warm),
+        # one library call for the gather half, the winners given
+        "index_select_winners": (lambda: (torch.index_select(
+            pk.view(torch.int32), 0, winners), no_fitness), reps),
+        # bench_suite.py's Rastrigin generation at pop 100k, 30 genes
+        "k6_hw": (lambda: kernels_real.fused_variation_eval_real(
+            real, prng="hw", key=key, **ra), reps),
+        "k6": (lambda: kernels_real.fused_variation_eval_real(
+            real, *rbits, **ra), reps),
+        # K6-hw with crossover and mutation off: its loads, stores, sums
+        # and pair+row calls, without the work the draws decide
+        "k6_hw_copy_only": (lambda: kernels_real.fused_variation_eval_real(
+            real, prng="hw", key=key, **dict(ra, cxpb=0.0, mutpb=0.0)),
+            reps),
+        # a torch copy of the same 12 MB genomes: K6-hw's practical floor
+        "torch_copy_real": (lambda: (real_to.copy_(real), no_fitness), reps),
     }
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
-    warm = torch.empty(1, dtype=torch.int32, device=dev)
     cases = k9_cases(dev)
     for name, call, *_ in cases:
         calls[name] = (call, reps)
@@ -840,8 +880,9 @@ def main():
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="time K5-hw, K5, K2-hw, K2 and K3-hw at pop "
-                             "100k, L 100, and K9 on the GP schedules "
+                        help="time K5-hw, K5, K2-hw, K2, K3-hw and K4-hw "
+                             "at pop 100k, L 100, K6-hw and K6 at 30 genes, "
+                             "and K9 on the GP schedules "
                              "(alone: nothing else runs)")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "

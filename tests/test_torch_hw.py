@@ -84,6 +84,23 @@ def test_k5_hw_is_k4_hw_then_k3_hw(n, L, tournsize):
     assert _same(got[0], p) and _same(got[1], f)
 
 
+@pytest.mark.parametrize("tournsize", [1, 3, 5, 9])
+def test_tournament_winners_index_the_rows_k4_gathers(tournsize):
+    """``chip_smoke.tournament_winners`` (the indices the card times
+    ``torch.index_select`` with, as K4-hw's floor): the rows they pick are
+    the plain K4's, first-drawn winning ties, on K4-hw's streams."""
+    import chip_smoke
+    n, L = 257, 70
+    pk = tp.pack_genomes(_bools(tournsize, n, L))
+    fit = torch.from_numpy(np.random.default_rng(tournsize).integers(
+        0, 4, n).astype(np.float32))  # many ties
+    draws = philox.hw_tournament_bits(_key(tournsize), tournsize, n)
+    winners = chip_smoke.tournament_winners(fit, draws)
+    rows = torch.index_select(pk.view(torch.int32), 0, winners)
+    assert _same(rows.view(torch.uint32),
+                 tp.sel_tournament_gather_packed_plain(pk, fit, draws))
+
+
 def test_same_key_same_result_other_key_or_generation_other_result():
     n, L = 400, 100
     g = _bools(1, n, L)

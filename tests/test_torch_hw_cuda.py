@@ -320,3 +320,111 @@ def test_k6_auto_is_hw_on_the_card(card):
     assert fn.hw_launches == before + 2
     with pytest.raises(kernels.PrngError, match="Philox"):
         fn(g, *kernels_real.real_bits(gen, 64, 30), prng="auto", **kw)
+
+
+# ------------------------------------- K6-hw's tiles and K4's row copy ----
+
+def _k6_hw_case(card, n, L, kw, evaluate="rastrigin"):
+    """K6-hw against its plain version on ``hw_real_bits`` (crossed and
+    untouched genes bitwise, the rest at ``real_kernel_errors``), against
+    K6's bits body fed the same streams (bitwise, children and fitness:
+    one arithmetic and one sum order), and one key twice bitwise."""
+    gen = make_generator(5 * n + L, card)
+    g = torch.rand((n, L), generator=gen, device=card) * 10.24 - 5.12
+    key = kernels.philox_key(gen)
+    kw = dict(kw, evaluate=evaluate)
+    fn = kernels_real.fused_variation_eval_real
+    before = (fn.launches, fn.hw_launches)
+    got = fn(g, prng="hw", key=key, **kw)
+    bits = philox.hw_real_bits(key, n, L)
+    want = kernels_real.fused_variation_eval_real_plain(g, *bits, **kw)
+    body = fn(g, *bits, **kw)
+    again = fn(g, prng="hw", key=key, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.hw_launches - before[1]) == (3, 2)
+    errs = kernels_real.real_kernel_errors(
+        got, want, *bits, mutpb=kw["mutpb"], indpb=kw["indpb"], mu=kw["mu"],
+        sigma=kw["sigma"])
+    assert errs["ok"], errs
+    assert _same(got[0], body[0]) and _same(got[1], body[1])
+    assert _same(got[0], again[0]) and _same(got[1], again[1])
+
+
+K6_PROBS = dict(cxpb=0.6, mutpb=0.5, indpb=0.3, alpha=0.4, mu=0.05,
+                sigma=0.3)
+
+
+@pytest.mark.parametrize("L", [1, 4, 30, 31, 33, 64, 100])
+@pytest.mark.parametrize("n", [1, 2, 3, 63, 64, 65, 127, 128, 129, 255,
+                               257, 1001, 100_000])
+def test_k6_hw_tiles_equal_plain_and_bits_body(card, n, L):
+    """K6-hw's tiles of 64 rows: a partial tile, an odd last row, n below
+    a tile, one column chunk (L <= 32) and several (L 33-100)."""
+    _k6_hw_case(card, n, L, K6_PROBS, ("rastrigin", "sphere")[(n + L) % 2])
+
+
+@pytest.mark.parametrize("value", [0.0, 1.0])
+@pytest.mark.parametrize("prob", ["cxpb", "mutpb", "indpb"])
+@pytest.mark.parametrize("n,L", [(257, 30), (1001, 70)])
+def test_k6_hw_probability_edges_equal_plain(card, n, L, prob, value):
+    """No pair mates, no row mutates or no gene is gated (empty lists), or
+    every one is (every gene of a mutating row on the gated list)."""
+    _k6_hw_case(card, n, L, dict(K6_PROBS, **{prob: value}))
+
+
+@pytest.mark.parametrize("evaluate", ["rastrigin", "sphere", "callable"])
+@pytest.mark.parametrize("n,L", [(129, 30), (1001, 33)])
+def test_k6_hw_evaluations_equal_plain(card, n, L, evaluate):
+    """Rastrigin and sphere in the kernel, and none (a callable applied
+    afterwards)."""
+    _k6_hw_case(card, n, L, K6_PROBS, kernels_real.eval_sphere
+                if evaluate == "callable" else evaluate)
+
+
+@pytest.mark.parametrize("tournsize", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("L", [2, 31, 33, 100, 257, 300])
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 1001, 100_000])
+def test_k4_and_k4_hw_row_copies_equal_plain(card, n, L, tournsize):
+    """K4-hw and K4 bitwise against the plain version at W 1-10: uint4 rows
+    (W 4), the warp's word walk (every other W), a last warp part full,
+    and 1-3 Philox calls a tournament."""
+    gen = make_generator(7 * n + L + tournsize, card)
+    pk = packed.pack_genomes(torch.rand((n, L), generator=gen, device=card)
+                             < 0.5)
+    fit = torch.randint(0, 8, (n,), generator=gen, device=card).float()
+    key = kernels.philox_key(gen)
+    k4 = packed.sel_tournament_gather_packed
+    before = (k4.launches, k4.hw_launches)
+    got = k4(pk, fit, prng="hw", key=key, tournsize=tournsize)
+    draws = packed.tournament_bits(gen, tournsize, n)
+    body = k4(pk, fit, draws)
+    torch.cuda.synchronize()
+    assert (k4.launches - before[0], k4.hw_launches - before[1]) == (2, 1)
+    want = packed.sel_tournament_gather_packed_plain(
+        pk, fit, philox.hw_tournament_bits(key, tournsize, n))
+    assert _same(got, want)
+    assert _same(body, packed.sel_tournament_gather_packed_plain(pk, fit,
+                                                                 draws))
+
+
+@pytest.mark.parametrize("n", [3, 1001])
+def test_k4_rows_off_16_byte_alignment_take_the_word_walk(card, n):
+    """W 4 rows that start 4 bytes off a 16-byte boundary cannot move as
+    uint4: both paths then take the warp's word walk, bitwise."""
+    gen = make_generator(n, card)
+    W = 4
+    store = torch.randint(0, 2**31, (n * W + 1,), generator=gen,
+                          device=card).to(torch.uint32)
+    pk = store[1:].view(n, W)
+    assert pk.data_ptr() % 16 != 0
+    fit = torch.rand((n,), generator=gen, device=card)
+    key = kernels.philox_key(gen)
+    got = packed.sel_tournament_gather_packed(pk, fit, prng="hw", key=key,
+                                              tournsize=3)
+    draws = packed.tournament_bits(gen, 3, n)
+    body = packed.sel_tournament_gather_packed(pk, fit, draws)
+    torch.cuda.synchronize()
+    assert _same(got, packed.sel_tournament_gather_packed_plain(
+        pk, fit, philox.hw_tournament_bits(key, 3, n)))
+    assert _same(body, packed.sel_tournament_gather_packed_plain(pk, fit,
+                                                                 draws))
