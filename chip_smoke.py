@@ -11,7 +11,12 @@ Phases (any failure ends the script with a non-zero exit code):
    process per source, all started together);
 2. hold K1, K3 and K4 against their plain PyTorch versions on the card at
    the main path's shapes (pop 100,000, L 100, 4 words) — bitwise — and
-   time both with CUDA events, the L2 cache flushed before every launch;
+   time both with CUDA events, the L2 cache flushed before every launch
+   (K1 in each of its kinds beside a torch copy of its output), then K1
+   at 648 more shapes (``k1_sweep``: L 1, 3, 4, 5, 100 and 101, n 1, 33
+   and 1001 with N below, above and equal, empty and whole segments,
+   cxpb and mutpb at 0 and 1, genomes off their unit's alignment, every
+   kind in both dtypes);
 3. ``ea_simple`` OneMax (pop 100k, L 100, cxpb 0.5, mutpb 0.2, indpb 0.05,
    tournament 3, hall of fame 1, fitness statistics) for 20 generations,
    after a small run that must equal the unfused composition bit for bit;
@@ -65,7 +70,11 @@ Phases (any failure ends the script with a non-zero exit code):
    ranked rows before them): bitwise where the sums are exact, K7's
    SPEA2 raw sums within ``kernels.K7_RTOL`` and equal from launch to
    launch, timed against the card's compare rate over the pairs each
-   compares (K7 also at 50k rows, the DCD sort's size);
+   compares (K7 also at 50k rows, the DCD sort's size); K8 at 107 more
+   shapes (``k8_sweep``: n 1-100k, nq 1-2048, m 1, 2, 3, 8, 9 and 32,
+   NaN, -inf and duplicated rows, ties, all-zero weights) and timed over
+   the 31 cross steps of one ``nd='dc'`` selection at 16,384 rows, the
+   sum of each launch's time;
 10. the non-dominated sorting engines agree on the card at n 8192
     (tiled, matrix, sweep, dc through K8; staircase and tiled at M 2),
     and ``sel_nsga2`` through K8 (``nd='dc'``) equals it through K7 on a
@@ -222,12 +231,13 @@ def ptxas_report(log):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = re.search(r"\d+([a-z_]+kernel[a-z_]*)"
-                             r"(?:I(\w)Li(\d+)E|ILi(\d+)E|ILb([01])E"
-                             r"|I(\w)E)?", entry.group(1))
+                             r"(?:I(\w)Li(\d+)E(?:Li(\d+)E)?|ILi(\d+)E"
+                             r"|ILb([01])E|I(\w)E)?", entry.group(1))
             arg = name and (
-                (name.group(2) and f"{name.group(2)},{name.group(3)}")
-                or name.group(4) or name.group(6) or (
-                    name.group(5) and ("false", "true")[int(name.group(5))]))
+                (name.group(2) and ",".join(
+                    g for g in name.group(2, 3, 4) if g is not None))
+                or name.group(5) or name.group(7) or (
+                    name.group(6) and ("false", "true")[int(name.group(6))]))
             kernel = entry.group(1) if name is None else name.group(1) + (
                 f"<{arg}>" if arg else "")
         elif "spill" in line:
@@ -374,9 +384,15 @@ def main():
         worst = max(worst, err)
         print(f"{tag} fused_variation[{dtype}, {kind}] == apply_variation "
               f"bitwise at n={N}, L={L}")
-        if kind == "flip":  # the main path's case is the one timed
-            ms = time_ms(lambda: kernels.fused_variation(*args, mut_kind=kind),
-                         flush)
+        ms = time_ms(lambda: kernels.fused_variation(*args, mut_kind=kind),
+                     flush)
+        # a torch copy of its output: the floor of moving these bytes
+        # under this timer
+        copy_to = torch.empty_like(got)
+        copy_ms = time_ms(lambda: copy_to.copy_(got), flush)
+        print(f"{tag} fused_variation[{dtype}, {kind}]: {ms * 1e3:.2f} us; "
+              f"a torch copy of its output {copy_ms * 1e3:.2f} us")
+        if kind == "flip":  # the main path's case is the one recorded
             plain_ms = time_ms(lambda: variation.apply_variation(*args, kind),
                                flush)
             # what these masks need: genomes in and children out once,
@@ -388,6 +404,22 @@ def main():
             main_k1 = (ms, plain_ms, nbytes)
     record("k1", "fused_variation", "deap_tpu_torch/csrc/fused_variation.cu",
            "deap_tpu/ops/kernels.py:439", worst, *main_k1)
+    cases = 0
+    for L_, n_, N_, dtype, kind, cxpb, mutpb, aligned in k1_sweep():
+        args = k1_inputs(torch, dev, cases, n_, N_, L_, dtype, kind, cxpb,
+                         mutpb, aligned)
+        got = kernels.fused_variation(*args, mut_kind=kind)
+        want = variation.apply_variation(*args, kind).to(dtype)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"fused_variation[{dtype}, {kind}] differs from "
+                 f"apply_variation at n={n_}, N={N_}, L={L_}, cxpb={cxpb}, "
+                 f"mutpb={mutpb}, aligned={aligned}")
+        cases += 1
+    print(f"{tag} fused_variation == apply_variation bitwise at {cases} "
+          f"more shapes (L 1-101, n 1-1001, N != n, segments empty, from 0 "
+          f"and to L, cxpb and mutpb 0 and 1, genomes off 4-byte "
+          f"alignment, every kind in both dtypes)")
 
     # ------------------------------ K3 fused_variation_eval_packed check --
     W = packed.words_for(L)
@@ -1674,6 +1706,123 @@ def cma_phases(torch, dev, tag, report, record):
                                       if k != "ok"))
 
 
+def k1_sweep():
+    """The shapes K1 is held at beside the main path's: ``(L, n, N, dtype,
+    kind, cxpb, mutpb, aligned)`` over the lengths its units branch on
+    (L % 4, one unit, a row of more than 32 units), odd n, n above and
+    below N, every kind in both dtypes, the probabilities at 0 and 1,
+    and genomes one gene off their unit's alignment."""
+    import torch
+    out = []
+    for L in (1, 3, 4, 5, 100, 101):
+        for n, N in ((1, 4), (33, 20), (1001, 1001)):
+            for dtype in (torch.bool, torch.float32):
+                for kind in ("flip", "add", "set"):
+                    for cxpb, mutpb in ((0.7, 0.6), (0.0, 0.0), (1.0, 1.0),
+                                        (0.0, 1.0), (1.0, 0.0)):
+                        out.append((L, n, N, dtype, kind, cxpb, mutpb, True))
+                    out.append((L, n, N, dtype, kind, 0.7, 0.6, False))
+    return out
+
+
+def k1_inputs(torch, dev, seed, n, N, L, dtype, kind, cxpb, mutpb,
+              aligned=True):
+    """K1's arguments ``(genomes, src, partner, cx_row, lo, hi, mut_row,
+    mask, arg)`` for n children of N parents: 0/1 genomes (a view one gene
+    off a unit's alignment unless ``aligned``), random parents, segments
+    drawn in [0, L] with ``lo > hi`` (empty) among them and, on every
+    5th/7th/9th row, ``lo = 0``, ``hi = L`` and ``lo == hi``, a mask of
+    density 0.3 and, for add/set, normal arguments with zeros among
+    them."""
+    from deap_tpu_torch.device import make_generator
+    gen = make_generator(seed, dev)
+    bits = torch.rand(N * L + 1, generator=gen, device=dev) < 0.5
+    g = bits.to(dtype)[0 if aligned else 1:][:N * L].view(N, L)
+    src = torch.randint(0, N, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    partner = torch.randint(0, N, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    cx_row = torch.rand(n, generator=gen, device=dev) < cxpb
+    lo = torch.randint(0, L + 1, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    hi = torch.randint(0, L + 1, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    lo[::5] = 0
+    hi[::7] = L
+    hi[::9] = lo[::9]
+    mut_row = torch.rand(n, generator=gen, device=dev) < mutpb
+    mask = torch.rand((n, L), generator=gen, device=dev) < 0.3
+    arg = None
+    if kind != "flip":
+        arg = torch.randn((n, L), generator=gen, device=dev)
+        arg[torch.rand((n, L), generator=gen, device=dev) < 0.2] = 0.0
+    return g, src, partner, cx_row, lo, hi, mut_row, mask, arg
+
+
+def k8_sweep():
+    """The shapes K8 is held at beside the prefix reduction's: ``(n, nq,
+    m)`` over the objectives its kernels branch on (m 1-4, 5-8, the
+    generic 9-32), queries fewer than a thread's, not a multiple of a
+    block's and many blocks, and rows not a multiple of a split's chunk
+    or of the tile, up to 100k rows and 2048 queries."""
+    out = [(n, nq, m) for m in (1, 2, 3, 8, 9, 32)
+           for n in (1, 31, 33, 2049) for nq in (1, 3, 513, 2048)]
+    out += [(16_384, nq, m) for m in (3, 8, 9) for nq in (3, 512, 2048)]
+    out += [(100_000, nq, 3) for nq in (511, 2048)]
+    return out
+
+
+def k8_inputs(torch, dev, seed, n, nq, m):
+    """K8's arguments ``(w, weights, queries)``: integer grid values
+    (ties) for even seeds and normal ones for odd seeds, each with rows of
+    -inf and of NaN and duplicated rows, the queries drawn from the rows
+    and from fresh values; integer weights 0-5, all 0 for every 4th
+    seed."""
+    from deap_tpu_torch.device import make_generator
+    gen = make_generator(seed, dev)
+
+    def values(k):
+        if seed % 2 == 0:
+            v = torch.randint(0, 4, (k, m), generator=gen,
+                              device=dev).float()
+        else:
+            v = torch.randn((k, m), generator=gen, device=dev)
+        if k > 4:
+            rows = torch.randint(0, k, (2, k // 3), generator=gen,
+                                 device=dev)
+            v[rows[0]] = v[rows[1]]
+            v[torch.rand(k, generator=gen, device=dev) < 0.05] = -torch.inf
+            v[torch.rand(k, generator=gen, device=dev) < 0.03] = torch.nan
+        return v
+
+    w = values(n)
+    weights = torch.randint(0, 6, (n,), generator=gen, device=dev).float()
+    if seed % 4 == 3:
+        weights.zero_()
+    pool = torch.cat([w, values(nq)])
+    queries = pool[torch.randint(0, n + nq, (nq,), generator=gen,
+                                 device=dev)].contiguous()
+    return w, weights, queries
+
+
+def dc_cross_steps(torch, w, starts=None, block=512):
+    """The ``(prefix, weights, queries)`` of each K8 call that
+    ``mo.nd_rank_prefix`` makes on ``w``, in its order (or, with
+    ``starts``, of the block of ``block`` lex-sorted rows at each start):
+    the rows before the block with weights rank + 1, the ranks taken from
+    the tiled engine (which equal the prefix reduction's)."""
+    from deap_tpu_torch import mo
+    from deap_tpu_torch.core.fitness import lex_sort_desc
+    order = lex_sort_desc(w)
+    ws = w[order].to(torch.float32).contiguous()
+    rs = mo.nd_rank(w, impl="tiled")[order].to(torch.float32) + 1.0
+    if starts is None:
+        starts = range(block, w.shape[0], block)
+    return [(ws[:start], rs[:start].contiguous(),
+             ws[start:start + block])
+            for start in starts]
+
+
 def other_key(key):
     """A Philox key that differs from ``key`` in one bit."""
     from deap_tpu_torch.ops import philox
@@ -1746,11 +1895,11 @@ def mo_phases(torch, dev, tag, report, record):
     agreement, and the NSGA-II 3-objective DTLZ2 run."""
     from deap_tpu_torch import benchmarks as bm
     from deap_tpu_torch import mo
-    from deap_tpu_torch.core.fitness import lex_sort_desc
     from deap_tpu_torch.device import make_generator
     from deap_tpu_torch.ops import kernels
 
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n2, m = 2 * MO_POP, MO_NOBJ
     gen = make_generator(11, dev)
     w = -bm.dtlz2(torch.rand((n2, MO_DIM), generator=gen, device=dev), m)
@@ -1825,12 +1974,8 @@ def mo_phases(torch, dev, tag, report, record):
     # one cross step of nd_rank_prefix as it calls K8: the block of 512
     # lex-sorted rows at `start` against the ranked prefix before it, with
     # weights rank + 1
-    ranks = mo.nd_rank(w, impl="tiled")
-    order = lex_sort_desc(w)
-    ws, rs = w[order].contiguous(), ranks[order]
     start, block = MO_POP, 512
-    prefix, weights = ws[:start], rs[:start].float() + 1.0
-    queries = ws[start:start + block]
+    [(prefix, weights, queries)] = dc_cross_steps(torch, w, [start], block)
     got = kernels.dominated_weight_maxes(prefix, weights, queries)
     want = kernels.dominated_weight_maxes_plain(prefix, weights, queries)
     torch.cuda.synchronize()
@@ -1847,6 +1992,34 @@ def mo_phases(torch, dev, tag, report, record):
                prefix, weights, queries), flush, reps=5),
            4 * (start * m + start + block * m + block),
            compares=2 * m * block * start)
+    print(f"  K8 splits the {start} rows in "
+          f"{kernels._k8_splits(start, block, m, sms)} ranges for its "
+          f"{block} queries")
+    cases = 0
+    for n_, nq, m_ in k8_sweep():
+        args = k8_inputs(torch, dev, cases, n_, nq, m_)
+        got = kernels.dominated_weight_maxes(*args)
+        want = kernels.dominated_weight_maxes_plain(*args)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"dominated_weight_maxes differs from the plain version at "
+                 f"n={n_}, nq={nq}, m={m_} (seed {cases})")
+        cases += 1
+    print(f"{tag} dominated_weight_maxes == plain bitwise at {cases} more "
+          f"shapes (n 1-100k, nq 1-2048, m 1-32; NaN, -inf and duplicated "
+          f"rows, ties, all-zero weights)")
+    # what a user of nd='dc' pays K8: its 31 launches in one selection at
+    # the 16,384-row union, each timed alone
+    steps = dc_cross_steps(torch, w[:DC_UNION].contiguous())
+    dc_ms = [time_ms(lambda s=s: kernels.dominated_weight_maxes(*s), flush,
+                     reps=9) for s in steps]
+    dc_pairs = sum(p.shape[0] * q.shape[0] for p, _, q in steps)
+    print(f"{tag} dominated_weight_maxes over the {len(steps)} cross steps "
+          f"of nd='dc' at {DC_UNION} rows: {sum(dc_ms) * 1e3:.2f} us "
+          f"({dc_ms[0] * 1e3:.2f} us at {steps[0][0].shape[0]} rows to "
+          f"{dc_ms[-1] * 1e3:.2f} at {steps[-1][0].shape[0]}; bound "
+          f"{2 * m * dc_pairs / compare_rate(dev) * 1e6:.2f} us by "
+          f"operations over {dc_pairs:.4e} pairs)")
     del flush
 
     # ------------------------------------------- engines agree at 8192 --

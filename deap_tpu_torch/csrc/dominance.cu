@@ -57,12 +57,34 @@
 // column (structure of arrays) and read by scalar broadcasts, with the
 // same order, prune limit, split and combine.
 //
-// K8 dominated_weight_maxes keeps the first design: one thread per query
-// and scalar staging. It is called by the prefix chain reduction with a
-// few hundred queries against up to 100k rows, so it splits j across
-// blocks too and combines the partial maxima with atomicMax on the int
-// bits of the output, which the wrapper zeroes first. Non-negative floats
-// order like their bits, so that combine is exact and order-free.
+// K8 dominated_weight_maxes (the prefix chain reduction's cross step: a
+// few hundred queries against up to 100k ranked rows) had kept the first
+// design: one query per thread, scalar staging, m + 1 shared loads a
+// pair, at 10% of its compare bound. Now, for m <= 8, K7's register
+// blocking:
+// - each thread holds R query rows in registers (R 4 for m <= 4, 2 for
+//   m 5-8: a block of 128 threads holds 512 or 256 queries, the prefix
+//   reduction's block), and a staged row is V float4s, its m values then
+//   its weight, read with V broadcast LDS.128s;
+// - per pair one predicate chain, the OR of the m `>` then the AND of the
+//   m `>=`, and a predicated fmaxf of the weight into the query's maximum
+//   (the first design's `weight > best && dominated`, for weights >= 0);
+// - the weight skip, hoisted to the thread: a row is compared only if its
+//   weight exceeds the smallest maximum of the thread's live queries,
+//   refreshed after each tile (a NaN query, or one past nq, is never
+//   dominated and does not hold the skip back), so a warp steps over rows
+//   that cannot raise any of its maxima;
+// - the rows j are split across gridDim.y into S ranges of whole
+//   32-row chunks (ops/kernels.py::_k8_splits), enough for a few blocks
+//   an SM even when the queries fill one block (512 queries at 16k rows
+//   as at 50k);
+// - each block combines its maxima into the output with atomicMax on the
+//   int bits (a fire-and-forget RED), which the wrapper zeroes first.
+//   Non-negative floats order like their bits, so that combine is exact
+//   and order-free, and the result is bitwise the plain version's.
+// m 9-32 takes the generic kernel: one query per thread, the tile staged
+// column by column and read by scalar broadcasts, with the same split and
+// combine.
 #include "common.cuh"
 
 namespace {
@@ -85,23 +107,13 @@ __device__ __forceinline__ void stage(const float* __restrict__ w,
   for (int t = threadIdx.x; t < cnt; t += THREADS) tw[t] = weights[j0 + t];
 }
 
-template <int M>
 __device__ __forceinline__ bool dominated_by(const float* tile, int r,
                                              const float* wi, int m) {
   bool ge = true, gt = false;
-  if (M > 0) {
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const float b = tile[k * TJ + r];
-      ge &= b >= wi[k];
-      gt |= b > wi[k];
-    }
-  } else {
-    for (int k = 0; k < m; ++k) {
-      const float b = tile[k * TJ + r];
-      ge &= b >= wi[k];
-      gt |= b > wi[k];
-    }
+  for (int k = 0; k < m; ++k) {
+    const float b = tile[k * TJ + r];
+    ge &= b >= wi[k];
+    gt |= b > wi[k];
   }
   return ge && gt;
 }
@@ -225,7 +237,7 @@ dom_sums_generic_kernel(const float* __restrict__ w,
     if (active) {
 #pragma unroll 4
       for (int r = 0; r < cnt; ++r)
-        acc += dominated_by<0>(tile, r, wi, m) ? tw[r] : 0.0f;
+        acc += dominated_by(tile, r, wi, m) ? tw[r] : 0.0f;
     }
   }
   if (active) dst[static_cast<long long>(blockIdx.y) * n + i] = acc;
@@ -248,18 +260,137 @@ sum_splits_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
+// K8 splits the rows of w into ranges of whole chunks of this many rows
+// (ops/kernels.py::_K8_SPLIT_ROWS)
+constexpr int K8_CHUNK = 32;
+
+// K8's shape for m <= 8: V float4s per staged row (its m values, then
+// its weight), R query rows per thread (ops/kernels.py::
+// _k8_rows_per_thread).
+template <int M>
+struct MaxesShape {
+  static constexpr int V = (M + 4) / 4;
+  static constexpr int R = M <= 4 ? 4 : 2;
+};
+
+// The largest weight among the rows [blockIdx.y * rows_per_split,
+// +rows_per_split) of w that dominate each of the block's 128 R queries,
+// combined into out with atomicMax.
 template <int M>
 __global__ void __launch_bounds__(THREADS)
 dom_maxes_kernel(const float* __restrict__ w, const float* __restrict__ weights,
                  const float* __restrict__ queries, float* __restrict__ out,
-                 int n, int nq, int m_rt, int rows_per_split) {
+                 int n, int nq, int rows_per_split) {
+  constexpr int V = MaxesShape<M>::V;
+  constexpr int R = MaxesShape<M>::R;
+  __shared__ float4 tile[TJ * V];
+  const int jbeg = blockIdx.y * rows_per_split;
+  const int jend = min(jbeg + rows_per_split, n);
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * (THREADS * R) + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float a[R][M];
+  float best[R];
+  bool live[R];  // a query some row may dominate
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const long long i = i0 + q * THREADS;
+    bool nan = false;
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      a[q][k] = i < nq ? queries[i * M + k] : __int_as_float(0x7fc00000);
+      nan |= a[q][k] != a[q][k];
+    }
+    best[q] = 0.0f;
+    live[q] = !nan;
+  }
+  // the weight a row must exceed to raise one of this thread's maxima
+  float skip = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (live[q]) skip = 0.0f;
+  for (int j0 = jbeg; j0 < jend; j0 += TJ) {
+    const int cnt = min(jend - j0, TJ);
+    __syncthreads();
+    for (int t = threadIdx.x; t < cnt * V; t += THREADS) {
+      const int r = t / V;
+      const int v = t - r * V;
+      const float* row = w + static_cast<long long>(j0 + r) * M;
+      float e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = 4 * v + c;
+        e[c] = k < M ? row[k] : (k == M ? weights[j0 + r] : 0.0f);
+      }
+      tile[t] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    __syncthreads();
+    // the weight a row must exceed to raise a maximum of any lane's
+    float wskip = skip;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      wskip = fminf(wskip, __shfl_xor_sync(0xffffffffu, wskip, off));
+    for (int g0 = 0; g0 < cnt; g0 += 32) {
+      // the weight skip, a group of 32 staged rows at a time: the warp
+      // steps over them when none can raise any of its maxima
+      float gmax = g0 + lane < cnt
+                       ? reinterpret_cast<const float*>(tile)[(g0 + lane) * 4 * V + M]
+                       : 0.0f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, off));
+      if (!(gmax > wskip)) continue;
+      const int gend = min(g0 + 32, cnt);
+#pragma unroll 2
+      for (int r = g0; r < gend; ++r) {
+        float b[4 * V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float4 t4 = tile[r * V + v];
+          b[4 * v] = t4.x;
+          b[4 * v + 1] = t4.y;
+          b[4 * v + 2] = t4.z;
+          b[4 * v + 3] = t4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          // one predicate chain: OR of the m `>`, then AND of the m `>=`
+          bool dom = b[0] > a[q][0];
+#pragma unroll
+          for (int k = 1; k < M; ++k) dom = dom | (b[k] > a[q][k]);
+#pragma unroll
+          for (int k = 0; k < M; ++k) dom = dom & (b[k] >= a[q][k]);
+          if (dom) best[q] = fmaxf(best[q], b[M]);
+        }
+      }
+    }
+    skip = __int_as_float(0x7f800000);
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (live[q]) skip = fminf(skip, best[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const long long i = i0 + q * THREADS;
+    if (i < nq && best[q] > 0.0f)
+      atomicMax(reinterpret_cast<int*>(out) + i, __float_as_int(best[q]));
+  }
+}
+
+// K8 for any m <= MAX_M: one query per thread, scalar staging; the same
+// split of j and combine as dom_maxes_kernel.
+__global__ void __launch_bounds__(THREADS)
+dom_maxes_generic_kernel(const float* __restrict__ w,
+                         const float* __restrict__ weights,
+                         const float* __restrict__ queries,
+                         float* __restrict__ out, int n, int nq, int m,
+                         int rows_per_split) {
   extern __shared__ float smem[];
-  const int m = M > 0 ? M : m_rt;
   float* tile = smem;
   float* tw = smem + m * TJ;
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   const bool active = i < nq;
-  float wi[M > 0 ? M : MAX_M];
+  float wi[MAX_M];
   if (active)
     for (int k = 0; k < m; ++k) wi[k] = queries[i * m + k];
   const long long jbeg = static_cast<long long>(blockIdx.y) * rows_per_split;
@@ -274,7 +405,7 @@ dom_maxes_kernel(const float* __restrict__ w, const float* __restrict__ weights,
 #pragma unroll 4
       for (int r = 0; r < cnt; ++r) {
         const float v = tw[r];
-        if (v > best && dominated_by<M>(tile, r, wi, m)) best = v;
+        if (v > best && dominated_by(tile, r, wi, m)) best = v;
       }
     }
   }
@@ -336,17 +467,19 @@ extern "C" int dominated_weight_sums(const void* w, const void* weights,
 }
 
 // `out` must hold nq zeros. Rows of w are split into `nsplit` ranges of
-// whole tiles, one per gridDim.y.
+// whole K8_CHUNK-row chunks, one per gridDim.y; nsplit must be
+// ceil(chunks / ceil(chunks / nsplit)), so that no range is empty
+// (ops/kernels.py::_k8_splits).
 extern "C" int dominated_weight_maxes(const void* w, const void* weights,
                                       const void* queries, void* out, int n,
                                       int nq, int m, int nsplit, void* stream) {
-  if (m < 1 || m > MAX_M || nsplit < 1 || nsplit > 65535)
+  if (m < 1 || m > MAX_M || n < 1 || nq < 1 || nsplit < 1 || nsplit > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (n + TJ - 1) / TJ;
-  const int per = (tiles + nsplit - 1) / nsplit;
-  const int rows_per_split = per * TJ;
-  const dim3 grid(grid_for(nq, THREADS, 1 << 30), (tiles + per - 1) / per);
-  const size_t smem = smem_bytes(m);
+  const int chunks = (n + K8_CHUNK - 1) / K8_CHUNK;
+  const int per = (chunks + nsplit - 1) / nsplit;
+  if ((chunks + per - 1) / per != nsplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_per_split = per * K8_CHUNK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pw = static_cast<const float*>(w);
   const float* pt = static_cast<const float*>(weights);
@@ -354,13 +487,19 @@ extern "C" int dominated_weight_maxes(const void* w, const void* weights,
   float* po = static_cast<float*>(out);
   switch (m) {
 #define DTT_MAXES(M)                                                     \
-    case M: dom_maxes_kernel<M><<<grid, THREADS, smem, s>>>(             \
-        pw, pt, pq, po, n, nq, m, rows_per_split); break;
+    case M: dom_maxes_kernel<M><<<dim3(grid_for(nq, THREADS *            \
+                                                MaxesShape<M>::R,        \
+                                                1 << 30), nsplit),       \
+                                  THREADS, 0, s>>>(pw, pt, pq, po, n, nq, \
+                                                   rows_per_split);       \
+      break;
     DTT_MAXES(1) DTT_MAXES(2) DTT_MAXES(3) DTT_MAXES(4)
     DTT_MAXES(5) DTT_MAXES(6) DTT_MAXES(7) DTT_MAXES(8)
 #undef DTT_MAXES
-    default: dom_maxes_kernel<0><<<grid, THREADS, smem, s>>>(
-        pw, pt, pq, po, n, nq, m, rows_per_split);
+    default:
+      dom_maxes_generic_kernel<<<dim3(grid_for(nq, THREADS, 1 << 30), nsplit),
+                                 THREADS, smem_bytes(m), s>>>(
+          pw, pt, pq, po, n, nq, m, rows_per_split);
   }
   return static_cast<int>(cudaGetLastError());
 }

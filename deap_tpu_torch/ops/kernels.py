@@ -237,6 +237,41 @@ def _partner_rows(g: torch.Tensor) -> torch.Tensor:
     return g[torch.clamp(row ^ 1, max=g.shape[0] - 1)]
 
 
+#: child rows a warp of K1 owns (``ROWS`` in csrc/fused_variation.cu),
+#: and the warps an SM holds at once at the kernel's ~40 registers a
+#: thread
+_K1_ROWS, _K1_WARPS_PER_SM = 32, 48
+
+
+def _k1_width(L: int, itemsize: int, *tensors) -> int:
+    """Genes a unit of K1 moves at once: 4 (a 32-bit word of bool genes,
+    a float4 of float32 ones) where ``L % 4 == 0`` and every tensor's
+    pointer is aligned for it (the mask's to 4 bytes, the argument's to
+    16), else 1."""
+    if L % 4:
+        return 1
+    align = (4 * itemsize, 4 * itemsize, 4, 16)
+    for t, a in zip(tensors, align):
+        if t is not None and t.data_ptr() % a:
+            return 1
+    return 4
+
+
+def _k1_plan(n: int, L: int, width: int, sms: int) -> Tuple[int, int]:
+    """K1's walk (csrc/fused_variation.cu): a warp takes a batch of
+    ``_K1_ROWS`` child rows and walks their ``L // width`` units a row as
+    one flattened run, cut into ``slices`` of ``units_per_slice`` units, a
+    warp each: as many slices as keep the grid within one wave of
+    ``_K1_WARPS_PER_SM`` warps on each of ``sms`` SMs (the kernel waits on
+    memory, so warps in flight set its pace), with at least one unit a
+    lane. Returns ``(slices, units_per_slice)``."""
+    run = min(n, _K1_ROWS) * (L // width)
+    batches = -(-n // _K1_ROWS)
+    slices = max(1, min(_K1_WARPS_PER_SM * sms // batches, run // 32))
+    per = -(-run // slices)
+    return -(-run // per), per  # no slice left empty
+
+
 def fused_variation(genomes: torch.Tensor, src_idx: torch.Tensor,
                     partner_idx: torch.Tensor, cx_row: torch.Tensor,
                     lo: torch.Tensor, hi: torch.Tensor,
@@ -286,17 +321,21 @@ def fused_variation(genomes: torch.Tensor, src_idx: torch.Tensor,
     else:
         mut_arg = None
     out = torch.empty((n, L), dtype=genomes.dtype, device=dev)
-    if n == 0:
+    if n == 0 or L == 0:
         return out
+    width = _k1_width(L, genomes.element_size(), genomes, out, mut_mask,
+                      mut_arg)
+    slices, units_per_slice = _k1_plan(n, L, width, _multiprocessors(dev))
     lib_fn = "fused_variation_u8" if genomes.dtype == torch.bool \
         else "fused_variation_f32"
     fn = _build.function("fused_variation", lib_fn, [_build.PTR] * 10 + [
-        _build.INT, _build.INT, _build.INT, _build.PTR])
+        _build.INT] * 6 + [_build.PTR])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(genomes.data_ptr(), src_idx.data_ptr(), partner_idx.data_ptr(),
              cx_row.data_ptr(), lo.data_ptr(), hi.data_ptr(),
              mut_row.data_ptr(), mut_mask.data_ptr(), _ptr(mut_arg),
-             out.data_ptr(), n, L, _KINDS[mut_kind], stream)
+             out.data_ptr(), n, L, _KINDS[mut_kind], width, slices,
+             units_per_slice, stream)
     fused_variation.launches += 1
     _build.check("fused_variation", err, "fused_variation")
     return out
@@ -429,7 +468,10 @@ K7_RTOL = 1e-5
 DOMINANCE_MAX_NOBJ = 32
 #: query rows per step of the plain versions: a ``[1024, n, m]`` compare
 _PLAIN_CHUNK = 1024
-_K8_BLOCKS_PER_SM = 4
+#: K8 aims at this many blocks per SM, and splits the rows of w into
+#: ranges of whole chunks of this many rows (``K8_CHUNK`` in
+#: csrc/dominance.cu)
+_K8_BLOCKS_PER_SM, _K8_SPLIT_ROWS = 4, 32
 #: threads per block and rows per staged tile of csrc/dominance.cu
 _DOM_THREADS, _DOM_TILE = 128, 256
 #: K7 aims at this many blocks per SM (several waves) and at most this
@@ -534,6 +576,27 @@ def _k7_splits(n: int, m: int, sms: int) -> int:
     return -(-tiles // per)
 
 
+def _k8_rows_per_thread(m: int) -> int:
+    """Query rows each thread of K8 holds (``MaxesShape<M>::R`` in
+    csrc/dominance.cu; 1 in its generic kernel for m > 8)."""
+    return 4 if m <= 4 else 2 if m <= 8 else 1
+
+
+def _k8_splits(n: int, nq: int, m: int, sms: int) -> int:
+    """How many ranges of whole ``_K8_SPLIT_ROWS``-row chunks K8 splits the
+    rows of ``w`` into (``gridDim.y``): enough for ``_K8_BLOCKS_PER_SM``
+    blocks per SM over the blocks the queries fill (a block holds 128 R
+    queries, so the prefix reduction's 512 fill one), at most one chunk
+    each, rounded so that no range is empty (the launcher refuses another
+    count)."""
+    query_blocks = -(-nq // (_DOM_THREADS * _k8_rows_per_thread(m)))
+    chunks = -(-n // _K8_SPLIT_ROWS)
+    want = -(-_K8_BLOCKS_PER_SM * sms // query_blocks)
+    want = max(1, min(want, chunks, 65535))
+    per = -(-chunks // want)
+    return -(-chunks // per)
+
+
 def dominated_weight_sums(w: torch.Tensor,
                           weights: torch.Tensor) -> torch.Tensor:
     """``out[i] = Σ_{j dominates i} weights[j]`` without the ``[n, n]``
@@ -613,12 +676,7 @@ def dominated_weight_maxes(w: torch.Tensor, weights: torch.Tensor,
     out = torch.zeros(nq, dtype=torch.float32, device=w.device)
     if n == 0 or nq == 0:
         return out
-    # split the rows of w across blocks until the card holds a few blocks
-    # per SM (a few hundred queries alone fill a handful of SMs)
-    query_blocks = -(-nq // _DOM_THREADS)
-    tiles = -(-n // _DOM_TILE)
-    want = -(-_K8_BLOCKS_PER_SM * _multiprocessors(w.device) // query_blocks)
-    nsplit = max(1, min(tiles, want, 65535))
+    nsplit = _k8_splits(n, nq, m, _multiprocessors(w.device))
     P, I = _build.PTR, _build.INT
     fn = _build.function("dominance", "dominated_weight_maxes",
                          [P, P, P, P, I, I, I, I, P])

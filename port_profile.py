@@ -18,7 +18,8 @@ Profiles, with ``torch.profiler`` (CPU and CUDA activities), a steady
 window of the two OneMax main-path loops at pop 100,000 and L 100:
 
 - ``ea_simple`` OneMax (tournament 3, cxpb 0.5, mutpb 0.2, indpb 0.05,
-  hall of fame 1, fitness statistics), 10 generations after 3 of warm-up;
+  hall of fame 1, fitness statistics), 10 generations after 3 of warm-up,
+  with K1's device time a generation whatever its rank;
 - ``ea_simple_packed`` with the select-and-gather kernel, 100 generations
   after 10 of warm-up;
 
@@ -62,7 +63,8 @@ Every profile also prints the device time of the random-number kernels
 (``torch.randint``, ``torch.rand``, and the key draws of ``'hw'``) and
 their share of the device time.
 
-``--sass`` prints the instructions per pair of K7's inner loop at m 3
+``--sass`` prints the instructions per pair of K7's and K8's inner
+loops at m 3, the instructions per word of K1's walk (bool, ``flip``)
 and the instructions of one Philox4x32-10 call (the known-answer kernel
 of ``csrc/philox.cuh``) by opcode (``cuobjdump -sass`` of the built
 kernels; the listings go to ``DIR``);
@@ -72,15 +74,23 @@ sort and gathers alone.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
 generations) and K2-hw, K2, K3-hw and K4-hw (one generation) at pop 100k
-and L 100, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
+and L 100, K1 at ``ea_simple``'s shape (pop 100k, L 100: bool ``flip``,
+float32 ``flip``, ``add`` and ``set``, and with no crossover or
+mutation), K8 as the prefix reduction calls it (512 queries against 50k
+ranked rows) and over the 31 launches of one ``nd='dc'`` selection at
+16,384 rows (their sum, each launch timed alone), K7 at 100k and 50k
+rows, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
 gen-0 and evolved schedules (after the L2 flush, and K4-hw and K9 also
 without it), and beside them K5-hw with mutation off, K2-hw and K6-hw
 with crossover and mutation off, ``torch.index_select`` of K4-hw's
 winners (computed beforehand) and torch copies of the byte, the packed
-and the float32 genomes and of K9's value buffers; where the package's
-source has K5-hw's phase clock, it also splits K5-hw's generation by
-phase from a build with ``-DDTT_K5_PHASES``, and for this checkout's
-package K9's items from a build with ``-DDTT_K9_PHASES``. Two versions
+and the float32 genomes and of K9's value buffers, and the fill of K8's
+output alone; with checksums of a 20-generation ``ea_simple`` and one
+``sel_nsga2(nd='dc')`` at 16,384 rows (K1's and K8's whole runs); where
+the package's source has K5-hw's phase clock, it also splits K5-hw's
+generation by phase from a build with ``-DDTT_K5_PHASES``, and for this
+checkout's package K9's items from a build with ``-DDTT_K9_PHASES``.
+Two versions
 compare on one card by runs in turns: that one, this one, this one, that
 one.
 
@@ -459,24 +469,21 @@ def k7_variants(dev, facts, rows=(4, 8, 16), reps=10):
               f" us")
 
 
-def sass_k7(out_dir, facts, m=3):
-    """The inner loop of K7's kernel for ``m`` objectives, from
-    ``cuobjdump -sass`` of the built library: the basic block with the
-    most float compares, its opcode counts and its instructions per
-    (query, staged row) pair (2 m compares each). The whole listing goes
-    to ``DIR/dominance.sass``."""
+def sass_loops(out_dir, library, kernel):
+    """The loops of ``kernel`` (a mangled-name pattern) in ``cuobjdump
+    -sass`` of the built ``csrc/<library>.cu``, each as the opcodes from
+    a backward branch's target to the branch; the whole listing goes to
+    ``DIR/<library>.sass``."""
     import re
     import subprocess
     from deap_tpu_torch import _build
-    from deap_tpu_torch.ops import kernels
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build._target(
-        "dominance"))], check=True, capture_output=True, text=True).stdout
-    with open(os.path.join(out_dir, "dominance.sass"), "w") as f:
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target(library))],
+                          check=True, capture_output=True, text=True).stdout
+    with open(os.path.join(out_dir, f"{library}.sass"), "w") as f:
         f.write(sass)
     funcs = re.split(r"\n\s*Function : ", sass)
-    body = next(f for f in funcs
-                if re.match(rf"\S*dom_sums_kernelILi{m}E", f))
+    body = next(f for f in funcs if re.match(rf"\S*{kernel}", f))
     # (address, opcode, branch target) of each instruction
     code = []
     for line in body.splitlines():
@@ -485,17 +492,39 @@ def sass_k7(out_dir, facts, m=3):
         if ins:
             code.append((int(ins.group(1), 16), ins.group(3),
                          int(ins.group(4), 16) if ins.group(4) else None))
-    # the loops: a backward branch and the code from its target to it;
-    # the inner loop is the one densest in float compares
-    loops = [[op for a, op, _ in code if target <= a <= at]
-             for at, op, target in code
-             if op == "BRA" and target is not None and target < at]
-    loop = max(loops, key=lambda b: b.count("FSETP") / len(b))
+    return [[op for a, op, _ in code if target <= a <= at]
+            for at, op, target in code
+            if op == "BRA" and target is not None and target < at]
+
+
+def sass_dominance(out_dir, facts, m=3):
+    """The inner loops of K7's and K8's kernels for ``m`` objectives: the
+    loop densest in float compares, its opcode counts and its
+    instructions per (query, staged row) pair (2 m compares each)."""
+    from deap_tpu_torch.ops import kernels
+    for name, kernel, rows in (
+            ("K7", "dom_sums_kernel", kernels._k7_rows_per_thread(m)),
+            ("K8", "dom_maxes_kernel", kernels._k8_rows_per_thread(m))):
+        loops = sass_loops(out_dir, "dominance", rf"{kernel}ILi{m}E")
+        loop = max(loops, key=lambda b: b.count("FSETP") / len(b))
+        counts = {op: loop.count(op) for op in sorted(set(loop))}
+        pairs = loop.count("FSETP") / (2 * m)
+        print(f"[{facts}] {name} (m={m}, {rows} query rows per thread) inner "
+              f"loop: {len(loop)} instructions for {pairs:g} pairs = "
+              f"{len(loop) / pairs:.3f} per pair; "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()))
+
+
+def sass_k1(out_dir, facts):
+    """K1's walk on bool genomes in words, ``flip``: its longest loop (a
+    step of every lane's units in flight), its opcode counts and its
+    instructions per word (one store each)."""
+    loop = max(sass_loops(out_dir, "fused_variation",
+                          "fused_variation_kernelIhLi4ELi0E"), key=len)
     counts = {op: loop.count(op) for op in sorted(set(loop))}
-    pairs = loop.count("FSETP") / (2 * m)
-    print(f"[{facts}] K7 (m={m}, {kernels._k7_rows_per_thread(m)} query "
-          f"rows per thread) inner loop: {len(loop)} instructions for "
-          f"{pairs:g} pairs = {len(loop) / pairs:.3f} per pair; "
+    print(f"[{facts}] K1 (bool, words, flip) walk: {len(loop)} instructions "
+          f"for {loop.count('STG')} words = "
+          f"{len(loop) / max(loop.count('STG'), 1):.1f} per word; "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
 
@@ -626,6 +655,7 @@ def kernel_times(dev, facts, root, reps=25):
         # a torch copy of the same 12 MB genomes: K6-hw's practical floor
         "torch_copy_real": (lambda: (real_to.copy_(real), no_fitness), reps),
     }
+    calls.update(k1_k7_k8_calls(dev, reps))
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
@@ -645,11 +675,136 @@ def kernel_times(dev, facts, root, reps=25):
             fitness.double().sum())
         times[f"{name}_ms"] = time_ms(call, (cold or [flush])[0],
                                       reps=n_reps)
+    times.update(k8_dc_times(dev, flush))
+    times.update(run_checksums(dev))
     if "DTT_K5_PHASES" in (_build.CSRC / "evolve_packed.cu").read_text():
         times.update(k5_hw_phases(pk, fit, key, flush))
     if root == ROOT:  # its launch follows this checkout's launcher
         times.update(k9_phases(cases, flush))
     print(f"[{facts}] kernel times {json.dumps(times)}")
+
+
+def k1_k7_k8_calls(dev, reps):
+    """``kernel_times``' entries for K1 at ``ea_simple``'s shape (pop 100k,
+    L 100, its masks from ``var_and_masks``): bool ``flip`` (``k1``) and
+    float32 ``flip``, ``add`` and ``set``, beside a torch copy of the
+    float32 output (the bool one is ``torch_copy``) and K1 with no
+    crossover or mutation and each child its own parent
+    (``k1_copy_only``); K8 as the prefix
+    reduction calls it at 3-objective DTLZ2's 100k rows (512 queries
+    against the 50k-row ranked prefix, ``k8``) beside the fill of its
+    output alone (``torch_zeros_k8``); and K7 with 0/1 weights at 100k and
+    50k rows."""
+    import torch
+    from chip_smoke import (CXPB, MO_DIM, MO_NOBJ, MO_POP, MUTPB,
+                            _onemax_toolbox, dc_cross_steps)
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, variation
+
+    no_fitness = torch.zeros(N, device=dev)
+    g = make_generator(29, dev)
+    plan = variation.resolve_plan(_onemax_toolbox(Toolbox, ops))
+    src = torch.randint(0, N, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    partner = src[variation.pair_partner_positions(N, dev).long()]
+    calls, calls_args = {}, {}
+    for dtype, kind, name in ((torch.bool, "flip", "k1"),
+                              (torch.float32, "flip", "k1_f32_flip"),
+                              (torch.float32, "add", "k1_f32_add"),
+                              (torch.float32, "set", "k1_f32_set")):
+        genomes = (torch.rand((N, L), generator=g, device=dev)
+                   < 0.5).to(dtype)
+        cx_row, lo, hi, do_mut, mask, _ = variation.var_and_masks(
+            g, N, L, CXPB, MUTPB, plan, dtype)
+        arg = None if kind == "flip" else torch.randn((N, L), generator=g,
+                                                      device=dev)
+        args = (genomes, src, partner, cx_row, lo, hi, do_mut, mask, arg)
+        calls_args[name] = args
+        calls[name] = (lambda args=args, kind=kind: (
+            kernels.fused_variation(*args, mut_kind=kind), no_fitness), reps)
+    # K1 with no crossover, no mutation and each child its own parent: its
+    # walk, loads and stores alone, beside torch_copy
+    genomes, _, _, cx_row, lo, hi, do_mut, mask, _ = calls_args["k1"]
+    off = torch.zeros_like(cx_row)
+    own = torch.arange(N, dtype=torch.int32, device=dev)
+    pairs = variation.pair_partner_positions(N, dev)
+    calls["k1_copy_only"] = (lambda: (kernels.fused_variation(
+        genomes, own, pairs, off, lo, hi, off, mask), no_fitness), reps)
+    copy_from = torch.rand((N, L), generator=g, device=dev)
+    copy_to = torch.empty_like(copy_from)
+    calls["torch_copy_f32"] = (lambda: (copy_to.copy_(copy_from),
+                                        no_fitness), reps)
+    w = -bm.dtlz2(torch.rand((2 * MO_POP, MO_DIM), generator=g, device=dev),
+                  MO_NOBJ)
+    [(prefix, weights, queries)] = dc_cross_steps(torch, w, [MO_POP])
+    calls["k8"] = (lambda: (kernels.dominated_weight_maxes(
+        prefix, weights, queries), no_fitness), reps)
+    # the fill of K8's output that its wrapper launches first, alone
+    calls["torch_zeros_k8"] = (lambda: (torch.zeros(
+        queries.shape[0], device=dev), no_fitness), reps)
+    for rows in (2 * MO_POP, MO_POP):
+        wn = w[:rows].contiguous()
+        ones = torch.ones(rows, device=dev)
+        calls[f"k7_{rows // 1000}k"] = (
+            lambda wn=wn, ones=ones: (kernels.dominated_weight_sums(wn, ones),
+                                      no_fitness), 10)
+    return calls
+
+
+def k8_dc_times(dev, flush, reps=9):
+    """K8's 31 launches in one ``sel_nsga2(nd='dc')`` at 16,384 rows of
+    3-objective DTLZ2 (the cross steps of ``mo.nd_rank_prefix``), each
+    timed alone as ``chip_smoke.time_ms`` does: their sum (what a user of
+    ``nd='dc'`` pays K8), the first and the last launch, and a checksum of
+    their results."""
+    import torch
+    from chip_smoke import DC_UNION, MO_DIM, MO_NOBJ, dc_cross_steps, time_ms
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+
+    g = make_generator(31, dev)
+    w = -bm.dtlz2(torch.rand((DC_UNION, MO_DIM), generator=g, device=dev),
+                  MO_NOBJ)
+    steps = dc_cross_steps(torch, w)
+    out = torch.cat([kernels.dominated_weight_maxes(*s) for s in steps])
+    ms = [time_ms(lambda s=s: kernels.dominated_weight_maxes(*s), flush,
+                  reps=reps) for s in steps]
+    return {"k8_dc_sum": int(out.view(torch.uint8).long().sum()),
+            "k8_dc_ms": sum(ms), "k8_dc_first_ms": ms[0],
+            "k8_dc_last_ms": ms[-1]}
+
+
+def run_checksums(dev):
+    """Checksums of two whole runs on fixed generators: a 20-generation
+    ``ea_simple`` OneMax at pop 100k (K1's path; the final genomes and
+    fitness) and one ``sel_nsga2(nd='dc')`` at 16,384 rows of DTLZ2 (K8's
+    path; the selected rows), equal across builds that give the same
+    results."""
+    import torch
+    from chip_smoke import (CXPB, DC_UNION, EA_NGEN, MO_DIM, MO_NOBJ, MUTPB,
+                            _onemax_toolbox)
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+
+    g = make_generator(0, dev)
+    pop = init_population(g, N, ops.bernoulli_genome(L), FitnessSpec((1.0,)),
+                          device=dev)
+    pop, _, _ = algorithms.ea_simple(g, pop, _onemax_toolbox(Toolbox, ops),
+                                     CXPB, MUTPB, EA_NGEN, halloffame_size=1,
+                                     fused="auto", device=dev)
+    g = make_generator(11, dev)
+    w = -bm.dtlz2(torch.rand((DC_UNION, MO_DIM), generator=g, device=dev),
+                  MO_NOBJ)
+    chosen = mo.sel_nsga2(None, w, DC_UNION // 2, nd="dc")
+    return {"ea_simple_sum": int(pop.genomes.view(torch.uint8).long().sum())
+            + int(pop.fitness.double().sum()),
+            "sel_nsga2_dc_sum": int((chosen.long() * torch.arange(
+                1, chosen.shape[0] + 1, device=dev)).sum())}
 
 
 def k9_cases(dev):
@@ -874,15 +1029,17 @@ def main():
                         help="profile the chosen loops (alone: the OneMax "
                              "loops) with prng='hw' beside prng='input'")
     parser.add_argument("--sass", action="store_true",
-                        help="count the instructions of K7's inner loop "
-                             "and of one Philox call")
+                        help="count the instructions of K7's and K8's "
+                             "inner loops, of K1's walk and of one Philox "
+                             "call")
     parser.add_argument("--k7-variants", action="store_true",
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="time K5-hw, K5, K2-hw, K2, K3-hw and K4-hw "
-                             "at pop 100k, L 100, K6-hw and K6 at 30 genes, "
-                             "and K9 on the GP schedules "
+                        help="time K5-hw, K5, K2-hw, K2, K3-hw, K4-hw and "
+                             "K1 at pop 100k, L 100, K8 and K7 at the "
+                             "NSGA-II path's shapes, K6-hw and K6 at 30 "
+                             "genes, and K9 on the GP schedules "
                              "(alone: nothing else runs)")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "
@@ -913,7 +1070,8 @@ def main():
     _build.build()
     dev = torch.device("cuda")
     if args.sass:
-        sass_k7(args.out, facts)
+        sass_dominance(args.out, facts)
+        sass_k1(args.out, facts)
         sass_philox(args.out, facts)
     if args.k7_variants:
         k7_variants(dev, facts)
@@ -947,7 +1105,8 @@ def main():
             state["pop"], state["hof"], _ = step(gen, state["pop"],
                                                  state["hof"])
 
-    profile("ea_simple", run_ea, 3, 10, args.out, facts)
+    profile("ea_simple", run_ea, 3, 10, args.out, facts,
+            kernels=("fused_variation_kernel",))
 
     pk = packed.pack_genomes(ops.bernoulli_genome(L)(gen, N))
     pstate = {"pk": pk, "fit": packed.packed_fitness(pk)}
