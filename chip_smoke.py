@@ -12,11 +12,13 @@ Phases (any failure ends the script with a non-zero exit code):
 2. hold K1, K3 and K4 against their plain PyTorch versions on the card at
    the main path's shapes (pop 100,000, L 100, 4 words) — bitwise — and
    time both with CUDA events, the L2 cache flushed before every launch
-   (K1 in each of its kinds beside a torch copy of its output), then K1
-   at 648 more shapes (``k1_sweep``: L 1, 3, 4, 5, 100 and 101, n 1, 33
-   and 1001 with N below, above and equal, empty and whole segments,
-   cxpb and mutpb at 0 and 1, genomes off their unit's alignment, every
-   kind in both dtypes);
+   (K1 in each of its kinds beside a torch copy of its output, K3 beside a
+   torch copy of its genomes), then K1 at 648 more shapes (``k1_sweep``:
+   L 1, 3, 4, 5, 100 and 101, n 1, 33 and 1001 with N below, above and
+   equal, empty and whole segments, cxpb and mutpb at 0 and 1, genomes off
+   their unit's alignment, every kind in both dtypes) and K3 at 168 more
+   (``k3_sweep``: n 1, 2, 255, 256, 257 off 16-byte alignment and 1001 by
+   L 1-300, cxpb and mutpb at 0 and 1);
 3. ``ea_simple`` OneMax (pop 100k, L 100, cxpb 0.5, mutpb 0.2, indpb 0.05,
    tournament 3, hall of fame 1, fitness statistics) for 20 generations,
    after a small run that must equal the unfused composition bit for bit;
@@ -31,8 +33,13 @@ Phases (any failure ends the script with a non-zero exit code):
    variant, after a 5-generation run at n 1001 that must equal the plain
    versions bit for bit;
 6. K5, the resident whole-GA loop: bitwise against its plain version for
-   5 generations at pop 100k and at a small odd n, then 200 generations
-   at pop 100k in 4 calls of 50;
+   5 generations at pop 100k and at a small odd n and at 109 more shapes
+   (``k5_sweep``: n 1, 2, 255, 257, 1000 with its gene planes off 16-byte
+   alignment, 1001, and 300,001, past one resident wave of tiles, by L
+   1-300, tournaments of 1-9, 1-3 generations, cxpb and mutpb at 0 and 1),
+   timed beside its bound, its sector floor (the 32-byte sectors its
+   draws must fetch) and a read-only torch pass over a call's draws, then
+   200 generations at pop 100k in 4 calls of 50;
 7. K6 on the continuous GA (``bench_suite.py``'s rastrigin_n30_pop100k:
    blend α 0.5, Gaussian σ 0.3 and indpb 0.1, cxpb 0.5, mutpb 0.2):
    against its plain version at pop 100k and L 30 (decisions and crossed
@@ -139,6 +146,8 @@ ENGINE_N, DC_UNION, MO_SMALL = 8192, 16_384, 2048
 # bench.py's fused and whole-GA candidates: 200 generations; K5 takes them
 # in calls of 50
 FUSED_NGEN, EVOLVE_NGEN, EVOLVE_CALL = 200, 200, 50
+# K5 at more children than the card holds in one resident wave of tiles
+K5_WAVE = 300_001
 # bench_suite.py's continuous GA, rastrigin_n30_pop100k (NGEN 50)
 RA_N, RA_DIM, RA_NGEN, RA_UNFUSED_NGEN = 100_000, 30, 50, 10
 RA_CXPB, RA_MUTPB, RA_INDPB, RA_ALPHA, RA_SIGMA = 0.5, 0.2, 0.1, 0.5, 0.3
@@ -451,6 +460,35 @@ def main():
            time_ms(lambda: packed.fused_variation_eval_packed_plain(
                pk, L, *bits, **probs), flush), nbytes)
     print(f"  (of {N} rows {n_mut} mutate, of {N // 2} pairs {n_cx} mate)")
+    # the practical floor of moving these genomes under this timer: a torch
+    # copy of the same 1.6 MB (it does not compute the function)
+    copy_to = torch.empty_like(pk)
+    print(f"  K3: a torch copy of the same {pk.numel() * 4 / 1e6:.2f} MB "
+          f"genomes {time_ms(lambda: copy_to.copy_(pk), flush) * 1e3:.2f} us "
+          f"under the same timer")
+    print_ptxas("packed_variation", "packed_variation_kernel")
+    del copy_to
+    cases = 0
+    for n_, L_, probs_ in k3_sweep():
+        pkn = packed.pack_genomes(torch.rand((n_, L_), generator=gen,
+                                             device=dev) < 0.5)
+        if n_ == 257:  # genomes and genebits off 16-byte alignment
+            pkn = offset_copy(torch, pkn)
+        bn = packed.variation_bits(gen, n_, pkn.shape[1])
+        if n_ == 257:
+            bn = bn[:2] + (offset_copy(torch, bn[2]),)
+        kw = dict(zip(("cxpb", "mutpb", "indpb"), probs_))
+        got = packed.fused_variation_eval_packed(pkn, L_, *bn, **kw)
+        want = packed.fused_variation_eval_packed_plain(pkn, L_, *bn, **kw)
+        torch.cuda.synchronize()
+        if not (bitwise_equal(got[0], want[0])
+                and bitwise_equal(got[1], want[1])):
+            fail(f"fused_variation_eval_packed differs from the plain "
+                 f"version at n={n_}, L={L_}, (cxpb, mutpb, indpb)={probs_}")
+        cases += 1
+    print(f"{tag} fused_variation_eval_packed == plain bitwise at {cases} "
+          f"more shapes (n 1, 2, 255, 256, 257 off 16-byte alignment, 1001 "
+          f"by L 1, 31, 32, 33, {L}, 128, 300; cxpb and mutpb at 0 and 1)")
 
     # ----------------------------- K4 sel_tournament_gather_packed check --
     fit = packed.packed_fitness(pk)
@@ -735,13 +773,43 @@ def whole_generation_phases(torch, dev, tag, report, record):
             worst = max(worst, max_abs_err(a, b))
         print(f"{tag} evolve_packed == plain bitwise after 5 generations at "
               f"n={n}, W={W}")
+    cases = 0
+    for n_, L_, ts, ngen_, probs_ in k5_sweep():
+        g = make_generator(41 + cases, dev)
+        pk_ = packed.pack_genomes(torch.rand((n_, L_), generator=g,
+                                             device=dev) < 0.5)
+        fit_ = packed.packed_fitness(pk_)
+        bn = packed.evolve_bits(g, ngen_, ts, n_, pk_.shape[1])
+        if n_ == 1000:  # the draws off 16-byte alignment: 4-byte copies
+            bn = bn[:3] + (offset_copy(torch, bn[3]),)
+        kw = dict(zip(("cxpb", "mutpb", "indpb"), probs_))
+        got = packed.evolve_packed(pk_, fit_, L_, *bn, **kw)
+        want = packed.evolve_packed_plain(pk_, fit_, L_, *bn, **kw)
+        torch.cuda.synchronize()
+        if not (bitwise_equal(got[0], want[0])
+                and bitwise_equal(got[1], want[1])):
+            fail(f"evolve_packed differs from the plain version at n={n_}, "
+                 f"L={L_}, tournsize={ts}, ngen={ngen_}, "
+                 f"(cxpb, mutpb, indpb)={probs_}")
+        cases += 1
+    print(f"{tag} evolve_packed == plain bitwise at {cases} more shapes (n "
+          f"1, 2, 255, 257, 1000 with draws off 16-byte alignment, 1001 and "
+          f"{K5_WAVE} past one resident wave, by L 1-300, tournament 1-9, 1 "
+          f"to 3 generations, cxpb and mutpb at 0 and 1)")
+    print_ptxas("evolve_packed", "evolve_kernel")
     g, pk, fit = packed_start(23, N)
     bits = packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, W)
     call_bytes = evolve_bytes(bits, N, W, L, CXPB, MUTPB)
+    sector_bytes = evolve_sector_bytes(bits, N, W, L, CXPB, MUTPB)
+    rate = memory_rate(torch.cuda.get_device_name(0))
     print(f"  K5 bound per generation: {call_bytes / EVOLVE_CALL / 1e6:.3f} MB "
           f"(draws of {EVOLVE_CALL} generations "
           f"{sum(b.numel() for b in bits) * 4 / 1e9:.3f} GB per call, of which "
-          f"the call needs {call_bytes / 1e9:.3f} GB)")
+          f"the call needs {call_bytes / 1e9:.3f} GB: "
+          f"{call_bytes / rate * 1e6:.2f} us); sector floor "
+          f"{sector_bytes / 1e9:.3f} GB a call (the 32-byte sectors that hold "
+          f"a needed word), {sector_bytes / rate * 1e6:.2f} us at "
+          f"{rate / 1e12} TB/s")
     record("k5", "evolve_packed", "deap_tpu_torch/csrc/evolve_packed.cu",
            "deap_tpu/ops/packed.py:496", worst,
            time_ms(lambda: packed.evolve_packed(pk, fit, L, *bits, **probs),
@@ -749,6 +817,12 @@ def whole_generation_phases(torch, dev, tag, report, record):
            time_ms(lambda: packed.evolve_packed_plain(pk, fit, L, *bits,
                                                       **probs),
                    flush, reps=3), call_bytes)
+    # the practical floor of reading the call's draws under this timer: a
+    # read-only torch pass over them (a sum; it computes nothing of K5's)
+    read_ms = time_ms(lambda: [b.view(torch.float32).sum() for b in bits],
+                      flush, reps=5)
+    print(f"  K5: a read-only torch pass (a float32 sum) over the call's "
+          f"draws {read_ms * 1e3:.2f} us under the same timer")
     del bits
     g, pk, fit = packed_start(29, N)
     start_mean = float(fit.mean())
@@ -1857,6 +1931,40 @@ def pairs_mating(pairbits, cxpb):
     return rows_below(pairbits[0: 2 * (n // 2): 2, 0], cxpb)
 
 
+def k3_sweep():
+    """``(n, L, (cxpb, mutpb, indpb))`` of K3's bits-body sweep: n at 1,
+    2, a 256-row tile and either side of it (257 off 16-byte alignment),
+    1001; L from 1 to 300 (W 1 to 10: one uint4 a lane, word loads, more
+    than one 4-word chunk); each probability set, the rates at 0 and 1."""
+    return [(n, length, probs) for n in (1, 2, 255, 256, 257, 1001)
+            for length in (1, 31, 32, 33, 100, 128, 300)
+            for probs in ((0.5, 0.2, 0.05), (1.0, 1.0, 0.5),
+                          (0.0, 0.0, 0.3), (0.0, 1.0, 1.0))]
+
+
+def k5_sweep():
+    """``(n, L, tournsize, ngen, (cxpb, mutpb, indpb))`` of K5's bits-body
+    sweep: n at 1, 2, 255, 257, 1000 (16-byte copies; its planes then off
+    16-byte alignment), 1001 (4-byte copies) and past one resident wave of
+    tiles; L 1 to 300 (1 to 10 words, one chunk of 4 or more), tournaments
+    of 1 to 9, 1 to 3 generations, the rates at 0 and 1."""
+    shapes = [(n, length, ts, ngen, probs)
+              for n in (1, 2, 255, 257, 1000, 1001)
+              for length, ts, ngen in ((1, 1, 3), (31, 2, 1), (33, 4, 3),
+                                       (100, 3, 3), (128, 5, 2), (300, 9, 2))
+              for probs in ((0.5, 0.2, 0.05), (1.0, 1.0, 0.5),
+                            (0.0, 0.0, 0.3))]
+    return shapes + [(K5_WAVE, L, TOURNSIZE, 3, (CXPB, MUTPB, INDPB))]
+
+
+def offset_copy(torch, t):
+    """``t``'s values in a tensor 4 bytes past a 16-byte boundary."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = store[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def evolve_bytes(bits, n, W, L, cxpb, mutpb):
     """The bytes one :func:`evolve_packed` call on ``bits`` must move:
     the population and fitness in and out once; per generation every
@@ -1870,6 +1978,39 @@ def evolve_bytes(bits, n, W, L, cxpb, mutpb):
     per_gen = 4 * (tournsize * n + n // 2 + n)
     return (2 * (4 * n * W + 4 * n) + ngen * per_gen + 8 * n_cx
             + 4 * L * n_mut)
+
+
+def evolve_sector_bytes(bits, n, W, L, cxpb, mutpb):
+    """The bytes of the 32-byte sectors (8 lanes) one :func:`evolve_packed`
+    call on ``bits`` must fetch, each once: the population and fitness in
+    and out once; per generation every sector of the aspirant and row
+    draws, the sectors of pair word 0 (every one holds an even lane) and of
+    words 1-2 that hold a mating pair, and of each of the ``L`` real gene
+    planes the sectors that hold a mutating lane."""
+    import torch
+    from deap_tpu_torch.ops import kernels
+    sel, pair, row, _ = bits
+    ngen, tournsize = sel.shape[:2]
+    sectors = -(-n // 8)
+
+    def hit(lanes):
+        padded = torch.zeros(sectors * 8, dtype=torch.bool,
+                             device=lanes.device)
+        padded[:n] = lanes
+        return int(padded.view(-1, 8).any(1).sum())
+
+    total = 2 * (4 * n * W + 4 * n)
+    for g in range(ngen):
+        mating = (kernels._u01(kernels._words(pair[g, 0]))
+                  < kernels._f32(cxpb))
+        mating[1::2] = False  # the even lane's word decides the pair
+        if n % 2:
+            mating[n - 1] = False  # an odd last lane never mates
+        mutating = (kernels._u01(kernels._words(row[g, 0]))
+                    < kernels._f32(mutpb))
+        total += 32 * ((tournsize + 2) * sectors + 2 * hit(mating)
+                       + L * hit(mutating))
+    return total
 
 
 def k9_bytes(sched, prims, P):

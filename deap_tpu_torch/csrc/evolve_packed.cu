@@ -18,18 +18,50 @@
 // Bound on the H100: bytes of the draws. The population (1.6 MB at pop
 // 100k, W 4) and the fitness (0.4 MB) stay in the 50 MB L2 between
 // generations; a generation reads t + 1 draw words per lane, three per
-// mating pair and L per mutating lane (the planes of real genes).
+// mating pair and L per mutating lane (the planes of real genes). That
+// count (PERF.md's bound, 150.52 us for a 50-generation call at pop 100k,
+// L 100, tournament 3, mutpb 0.2) is in 4-byte words, but the card reads
+// 32-byte sectors of 8 lanes, and at mutpb 0.2 a sector of a gene plane
+// holds a mutating lane with probability 1 - 0.8^8 = 0.832: the sectors a
+// generation must fetch are ~36 MB (33.3 of them gene planes), ~1.8 GB a
+// call, ~540 us at 3.35 TB/s (chip_smoke.py prints this sector floor).
 //
-// Design: a persistent cooperative kernel (cudaLaunchCooperativeKernel),
-// sized to the blocks the card holds at once, loops grid-stride over the
-// pairs of children, and calls grid.sync() once per generation. The
-// population and the fitness are double-buffered in device memory: a
-// generation reads only the buffers the previous one finished (the input
-// tensors for the first), so selection sees the whole previous generation.
-// The thread of pair p selects both parents, gathers their words, crosses
-// them, mutates each child (reading gene bits only where it mutates) and
-// writes both children and their popcounts. Buffers written inside the
-// kernel are read through plain loads, never the read-only cache.
+// Design (evolve_kernel): K5-hw's grid. A thread per child in tiles of
+// 256 children, a block a tile, on a resident cooperative grid; the tiles
+// loop when n exceeds what the card holds at once. The population and the
+// fitness are double-buffered in device memory: a generation reads only
+// the buffers the previous one finished (the input tensors for the first),
+// through plain loads, never the read-only cache. The first design (a
+// thread per pair, a serial chain of scalar gene loads, 8 in flight, 1740
+// us a call) waited on round trips; this one keeps the planes streaming:
+// - A warp's ring in shared memory. A warp copies its 32 lanes of each
+//   gene plane (128 contiguous bytes) with cp.async, 16 bytes a lane (8
+//   lanes a plane, 4 planes a group, 2 groups in flight; 4 bytes a lane
+//   where n % 4 != 0), and reads each group from shared memory as it
+//   lands. Whole planes, for every warp with a mutating lane: predicating
+//   the loads on the lane's own mutation (the sector floor) measured
+//   slower, and so did deeper rings, register batches of 16-32 planes and
+//   4-byte copies a lane. The planes go into L2 evict-first (a
+//   generation's ~40 MB would otherwise push the population out).
+// - The planes never wait for the population. A grid barrier in two
+//   halves (grid_arrive, grid_wait; a count the wrapper zeroes): after a
+//   block writes its children it arrives, then streams the next item's
+//   planes into its flip words while the other blocks finish, and only
+//   then waits. The next item's first planes are issued before this
+//   item's tournament (its row word is loaded an item ahead), and its
+//   draws load while this item breeds.
+// - Coalescing. Adjacent threads hold adjacent lanes: a warp reads each
+//   sel and row word as 128 contiguous bytes; both lanes of a pair read the
+//   even lane's pair words (one sector); the partner's parent words come
+//   by a shuffle (tile_worklist.cuh::cross_words); the tournament's first
+//   4 fitness loads go out together.
+// - Flip words stay in registers (4 words a chunk); a genome of more than
+//   4 words streams its later chunks after its first, in line.
+// On an NVIDIA H100 80GB HBM3 (700 W) a 50-generation call at pop 100k,
+// L 100, tournament 3 takes 842-845 us after an L2 flush (1730-1733 for
+// the first design, in turns; port_profile.py --kernel-times), 1.56x its
+// sector floor, where a read-only torch pass over the call's 2.7 GB of
+// draws takes ~908 us: the planes' bytes, read whole, hold it.
 //
 // The Philox path (evolve_hw_kernel, replacing _evolve_kernel_hw of
 // deap_tpu/ops/packed.py) takes no draw tensors: each child makes its
@@ -84,109 +116,346 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // the bits body: one thread per pair of lanes
-constexpr int kTile = 256;     // the Philox path: children of a tile (a block)
+constexpr int kTile = 256;     // children of a tile (a block), both paths
 constexpr int kFlipWords = 8;  // flip words of a work-list chunk (256 genes)
+constexpr int kWords = 4;      // the bits body's chunk: a uint4 of a row
+constexpr int kAspirants = 4;  // aspirant words loaded ahead of an item
+constexpr int kWarps = kTile / 32;
+constexpr int kRing = 8;            // gene planes in a warp's ring
+constexpr int kAhead = kRing / 4;   // copy groups (4 planes each) in flight
 
-// Winning population index of lane c's tournament.
-__device__ __forceinline__ uint32_t tournament(const float* fit,
-                                               const uint32_t* sel,
-                                               size_t lanes, int c, int n,
-                                               int tournsize) {
-  const uint32_t un = static_cast<uint32_t>(n);
-  uint32_t best = sel[c] % un;
-  float best_fit = fit[best];
-  for (int t = 1; t < tournsize; ++t) {
-    const uint32_t idx = sel[t * lanes + c] % un;
-    const float f = fit[idx];
-    if (f > best_fit) {
-      best = idx;
-      best_fit = f;
+// One child's draws of one generation: its row word, its pair's three
+// words (the even lane's), its first kAspirants aspirant words.
+struct Draws {
+  uint32_t row, cx, u1, u2;
+  uint32_t sel[kAspirants];
+};
+
+// Child c's draws of generation g (none where !valid), streamed: read
+// once, kept out of the way of the population in L2.
+__device__ __forceinline__ Draws load_draws(const uint32_t* sel,
+                                            const uint32_t* pair,
+                                            const uint32_t* row, int g,
+                                            int c, size_t lanes, bool valid,
+                                            int tournsize) {
+  Draws d = {};
+  if (!valid) return d;
+  const size_t gen = static_cast<size_t>(g);
+  d.row = __ldcs(row + gen * lanes + c);
+  const uint32_t* p = pair + gen * 3 * lanes + (c & ~1);
+  d.cx = __ldcs(p);
+  d.u1 = __ldcs(p + lanes);
+  d.u2 = __ldcs(p + 2 * lanes);
+  const uint32_t* s = sel + gen * tournsize * lanes + c;
+#pragma unroll
+  for (int k = 0; k < kAspirants; ++k)
+    if (k < tournsize) d.sel[k] = __ldcs(s + k * lanes);
+  return d;
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async,
+// sm_80+), in commit groups; a thread waits for its own. The gene planes
+// are read once: they go into L2 marked evict-first, so a generation's
+// ~40 MB of planes do not push the population and the fitness (~4 MB,
+// read again by the next generation) out of the 50 MB L2.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ void copy16(uint32_t* dst, const uint32_t* src) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+          to),
+      "l"(src), "l"(evict_first())
+      : "memory");
+}
+
+__device__ __forceinline__ void copy4(uint32_t* dst, const uint32_t* src) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;\n" ::"r"(
+          to),
+      "l"(src), "l"(evict_first())
+      : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's latest groups are in
+// flight.
+template <int pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// Copy group j of a warp's gene planes of chunk w0 into `slot`, 4 planes
+// of its ring: planes q = 4 j .. 4 j + 3 of the chunk (gene 32 w0 + q,
+// genes below L only, P of them), each the warp's 32 lanes of that plane
+// (from lane c0). `wide`: 8 lanes a plane, 16 bytes each (n % 4 == 0,
+// gene 16-byte aligned); else each lane its own 4 bytes of each plane.
+// Commits a group either way, so the warp's lanes count the same groups.
+__device__ __forceinline__ void issue_planes(uint32_t (*slot)[32],
+                                             const uint32_t* gene,
+                                             size_t lanes, int n, int W,
+                                             int w0, int P, int j, int c0,
+                                             bool wide) {
+  const int lane = threadIdx.x & 31;
+  if (4 * j < P) {
+    if (wide) {
+      const int i = lane >> 3, at = 4 * (lane & 7);
+      const int q = 4 * j + i, g = 32 * w0 + q;
+      if (q < P && c0 + at < n)
+        copy16(&slot[i][at],
+               gene + static_cast<size_t>((g & 31) * W + (g >> 5)) * lanes +
+                   c0 + at);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 4 * j + i, g = 32 * w0 + q;
+        if (q < P && c0 + lane < n)
+          copy4(&slot[i][lane],
+                gene + static_cast<size_t>((g & 31) * W + (g >> 5)) * lanes +
+                    c0 + lane);
+      }
     }
   }
-  return best;
+  copy_commit();
 }
 
-// Flip word w of lane c: bit b set where plane b of word w is below indpb,
-// for the nb bits of the word that hold genes (the planes past gene L are
-// never read).
-__device__ __forceinline__ uint32_t flip_word(const uint32_t* gene,
-                                              size_t lanes, int W, int w,
-                                              int nb, int c, float indpb) {
-  uint32_t flip = 0u;
-#pragma unroll 8
-  for (int b = 0; b < nb; ++b) {
-    flip |= static_cast<uint32_t>(
-                u01(gene[static_cast<size_t>(b * W + w) * lanes + c]) < indpb)
-            << b;
+// The flip words of chunk w0 (kWords words from word w0, genes 32 w0 ..)
+// of a warp's lanes from c0 (this lane mutating where mut): its P gene
+// planes (none where no lane of the warp mutates) stream through the
+// warp's ring, kAhead copy groups of 4 planes in flight (start_planes
+// issues the first kAhead), each group read as it lands (read_planes), the
+// bits of genes below the gene rate set. Every lane of the warp calls
+// them with the same P.
+__device__ __forceinline__ void start_planes(uint32_t (*ring)[32],
+                                             const uint32_t* gene,
+                                             size_t lanes, int n, int W,
+                                             int w0, int P, int c0,
+                                             bool wide) {
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    issue_planes(ring + 4 * j, gene, lanes, n, W, w0, P, j, c0, wide);
+}
+
+__device__ __forceinline__ void read_planes(uint32_t (*ring)[32],
+                                            const uint32_t* gene,
+                                            size_t lanes, int n, int W,
+                                            int w0, int P, int c0, bool mut,
+                                            uint32_t below, bool wide,
+                                            uint32_t (&flip)[kWords]) {
+  const int lane = threadIdx.x & 31;
+  const int groups = (P + 3) / 4;
+  for (int j = 0; j < groups; ++j) {
+    uint32_t(*slot)[32] = ring + 4 * (j % kAhead);
+    copy_wait<kAhead - 1>();  // group j has landed
+    __syncwarp();             // the warp's copies of it too
+    uint32_t bits = 0u;       // genes 32 w0 + 4 j .. + 3
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (mut && 4 * j + i < P && (slot[i][lane] >> 8) < below)
+        bits |= 1u << i;
+    __syncwarp();  // every lane has read the slot before it refills
+    issue_planes(slot, gene, lanes, n, W, w0, P, j + kAhead, c0, wide);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      if (j >> 3 == k) flip[k] |= bits << (4 * j & 31);
   }
-  return flip;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A grid barrier in two halves (all blocks resident, cooperative launch),
+// as cooperative_groups' grid.sync() is made: a block arrives once its
+// threads' writes are done; its thread 0 then waits for the count of
+// arrivals to reach `target`. In between, a block may do work that reads
+// nothing the other blocks write.
+__device__ __forceinline__ void grid_arrive(unsigned* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* arrived,
+                                          unsigned target) {
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<const volatile unsigned*>(arrived) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kTile, 3)
 evolve_kernel(const uint32_t* __restrict__ pop0, const float* __restrict__ fit0,
               const uint32_t* __restrict__ sel, const uint32_t* __restrict__ pair,
               const uint32_t* __restrict__ row, const uint32_t* __restrict__ gene,
-              uint32_t* pops, float* fits, int n, int W, int L, int ngen,
-              int tournsize, float cxpb, float mutpb, float indpb) {
-  cg::grid_group grid = cg::this_grid();
+              uint32_t* pops, float* fits, unsigned* arrived, int n, int W,
+              int L, int ngen, int tournsize, float cxpb, float mutpb,
+              float indpb) {
+  // each warp's ring of gene planes in flight: kRing planes of its lanes
+  __shared__ uint32_t rings[kWarps][kRing][32];
+  const int tid = threadIdx.x;
+  const int tiles = (n + kTile - 1) / kTile;
+  uint32_t(*ring)[32] = rings[tid >> 5];
   const size_t lanes = static_cast<size_t>(n);
-  const int npairs = (n + 1) / 2;
+  const size_t plane_words = static_cast<size_t>(32) * W * lanes;
+  const uint32_t un = static_cast<uint32_t>(n);
+  const bool wide = n % 4 == 0 && reinterpret_cast<uintptr_t>(gene) % 16 == 0;
+  // rows of whole uint4s, aligned: one 16-byte load or store a row chunk
+  const bool vec4 = W % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(pop0) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(pops) % 16 == 0;
+  const uint32_t cx_below = u01_threshold(cxpb);
+  const uint32_t mut_below = u01_threshold(mutpb);
+  const uint32_t gene_below = u01_threshold(indpb);
+  // the planes of chunk w0 at mutating lanes of the warp
+  auto planes = [=](int w0, bool mut) {
+    return __any_sync(0xffffffffu, mut)
+               ? max(0, min(L, 32 * (w0 + kWords)) - 32 * w0)
+               : 0;
+  };
+  // the block's first item (generation 0, tile blockIdx.x): its draws,
+  // and the row word of the item after it
+  int c = blockIdx.x * kTile + tid;
+  Draws d = load_draws(sel, pair, row, 0, c, lanes, c < n, tournsize);
+  bool mut = c < n && (d.row >> 8) < mut_below;
+  int P = planes(0, mut);
+  start_planes(ring, gene, lanes, n, W, 0, P, c - (tid & 31), wide);
+  uint32_t row_next = 0u;
+  {
+    int t = blockIdx.x + gridDim.x, g = 0;
+    if (t >= tiles) {
+      t = blockIdx.x;
+      ++g;
+    }
+    if (g < ngen && t * kTile + tid < n)
+      row_next = __ldcs(row + static_cast<size_t>(g) * lanes + t * kTile +
+                        tid);
+  }
+  uint32_t flip[kWords] = {0u, 0u, 0u, 0u};
+  read_planes(ring, gene, lanes, n, W, 0, P, c - (tid & 31), mut, gene_below,
+              wide, flip);
   for (int gen = 0; gen < ngen; ++gen) {
     const int prev = (gen - 1) & 1;
     const uint32_t* src = gen == 0 ? pop0 : pops + prev * lanes * W;
     const float* fsrc = gen == 0 ? fit0 : fits + prev * lanes;
     uint32_t* dst = pops + (gen & 1) * lanes * W;
     float* fdst = fits + (gen & 1) * lanes;
-    const uint32_t* gsel = sel + static_cast<size_t>(gen) * tournsize * lanes;
-    const uint32_t* gpair = pair + static_cast<size_t>(gen) * 3 * lanes;
-    const uint32_t* grow = row + static_cast<size_t>(gen) * lanes;
-    const uint32_t* ggene = gene + static_cast<size_t>(gen) * 32 * W * lanes;
-    for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < npairs;
-         p += gridDim.x * blockDim.x) {
-      const int a = 2 * p, b = a + 1;
-      const bool has_b = b < n;
-      const size_t pa = tournament(fsrc, gsel, lanes, a, n, tournsize);
-      const size_t pb = has_b ? tournament(fsrc, gsel, lanes, b, n, tournsize)
-                              : pa;
-      const bool do_cx = has_b && u01(gpair[a]) < cxpb;
+    const uint32_t* gsel =
+        sel + static_cast<size_t>(gen) * tournsize * lanes;
+    // the tile index is the same for the whole block, so every thread
+    // reaches each shuffle and barrier
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      c = tile * kTile + tid;
+      const bool valid = c < n;
+      // the next item (the next tile of this generation, else the first of
+      // the next) and the one after it
+      int next_tile = tile + static_cast<int>(gridDim.x), next_gen = gen;
+      if (next_tile >= tiles) {
+        next_tile = blockIdx.x;
+        ++next_gen;
+      }
+      int after_tile = next_tile + static_cast<int>(gridDim.x),
+          after_gen = next_gen;
+      if (after_tile >= tiles) {
+        after_tile = blockIdx.x;
+        ++after_gen;
+      }
+      const int nc = next_tile * kTile + tid;
+      const bool next_valid = next_gen < ngen && nc < n;
+      // the next item's first gene planes: they start streaming while this
+      // one breeds (where its flip words take one chunk; else after this
+      // item's later chunks, which use the ring first); its row word landed
+      // during the last item
+      const bool next_mut = next_valid && (row_next >> 8) < mut_below;
+      const int next_P = planes(0, next_mut);
+      const uint32_t* next_gene =
+          gene + static_cast<size_t>(next_gen) * plane_words;
+      if (W <= kWords)
+        start_planes(ring, next_gene, lanes, n, W, 0, next_P, nc - (tid & 31),
+                     wide);
+      const Draws nd = load_draws(sel, pair, row, next_gen, nc, lanes,
+                                  next_valid, tournsize);
+      row_next = 0u;
+      if (after_gen < ngen && after_tile * kTile + tid < n)
+        row_next = __ldcs(row + static_cast<size_t>(after_gen) * lanes +
+                          after_tile * kTile + tid);
+      const bool do_cx = (c | 1) < n && (d.cx >> 8) < cx_below;
       int lo = 0, hi = 0;
-      if (do_cx) {
-        const int p1 =
-            1 + static_cast<int>(u01(gpair[lanes + a]) * static_cast<float>(L));
-        int p2 = 1 + static_cast<int>(u01(gpair[2 * lanes + a]) *
-                                      static_cast<float>(L - 1));
-        if (p2 >= p1) p2 += 1;
-        lo = min(p1, p2);
-        hi = max(p1, p2);
-      }
-      const bool mut_a = u01(grow[a]) < mutpb;
-      const bool mut_b = has_b && u01(grow[b]) < mutpb;
-      int count_a = 0, count_b = 0;
-      for (int w = 0; w < W; ++w) {
-        const int start = 32 * w;
-        uint32_t xa = src[pa * W + w];
-        uint32_t xb = src[pb * W + w];
-        if (do_cx) {
-          const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
-          const uint32_t ya = (xa & ~seg) | (xb & seg);
-          xb = (xb & ~seg) | (xa & seg);
-          xa = ya;
+      if (do_cx) cut_segment(d.u1, d.u2, L, &lo, &hi);
+      // the tournament: the first kAspirants fitness loads together, then
+      // the rest kAspirants at a time; a strictly greater fitness wins
+      size_t parent = 0;
+      if (valid) {
+        uint32_t best = 0u;
+        float best_fit = 0.0f;
+        for (int t0 = 0; t0 < tournsize; t0 += kAspirants) {
+          uint32_t idx[kAspirants];
+          float f[kAspirants];
+#pragma unroll
+          for (int k = 0; k < kAspirants; ++k)
+            idx[k] = t0 == 0 ? d.sel[k] % un
+                     : t0 + k < tournsize
+                         ? __ldcs(gsel + (t0 + k) * lanes + c) % un
+                         : 0u;
+#pragma unroll
+          for (int k = 0; k < kAspirants; ++k)
+            f[k] = t0 + k < tournsize ? fsrc[idx[k]] : 0.0f;
+#pragma unroll
+          for (int k = 0; k < kAspirants; ++k) {
+            if (t0 + k < tournsize && (t0 + k == 0 || f[k] > best_fit)) {
+              best = idx[k];
+              best_fit = f[k];
+            }
+          }
         }
-        const int nb = min(32, L - start);
-        if (mut_a) xa ^= flip_word(ggene, lanes, W, w, nb, a, indpb);
-        dst[static_cast<size_t>(a) * W + w] = xa;
-        count_a += __popc(xa);
-        if (has_b) {
-          if (mut_b) xb ^= flip_word(ggene, lanes, W, w, nb, b, indpb);
-          dst[static_cast<size_t>(b) * W + w] = xb;
-          count_b += __popc(xb);
-        }
+        parent = best;
       }
-      fdst[a] = static_cast<float>(count_a);
-      if (has_b) fdst[b] = static_cast<float>(count_b);
+      int count = 0;
+      for (int w0 = 0; w0 < W; w0 += kWords) {
+        if (w0 > 0) {  // the chunks past the first stream here
+          const uint32_t* gene_now =
+              gene + static_cast<size_t>(gen) * plane_words;
+          const int Pw = planes(w0, mut);
+#pragma unroll
+          for (int k = 0; k < kWords; ++k) flip[k] = 0u;
+          start_planes(ring, gene_now, lanes, n, W, w0, Pw, c - (tid & 31),
+                       wide);
+          read_planes(ring, gene_now, lanes, n, W, w0, Pw, c - (tid & 31),
+                      mut, gene_below, wide, flip);
+        }
+        uint32_t x[kWords];
+        load_words<kWords>(src + parent * W, w0, W, valid, vec4, x);
+        count += cross_words<kWords>(x, w0, W, do_cx, lo, hi,
+                                     [&](int k) { return flip[k]; });
+        store_words<kWords>(dst + static_cast<size_t>(c) * W, w0, W, valid,
+                            vec4, x);
+      }
+      if (valid) fdst[c] = static_cast<float>(count);
+      // the block's last tile of a generation that another follows
+      const bool last = next_gen > gen && next_gen < ngen;
+      if (last) grid_arrive(arrived);
+      // the next item's flip words: its planes need nothing of this
+      // generation, so they stream while the other blocks finish it
+      if (W > kWords)
+        start_planes(ring, next_gene, lanes, n, W, 0, next_P, nc - (tid & 31),
+                     wide);
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) flip[k] = 0u;
+      read_planes(ring, next_gene, lanes, n, W, 0, next_P, nc - (tid & 31),
+                  next_mut, gene_below, wide, flip);
+      // generation gen is finished before gen + 1 selects
+      if (last) grid_wait(arrived, (gen + 1) * gridDim.x);
+      d = nd;
+      mut = next_valid && (d.row >> 8) < mut_below;
     }
-    grid.sync();  // generation gen is finished before gen + 1 selects
   }
 }
 
@@ -348,11 +617,12 @@ int launch_hw(void** args, int n, void* stream) {
 
 // pops [2, n, W] and fits [2, n] are the double buffers; generation g
 // writes buffer g & 1, so the result is buffer (ngen - 1) & 1.
+// arrived is one zeroed uint32 (the grid barrier's count of arrivals).
 extern "C" int evolve_packed(const void* pop0, const void* fit0,
                              const void* sel, const void* pair,
                              const void* row, const void* gene, void* pops,
-                             void* fits, int n, int W, int L, int ngen,
-                             int tournsize, float cxpb, float mutpb,
+                             void* fits, void* arrived, int n, int W, int L,
+                             int ngen, int tournsize, float cxpb, float mutpb,
                              float indpb, void* stream) {
   const uint32_t* pop0_ = static_cast<const uint32_t*>(pop0);
   const float* fit0_ = static_cast<const float*>(fit0);
@@ -362,12 +632,12 @@ extern "C" int evolve_packed(const void* pop0, const void* fit0,
   const uint32_t* gene_ = static_cast<const uint32_t*>(gene);
   uint32_t* pops_ = static_cast<uint32_t*>(pops);
   float* fits_ = static_cast<float*>(fits);
+  unsigned* arrived_ = static_cast<unsigned*>(arrived);
   void* args[] = {&pop0_, &fit0_, &sel_, &pair_, &row_, &gene_, &pops_,
-                  &fits_, &n, &W, &L, &ngen, &tournsize, &cxpb, &mutpb,
-                  &indpb};
+                  &fits_, &arrived_, &n, &W, &L, &ngen, &tournsize, &cxpb,
+                  &mutpb, &indpb};
   return launch_resident(reinterpret_cast<const void*>(evolve_kernel), args,
-                         grid_for((n + 1) / 2, kThreads, 1 << 30), kThreads,
-                         stream);
+                         grid_for(n, kTile, 1 << 30), kTile, stream);
 }
 
 // The Philox path: key is uint32[2] on the card; the same double buffers.

@@ -13,15 +13,31 @@
 // 16x the genomes; a row that does not mutate (mutpb) needs none of it,
 // and a row that does needs the L planes of its real genes.
 //
-// Design: one thread per row. The row's words stay in registers; the
-// crossover segment of each word is the mask bits_below(hi - 32 j) &
-// ~bits_below(lo - 32 j); flip words are assembled from the 32 bit-plane
-// columns by shifts and ors (the TPU folded them with two MXU matmuls, a
-// TPU workaround that gives the same bits) from the planes of genes below
-// L only, so the tail beyond L never flips;
-// fitness is __popc summed. The partner row (r ^ 1) is read only when the
-// pair mates and the gene bits only when the row mutates, so the kernel
-// moves only the bytes this generation's draws need.
+// Design (packed_variation_kernel): the first design gave each row's
+// thread its own gene loop: ~20% of rows mutate, so nearly every warp
+// (1 - 0.8^32) walked 4 words x 32 planes of scalar loads, 8 in flight,
+// its lanes' rows 512 B apart (each load instruction touching ~6 sectors,
+// each row's sectors read again for each of its W words): ~13 dependent
+// round trips a warp, not the ~12.4 MB the draws need. Now a warp, a row
+// a lane, loads its rows and their draws together, takes the ballot of
+// its mutating rows, and walks them kRows (4) at a time: lane l loads
+// words l W .. l W + 3 of a row's genebits (one uint4 where W % 4 == 0 and
+// aligned), the draws of plane l of the row's 4 words, so the warp reads
+// the row's 512 contiguous bytes in one instruction, all of them needed,
+// and the row's flip word k is the warp's ballot of word k below the gene
+// rate (plane l past gene L never flips), kept by the row's own lane. No
+// shared memory, no block barrier, no atomics; the partner's words come
+// from the adjacent lane by a shuffle (tile_worklist.cuh::cross_words),
+// both rows of a pair reading the even row's pair words (one sector).
+// Genomes of more than 4 words go in chunks of 4 (their words then
+// strided by W in genebits), so any W and L work. K3-hw's tile work list
+// (compact_mutants, a block barrier) measured slower here: without
+// Philox calls to spread there is nothing for the other warps to share.
+// On an NVIDIA H100 80GB HBM3 (700 W) it takes 14.50-14.53 us at n 100k,
+// L 100 after an L2 flush (25.50-25.63 for the first design, in turns;
+// port_profile.py --kernel-times), where a torch copy of the same 1.6 MB
+// genomes takes ~10.5 us: the mutating rows' ~10 MB of genebits, read
+// after the round trip of the draws that pick them, hold it.
 //
 // The Philox path (packed_variation_hw_kernel, replacing _packed_kernel_hw
 // of deap_tpu/ops/packed.py) makes the draws in registers from the key
@@ -52,7 +68,12 @@
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int kTile = 256;     // rows of a tile (a block), one a thread
+constexpr int kFlipWords = 8;  // flip words of a work-list chunk (256 genes)
+constexpr int kRows = 4;   // mutating rows a warp loads at once (bits body)
+constexpr int kChunk = 4;  // the bits body's chunk: a uint4 of a row
+
+__global__ void __launch_bounds__(kTile, 4)
 packed_variation_kernel(const uint32_t* __restrict__ g,
                         const uint32_t* __restrict__ pairbits,
                         const uint32_t* __restrict__ rowbits,
@@ -60,51 +81,89 @@ packed_variation_kernel(const uint32_t* __restrict__ g,
                         uint32_t* __restrict__ out, float* __restrict__ fit,
                         int n, int W, int L, float cxpb, float mutpb,
                         float indpb) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const uint32_t* pb = pairbits + static_cast<size_t>(r & ~1) * 4;
-  const bool has_partner = (r | 1) < n;  // an odd last row never mates
-  const bool do_cx = has_partner && u01(pb[0]) < cxpb;
-  int lo = 0, hi = 0;
-  if (do_cx) {
-    // p1 ~ U{1..L}, p2 ~ U{1..L-1} bumped past p1; f32 products as on the TPU
-    const int p1 = 1 + static_cast<int>(u01(pb[1]) * static_cast<float>(L));
-    int p2 = 1 + static_cast<int>(u01(pb[2]) * static_cast<float>(L - 1));
-    if (p2 >= p1) p2 += 1;
-    lo = min(p1, p2);
-    hi = max(p1, p2);
-  }
-  const bool do_mut = u01(rowbits[r]) < mutpb;
+  const int r = blockIdx.x * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool valid = r < n;
+  // rows of whole uint4s, aligned: one 16-byte load or store a row chunk
+  const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // a lane's chunk of gene words as one uint4: whole uint4s, aligned
+  const bool gvec4 =
+      W % 4 == 0 && reinterpret_cast<uintptr_t>(genebits) % 16 == 0;
   const uint32_t* self = g + static_cast<size_t>(r) * W;
-  const uint32_t* mate = g + static_cast<size_t>(r ^ 1) * W;
-  const uint32_t* gb = genebits + static_cast<size_t>(r) * 32 * W;
+  // the row's first chunk and its draws load together: its mutation gate
+  // and the pair's crossover words (the even row's, for both rows)
+  uint32_t x[kChunk];
+  load_words<kChunk>(self, 0, W, valid, vec4, x);
+  const bool has_pair = (r | 1) < n;  // an odd last row never mates
+  uint32_t cx = 0u, u1 = 0u, u2 = 0u, rb = 0u;
+  if (has_pair) {
+    const uint32_t* pb = pairbits + static_cast<size_t>(r & ~1) * 4;
+    cx = __ldcs(pb);
+    u1 = __ldcs(pb + 1);
+    u2 = __ldcs(pb + 2);
+  }
+  if (valid) rb = __ldcs(rowbits + r);
+  const bool do_cx = has_pair && (cx >> 8) < u01_threshold(cxpb);
+  int lo = 0, hi = 0;
+  if (do_cx) cut_segment(u1, u2, L, &lo, &hi);
+  const bool mut = valid && (rb >> 8) < u01_threshold(mutpb);
+  const uint32_t gene_below = u01_threshold(indpb);
+  // the warp's mutating rows (the same mask in every lane)
+  const unsigned mutants = __ballot_sync(0xffffffffu, mut);
+  const size_t row_words = static_cast<size_t>(32) * W;
+  const uint32_t* genes = genebits + static_cast<size_t>(r - lane) * row_words;
   uint32_t* dst = out + static_cast<size_t>(r) * W;
   int count = 0;
-  for (int j = 0; j < W; ++j) {
-    const int start = 32 * j;
-    uint32_t child = self[j];
-    if (do_cx) {
-      const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
-      child = (child & ~seg) | (mate[j] & seg);
-    }
-    if (do_mut) {
-      // only the planes of real genes: bits past gene L never flip
-      const int nb = min(32, L - start);
-      uint32_t flip = 0u;
-#pragma unroll 8
-      for (int b = 0; b < nb; ++b) {
-        flip |= static_cast<uint32_t>(u01(gb[b * W + j]) < indpb) << b;
+  for (int w0 = 0; w0 < W; w0 += kChunk) {
+    if (w0 > 0) load_words<kChunk>(self, w0, W, valid, vec4, x);
+    const int kw = min(kChunk, W - w0);
+    // the chunk's flip words of this lane's row, from the walk below
+    uint32_t flip[kChunk] = {0u, 0u, 0u, 0u};
+    // the warp walks its mutating rows kRows at a time: lane l loads words
+    // l W + w0 .. + kw - 1 of a row's genebits, the draws of plane l of the
+    // chunk's words (the warp reads the row's 32 kw words at once, one
+    // uint4 a lane where gvec4), so flip word k of the row is the warp's
+    // ballot of word k below the gene rate (plane l past gene L never
+    // flips), kept by the row's own lane
+    for (unsigned left = mutants; left;) {
+      int owner[kRows];
+      uint32_t v[kRows][kChunk];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        owner[j] = left ? __ffs(left) - 1 : -1;
+        left &= left - 1u;
+        const uint32_t* p = genes + owner[j] * row_words + lane * W + w0;
+        if (owner[j] >= 0 && gvec4) {
+          const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+          v[j][0] = q.x;
+          v[j][1] = q.y;
+          v[j][2] = q.z;
+          v[j][3] = q.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k)
+            v[j][k] = owner[j] >= 0 && k < kw ? __ldcs(p + k) : 0u;
+        }
       }
-      child ^= flip;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const unsigned word = __ballot_sync(
+              0xffffffffu,
+              32 * (w0 + k) + lane < L && (v[j][k] >> 8) < gene_below);
+          if (lane == owner[j] && k < kw) flip[k] = word;
+        }
+      }
     }
-    dst[j] = child;
-    count += __popc(child);
+    // the partner's words come from the adjacent lane
+    count += cross_words<kChunk>(x, w0, W, do_cx, lo, hi,
+                                 [&](int k) { return flip[k]; });
+    store_words<kChunk>(dst, w0, W, valid, vec4, x);
   }
-  fit[r] = static_cast<float>(count);
+  if (valid) fit[r] = static_cast<float>(count);
 }
-
-constexpr int kTile = 256;     // rows of a tile (a block), one a thread
-constexpr int kFlipWords = 8;  // flip words of a work-list chunk (256 genes)
 
 __global__ void __launch_bounds__(kTile)
 packed_variation_hw_kernel(const uint32_t* __restrict__ g,
@@ -170,9 +229,7 @@ extern "C" int packed_variation(const void* g, const void* pairbits,
                                 void* out, void* fit, int n, int W, int L,
                                 float cxpb, float mutpb, float indpb,
                                 void* stream) {
-  const int threads = 256;
-  const int blocks = grid_for(n, threads, 1 << 30);
-  packed_variation_kernel<<<blocks, threads, 0,
+  packed_variation_kernel<<<grid_for(n, kTile, 1 << 30), kTile, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(g), static_cast<const uint32_t*>(pairbits),
       static_cast<const uint32_t*>(rowbits),

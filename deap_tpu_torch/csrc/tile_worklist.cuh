@@ -1,6 +1,7 @@
 // The tile work list of the packed Philox paths: K3-hw
 // (packed_variation.cu::packed_variation_hw_kernel) and K5-hw
-// (evolve_packed.cu::evolve_hw_kernel) share it.
+// (evolve_packed.cu::evolve_hw_kernel) share it; the bits bodies of K3
+// and K5 share its row helpers (load_words, cross_words, store_words).
 //
 // A tile is a block of kTile rows, one thread per row. Only the rows that
 // mutate (~mutpb of them) make gene calls, ceil(L / 4) each, so a thread
@@ -108,16 +109,15 @@ __device__ __forceinline__ void load_words(const uint32_t* row, int w0,
 
 // The chunk's children in place in x: the pair's segment [lo, hi) from
 // the partner's words (the adjacent lane's x, by a shuffle) where do_cx,
-// the flip words where mut; returns their popcount. Every lane of the
-// warp calls it (W is the same for the whole block).
-template <int kTile, int kFlipWords>
-__device__ __forceinline__ int cross_flip_words(uint32_t* x, int w0, int W,
-                                                bool do_cx, int lo, int hi,
-                                                bool mut,
-                                                const uint32_t* flips) {
+// then each word XOR flip(k), its flip word; returns their popcount. Every
+// lane of the warp calls it (W is the same for the whole block).
+template <int kWords, typename Flip>
+__device__ __forceinline__ int cross_words(uint32_t* x, int w0, int W,
+                                           bool do_cx, int lo, int hi,
+                                           Flip flip) {
   int count = 0;
 #pragma unroll
-  for (int k = 0; k < kFlipWords; ++k) {
+  for (int k = 0; k < kWords; ++k) {
     if (w0 + k >= W) break;
     const uint32_t y = __shfl_xor_sync(0xffffffffu, x[k], 1);
     uint32_t v = x[k];
@@ -126,11 +126,23 @@ __device__ __forceinline__ int cross_flip_words(uint32_t* x, int w0, int W,
       const uint32_t seg = bits_below(hi - start) & ~bits_below(lo - start);
       v = (v & ~seg) | (y & seg);
     }
-    if (mut) v ^= flips[k * kTile + threadIdx.x];
+    v ^= flip(k);
     x[k] = v;
     count += __popc(v);
   }
   return count;
+}
+
+// cross_words with the flip words of the tile's list (flips[k * kTile +
+// thread], read only where mut).
+template <int kTile, int kFlipWords>
+__device__ __forceinline__ int cross_flip_words(uint32_t* x, int w0, int W,
+                                                bool do_cx, int lo, int hi,
+                                                bool mut,
+                                                const uint32_t* flips) {
+  return cross_words<kFlipWords>(x, w0, W, do_cx, lo, hi, [&](int k) {
+    return mut ? flips[k * kTile + threadIdx.x] : 0u;
+  });
 }
 
 // Words w0 .. of x into `row` (those below W, where valid), as uint4

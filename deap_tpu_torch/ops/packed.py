@@ -498,11 +498,14 @@ def evolve_packed(packed: torch.Tensor, fit: torch.Tensor, length: int,
                  pops.data_ptr(), fits.data_ptr(), *sizes, *probs, stream)
         evolve_packed.hw_launches += 1
     else:
+        # the count of the kernel's grid barrier
+        arrived = torch.zeros((1,), dtype=torch.int32, device=dev)
         fn = _build.function("evolve_packed", "evolve_packed",
-                             [P] * 8 + [I] * 5 + [F] * 3 + [P])
+                             [P] * 9 + [I] * 5 + [F] * 3 + [P])
         err = fn(packed.data_ptr(), fit.data_ptr(), sel.data_ptr(),
                  pair.data_ptr(), row.data_ptr(), gene.data_ptr(),
-                 pops.data_ptr(), fits.data_ptr(), *sizes, *probs, stream)
+                 pops.data_ptr(), fits.data_ptr(), arrived.data_ptr(), *sizes,
+                 *probs, stream)
     evolve_packed.launches += 1
     _build.check("evolve_packed", err, "evolve_packed")
     last = (ngen - 1) % 2  # generation g writes buffer g % 2

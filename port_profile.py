@@ -73,7 +73,7 @@ kernels; the listings go to ``DIR``);
 sort and gathers alone.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
-generations) and K2-hw, K2, K3-hw and K4-hw (one generation) at pop 100k
+generations) and K2-hw, K2, K3-hw, K3 and K4-hw (one generation) at pop 100k
 and L 100, K1 at ``ea_simple``'s shape (pop 100k, L 100: bool ``flip``,
 float32 ``flip``, ``add`` and ``set``, and with no crossover or
 mutation), K8 as the prefix reduction calls it (512 queries against 50k
@@ -83,10 +83,13 @@ rows, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
 gen-0 and evolved schedules (after the L2 flush, and K4-hw and K9 also
 without it), and beside them K5-hw with mutation off, K2-hw and K6-hw
 with crossover and mutation off, ``torch.index_select`` of K4-hw's
-winners (computed beforehand) and torch copies of the byte, the packed
-and the float32 genomes and of K9's value buffers, and the fill of K8's
-output alone; with checksums of a 20-generation ``ea_simple`` and one
-``sel_nsga2(nd='dc')`` at 16,384 rows (K1's and K8's whole runs); where
+winners (computed beforehand), torch copies of the byte, the packed
+and the float32 genomes and of K9's value buffers, a read-only torch pass
+over K5's draws and the fill of K8's output alone; with checksums of a
+20-generation ``ea_simple``, one ``sel_nsga2(nd='dc')`` at 16,384 rows,
+a 200-generation ``ea_simple_packed`` and four 50-generation
+``evolve_packed`` calls with ``prng='input'`` (K1's, K8's, K4 and K3's and
+K5's whole runs, with the last two's launch counts); where
 the package's source has K5-hw's phase clock, it also splits K5-hw's
 generation by phase from a build with ``-DDTT_K5_PHASES``, and for this
 checkout's package K9's items from a build with ``-DDTT_K9_PHASES``.
@@ -558,8 +561,8 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
 
 
 def kernel_times(dev, facts, root, reps=25):
-    """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2, K3-hw
-    and K4-hw (one generation each) at the main path's shapes, pop 100k
+    """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2, K3-hw,
+    K3 and K4-hw (one generation each) at the main path's shapes, pop 100k
     and L 100, K6-hw and K6 at ``bench_suite.py``'s Rastrigin shape (pop
     100k, 30 genes), and K9 on the GP path's gen-0 and evolved schedules
     (pop 4096, width 64, P 256), as ``chip_smoke.time_ms`` does, with the
@@ -567,7 +570,8 @@ def kernel_times(dev, facts, root, reps=25):
     off, K2-hw and K6-hw with crossover and mutation off, K4-hw and K9
     without the flush (``_warm``), ``torch.index_select`` of K4-hw's
     winners, torch copies of the byte genomes, the packed ones, the
-    float32 ones and K9's value buffers, and K5-hw's phase
+    float32 ones and K9's value buffers, a read-only pass over K5's
+    draws, and K5-hw's phase
     split (:func:`k5_hw_phases`) where the package's source has its clock
     and K9's (:func:`k9_phases`) for this checkout's package; print
     the times and a checksum of each result (the same inputs and keys in
@@ -593,6 +597,7 @@ def kernel_times(dev, facts, root, reps=25):
     fbits = kernels.fused_bits(g, N, L)
     copy_to = torch.empty_like(bools)
     packed_to = torch.empty_like(pk)
+    vbits = packed.variation_bits(make_generator(37, dev), N, pk.shape[1])
     no_fitness = torch.zeros(N, device=dev)
     # K4-hw's winners, computed beforehand by the plain tournament rule
     winners = tournament_winners(
@@ -628,6 +633,15 @@ def kernel_times(dev, facts, root, reps=25):
         "torch_copy": (lambda: (copy_to.copy_(bools), no_fitness), reps),
         "k3_hw": (lambda: packed.fused_variation_eval_packed(
             pk, L, prng="hw", key=key, **probs), reps),
+        # K3's bits body on draws of its own generator (the other entries'
+        # inputs stay those of earlier builds' runs)
+        "k3": (lambda: packed.fused_variation_eval_packed(pk, L, *vbits,
+                                                          **probs), reps),
+        # a read-only torch pass over K5's call's draws (a float32 sum): the
+        # practical floor of reading them under this timer
+        "k5_draws_read": (lambda: ([b.view(torch.float32).sum()
+                                    for b in bits], (packed_to, no_fitness))[1],
+                          5),
         # a torch copy of the same packed genomes: K3-hw's practical floor
         "torch_copy_packed": (lambda: (packed_to.copy_(pk), no_fitness),
                               reps),
@@ -778,18 +792,22 @@ def k8_dc_times(dev, flush, reps=9):
 
 
 def run_checksums(dev):
-    """Checksums of two whole runs on fixed generators: a 20-generation
+    """Checksums of whole runs on fixed generators: a 20-generation
     ``ea_simple`` OneMax at pop 100k (K1's path; the final genomes and
-    fitness) and one ``sel_nsga2(nd='dc')`` at 16,384 rows of DTLZ2 (K8's
-    path; the selected rows), equal across builds that give the same
-    results."""
+    fitness), one ``sel_nsga2(nd='dc')`` at 16,384 rows of DTLZ2 (K8's
+    path; the selected rows), a 200-generation ``ea_simple_packed`` and
+    four 50-generation ``evolve_packed`` calls at pop 100k, L 100, both
+    with ``prng='input'`` (K4 and K3's path, K5's; with their launch
+    counts), equal across builds that give the same results."""
     import torch
-    from chip_smoke import (CXPB, DC_UNION, EA_NGEN, MO_DIM, MO_NOBJ, MUTPB,
-                            _onemax_toolbox)
+    from chip_smoke import (CXPB, DC_UNION, EA_NGEN, EVOLVE_CALL,
+                            EVOLVE_NGEN, INDPB, MO_DIM, MO_NOBJ, MUTPB,
+                            PACKED_NGEN, TOURNSIZE, _onemax_toolbox)
     from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
     from deap_tpu_torch import benchmarks as bm
     from deap_tpu_torch.core.population import init_population
     from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import packed
 
     g = make_generator(0, dev)
     pop = init_population(g, N, ops.bernoulli_genome(L), FitnessSpec((1.0,)),
@@ -801,10 +819,35 @@ def run_checksums(dev):
     w = -bm.dtlz2(torch.rand((DC_UNION, MO_DIM), generator=g, device=dev),
                   MO_NOBJ)
     chosen = mo.sel_nsga2(None, w, DC_UNION // 2, nd="dc")
-    return {"ea_simple_sum": int(pop.genomes.view(torch.uint8).long().sum())
-            + int(pop.fitness.double().sum()),
-            "sel_nsga2_dc_sum": int((chosen.long() * torch.arange(
-                1, chosen.shape[0] + 1, device=dev)).sum())}
+    out = {"ea_simple_sum": int(pop.genomes.view(torch.uint8).long().sum())
+           + int(pop.fitness.double().sum()),
+           "sel_nsga2_dc_sum": int((chosen.long() * torch.arange(
+               1, chosen.shape[0] + 1, device=dev)).sum())}
+    # the packed loop (K4 then K3) and evolve_packed (K5) with prng='input'
+    probs = dict(cxpb=CXPB, mutpb=MUTPB, indpb=INDPB)
+    W = packed.words_for(L)
+    k3, k5 = packed.fused_variation_eval_packed, packed.evolve_packed
+    g = make_generator(13, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, N))
+    k3_before = k3.launches
+    pk, fit = algorithms.ea_simple_packed(
+        g, pk, packed.packed_fitness(pk), L, PACKED_NGEN, prng="input",
+        **probs, device=dev)
+    out["ea_simple_packed_input_sum"] = (
+        int(pk.view(torch.uint8).long().sum()) + int(fit.double().sum()))
+    out["ea_simple_packed_k3_launches"] = k3.launches - k3_before
+    g = make_generator(17, dev)
+    pk = packed.pack_genomes(ops.bernoulli_genome(L)(g, N))
+    fit = packed.packed_fitness(pk)
+    k5_before = k5.launches
+    for _ in range(EVOLVE_NGEN // EVOLVE_CALL):
+        pk, fit = packed.evolve_packed(
+            pk, fit, L, *packed.evolve_bits(g, EVOLVE_CALL, TOURNSIZE, N, W),
+            prng="input", **probs)
+    out["evolve_packed_input_sum"] = (
+        int(pk.view(torch.uint8).long().sum()) + int(fit.double().sum()))
+    out["evolve_packed_launches"] = k5.launches - k5_before
+    return out
 
 
 def k9_cases(dev):
@@ -1036,7 +1079,7 @@ def main():
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="time K5-hw, K5, K2-hw, K2, K3-hw, K4-hw and "
+                        help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw and "
                              "K1 at pop 100k, L 100, K8 and K7 at the "
                              "NSGA-II path's shapes, K6-hw and K6 at 30 "
                              "genes, and K9 on the GP schedules "
