@@ -13,7 +13,8 @@ Phases (any failure ends the script with a non-zero exit code):
    the main path's shapes (pop 100,000, L 100, 4 words) — bitwise — and
    time both with CUDA events, the L2 cache flushed before every launch
    (K1 in each of its kinds beside a torch copy of its output, K3 beside a
-   torch copy of its genomes), then K1 at 648 more shapes (``k1_sweep``:
+   torch copy of its genomes, K4 beside a torch copy of its output), then
+   K1 at 648 more shapes (``k1_sweep``:
    L 1, 3, 4, 5, 100 and 101, n 1, 33 and 1001 with N below, above and
    equal, empty and whole segments, cxpb and mutpb at 0 and 1, genomes off
    their unit's alignment, every kind in both dtypes) and K3 at 168 more
@@ -43,7 +44,10 @@ Phases (any failure ends the script with a non-zero exit code):
 7. K6 on the continuous GA (``bench_suite.py``'s rastrigin_n30_pop100k:
    blend α 0.5, Gaussian σ 0.3 and indpb 0.1, cxpb 0.5, mutpb 0.2):
    against its plain version at pop 100k and L 30 (decisions and crossed
-   genes exact, mutated genes and fitness at the stated tolerances), the
+   genes exact, mutated genes and fitness at the stated tolerances), timed
+   beside a torch copy of its genomes, then at 365 more shapes on
+   ``real_bits`` streams (``k6_sweep``: n 1-1001 across its tiles of 16
+   rows by L 1-100, and n 100k at L 30, each with the rates at 0 and 1), the
    fused Rastrigin loop for 50 generations and unfused ``ea_simple``
    (``cx_blend``, ``mut_gaussian``, ``sel_tournament``) for 10;
 8. the ``prng='hw'`` paths of K2-K5, Philox4x32-10 in the kernel
@@ -249,6 +253,16 @@ def ptxas_report(log):
                     name.group(6) and ("false", "true")[int(name.group(6))]))
             kernel = entry.group(1) if name is None else name.group(1) + (
                 f"<{arg}>" if arg else "")
+            # K6's tile on its draw source: <philox|bits, threads x rows,
+            # narrow|wide, blocks an SM>
+            tile = re.search(r"(Philox|Loaded)DrawsELi(\d+)ELi(\d+)ELb([01])"
+                             r"ELi(\d+)E", entry.group(1))
+            if tile:
+                source = "philox" if tile.group(1) == "Philox" else "bits"
+                kernel = (f"{name.group(1)}<{source},{tile.group(2)}x"
+                          f"{tile.group(3)},"
+                          f"{('narrow', 'wide')[int(tile.group(4))]},"
+                          f"{tile.group(5)}>")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -508,7 +522,13 @@ def main():
                    flush),
            time_ms(lambda: packed.sel_tournament_gather_packed_plain(
                pk, fit, draws), flush), nbytes)
-    del flush
+    # its floor under the same timer: a torch copy of its 1.6 MB output
+    copy_to = torch.empty_like(pk)
+    print(f"  K4 {report['k4']['ms'] * 1e3:.2f} us; a torch copy of its "
+          f"output {time_ms(lambda: copy_to.copy_(pk), flush) * 1e3:.2f} us "
+          f"under the same timer")
+    print_ptxas("selgather_packed", "selgather_kernel")
+    del flush, copy_to
 
     # -------------------------------------------------- ea_simple OneMax --
     tb = _onemax_toolbox(Toolbox, ops)
@@ -885,9 +905,42 @@ def whole_generation_phases(torch, dev, tag, report, record):
                genomes, *bits, **ra), flush),
            time_ms(lambda: kernels_real.fused_variation_eval_real_plain(
                genomes, *bits, **ra), flush), nbytes)
+    copy_to = torch.empty_like(genomes)
     print(f"  (of {RA_N} rows {n_mut} mutate, of {RA_N // 2} pairs {n_cx} "
-          f"mate, {errs['mutated']} genes mutated)")
-    del flush
+          f"mate, {errs['mutated']} genes mutated; it reads "
+          f"{8 * (n_mut * RA_DIM - errs['mutated']) / 1e6:.3f} MB above the "
+          f"bound's bytes, the u1 and u2 words of the ungated genes of "
+          f"mutating rows; a torch copy of the same genomes "
+          f"{time_ms(lambda: copy_to.copy_(genomes), flush) * 1e3:.2f} us "
+          f"under the same timer)")
+    print_ptxas("fused_variation_real", "real_tile_kernel<bits")
+    del flush, copy_to
+
+    # the bits body's tiles of 16 rows on generic streams: n below a tile,
+    # a partial tile, an odd last row, one column chunk (L <= 32) and
+    # several, the rates at 0 and 1 (empty and full lists), and the main
+    # path's n; each against its plain version at K6's tolerance
+    cases = 0
+    for n, length, probs in k6_sweep():
+        gn = (torch.rand((n, length), generator=gen, device=dev) * 10.24
+              - 5.12)
+        bn = kernels_real.real_bits(gen, n, length)
+        kw = dict(ra, evaluate=("rastrigin", "sphere")[cases % 2], **probs)
+        got = kernels_real.fused_variation_eval_real(gn, *bn, **kw)
+        want = kernels_real.fused_variation_eval_real_plain(gn, *bn, **kw)
+        torch.cuda.synchronize()
+        errs = kernels_real.real_kernel_errors(
+            got, want, *bn, mutpb=kw["mutpb"], indpb=kw["indpb"], mu=0.0,
+            sigma=RA_SIGMA)
+        if not errs["ok"]:
+            fail(f"fused_variation_eval_real differs from the plain version "
+                 f"at n={n}, L={length}, {probs}: {errs}")
+        cases += 1
+    print(f"{tag} fused_variation_eval_real == plain at K6's tolerance at "
+          f"{cases} more shapes on real_bits streams (n 1, 2, 3, 15, 16, 17, "
+          f"63, 64, 65, 127, 129, 1001 by L 1, 30, 31, 33, 64, 100 and n "
+          f"{RA_N} at L "
+          f"{RA_DIM}; cxpb, mutpb, indpb at 0 and 1)")
 
     g = make_generator(37, dev)
     genomes = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(g, RA_N)
@@ -1566,7 +1619,7 @@ def real_hw_phases(torch, dev, tag, report, record):
           f"bitwise equal to the bits body's on the same streams; a torch "
           f"copy of the same {genomes.numel() * 4 / 1e6:.2f} MB genomes "
           f"{copy_ms * 1e3:.2f} us under the same timer)")
-    print_ptxas("fused_variation_real", "real_hw_kernel")
+    print_ptxas("fused_variation_real", "real_tile_kernel<philox")
     del flush, copy_to
 
     # K6-hw's tiles of 64 rows: n below a tile, a partial tile, an odd
@@ -1929,6 +1982,19 @@ def pairs_mating(pairbits, cxpb):
     word 0 below ``cxpb``; an odd last row never mates)."""
     n = pairbits.shape[0]
     return rows_below(pairbits[0: 2 * (n // 2): 2, 0], cxpb)
+
+
+def k6_sweep():
+    """``(n, L, rates)`` of K6's bits-body sweep: its tile edges by its
+    column chunks, each with the main path's rates and the rates at 0 and
+    1, and the main path's n at its L."""
+    edges = [{}, dict(cxpb=0.0, mutpb=0.0), dict(cxpb=1.0, mutpb=1.0,
+                                                 indpb=1.0),
+             dict(cxpb=1.0, mutpb=1.0, indpb=0.0), dict(cxpb=0.0, indpb=1.0)]
+    return ([(n, length, probs)
+             for n in (1, 2, 3, 15, 16, 17, 63, 64, 65, 127, 129, 1001)
+             for length in (1, 30, 31, 33, 64, 100) for probs in edges]
+            + [(RA_N, RA_DIM, probs) for probs in edges])
 
 
 def k3_sweep():

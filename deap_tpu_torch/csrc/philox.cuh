@@ -129,17 +129,15 @@ __device__ __forceinline__ Aspirants aspirants(const float* fit, uint32_t c,
   return a;
 }
 
-// Winning population index of child c's tournament in generation g, from
-// its first call's aspirants `first` and the calls after it: the first
-// aspirant, then each later one with a strictly greater fitness (the first
-// drawn wins ties). A kernel that has work to do while the first call's
-// loads are in flight makes that call itself (aspirants) and passes it.
-__device__ __forceinline__ uint32_t hw_tournament(Aspirants first,
-                                                  const float* fit,
-                                                  uint32_t c, uint32_t g,
-                                                  int n, int tournsize,
-                                                  const RoundKeys& key) {
-  Aspirants a = first;
+// Winning population index of a tournament from its first 4 aspirants
+// `first` and `next(call)`, the aspirants 4 call .. 4 call + 3 of each call
+// after it: the first aspirant, then each later one with a strictly
+// greater fitness (the first drawn wins ties). The Philox path and K4's
+// bits body (selgather_packed.cu) feed it; a batch's fitness loads are
+// issued together before any compare.
+template <typename Next>
+__device__ __forceinline__ uint32_t tournament(Aspirants a, int tournsize,
+                                               Next next) {
   uint32_t best = a.idx[0];
   float best_fit = a.fit[0];
   for (int call = 0;;) {
@@ -151,8 +149,22 @@ __device__ __forceinline__ uint32_t hw_tournament(Aspirants first,
       }
     }
     if (4 * ++call >= tournsize) return best;
-    a = aspirants(fit, c, call, g, n, tournsize, true, key);
+    a = next(call);
   }
+}
+
+// Winning population index of child c's tournament in generation g, from
+// its first call's aspirants `first` and the calls after it. A kernel that
+// has work to do while the first call's loads are in flight makes that
+// call itself (aspirants) and passes it.
+__device__ __forceinline__ uint32_t hw_tournament(Aspirants first,
+                                                  const float* fit,
+                                                  uint32_t c, uint32_t g,
+                                                  int n, int tournsize,
+                                                  const RoundKeys& key) {
+  return tournament(first, tournsize, [&](int call) {
+    return aspirants(fit, c, call, g, n, tournsize, true, key);
+  });
 }
 
 __device__ __forceinline__ uint32_t hw_tournament(const float* fit,

@@ -10,9 +10,12 @@
 // Bound on the H100: bytes — the draws, the parents' rows and the output
 // rows, plus tournsize random 4-byte fitness reads per child.
 //
-// Design: one thread per child slot runs its tournament; the draws are
-// read coalesced, the fitness lookups hit the 400 KB fitness vector
-// (L2-resident at 100k). The winners' rows are then copied whole
+// Design: one thread per child slot runs its tournament, 4 aspirants at a
+// time (philox.cuh::tournament, which the Philox path shares): their draw
+// loads issued together (coalesced across the warp), then their fitness
+// loads together (the 400 KB fitness vector), then the compares in draw
+// order, so a tournament of up to 4 waits two round trips before its row
+// copy instead of two an aspirant. The winners' rows are then copied whole
 // (copy_rows): as uint4 where W % 4 == 0 and both row arrays are 16-byte
 // aligned (W 4 at L 100: a warp's store writes its 32 children's 512
 // contiguous bytes in one instruction), else warp by warp: the warp's 32
@@ -28,8 +31,12 @@
 // plain version is the bits-input plain version fed
 // ops/philox.py::hw_tournament_bits. Bound there: bytes of the parents'
 // and output rows and the fitness reads. What is left above a copy of the
-// output's bytes is one dependent round trip: the winner's row can be
-// loaded only once its fitness loads are back.
+// output's bytes is the dependent round trips: the winner's row can be
+// loaded only once its fitness loads are back. Loading every aspirant's
+// row with its fitness (W 4) reads 3 rows a child and ran slower; an L2
+// prefetch of each child's own fitness word and row, issued under its
+// draws, shortened a call after an L2 flush but lengthened one that finds
+// its inputs in L2, as the packed loop does (PERF.md §6).
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -70,6 +77,26 @@ __device__ __forceinline__ void copy_rows(const uint32_t* __restrict__ g,
   }
 }
 
+// Aspirants 4 call .. 4 call + 3 of child j, draws[t, j] % n (those past
+// tournsize read as fitness 0 and never compared): the draw loads issued
+// together, then the fitness loads together.
+__device__ __forceinline__ Aspirants loaded_aspirants(
+    const float* __restrict__ fit, const uint32_t* __restrict__ draws, int j,
+    int call, int n, int tournsize) {
+  const uint32_t un = static_cast<uint32_t>(n);
+  uint32_t d[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = 4 * call + k;
+    d[k] = t < tournsize ? draws[static_cast<size_t>(t) * n + j] : 0u;
+  }
+  Aspirants a = {{d[0] % un, d[1] % un, d[2] % un, d[3] % un}, {}};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    a.fit[k] = 4 * call + k < tournsize ? fit[a.idx[k]] : 0.0f;
+  return a;
+}
+
 template <bool kVec4>
 __global__ void __launch_bounds__(256)
 selgather_kernel(const uint32_t* __restrict__ g, const float* __restrict__ fit,
@@ -80,17 +107,11 @@ selgather_kernel(const uint32_t* __restrict__ g, const float* __restrict__ fit,
   if (!kVec4 && j - (threadIdx.x & 31) >= n) return;  // a whole warp past n
   uint32_t best = 0u;
   if (valid) {
-    const uint32_t un = static_cast<uint32_t>(n);
-    best = draws[j] % un;
-    float best_fit = fit[best];
-    for (int t = 1; t < tournsize; ++t) {
-      const uint32_t idx = draws[static_cast<size_t>(t) * n + j] % un;
-      const float f = fit[idx];
-      if (f > best_fit) {
-        best = idx;
-        best_fit = f;
-      }
-    }
+    best = tournament(loaded_aspirants(fit, draws, j, 0, n, tournsize),
+                      tournsize, [&](int call) {
+                        return loaded_aspirants(fit, draws, j, call, n,
+                                                tournsize);
+                      });
   }
   copy_rows<kVec4>(g, out, best, j, valid, n, W);
 }

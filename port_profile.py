@@ -73,7 +73,7 @@ kernels; the listings go to ``DIR``);
 sort and gathers alone.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
-generations) and K2-hw, K2, K3-hw, K3 and K4-hw (one generation) at pop 100k
+generations) and K2-hw, K2, K3-hw, K3, K4-hw and K4 (one generation) at pop 100k
 and L 100, K1 at ``ea_simple``'s shape (pop 100k, L 100: bool ``flip``,
 float32 ``flip``, ``add`` and ``set``, and with no crossover or
 mutation), K8 as the prefix reduction calls it (512 queries against 50k
@@ -82,14 +82,15 @@ ranked rows) and over the 31 launches of one ``nd='dc'`` selection at
 rows, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
 gen-0 and evolved schedules (after the L2 flush, and K4-hw and K9 also
 without it), and beside them K5-hw with mutation off, K2-hw and K6-hw
-with crossover and mutation off, ``torch.index_select`` of K4-hw's
+with crossover and mutation off, K6 with crossover, mutation or both off, ``torch.index_select`` of K4-hw's
 winners (computed beforehand), torch copies of the byte, the packed
 and the float32 genomes and of K9's value buffers, a read-only torch pass
 over K5's draws and the fill of K8's output alone; with checksums of a
 20-generation ``ea_simple``, one ``sel_nsga2(nd='dc')`` at 16,384 rows,
 a 200-generation ``ea_simple_packed`` and four 50-generation
-``evolve_packed`` calls with ``prng='input'`` (K1's, K8's, K4 and K3's and
-K5's whole runs, with the last two's launch counts); where
+``evolve_packed`` calls and a 50-generation fused Rastrigin loop with
+``prng='input'`` (K1's, K8's, K4 and K3's, K5's and K6's whole runs, with
+the last three's launch counts); where
 the package's source has K5-hw's phase clock, it also splits K5-hw's
 generation by phase from a build with ``-DDTT_K5_PHASES``, and for this
 checkout's package K9's items from a build with ``-DDTT_K9_PHASES``.
@@ -367,6 +368,39 @@ def profile_gp(dev, out_dir, facts):
           f"{-state['best_fitness']:.6f}")
 
 
+def build_variants(src, defines, kernel):
+    """Build ``csrc/<src>.cu`` once for each entry of ``defines`` (name:
+    its ``-D`` flags) into ``build/deap_tpu_torch/``, one ``nvcc`` each,
+    all started together; print the registers of the kernels whose names
+    start with ``kernel`` and return the loaded libraries by name."""
+    import ctypes
+    import subprocess
+    from chip_smoke import ptxas_report
+    from deap_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = {}
+    for i, (name, flags) in enumerate(defines.items()):
+        lib = str(_build.BUILD_DIR / f"lib{src}-variant{i}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", lib,
+               str(_build.CSRC / f"{src}.cu")]
+        builds[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        lib, flags)
+    libs = {}
+    for name, (proc, lib, flags) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {' '.join(flags)} failed:\n{log}")
+        for k, line in ptxas_report(log):
+            if k.startswith(kernel):
+                print(f"  ptxas {name} {k}: {line}")
+        libs[name] = ctypes.CDLL(lib)
+        libs[name].dtt_error_string.argtypes = [_build.INT]
+        libs[name].dtt_error_string.restype = ctypes.c_char_p
+    return libs
+
+
 def k7_variants(dev, facts, rows=(4, 8, 16), reps=10):
     """K7 on 3-objective DTLZ2 rows at the NSGA-II path's sizes (n 50k,
     the DCD sort, and 100k, the union) in builds of csrc/dominance.cu with
@@ -376,36 +410,17 @@ def k7_variants(dev, facts, rows=(4, 8, 16), reps=10):
     turns (forward, then backward) as ``chip_smoke.time_ms`` times, with
     its share of the compare bound over the pairs it compares. Also the
     wrapper's sort, limit search and gathers alone."""
-    import ctypes
-    import subprocess
     import torch
     from chip_smoke import (MO_DIM, MO_NOBJ, MO_POP, bitwise_equal,
-                            compare_rate, k7_pairs, ptxas_report, time_ms)
+                            compare_rate, k7_pairs, time_ms)
     from deap_tpu_torch import _build
     from deap_tpu_torch import benchmarks as bm
     from deap_tpu_torch.device import make_generator
     from deap_tpu_torch.ops import kernels
 
-    builds = {}
-    for r in rows:  # one nvcc each, all started together
-        lib = str(_build.BUILD_DIR / f"libdominance-rows{r}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DDTT_K7_ROWS={r}",
-               "-o", lib, str(_build.CSRC / "dominance.cu")]
-        builds[r] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True),
-                     lib)
-    libs = {}
-    for r, (proc, lib) in builds.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc -DDTT_K7_ROWS={r} failed:\n{log}")
-        for kernel, line in ptxas_report(log):
-            if kernel == f"dom_sums_kernel<{MO_NOBJ}>":
-                print(f"  ptxas rows {r} {kernel}: {line}")
-        libs[r] = ctypes.CDLL(lib)
-        libs[r].dtt_error_string.argtypes = [_build.INT]
-        libs[r].dtt_error_string.restype = ctypes.c_char_p
-
+    libs = build_variants("dominance", {r: [f"-DDTT_K7_ROWS={r}"]
+                                         for r in rows},
+                          f"dom_sums_kernel<{MO_NOBJ}>")
     default_lib = _build.library("dominance")
     default_rows = kernels._k7_rows_per_thread
     default_order = kernels._k7_order
@@ -562,7 +577,7 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
 
 def kernel_times(dev, facts, root, reps=25):
     """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2, K3-hw,
-    K3 and K4-hw (one generation each) at the main path's shapes, pop 100k
+    K3, K4-hw and K4 (one generation each) at the main path's shapes, pop 100k
     and L 100, K6-hw and K6 at ``bench_suite.py``'s Rastrigin shape (pop
     100k, 30 genes), and K9 on the GP path's gen-0 and evolved schedules
     (pop 4096, width 64, P 256), as ``chip_smoke.time_ms`` does, with the
@@ -598,6 +613,7 @@ def kernel_times(dev, facts, root, reps=25):
     copy_to = torch.empty_like(bools)
     packed_to = torch.empty_like(pk)
     vbits = packed.variation_bits(make_generator(37, dev), N, pk.shape[1])
+    sel_draws = packed.tournament_bits(make_generator(41, dev), TOURNSIZE, N)
     no_fitness = torch.zeros(N, device=dev)
     # K4-hw's winners, computed beforehand by the plain tournament rule
     winners = tournament_winners(
@@ -648,6 +664,10 @@ def kernel_times(dev, facts, root, reps=25):
         "k4_hw": (lambda: (packed.sel_tournament_gather_packed(
             pk, fit, prng="hw", key=key, tournsize=TOURNSIZE), no_fitness),
             reps),
+        # K4's bits body on draws of its own generator (the other entries'
+        # inputs stay those of earlier builds' runs)
+        "k4": (lambda: (packed.sel_tournament_gather_packed(
+            pk, fit, sel_draws), no_fitness), reps),
         # as the packed loop runs it: just after K3-hw wrote the fitness
         # and the genomes, which it finds in L2
         "k4_hw_warm": (lambda: (packed.sel_tournament_gather_packed(
@@ -668,6 +688,13 @@ def kernel_times(dev, facts, root, reps=25):
             reps),
         # a torch copy of the same 12 MB genomes: K6-hw's practical floor
         "torch_copy_real": (lambda: (real_to.copy_(real), no_fitness), reps),
+        # K6 with crossover, mutation or both off: what each part of the
+        # work the draws decide adds to its loads, stores and sums
+        **{f"k6_{name}": (lambda kw=kw: kernels_real.fused_variation_eval_real(
+            real, *rbits, **dict(ra, **kw)), reps)
+           for name, kw in (("no_crossover", dict(cxpb=0.0)),
+                            ("no_mutation", dict(mutpb=0.0)),
+                            ("copy_only", dict(cxpb=0.0, mutpb=0.0)))},
     }
     calls.update(k1_k7_k8_calls(dev, reps))
     # K9 also without the flush (its name ending in _warm): a GP loop
@@ -798,16 +825,20 @@ def run_checksums(dev):
     path; the selected rows), a 200-generation ``ea_simple_packed`` and
     four 50-generation ``evolve_packed`` calls at pop 100k, L 100, both
     with ``prng='input'`` (K4 and K3's path, K5's; with their launch
-    counts), equal across builds that give the same results."""
+    counts), and a 50-generation fused Rastrigin loop at pop 100k, 30
+    genes, with ``prng='input'`` (K6's bits body; with its launch count),
+    equal across builds that give the same results."""
     import torch
     from chip_smoke import (CXPB, DC_UNION, EA_NGEN, EVOLVE_CALL,
                             EVOLVE_NGEN, INDPB, MO_DIM, MO_NOBJ, MUTPB,
-                            PACKED_NGEN, TOURNSIZE, _onemax_toolbox)
+                            PACKED_NGEN, RA_DIM, RA_LOW, RA_N, RA_NGEN, RA_UP,
+                            TOURNSIZE, _onemax_toolbox,
+                            rastrigin_fused_generation)
     from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
     from deap_tpu_torch import benchmarks as bm
     from deap_tpu_torch.core.population import init_population
     from deap_tpu_torch.device import make_generator
-    from deap_tpu_torch.ops import packed
+    from deap_tpu_torch.ops import kernels_real, packed
 
     g = make_generator(0, dev)
     pop = init_population(g, N, ops.bernoulli_genome(L), FitnessSpec((1.0,)),
@@ -847,6 +878,17 @@ def run_checksums(dev):
     out["evolve_packed_input_sum"] = (
         int(pk.view(torch.uint8).long().sum()) + int(fit.double().sum()))
     out["evolve_packed_launches"] = k5.launches - k5_before
+    # the fused Rastrigin loop (K6's bits body) with prng='input'
+    k6 = kernels_real.fused_variation_eval_real
+    g = make_generator(19, dev)
+    real = ops.uniform_genome(RA_DIM, RA_LOW, RA_UP)(g, RA_N)
+    fit = kernels_real.eval_rastrigin(real)
+    k6_before = k6.launches
+    for _ in range(RA_NGEN):
+        real, fit = rastrigin_fused_generation(g, real, fit)
+    out["rastrigin_fused_input_sum"] = (
+        int(real.view(torch.uint8).long().sum()) + int(fit.double().sum()))
+    out["rastrigin_fused_k6_launches"] = k6.launches - k6_before
     return out
 
 
@@ -1079,8 +1121,8 @@ def main():
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw and "
-                             "K1 at pop 100k, L 100, K8 and K7 at the "
+                        help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw, "
+                             "K4 and K1 at pop 100k, L 100, K8 and K7 at the "
                              "NSGA-II path's shapes, K6-hw and K6 at 30 "
                              "genes, and K9 on the GP schedules "
                              "(alone: nothing else runs)")
