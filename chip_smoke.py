@@ -14,10 +14,12 @@ Phases (any failure ends the script with a non-zero exit code):
    time both with CUDA events, the L2 cache flushed before every launch
    (K1 in each of its kinds beside a torch copy of its output, K3 beside a
    torch copy of its genomes, K4 beside a torch copy of its output), then
-   K1 at 648 more shapes (``k1_sweep``:
+   K1 at 708 more shapes (``k1_sweep``:
    L 1, 3, 4, 5, 100 and 101, n 1, 33 and 1001 with N below, above and
    equal, empty and whole segments, cxpb and mutpb at 0 and 1, genomes off
-   their unit's alignment, every kind in both dtypes) and K3 at 168 more
+   their unit's alignment, every kind in both dtypes; and ``var_or``'s
+   shapes, ``k1_var_or_shapes``: λ 1-100k children of N 2-100k rows, bool
+   ``flip``, float32 ``add`` and ``set``) and K3 at 168 more
    (``k3_sweep``: n 1, 2, 255, 256, 257 off 16-byte alignment and 1001 by
    L 1-300, cxpb and mutpb at 0 and 1);
 3. ``ea_simple`` OneMax (pop 100k, L 100, cxpb 0.5, mutpb 0.2, indpb 0.05,
@@ -125,7 +127,22 @@ Phases (any failure ends the script with a non-zero exit code):
     bare generate / evaluate / update loop, gens/s of both, the best
     falling, C finite and symmetric, its eigendecomposition reconstructing
     it within 1e-3; one update on the card against the same update on
-    the CPU at ``strategies.cma``'s stated tolerances.
+    the CPU at ``strategies.cma``'s stated tolerances;
+15. ``var_or`` through K1 and the (μ + λ) / (μ, λ) loops: K1 on
+    ``var_or_masks`` (λ children read from N rows, partners drawn apart,
+    crossover and mutation rows exclusive) at ``k1_var_or_shapes``,
+    bitwise against its plain version, timed at λ 100k from N 20k and
+    from N 100k; ``ea_mu_plus_lambda`` OneMax (``bench.py``'s operators,
+    μ = λ = 100,000, L 100, cxpb 0.5, mutpb 0.2, fitness statistics, hall
+    of fame 1) and ``ea_mu_comma_lambda`` (μ 20,000, λ 100,000) for 20
+    generations each with ``fused='kernel'``, ``'plain'`` and ``False``
+    from one seed, after one generation of warm-up: populations, halls of
+    fame and logbooks bitwise equal across the three, K1 launched 20
+    times in the kernel run and never in the others; the reference's
+    ``examples/es/fctmin.py`` ((μ, λ) ES, μ 10, λ 100, 30 genes, 100
+    generations: best below gen 0's) and ``examples/ga/kursawefct.py``
+    ((μ + λ) NSGA-II on Kursawe, n 100, 50 generations: its non-dominated
+    count).
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -134,6 +151,7 @@ result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import math
 import os
 import statistics
 import sys
@@ -189,6 +207,12 @@ DIST_SEEDS, DIST_NGEN = 4, 20
 # bench_suite.py's cmaes_n100_lam4096: Hansen CMA-ES on sphere, dim 100,
 # lambda 4096, centroid 5.0, sigma 0.5, 50 generations (NGEN)
 CMA_DIM, CMA_LAMBDA, CMA_START, CMA_SIGMA, CMA_NGEN = 100, 4096, 5.0, 0.5, 50
+# var_or's loops at the main path's width (bench.py's OneMax operators):
+# (mu + lambda) with mu = lambda = N, (mu, lambda) with mu 20k, lambda N
+MU_COMMA, MU_NGEN = 20_000, 20
+# examples/es/fctmin.py and examples/ga/kursawefct.py
+FCT_MU, FCT_LAMBDA, FCT_DIM, FCT_NGEN, FCT_MIN_STRATEGY = 10, 100, 30, 100, 0.5
+KUR_N, KUR_NGEN = 100, 50
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -442,7 +466,8 @@ def main():
     print(f"{tag} fused_variation == apply_variation bitwise at {cases} "
           f"more shapes (L 1-101, n 1-1001, N != n, segments empty, from 0 "
           f"and to L, cxpb and mutpb 0 and 1, genomes off 4-byte "
-          f"alignment, every kind in both dtypes)")
+          f"alignment, every kind in both dtypes; var_or's λ 1-100k from N "
+          f"2-100k)")
 
     # ------------------------------ K3 fused_variation_eval_packed check --
     W = packed.words_for(L)
@@ -631,6 +656,7 @@ def main():
     gp_phases(torch, dev, tag, report, record)
     real_hw_phases(torch, dev, tag, report, record)
     cma_phases(torch, dev, tag, report, record)
+    mu_lambda_phases(torch, dev, tag, report)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -1833,6 +1859,156 @@ def cma_phases(torch, dev, tag, report, record):
                                       if k != "ok"))
 
 
+def mu_lambda_phases(torch, dev, tag, report):
+    """Phase 15: ``var_or`` through K1 and the (μ + λ) / (μ, λ) loops,
+    fctmin's ES and kursawefct's NSGA-II. Adds K1's launches on these
+    loops and its times at ``var_or``'s shapes to K1's line."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, mo, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, variation
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    # ------------------------------------ K1 at var_or's masks and shapes --
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    for cases, (lam, n_par, dtype, kind) in enumerate(k1_var_or_shapes()):
+        args = var_or_k1_inputs(torch, dev, 61 + cases, lam, n_par, dtype,
+                                kind)
+        got = kernels.fused_variation(*args, mut_kind=kind)
+        want = variation.apply_variation(*args, kind).to(dtype)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"fused_variation differs from apply_variation on var_or's "
+                 f"masks at λ={lam}, N={n_par}, {dtype}, {kind}")
+    print(f"{tag} fused_variation == apply_variation bitwise on var_or_masks "
+          f"at {cases + 1} shapes (λ 1, 63, 64, 1000, {N} by N 2, 48, "
+          f"{MU_COMMA}, {N}; bool flip, float32 add and set)")
+    var_or_times = {}
+    for n_par in (MU_COMMA, N):
+        args = var_or_k1_inputs(torch, dev, 59, N, n_par, torch.bool, "flip")
+        g, base, partner, cx, _, _, mut = args[:7]
+        # what these masks need: the distinct parent rows read (base rows,
+        # and the partner rows of mating children) once, the children out,
+        # the gene mask of mutating children, base/cx/mut of every child
+        # and partner/lo/hi of mating children
+        rows = torch.unique(torch.cat([base, partner[cx]])).numel()
+        n_mut, n_cx = int(mut.sum()), int(cx.sum())
+        nbytes = rows * L + N * L + n_mut * L + 6 * N + 12 * n_cx
+        ms = time_ms(lambda: kernels.fused_variation(*args, mut_kind="flip"),
+                     flush)
+        plain_ms = time_ms(lambda: variation.apply_variation(*args, "flip"),
+                           flush)
+        var_or_times[f"lambda{N}_N{n_par}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": nbytes / rate * 1e3}
+        print(f"{tag} fused_variation on var_or's masks, λ={N} from N="
+              f"{n_par}, bool flip: {ms * 1e3:.2f} us (bound "
+              f"{nbytes / rate * 1e6:.2f} us by bytes: {nbytes / 1e6:.2f} MB, "
+              f"{rows} distinct parent rows read, {n_cx} children mate, "
+              f"{n_mut} mutate; plain {plain_ms * 1e3:.2f} us)")
+    del flush
+
+    # --------------------------------------- the (mu + lambda) / (mu, lambda)
+    tb = _onemax_toolbox(Toolbox, ops)
+    spec = FitnessSpec((1.0,))
+    var_or_launches = 0
+    for name, run, mu in (("ea_mu_plus_lambda", algorithms.ea_mu_plus_lambda,
+                           N),
+                          ("ea_mu_comma_lambda",
+                           algorithms.ea_mu_comma_lambda, MU_COMMA)):
+        def onemax(seed, ngen, fused):
+            g = make_generator(seed, dev)
+            pop = init_population(g, mu, ops.bernoulli_genome(L), spec,
+                                  device=dev)
+            return run(g, pop, tb, mu, N, CXPB, MUTPB, ngen,
+                       stats=fitness_stats(), halloffame_size=1, fused=fused,
+                       device=dev)
+
+        runs = {}
+        for fused in ("kernel", "plain", False):
+            onemax(43, 1, fused)  # warm-up generation
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pop, logbook, hof = onemax(47, MU_NGEN, fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.fused_variation.launches
+            if launches != (MU_NGEN if fused == "kernel" else 0):
+                fail(f"{name}(fused={fused!r}) launched K1 {launches} times "
+                     f"in {MU_NGEN} generations")
+            if fused == "kernel":
+                var_or_launches += launches
+            maxes = logbook.select("max")
+            if not (pop.fitness.shape == (mu, 1) and bool(pop.valid.all())
+                    and torch.equal(pop.fitness[:, 0],
+                                    pop.genomes.sum(-1).to(torch.float32))
+                    and float(hof.fitness[0, 0]) >= max(maxes)
+                    and logbook[-1]["avg"] > logbook[0]["avg"]):
+                fail(f"{name}(fused={fused!r}): population, fitness or hall "
+                     f"of fame is wrong, or the average did not climb")
+            runs[fused] = (pop, logbook, hof)
+            print(f"{tag} {name} OneMax mu={mu} lambda={N} L={L} "
+                  f"fused={fused!r}: {MU_NGEN} generations in {wall:.3f} s "
+                  f"incl. gen-0 evaluation = {wall / MU_NGEN * 1e3:.3f} "
+                  f"ms/gen; max {maxes[0]} -> {maxes[-1]}, avg "
+                  f"{logbook[0]['avg']:.3f} -> {logbook[-1]['avg']:.3f}; K1 "
+                  f"launches {launches}")
+        (pop, logbook, hof) = runs["kernel"]
+        for fused in ("plain", False):
+            other = runs[fused]
+            if not (all(bitwise_equal(getattr(pop, f), getattr(other[0], f))
+                        for f in ("genomes", "fitness", "valid"))
+                    and all(bitwise_equal(getattr(hof, f),
+                                          getattr(other[2], f))
+                            for f in ("genomes", "fitness", "filled"))
+                    and list(logbook) == list(other[1])):
+                fail(f"{name}: the run with fused={fused!r} differs from the "
+                     f"run through K1")
+        print(f"{tag} {name}: populations, halls of fame and logbooks "
+              f"bitwise equal with fused='kernel', 'plain' and False")
+    report["k1"]["var_or_launches"] = var_or_launches
+    report["k1"]["var_or"] = var_or_times
+
+    # --------------------------------------------------------- fctmin ES --
+    g = make_generator(53, dev)
+    pop = init_population(g, FCT_MU, fctmin_init, FitnessSpec((-1.0,)),
+                          device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = algorithms.ea_mu_comma_lambda(
+        g, pop, fctmin_toolbox(), FCT_MU, FCT_LAMBDA, 0.6, 0.3, FCT_NGEN,
+        stats=fitness_stats(), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mins = logbook.select("min")
+    best = float(-pop.wvalues.max())
+    if not (math.isfinite(best) and best < mins[0]
+            and float(pop.genomes["strategy"].min()) >= FCT_MIN_STRATEGY):
+        fail(f"fctmin's ES: best {mins[0]} -> {best}")
+    print(f"{tag} fctmin (mu, lambda) ES mu={FCT_MU} lambda={FCT_LAMBDA} "
+          f"dim={FCT_DIM}: {FCT_NGEN} generations in {wall:.3f} s; best "
+          f"sphere {mins[0]:.4f} -> {best:.6f}")
+
+    # ------------------------------------------------- kursawefct NSGA-II --
+    g = make_generator(59, dev)
+    pop = init_population(g, KUR_N, ops.uniform_genome(3, -5.0, 5.0),
+                          FitnessSpec((-1.0, -1.0)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = algorithms.ea_mu_plus_lambda(
+        g, pop, kursawe_toolbox(), KUR_N, KUR_N, 0.5, 0.3, KUR_NGEN,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nd = int(mo.nondominated_mask(pop.wvalues).sum())
+    if not (bool(torch.isfinite(pop.fitness).all()) and nd >= 1
+            and len(logbook) == KUR_NGEN + 1):
+        fail(f"kursawefct's NSGA-II: {nd} non-dominated")
+    print(f"{tag} kursawefct (mu + lambda) NSGA-II n={KUR_N}: {KUR_NGEN} "
+          f"generations in {wall:.3f} s; {nd} of {KUR_N} non-dominated")
+
+
 def k1_sweep():
     """The shapes K1 is held at beside the main path's: ``(L, n, N, dtype,
     kind, cxpb, mutpb, aligned)`` over the lengths its units branch on
@@ -1849,7 +2025,45 @@ def k1_sweep():
                                         (0.0, 1.0), (1.0, 0.0)):
                         out.append((L, n, N, dtype, kind, cxpb, mutpb, True))
                     out.append((L, n, N, dtype, kind, 0.7, 0.6, False))
+    out += [(100, lam, N, dtype, kind, CXPB, MUTPB, True)
+            for lam, N, dtype, kind in k1_var_or_shapes()]
     return out
+
+
+def k1_var_or_shapes():
+    """``var_or``'s shapes of K1, ``(λ, N, dtype, kind)``: λ children of
+    N parent rows at L 100, λ below, at and above a warp's 32 rows and
+    the loops' 100k, N from the fewest that can mate to 100k, for bool
+    ``flip`` and float32 ``add`` and ``set``."""
+    import torch
+    return [(lam, N, dtype, kind) for lam in (1, 63, 64, 1000, 100_000)
+            for N in (2, 48, 20_000, 100_000)
+            for dtype, kind in ((torch.bool, "flip"), (torch.float32, "add"),
+                                (torch.float32, "set"))]
+
+
+def var_or_k1_inputs(torch, dev, seed, lam, N, dtype, kind):
+    """K1's arguments ``(genomes, base_idx, partner_idx, choice_cx, lo,
+    hi, choice_mut, mask, arg)`` as ``var_or`` makes them for ``lam``
+    children of ``N`` 0/1 rows at L 100: ``variation.var_or_masks`` with
+    ``cx_two_point``'s segments and a mask of density ``INDPB`` (for
+    ``add`` Gaussian steps, for ``set`` normal values)."""
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import variation
+
+    def mut_draw(g, n, length, dtype_):
+        mask = torch.rand((n, length), generator=g, device=dev) < INDPB
+        arg = (None if kind == "flip" else
+               torch.randn((n, length), generator=g, device=dev))
+        return mask, arg
+
+    plan = variation.VariationPlan(ops.cx_two_point.fused_segment_draw,
+                                   "cx_two_point", kind, mut_draw, kind)
+    gen = make_generator(seed, dev)
+    g = (torch.rand((N, L), generator=gen, device=dev) < 0.5).to(dtype)
+    masks = variation.var_or_masks(gen, N, lam, L, CXPB, MUTPB, plan, dtype)
+    return (g,) + masks
 
 
 def k1_inputs(torch, dev, seed, n, N, L, dtype, kind, cxpb, mutpb,
@@ -2618,6 +2832,51 @@ def rastrigin_toolbox():
     tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=RA_SIGMA,
                 indpb=RA_INDPB)
     tb.register("select", ops.sel_tournament, tournsize=TOURNSIZE)
+    return tb
+
+
+def fctmin_init(generator, n):
+    """``examples/es/fctmin.py``'s individuals: values uniform in [-3, 3]
+    and strategies uniform in [0.5, 3], ``FCT_DIM`` genes each."""
+    from deap_tpu_torch import ops
+    return {"x": ops.uniform_genome(FCT_DIM, -3.0, 3.0)(generator, n),
+            "strategy": ops.uniform_genome(FCT_DIM, 0.5, 3.0)(generator, n)}
+
+
+def fctmin_toolbox():
+    """``examples/es/fctmin.py``'s (μ, λ) ES toolbox: ``cx_es_blend``
+    (α 0.1), ``mut_es_log_normal`` (c 1, indpb 0.03) with the strategies
+    floored at 0.5, tournament 3, sphere (minimised)."""
+    from deap_tpu_torch import Toolbox, benchmarks, ops
+    mut = ops.strategy_floor(FCT_MIN_STRATEGY)(ops.mut_es_log_normal)
+
+    def mate(g, a, b):
+        (c1x, c1s), (c2x, c2s) = ops.cx_es_blend(
+            g, a["x"], a["strategy"], b["x"], b["strategy"], alpha=0.1)
+        return {"x": c1x, "strategy": c1s}, {"x": c2x, "strategy": c2s}
+
+    def mutate(g, a):
+        x, s = mut(g, a["x"], a["strategy"], c=1.0, indpb=0.03)
+        return {"x": x, "strategy": s}
+
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: benchmarks.sphere(g["x"])[:, 0])
+    tb.register("mate", mate)
+    tb.register("mutate", mutate)
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    return tb
+
+
+def kursawe_toolbox():
+    """``examples/ga/kursawefct.py``'s (μ + λ) NSGA-II toolbox:
+    ``cx_blend`` (α 1.5), ``mut_gaussian`` (σ 3, indpb 0.3), ``sel_nsga2``
+    on Kursawe (both objectives minimised)."""
+    from deap_tpu_torch import Toolbox, benchmarks, mo, ops
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.kursawe)
+    tb.register("mate", ops.cx_blend, alpha=1.5)
+    tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=3.0, indpb=0.3)
+    tb.register("select", mo.sel_nsga2)
     return tb
 
 

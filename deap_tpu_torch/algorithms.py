@@ -1,10 +1,12 @@
 """Algorithms — the generational loops as Python loops over tensor steps.
 
-Port of the ``ea_simple`` and ``ea_generate_update`` paths of
-:mod:`deap_tpu.algorithms`. Each
-generation is select → var_and → evaluate invalid → archive/stats on
-the device; ``lax.scan`` becomes a loop over generations. The toolbox
-convention, batched:
+Port of the ``ea_simple``, ``ea_mu_plus_lambda``, ``ea_mu_comma_lambda``
+and ``ea_generate_update`` paths of :mod:`deap_tpu.algorithms`. An
+``ea_simple`` generation is select → var_and → evaluate invalid →
+archive/stats on the device; a (μ + λ) or (μ, λ) generation is var_or →
+evaluate invalid → select μ from the parents and offspring, or from the
+offspring alone. ``lax.scan`` becomes a loop over generations. The
+toolbox convention, batched:
 
 - ``toolbox.evaluate``: ``genomes -> values [n] | [n, nobj]``
 - ``toolbox.mate``:     ``(generator, g1[m, L], g2[m, L]) -> (c1, c2)``
@@ -32,7 +34,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from deap_tpu_torch.core.fitness import FitnessSpec
-from deap_tpu_torch.core.population import Population, gather
+from deap_tpu_torch.core.population import Population, concat, gather
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
 from deap_tpu_torch.ops import packed as _packed
 from deap_tpu_torch.ops import variation as _variation
@@ -49,6 +51,14 @@ from deap_tpu_torch.ops.selection import (
 from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
 from deap_tpu_torch.support.stats import Statistics
+
+
+def _check_cx_mut(cxpb: float, mutpb: float) -> None:
+    """The reference's ``cxpb + mutpb <= 1.0`` guard of varOr and the
+    (μ + λ) / (μ, λ) loops, on Python floats."""
+    if not float(cxpb) + float(mutpb) <= 1.0:
+        raise ValueError("The sum of the crossover and mutation "
+                         "probabilities must be smaller or equal to 1.0.")
 
 
 def _tree_where(mask: torch.Tensor, a, b):
@@ -70,13 +80,14 @@ def evaluate_invalid(pop: Population, evaluate: Callable) -> Population:
 
 # ------------------------------------------------- fused variation plane ----
 #
-# var_and accepts a ``fused`` mode: when the toolbox's (mate, mutate) pair
-# is fused-capable (ops.variation.resolve_plan) and the genomes are one
-# [n, L] tensor, the variation plane runs as one pass — masks drawn in the
-# unfused operators' order, then one apply: the CUDA kernel
-# (ops.kernels.fused_variation) on the card for bool/float32 genomes, the
-# plain apply (ops.variation.apply_variation) otherwise. Both give the
-# children of the unfused composition for the same generator state.
+# var_and and var_or accept a ``fused`` mode: when the toolbox's (mate,
+# mutate) pair is fused-capable (ops.variation.resolve_plan) and the
+# genomes are one [n, L] tensor, the variation plane runs as one pass —
+# masks drawn in the unfused operators' order, then one apply: the CUDA
+# kernel (ops.kernels.fused_variation) on the card for bool/float32
+# genomes, the plain apply (ops.variation.apply_variation) otherwise. Both
+# give the children of the unfused composition for the same generator
+# state.
 
 def _resolve_fused(fused, toolbox, genomes) -> Tuple[Optional[str], object]:
     """``fused=`` → ``(mode, plan)``, mode ``None`` (unfused), ``'plain'``
@@ -204,6 +215,72 @@ def _var_and_unfused(generator: torch.Generator, pop: Population, toolbox,
     return pop.replace(genomes=genomes).invalidate(cx_touched | do_mut)
 
 
+def var_or_apply(pop: Population, masks, mut_kind: str,
+                 mode: str) -> Population:
+    """The apply half of the fused :func:`var_or`: λ children of the
+    N-row ``pop`` under ``masks`` from :func:`ops.variation.var_or_masks`,
+    through the kernel (``mode='kernel'``) or the plain apply
+    (``'plain'``). Each child carries its base row's fitness, ``valid``
+    and extras; only mated and mutated children are invalidated."""
+    base_idx, partner_idx, choice_cx, lo, hi, choice_mut, mask, arg = masks
+    g = _variation.single_genome_leaf(pop.genomes)
+    if mode == "kernel":
+        children = fused_variation(g, base_idx.to(torch.int32),
+                                   partner_idx.to(torch.int32), choice_cx,
+                                   lo, hi, choice_mut, mask, arg,
+                                   mut_kind=mut_kind)
+    else:
+        children = _variation.apply_variation(g, base_idx, partner_idx,
+                                              choice_cx, lo, hi, choice_mut,
+                                              mask, arg, mut_kind)
+    base = gather(pop.replace(genomes=()), base_idx.long())
+    genomes = _rebuild_genomes(pop.genomes, children)
+    return base.replace(genomes=genomes).invalidate(choice_cx | choice_mut)
+
+
+def var_or(generator: torch.Generator, pop: Population, toolbox,
+           lambda_: int, cxpb: float, mutpb: float,
+           fused="auto") -> Population:
+    """Crossover OR mutation OR reproduction (the reference's varOr).
+
+    Each of the ``lambda_`` children independently: with probability
+    ``cxpb`` the first child of a mating of two distinct random parents;
+    else with probability ``mutpb`` a mutant of a random parent; else an
+    unchanged copy of a random parent that keeps its valid fitness.
+    ``fused`` picks the execution (see :func:`_resolve_fused`): the fused
+    plane reads the λ children's parents from the N rows directly (K1 on
+    the card). Every mode gives the same children for the same generator
+    state."""
+    _check_cx_mut(cxpb, mutpb)
+    mode, plan = _resolve_fused(fused, toolbox, pop.genomes)
+    if mode is None:
+        return _var_or_unfused(generator, pop, toolbox, lambda_, cxpb, mutpb)
+    g = _variation.single_genome_leaf(pop.genomes)
+    masks = _variation.var_or_masks(generator, pop.size, lambda_, g.shape[1],
+                                    cxpb, mutpb, plan, g.dtype)
+    return var_or_apply(pop, masks, plan.mut_kind, mode)
+
+
+def _var_or_unfused(generator: torch.Generator, pop: Population, toolbox,
+                    lambda_: int, cxpb: float, mutpb: float) -> Population:
+    """The compute-both-then-select composition of var_or, the oracle of
+    its fused plane: ``mate`` on all λ parent pairs (the first child
+    kept) and ``mutate`` on all λ mutant parents, then a row select. Draw
+    order: :func:`ops.variation.var_or_parents`, mate, mutate."""
+    choice_cx, choice_mut, i, j, m = _variation.var_or_parents(
+        generator, pop.size, lambda_, cxpb, mutpb)
+    children = gather(pop, torch.where(choice_cx, i, m).long())
+
+    def parents(idx):
+        return pytree.tree_map(lambda a: a[idx.long()], pop.genomes)
+
+    c1, _ = toolbox.mate(generator, parents(i), parents(j))
+    mutants = toolbox.mutate(generator, parents(m))
+    genomes = _tree_where(choice_cx, c1, children.genomes)
+    genomes = _tree_where(choice_mut, mutants, genomes)
+    return children.replace(genomes=genomes).invalidate(choice_cx | choice_mut)
+
+
 # ------------------------------------------------------------------ loops ----
 
 def _maybe_stats(stats: Optional[Statistics], pop: Population):
@@ -241,6 +318,24 @@ def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
     return step
 
 
+def _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
+                  halloffame_size, verbose, device):
+    """Gen 0, then ``ngen`` calls of ``step`` on ``device``; the records
+    stay on the device until the logbook is built at the end."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    pop, hof, record0 = _pop_loop_init(pop.to(dev), toolbox,
+                                       halloffame_size, stats)
+    records = []
+    for _ in range(ngen):
+        pop, hof, rec = step(generator, pop, hof)
+        records.append(rec)
+    logbook = _build_logbook(record0, records, stats)
+    if verbose:
+        print(logbook.stream)
+    return pop, logbook, hof
+
+
 def ea_simple(generator: torch.Generator, pop: Population, toolbox,
               cxpb: float, mutpb: float, ngen: int,
               stats: Optional[Statistics] = None, halloffame_size: int = 0,
@@ -250,19 +345,83 @@ def ea_simple(generator: torch.Generator, pop: Population, toolbox,
     invalid → replace, for ``ngen`` generations, on ``device`` (the card
     unless ``device="cpu"``; ``generator`` must live there too).
     ``fused`` as in :func:`var_and`."""
-    dev = resolve_device(device)
-    check_generator(generator, dev)
-    pop, hof, record0 = _pop_loop_init(pop.to(dev), toolbox,
-                                       halloffame_size, stats)
     step = make_ea_simple_step(toolbox, cxpb, mutpb, stats, fused=fused)
-    records = []
-    for _ in range(ngen):
-        pop, hof, rec = step(generator, pop, hof)
-        records.append(rec)
-    logbook = _build_logbook(record0, records, stats)
-    if verbose:
-        print(logbook.stream)
-    return pop, logbook, hof
+    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
+                         halloffame_size, verbose, device)
+
+
+def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
+                         mutpb: float, stats: Optional[Statistics],
+                         fused, plus: bool) -> Callable:
+    def step(generator, pop, hof):
+        off = var_or(generator, pop, toolbox, lambda_, cxpb, mutpb,
+                     fused=fused)
+        nevals = (~off.valid).sum()
+        off = evaluate_invalid(off, toolbox.evaluate)
+        pool = concat([pop, off]) if plus else off
+        new_pop = gather(pool, toolbox.select(generator, pool.wvalues, mu))
+        if hof is not None:
+            hof = hof_update(hof, off)
+        return new_pop, hof, {"nevals": nevals,
+                              **_maybe_stats(stats, new_pop)}
+
+    return step
+
+
+def make_ea_mu_plus_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
+                                mutpb: float,
+                                stats: Optional[Statistics] = None,
+                                fused="auto") -> Callable:
+    """The (μ + λ) generation step ``(generator, pop, hof) -> (pop, hof,
+    record)``: var_or λ children → evaluate invalid → select μ from the
+    parents and children together. The hall of fame sees the children;
+    the record is taken on the new population."""
+    return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
+                                fused, plus=True)
+
+
+def make_ea_mu_comma_lambda_step(toolbox, mu: int, lambda_: int,
+                                 cxpb: float, mutpb: float,
+                                 stats: Optional[Statistics] = None,
+                                 fused="auto") -> Callable:
+    """The (μ, λ) generation step: as :func:`make_ea_mu_plus_lambda_step`,
+    with μ selected from the children alone."""
+    return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
+                                fused, plus=False)
+
+
+def ea_mu_plus_lambda(generator: torch.Generator, pop: Population, toolbox,
+                      mu: int, lambda_: int, cxpb: float, mutpb: float,
+                      ngen: int, stats: Optional[Statistics] = None,
+                      halloffame_size: int = 0, verbose: bool = False,
+                      fused="auto", device: DeviceLike = None,
+                      ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
+    """(μ + λ) evolution (the reference's eaMuPlusLambda): the parents
+    compete with their children for the μ places. ``device`` and
+    ``fused`` as in :func:`ea_simple` (``fused`` as in :func:`var_or`)."""
+    _check_cx_mut(cxpb, mutpb)
+    step = make_ea_mu_plus_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
+                                       stats, fused=fused)
+    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
+                         halloffame_size, verbose, device)
+
+
+def ea_mu_comma_lambda(generator: torch.Generator, pop: Population, toolbox,
+                       mu: int, lambda_: int, cxpb: float, mutpb: float,
+                       ngen: int, stats: Optional[Statistics] = None,
+                       halloffame_size: int = 0, verbose: bool = False,
+                       fused="auto", device: DeviceLike = None,
+                       ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
+    """(μ, λ) evolution (the reference's eaMuCommaLambda): only the
+    children survive, so ``lambda_ >= mu``. ``device`` and ``fused`` as in
+    :func:`ea_mu_plus_lambda`."""
+    if lambda_ < mu:
+        raise ValueError("lambda must be greater or equal to mu.")
+    _check_cx_mut(cxpb, mutpb)
+    step = make_ea_mu_comma_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
+                                        stats, fused=fused)
+    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
+                         halloffame_size, verbose, device)
 
 
 def _host(record):

@@ -3,6 +3,8 @@
 
 from deap_tpu_torch.ops.crossover import (
     cx_blend,
+    cx_es_blend,
+    cx_es_two_point,
     cx_one_point,
     cx_simulated_binary_bounded,
     cx_two_point,
@@ -36,9 +38,11 @@ from deap_tpu_torch.ops.kernels_real import (
     real_bits,
 )
 from deap_tpu_torch.ops.mutation import (
+    mut_es_log_normal,
     mut_flip_bit,
     mut_gaussian,
     mut_polynomial_bounded,
+    strategy_floor,
 )
 from deap_tpu_torch.ops.packed import (
     cx_two_point_packed,
@@ -55,8 +59,11 @@ from deap_tpu_torch.ops.packed import (
 )
 from deap_tpu_torch.ops.selection import (
     counting_order_desc,
+    sel_best,
+    sel_random,
     sel_tournament,
     sel_tournament_binned,
     sel_tournament_sorted,
+    sel_worst,
     tournament_aspirants,
 )

@@ -1,7 +1,8 @@
 """Crossovers on batches of pairs.
 
-Port of ``cx_one_point``, ``cx_two_point``, ``cx_blend`` and
-``cx_simulated_binary_bounded`` from :mod:`deap_tpu.ops.crossover`.
+Port of ``cx_one_point``, ``cx_two_point``, ``cx_blend``,
+``cx_simulated_binary_bounded``, ``cx_es_blend`` and ``cx_es_two_point``
+from :mod:`deap_tpu.ops.crossover`.
 Operators are batched:
 ``(generator, g1[m, L], g2[m, L]) -> (c1, c2)``. Each carries a
 ``fused_segment_draw(generator, m, L) -> (lo, hi)`` tag, the draw that
@@ -123,3 +124,28 @@ def cx_simulated_binary_bounded(generator, g1, g2, eta, low, up):
     with probability 0.5."""
     return _sbx_bounded(g1, g2, eta, low, up,
                         *sbx_bounded_draws(generator, g1.shape))
+
+
+# --------------------------------------------------------------- ES ----
+#
+# An evolution strategy's individual is a value vector and its strategy
+# (step size) vector; these take and return both, ``(generator, g1, s1, g2,
+# s2) -> ((c1, n1), (c2, n2))``, on batches of pairs.
+
+def cx_es_blend(generator, g1, s1, g2, s2, alpha):
+    """ES blend: :func:`cx_blend` of the values, then of the strategies,
+    each with its own uniforms."""
+    dev = generator.device
+    ug = torch.rand(g1.shape, generator=generator, device=dev)
+    us = torch.rand(s1.shape, generator=generator, device=dev)
+    (c1, c2), (n1, n2) = _blend(g1, g2, alpha, ug), _blend(s1, s2, alpha, us)
+    return (c1, n1), (c2, n2)
+
+
+def cx_es_two_point(generator, g1, s1, g2, s2):
+    """ES two-point: one :func:`cx_two_point` segment a pair, swapped in
+    the values and the strategies alike."""
+    lo, hi = _two_points(generator, g1.shape[0], g1.shape[-1])
+    (c1, c2), (n1, n2) = (_segment_swap(lo, hi, g1, g2),
+                          _segment_swap(lo, hi, s1, s2))
+    return (c1, n1), (c2, n2)

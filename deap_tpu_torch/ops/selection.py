@@ -1,8 +1,8 @@
-"""Tournament selection — batched, index-returning.
+"""Selection — batched, index-returning.
 
-Port of the tournament part of :mod:`deap_tpu.ops.selection`, with the
-counting-sort rank path (:func:`counting_order_desc`,
-:func:`sel_tournament_binned`). Operators take weighted fitness ``w:
+Port of the tournament, random, best and worst parts of
+:mod:`deap_tpu.ops.selection`, with the counting-sort rank path
+(:func:`counting_order_desc`, :func:`sel_tournament_binned`). Operators take weighted fitness ``w:
 f32[n, nobj]`` and return ``int64[k]`` indices; callers materialise the
 selection with :func:`deap_tpu_torch.core.population.gather`.
 """
@@ -11,7 +11,30 @@ from __future__ import annotations
 
 import torch
 
-from deap_tpu_torch.core.fitness import lex_gt, lex_sort_desc
+from deap_tpu_torch.core.fitness import lex_gt, lex_sort_desc, lexsort
+
+
+def sel_random(generator: torch.Generator, w: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """``k`` uniform draws with replacement."""
+    return torch.randint(0, w.shape[0], (k,), generator=generator,
+                         device=generator.device)
+
+
+def sel_best(generator: torch.Generator, w: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """The ``k`` lexicographically best rows, best first; ties keep
+    ascending index."""
+    del generator  # no draw
+    return lex_sort_desc(w)[:k]
+
+
+def sel_worst(generator: torch.Generator, w: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """The ``k`` lexicographically worst rows, worst first; ties keep
+    ascending index."""
+    del generator  # no draw
+    return lexsort([w[:, j] for j in range(w.shape[-1] - 1, -1, -1)])[:k]
 
 
 def _tournament_winners(w: torch.Tensor,

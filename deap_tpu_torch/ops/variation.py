@@ -4,8 +4,9 @@ Port of :mod:`deap_tpu.ops.variation`. The masks are drawn first, with
 the generator, in exactly the order the unfused composition
 (:func:`deap_tpu_torch.algorithms._var_and_unfused`) consumes them —
 segment draws, pair Bernoullis, per-gene mutation draws, row Bernoullis
-— so the fused plane gives the same children as the unfused one from the
-same generator state. The apply (:func:`apply_variation`) is then a pure
+for ``var_and``; the row uniforms, the parents, the segment draws and the
+mutation draws for ``var_or`` — so the fused plane gives the same
+children as the unfused one from the same generator state. The apply (:func:`apply_variation`) is then a pure
 function of those masks, and the plain version of the CUDA kernel
 :func:`deap_tpu_torch.ops.kernels.fused_variation`.
 """
@@ -18,7 +19,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 __all__ = ["VariationPlan", "resolve_plan", "var_and_masks",
-           "apply_variation", "pair_partner_positions", "single_genome_leaf"]
+           "var_or_parents", "var_or_masks", "apply_variation", "pair_partner_positions", "single_genome_leaf"]
 
 
 class VariationPlan(NamedTuple):
@@ -126,6 +127,62 @@ def var_and_masks(generator: torch.Generator, n: int, L: int, cxpb: float,
     mask, arg = plan.mut_draw(generator, n, L, dtype)
     do_mut = _bernoulli(generator, mutpb, n)
     return cx_row, lo, hi, do_mut, mask, arg
+
+
+# -------------------------------------------------------------- var_or ----
+
+def var_or_parents(generator: torch.Generator, n: int, lambda_: int,
+                   cxpb: float, mutpb: float):
+    """The row draws of :func:`deap_tpu_torch.algorithms.var_or`, in its
+    order: a uniform ``u`` per child, then the first parent ``i`` in
+    ``[0, n)``, the second ``j`` drawn in ``[0, n-1)`` and shifted past
+    ``i`` (two distinct parents, the reference's ``random.sample``), and
+    the mutant's parent ``m``.
+
+    A child mates where ``u < cxpb`` and mutates where ``cxpb <= u <
+    cxpb + mutpb``, else it is a copy of ``m``. Mating needs two rows, so
+    ``n < 2`` with ``cxpb > 0`` raises (the JAX package would read row
+    ``n``). Returns ``(choice_cx, choice_mut, i, j, m)``, the indices
+    ``int32[λ]``."""
+    if n < 1:
+        raise ValueError("var_or needs a non-empty population")
+    if n < 2 and cxpb > 0:
+        raise ValueError(f"var_or mates two distinct parents: a population "
+                         f"of {n} cannot mate (cxpb={cxpb})")
+    dev = generator.device
+    u = torch.rand(lambda_, generator=generator, device=dev)
+    choice_cx = u < cxpb
+    choice_mut = (u >= cxpb) & (u < cxpb + mutpb)
+
+    def randint(high):
+        return torch.randint(0, high, (lambda_,), generator=generator,
+                             device=dev, dtype=torch.int32)
+
+    i = randint(n)
+    j = randint(max(n - 1, 1))
+    # at n == 1 the shift reads past the last row; nothing mates there
+    j = torch.where(j >= i, j + 1, j).clamp_(max=n - 1)
+    m = randint(n)
+    return choice_cx, choice_mut, i, j, m
+
+
+def var_or_masks(generator: torch.Generator, n: int, lambda_: int, L: int,
+                 cxpb: float, mutpb: float, plan: VariationPlan, dtype):
+    """The draws of :func:`deap_tpu_torch.algorithms.var_or` in the
+    unfused composition's order: :func:`var_or_parents`, then the
+    crossover operator's segment draw and the mutation operator's draws,
+    each for all λ children (chosen or not).
+
+    Returns ``(base_idx, partner_idx, choice_cx, lo, hi, choice_mut, mask,
+    arg)``: ``base_idx = where(choice_cx, i, m)`` and ``partner_idx = j``
+    (``int32[λ]``) compose the parent gathers into the apply; ``lo``,
+    ``hi`` are ``int32[λ]``."""
+    choice_cx, choice_mut, i, j, m = var_or_parents(generator, n, lambda_,
+                                                    cxpb, mutpb)
+    lo, hi = plan.mate_draw(generator, lambda_, L)
+    mask, arg = plan.mut_draw(generator, lambda_, L, dtype)
+    return (torch.where(choice_cx, i, m), j, choice_cx, lo.to(torch.int32),
+            hi.to(torch.int32), choice_mut, mask, arg)
 
 
 # --------------------------------------------------------------- apply ----

@@ -4,7 +4,8 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin] [--gp] [--cmaes] [--hw] [--sass]
+                            [--rastrigin] [--gp] [--cmaes] [--mu-lambda]
+                            [--hw] [--sass]
                             [--k7-variants]
                             [--package-root DIR]
     python3 port_profile.py --kernel-times [--package-root DIR]
@@ -48,7 +49,12 @@ run):
   loop, 50 generations after 5, and each part of a generation timed alone
   on the card at the loop's shapes (``chip_smoke.time_ms``): generate,
   evaluate, the sort, the rank-mu product, ``eigh``, the whole update;
-  the host time of ``eigh`` and of the update while the card is busy.
+  the host time of ``eigh`` and of the update while the card is busy;
+- ``--mu-lambda``: ``chip_smoke.py``'s (μ + λ) and (μ, λ) OneMax loops
+  (``bench.py``'s operators; μ = λ = 100,000 and μ 20,000, λ 100,000; L
+  100; fitness statistics, hall of fame 1; ``var_or`` through K1), 10
+  generations after 3 of warm-up each, with K1's device time a
+  generation.
 
 ``--hw`` profiles the chosen loops that have a ``prng`` mode (``--fused``,
 ``--evolve``, ``--rastrigin``) with the kernels' bits made by Philox
@@ -281,6 +287,36 @@ def profile_rastrigin(dev, out_dir, facts, prng="input"):
 
     suffix = "" if prng == "input" else f"_{prng}"
     profile(f"rastrigin_fused{suffix}", run, 5, RA_NGEN, out_dir, facts)
+
+
+def profile_mu_lambda(dev, out_dir, facts):
+    from chip_smoke import (CXPB, L, MU_COMMA, MUTPB, N, _onemax_toolbox)
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    tb = _onemax_toolbox(Toolbox, ops)
+    for name, make_step, mu in (
+            ("ea_mu_plus_lambda", algorithms.make_ea_mu_plus_lambda_step, N),
+            ("ea_mu_comma_lambda", algorithms.make_ea_mu_comma_lambda_step,
+             MU_COMMA)):
+        gen = make_generator(47, dev)
+        pop = init_population(gen, mu, ops.bernoulli_genome(L),
+                              FitnessSpec((1.0,)), device=dev)
+        pop, _, hof = algorithms.ea_mu_plus_lambda(
+            gen, pop, tb, mu, N, CXPB, MUTPB, 0, halloffame_size=1,
+            device=dev)
+        step = make_step(tb, mu, N, CXPB, MUTPB, fitness_stats())
+        state = {"pop": pop, "hof": hof}
+
+        def run(steps, step=step, state=state, gen=gen):
+            for _ in range(steps):
+                state["pop"], state["hof"], _ = step(gen, state["pop"],
+                                                     state["hof"])
+
+        profile(name, run, 3, 10, out_dir, facts,
+                kernels=("fused_variation_kernel",))
 
 
 def waits_for_card(fn):
@@ -1087,7 +1123,8 @@ def k5_hw_phases(pk, fit, key, flush, reps=10):
 
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
-            "gp": profile_gp, "cmaes": profile_cmaes}
+            "gp": profile_gp, "cmaes": profile_cmaes,
+            "mu_lambda": profile_mu_lambda}
 #: the loops with a prng mode, which --hw runs in both modes
 HW_LOOPS = {"fused": profile_fused, "packed": profile_packed,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin}
@@ -1110,6 +1147,9 @@ def main():
     parser.add_argument("--cmaes", action="store_true",
                         help="profile CMA-ES at dim 100, lambda 4096 and "
                              "time its parts")
+    parser.add_argument("--mu-lambda", action="store_true",
+                        help="profile the (mu + lambda) and (mu, lambda) "
+                             "OneMax loops (var_or through K1)")
     parser.add_argument("--hw", action="store_true",
                         help="profile the chosen loops (alone: the OneMax "
                              "loops) with prng='hw' beside prng='input'")

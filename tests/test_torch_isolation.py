@@ -120,3 +120,56 @@ def test_generator_must_live_on_the_run_device():
     gen = tdevice.make_generator(0, "cpu")
     with pytest.raises(ValueError, match="generator"):
         tdevice.check_generator(gen, torch.device("meta"))
+
+
+def test_var_or_loops_and_es_operators_stand_alone(no_card):
+    """The (μ + λ) / (μ, λ) loops, ``var_or``, the ES operators, the
+    ``sel_best`` family and Kursawe run without jax or the JAX package,
+    and the loops raise without a card unless asked for the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from deap_tpu_torch import Toolbox, FitnessSpec, ops, algorithms
+        from deap_tpu_torch import benchmarks as bm
+        from deap_tpu_torch.core.population import init_population
+        from deap_tpu_torch.device import make_generator
+        import chip_smoke
+        gen = make_generator(0, "cpu")
+        tb = Toolbox()
+        tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+        tb.register("mate", ops.cx_two_point)
+        tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+        tb.register("select", ops.sel_best)
+        pop = init_population(gen, 30, ops.bernoulli_genome(20),
+                              FitnessSpec((1.0,)), device="cpu")
+        for loop in (algorithms.ea_mu_plus_lambda,
+                     algorithms.ea_mu_comma_lambda):
+            _, lb, _ = loop(gen, pop, tb, 30, 60, 0.5, 0.2, 2, device="cpu")
+            assert len(lb) == 3
+        assert algorithms.var_or(gen, pop, tb, 7, 0.5, 0.2).size == 7
+        assert ops.sel_worst(None, torch.zeros(4, 1), 2).tolist() == [0, 1]
+        assert ops.sel_random(gen, torch.zeros(4, 1), 3).shape == (3,)
+        tb = chip_smoke.fctmin_toolbox()
+        pop = init_population(gen, 10, chip_smoke.fctmin_init,
+                              FitnessSpec((-1.0,)), device="cpu")
+        pop, _, _ = algorithms.ea_mu_comma_lambda(gen, pop, tb, 10, 100,
+                                                  0.6, 0.3, 2, device="cpu")
+        g, s = pop.genomes["x"], pop.genomes["strategy"]
+        assert ops.cx_es_two_point(gen, g, s, g, s)[0][0].shape == g.shape
+        assert bm.kursawe(g[:, :3]).shape == (10, 2)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    gen = tdevice.make_generator(0, "cpu")
+    pop = init_population(gen, 4, tops.bernoulli_genome(8),
+                          FitnessSpec((1.0,)), device="cpu")
+    for loop in (talg.ea_mu_plus_lambda, talg.ea_mu_comma_lambda):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            loop(gen, pop, None, 4, 8, 0.5, 0.2, 1)
