@@ -142,7 +142,23 @@ Phases (any failure ends the script with a non-zero exit code):
     ``examples/es/fctmin.py`` ((μ, λ) ES, μ 10, λ 100, 30 genes, 100
     generations: best below gen 0's) and ``examples/ga/kursawefct.py``
     ((μ + λ) NSGA-II on Kursawe, n 100, 50 generations: its non-dominated
-    count).
+    count);
+16. the CMA-ES family: J1, the Jacobi eigensolver (``eigh_jacobi``),
+    bitwise against its plain version at d 2-192 (an odd d's bye, the
+    shared-memory limit at 170, device memory above) by batch 1 and 3
+    and at the serving buckets [1024, 10] and [256, 30], on random SPD
+    matrices, the identity, a repeated diagonal, an off-diagonal below
+    float32's tiny and CMA-ES's own covariance, timed at d 100 and on the
+    buckets beside ``torch.linalg.eigh`` and the plain version;
+    cmaes_n100_lam4096 with ``eigh_impl='lapack'`` and ``'jacobi'`` in
+    one call (50 generations through ``ea_generate_update`` and the bare
+    loop each, the gates of phase 14, J1 launched once a generation and
+    once for ``initial_state``, one ``'jacobi'`` update on the card
+    against the CPU's); the (1+λ)-CMA-ES on sphere (N 5, λ 8, 300
+    generations, best below 1e-6), MO-CMA-ES on ZDT1 (µ = λ = 16, 5
+    genes, 500 generations, hypervolume of [11, 11] above 116; then µ =
+    λ = 100, 30 genes, timed) and BIPOP-CMA-ES on sphere (dim 5, 2
+    restarts, best below 1e-8).
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -207,6 +223,25 @@ DIST_SEEDS, DIST_NGEN = 4, 20
 # bench_suite.py's cmaes_n100_lam4096: Hansen CMA-ES on sphere, dim 100,
 # lambda 4096, centroid 5.0, sigma 0.5, 50 generations (NGEN)
 CMA_DIM, CMA_LAMBDA, CMA_START, CMA_SIGMA, CMA_NGEN = 100, 4096, 5.0, 0.5, 50
+# J1, the Jacobi eigensolver: d at every edge of its design (an odd d's
+# bye, a warp, the shared-memory limit at 170, device memory above) by
+# batches of 1 and 3, and the batched shapes of a CMA serving bucket
+J1_DIMS = (2, 3, 5, 8, 9, 16, 31, 32, 33, 64, 100, 127, 128, 170, 171, 192)
+J1_BATCHES, J1_BUCKETS = (1, 3), ((1024, 10), (256, 30))
+# float32 operations an SM issues per clock, a fused multiply-add counted
+# as two (the data sheet's 67 TFLOP/s at 132 SMs and 1980 MHz)
+FP32_FLOPS_PER_SM_CLOCK = 256
+# the JAX package's quality gates of the (1+lambda), MO-CMA-ES and BIPOP
+# examples (tests/test_strategies.py, tests/test_multiswarm_bipop.py):
+# (1+lambda) on sphere, N 5, lambda 8, 300 generations, best < 1e-6;
+# MO-CMA-ES on ZDT1, mu = lambda = 16, 5 genes, 500 generations,
+# hypervolume of ref [11, 11] > 116; BIPOP on sphere, dim 5, 2 restarts,
+# best < 1e-8; and MO-CMA-ES at examples/es/cma_mo.py's width (mu = lambda
+# = 100, 30 genes), timed
+OPL_DIM, OPL_LAMBDA, OPL_NGEN, OPL_GATE = 5, 8, 300, 1e-6
+MOC_MU, MOC_DIM, MOC_NGEN, MOC_HV_GATE = 16, 5, 500, 116.0
+MOC_WIDE_MU, MOC_WIDE_DIM, MOC_WIDE_NGEN = 100, 30, 30
+BIPOP_DIM, BIPOP_RESTARTS, BIPOP_GATE = 5, 2, 1e-8
 # var_or's loops at the main path's width (bench.py's OneMax operators):
 # (mu + lambda) with mu = lambda = N, (mu, lambda) with mu 20k, lambda N
 MU_COMMA, MU_NGEN = 20_000, 20
@@ -657,11 +692,12 @@ def main():
     real_hw_phases(torch, dev, tag, report, record)
     cma_phases(torch, dev, tag, report, record)
     mu_lambda_phases(torch, dev, tag, report)
+    strategy_phases(torch, dev, tag, report)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
                                    "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
-                                   "k5_hw", "k6_hw")]}))
+                                   "k5_hw", "k6_hw", "j1")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -671,13 +707,13 @@ def main():
 
 def launch_counters():
     """Every kernel wrapper's launch counter."""
-    from deap_tpu_torch.ops import kernels, kernels_real, packed
+    from deap_tpu_torch.ops import kernels, kernels_real, linalg, packed
     return (kernels.fused_variation, kernels.fused_variation_eval,
             packed.fused_variation_eval_packed,
             packed.sel_tournament_gather_packed, packed.evolve_packed,
             kernels_real.fused_variation_eval_real,
             kernels.dominated_weight_sums, kernels.dominated_weight_maxes,
-            kernels.gp_grouped_dispatch)
+            kernels.gp_grouped_dispatch, linalg.eigh_jacobi)
 
 
 def reset_counts():
@@ -2007,6 +2043,286 @@ def mu_lambda_phases(torch, dev, tag, report):
         fail(f"kursawefct's NSGA-II: {nd} non-dominated")
     print(f"{tag} kursawefct (mu + lambda) NSGA-II n={KUR_N}: {KUR_NGEN} "
           f"generations in {wall:.3f} s; {nd} of {KUR_N} non-dominated")
+
+
+def strategy_phases(torch, dev, tag, report):
+    """Phase 16: J1 (the Jacobi eigensolver) against its plain version,
+    bitwise, at ``j1_shapes`` on ``j1_inputs`` and timed; cmaes_n100_lam4096
+    with ``eigh_impl='jacobi'`` beside ``'lapack'``; the (1+λ)-CMA-ES,
+    MO-CMA-ES and BIPOP gates. Adds J1's line to the report."""
+    from deap_tpu_torch import Toolbox, _build, algorithms, benchmarks
+    from deap_tpu_torch import convert
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.native import hypervolume
+    from deap_tpu_torch.ops import linalg
+    from deap_tpu_torch.strategies import (
+        StrategyMultiObjective, StrategyOnePlusLambda, bipop_cmaes, cma)
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    # ------------------------ CMA-ES, 'lapack' then 'jacobi', same phase --
+    args = (torch.full((CMA_DIM,), CMA_START),)
+    kw = dict(sigma=CMA_SIGMA, lambda_=CMA_LAMBDA)
+    runs = {}
+    for impl in ("lapack", "jacobi"):
+        strat = cma.Strategy(*args, **kw, eigh_impl=impl, device=dev)
+        tb = Toolbox()
+        tb.register("evaluate", benchmarks.sphere)
+        tb.register("generate", strat.generate)
+        tb.register("update", strat.update)
+        algorithms.ea_generate_update(  # warm-up
+            make_generator(1, dev), strat.initial_state(), tb, 3, strat.spec,
+            stats=fitness_stats(), halloffame_size=1, device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logbook, hof = algorithms.ea_generate_update(
+            make_generator(83, dev), strat.initial_state(), tb, CMA_NGEN,
+            strat.spec, stats=fitness_stats(), halloffame_size=1, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = linalg.eigh_jacobi.launches
+        reset_counts()
+        g = make_generator(89, dev)
+        st = strat.initial_state()
+        best0 = float(benchmarks.sphere(strat.generate(g, st)).min())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CMA_NGEN):
+            pop = strat.generate(g, st)
+            st = strat.update(st, pop, benchmarks.sphere(pop))
+        torch.cuda.synchronize()
+        bare = time.perf_counter() - t0
+        bare_launches = linalg.eigh_jacobi.launches
+        best = float(benchmarks.sphere(strat.generate(g, st)).min())
+        mins = logbook.select("min")
+        C = state.C
+        asym = float((C - C.T).abs().max() / C.abs().max())
+        recon = cma.reconstruction_error(state)
+        want = CMA_NGEN + 1 if impl == "jacobi" else 0
+        if not (len(logbook) == CMA_NGEN and mins[-1] < mins[0]
+                and float(hof.fitness[0, 0]) == min(mins)
+                and bool(torch.isfinite(C).all()) and asym <= 1e-5
+                and recon <= cma.RECON_TOL and best < best0
+                and bool(torch.isfinite(st.C).all())):
+            fail(f"CMA-ES eigh_impl={impl!r}: best {mins[0]} -> {mins[-1]}, "
+                 f"hall of fame {float(hof.fitness[0, 0])}, C asymmetry "
+                 f"{asym}, reconstruction {recon}, bare loop {best0} -> "
+                 f"{best}")
+        if launches != want or bare_launches != want:
+            fail(f"CMA-ES eigh_impl={impl!r}: J1 launched {launches} and "
+                 f"{bare_launches} times in {CMA_NGEN} generations and "
+                 f"initial_state")
+        runs[impl] = (strat, st, wall, bare, launches)
+        print(f"{tag} CMA-ES eigh_impl={impl!r} dim={CMA_DIM} "
+              f"lambda={CMA_LAMBDA}: ea_generate_update {CMA_NGEN} gens "
+              f"{wall / CMA_NGEN * 1e3:.3f} ms/gen, bare loop "
+              f"{bare / CMA_NGEN * 1e3:.3f} ms/gen; best {mins[0]:.4f} -> "
+              f"{mins[-1]:.4f}; C symmetric to {asym:.2e}, reconstruction "
+              f"{recon:.3e}; J1 launches {launches} and {bare_launches} "
+              f"(generations + initial_state)")
+    print(f"{tag} CMA-ES ms/gen, 'jacobi' against 'lapack' in one call: "
+          f"ea_generate_update {runs['jacobi'][2] / CMA_NGEN * 1e3:.3f} vs "
+          f"{runs['lapack'][2] / CMA_NGEN * 1e3:.3f}, bare loop "
+          f"{runs['jacobi'][3] / CMA_NGEN * 1e3:.3f} vs "
+          f"{runs['lapack'][3] / CMA_NGEN * 1e3:.3f}")
+
+    # one 'jacobi' update on the card against the same update on the CPU
+    strat, st, *_, report_launches = runs["jacobi"]
+    genomes = strat.generate(make_generator(97, dev), st)
+    values = benchmarks.sphere(genomes)
+    got = strat.update(st, genomes, values)
+    cpu = cma.Strategy(*args, **kw, eigh_impl="jacobi", device="cpu")
+    want = cpu.update(convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(st), device="cpu"), genomes.cpu(),
+        values.cpu())
+    errs = cma.state_errors(convert.cma_state_from_arrays(
+        **convert.cma_state_to_arrays(got), device="cpu"), want)
+    if not errs["ok"]:
+        fail(f"'jacobi' CMA-ES update on the card differs from it on the "
+             f"CPU: {errs}")
+    print(f"{tag} 'jacobi' CMA-ES update on the card == on the CPU within "
+          f"the stated tolerances: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items() if k != "ok"))
+
+    # ---------------------------------- J1 against its plain version --
+    cma_C = runs["lapack"][1].C
+    worst, cases = 0.0, 0
+    for d, batch in j1_shapes():
+        inputs = j1_inputs(torch, dev, d, batch, cma_C)
+        got = [linalg.eigh_jacobi(C) for C in inputs.values()]
+        want = linalg.eigh_jacobi_plain(torch.cat(list(inputs.values())))
+        torch.cuda.synchronize()
+        for k, (name, (w, V)) in enumerate(zip(inputs, got)):
+            ws = want[0][k * batch:(k + 1) * batch]
+            Vs = want[1][k * batch:(k + 1) * batch]
+            if not (bitwise_equal(w, ws) and bitwise_equal(V, Vs)):
+                fail(f"eigh_jacobi differs from its plain version at d={d}, "
+                     f"batch={batch}, input {name}: max_abs_err "
+                     f"{max(max_abs_err(w, ws), max_abs_err(V, Vs))}")
+            worst = max(worst, max_abs_err(w, ws), max_abs_err(V, Vs))
+            cases += 1
+    print(f"{tag} eigh_jacobi == eigh_jacobi_plain bitwise at {cases} cases "
+          f"(d {', '.join(map(str, J1_DIMS))} by batch 1 and 3, and "
+          f"{' and '.join(f'[{b}, {d}]' for b, d in J1_BUCKETS)}; random "
+          f"SPD, identity, repeated diagonal, an off-diagonal below tiny, "
+          f"CMA-ES's C): worst max_abs_err {worst}; shared memory up to d "
+          f"{linalg.J1_SHARED_MAX_D}, device memory above")
+    print_ptxas("jacobi_eigh", "jacobi_rounds_kernel")
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    rate = memory_rate(torch.cuda.get_device_name(0))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flops_per_sm = FP32_FLOPS_PER_SM_CLOCK * max_sm_clock_hz()
+    times = {}
+    for shape in ((CMA_DIM, CMA_DIM),) + tuple((b, d, d)
+                                               for b, d in J1_BUCKETS):
+        d = shape[-1]
+        nmat = math.prod(shape[:-2])
+        C = j1_inputs(torch, dev, d, nmat, cma_C)["spd"].reshape(shape)
+        ms = time_ms(lambda: linalg.eigh_jacobi(C), flush)
+        plain_ms = time_ms(lambda: linalg.eigh_jacobi_plain(C), flush, reps=3)
+        library_ms = time_ms(lambda: torch.linalg.eigh(C), flush)
+        ops = j1_flops(d) * nmat
+        nbytes = nmat * (2 * d * d + d) * 4
+        ops_ms = ops / (min(nmat, sms) * flops_per_sm) * 1e3
+        bytes_ms = nbytes / rate * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        times[str(list(shape))] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        print(f"{tag} eigh_jacobi {list(shape)}: {ms * 1e3:.2f} us (bound "
+              f"{bound_ms * 1e3:.2f} us by operations: {ops:.3e} float32 "
+              f"operations on {min(nmat, sms)} SMs, {nbytes / 1e6:.3f} MB; "
+              f"plain {plain_ms * 1e3:.1f} us, its launches timed from the "
+              f"host; torch.linalg.eigh {library_ms * 1e3:.2f} us)")
+    del flush
+    main = times[str([CMA_DIM, CMA_DIM])]
+    report["j1"] = {"name": "eigh_jacobi", "route": "cuda",
+                    "source": "deap_tpu_torch/csrc/jacobi_eigh.cu",
+                    "replaces": "deap_tpu/ops/linalg.py:62",
+                    "launches": report_launches, "max_abs_err": worst,
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"],
+                    "batched": {k: v for k, v in times.items()
+                                if k != str([CMA_DIM, CMA_DIM])}}
+
+    # --------------------------------------------------- (1+λ)-CMA-ES --
+    parent = torch.full((OPL_DIM,), 2.0, device=dev)
+    strat = StrategyOnePlusLambda(parent, benchmarks.sphere(parent[None]),
+                                  sigma=1.0, lambda_=OPL_LAMBDA, device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.sphere)
+    tb.register("generate", strat.generate)
+    tb.register("update", strat.update)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logbook, _ = algorithms.ea_generate_update(
+        make_generator(11, dev), strat.initial_state(), tb, OPL_NGEN,
+        strat.spec, device=dev)
+    best = float(-state.parent_w[0])
+    wall = time.perf_counter() - t0
+    if not (best < OPL_GATE and len(logbook) == OPL_NGEN
+            and bool(torch.isfinite(state.A).all())):
+        fail(f"(1+lambda)-CMA-ES on sphere: best {best}")
+    print(f"{tag} (1+lambda)-CMA-ES sphere N={OPL_DIM} lambda={OPL_LAMBDA}: "
+          f"{OPL_NGEN} generations in {wall:.3f} s = "
+          f"{wall / OPL_NGEN * 1e3:.3f} ms/gen; best {best:.3e} "
+          f"(gate < {OPL_GATE})")
+
+    # ------------------------------------------------------- MO-CMA-ES --
+    def zdt1_run(seed, mu, dim, ngen):
+        g = make_generator(seed, dev)
+        x0 = torch.rand((mu, dim), generator=g, device=dev)
+        strat = StrategyMultiObjective(x0, benchmarks.zdt1(x0), sigma=0.05,
+                                       mu=mu, lambda_=mu, device=dev)
+        tb = Toolbox()
+        tb.register("evaluate",
+                    lambda gen: benchmarks.zdt1(gen["x"].clamp(0, 1)))
+        tb.register("generate", strat.generate)
+        tb.register("update", strat.update)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = algorithms.ea_generate_update(
+            g, strat.initial_state(), tb, ngen, strat.spec, device=dev)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    state, wall = zdt1_run(128, MOC_MU, MOC_DIM, MOC_NGEN)
+    front = benchmarks.zdt1(state.x.clamp(0, 1)).cpu().numpy()
+    hv = hypervolume(front, [11.0, 11.0])
+    if not (hv > MOC_HV_GATE and (front[:, 0] >= 0).all()
+            and (front[:, 0] <= 1).all()):
+        fail(f"MO-CMA-ES on ZDT1: hypervolume {hv}")
+    print(f"{tag} MO-CMA-ES ZDT1 mu=lambda={MOC_MU} dim={MOC_DIM}: "
+          f"{MOC_NGEN} generations in {wall:.3f} s = "
+          f"{wall / MOC_NGEN * 1e3:.3f} ms/gen; hypervolume of [11, 11] "
+          f"{hv:.4f} (gate > {MOC_HV_GATE})")
+    state, wall = zdt1_run(7, MOC_WIDE_MU, MOC_WIDE_DIM, MOC_WIDE_NGEN)
+    if not bool(torch.isfinite(state.A).all()):
+        fail("MO-CMA-ES at mu 100: a Cholesky factor is not finite")
+    print(f"{tag} MO-CMA-ES ZDT1 mu=lambda={MOC_WIDE_MU} "
+          f"dim={MOC_WIDE_DIM} (examples/es/cma_mo.py's width): "
+          f"{MOC_WIDE_NGEN} generations in {wall:.3f} s = "
+          f"{wall / MOC_WIDE_NGEN * 1e3:.3f} ms/gen")
+
+    # ----------------------------------------------------------- BIPOP --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best_x, best_f, logbooks = bipop_cmaes(
+        make_generator(12, dev), lambda x: (x * x).sum(-1), dim=BIPOP_DIM,
+        sigma0=2.0, nrestarts=BIPOP_RESTARTS, device=dev)
+    wall = time.perf_counter() - t0
+    gens = sum(len(lb) for lb in logbooks)
+    if not (best_f < BIPOP_GATE and len(logbooks) >= 2
+            and best_x.shape == (BIPOP_DIM,)):
+        fail(f"BIPOP-CMA-ES on sphere: best {best_f}, {len(logbooks)} "
+             f"logbooks")
+    print(f"{tag} BIPOP-CMA-ES sphere dim={BIPOP_DIM} "
+          f"nrestarts={BIPOP_RESTARTS}: {len(logbooks)} runs, {gens} "
+          f"generations in {wall:.3f} s = {wall / gens * 1e3:.3f} ms/gen; "
+          f"best {best_f:.3e} (gate < {BIPOP_GATE})")
+
+
+def j1_shapes():
+    """``(d, batch)`` of J1's card check: ``J1_DIMS`` by ``J1_BATCHES``,
+    then the serving buckets."""
+    return [(d, b) for d in J1_DIMS for b in J1_BATCHES] + [
+        (d, b) for b, d in J1_BUCKETS]
+
+
+def j1_inputs(torch, dev, d, batch, cma_C):
+    """J1's inputs at ``[batch, d, d]``, by name: a random SPD matrix, the
+    identity (every pair skipped), a diagonal with repeated entries, a
+    diagonal with one off-diagonal pair below float32's tiny (subnormal),
+    and CMA-ES's covariance ``cma_C`` (its leading block, or it beside an
+    identity block)."""
+    g = torch.Generator(device=dev).manual_seed(1000 * d + batch)
+    M = torch.randn((batch, d, d), generator=g, device=dev)
+    eye = torch.eye(d, device=dev).expand(batch, d, d)
+    diag = torch.randn((batch, d), generator=g, device=dev)
+    tiny = torch.diag_embed(diag)
+    tiny[:, 0, 1] = tiny[:, 1, 0] = 1e-39
+    repeated = torch.tensor([2.0, -1.0, 2.0], device=dev).repeat(d)[:d]
+    k = min(d, cma_C.shape[0])
+    C = torch.eye(d, device=dev)
+    C[:k, :k] = cma_C[:k, :k]
+    return {"spd": (M @ M.mT + d * eye).contiguous(),
+            "identity": eye.contiguous(),
+            "repeated": torch.diag(repeated).expand(batch, d, d).contiguous(),
+            "tiny_offdiagonal": tiny.contiguous(),
+            "cma": C.expand(batch, d, d).contiguous()}
+
+
+def j1_flops(d):
+    """J1's float32 operations on one d x d matrix: each round, a pair's
+    c and s (13) and its rows, A's columns and V's columns (3 updates of 2
+    entries by 2 products and a sum, across d), byes included."""
+    from deap_tpu_torch.ops import linalg
+    m = d + d % 2
+    return linalg.default_sweeps(d) * (m - 1) * (m // 2) * (18 * d + 13)
 
 
 def k1_sweep():

@@ -1,5 +1,5 @@
 """Carry population, hall-of-fame, Pareto-archive, GP-genome and CMA-ES
-state between the two packages.
+family state between the two packages.
 
 The port never imports the JAX package, so state crosses as numpy arrays
 plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
@@ -18,7 +18,7 @@ from torch.utils import _pytree as pytree
 from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population
 from deap_tpu_torch.device import DeviceLike, resolve_device
-from deap_tpu_torch.strategies.cma import CMAState
+from deap_tpu_torch.strategies.cma import CMAState, MOState, OnePlusLambdaState
 from deap_tpu_torch.support.hof import HallOfFame
 from deap_tpu_torch.support.pareto import ParetoArchive
 
@@ -123,3 +123,49 @@ def cma_state_from_arrays(centroid, sigma, C, B, diagD, ps, pc, count,
 def cma_state_to_arrays(state: CMAState) -> Dict[str, np.ndarray]:
     """The CMA-ES state's fields as numpy arrays, by name."""
     return {k: to_numpy(getattr(state, k)) for k in CMA_FIELDS}
+
+
+#: the fields of a (1+λ)-CMA-ES state and their dtypes
+ONE_PLUS_LAMBDA_FIELDS = {"parent": np.float32, "parent_w": np.float32,
+                          "sigma": np.float32, "C": np.float32,
+                          "A": np.float32, "pc": np.float32,
+                          "psucc": np.float32}
+
+
+def one_plus_lambda_state_from_arrays(parent, parent_w, sigma, C, A, pc,
+                                      psucc, device: DeviceLike = None
+                                      ) -> OnePlusLambdaState:
+    """The port's (1+λ)-CMA-ES state from the JAX package's
+    ``OnePlusLambdaState`` fields as numpy arrays."""
+    fields = dict(parent=parent, parent_w=parent_w, sigma=sigma, C=C, A=A,
+                  pc=pc, psucc=psucc)
+    return OnePlusLambdaState(**{
+        k: to_tensor(np.asarray(v, ONE_PLUS_LAMBDA_FIELDS[k]), device)
+        for k, v in fields.items()})
+
+
+def one_plus_lambda_state_to_arrays(state: OnePlusLambdaState
+                                    ) -> Dict[str, np.ndarray]:
+    """The (1+λ)-CMA-ES state's fields as numpy arrays, by name."""
+    return {k: to_numpy(getattr(state, k)) for k in ONE_PLUS_LAMBDA_FIELDS}
+
+
+#: the fields of an MO-CMA-ES state and their dtypes
+MO_FIELDS = {"x": np.float32, "w": np.float32, "sigmas": np.float32,
+             "A": np.float32, "invA": np.float32, "pc": np.float32,
+             "psucc": np.float32}
+
+
+def mo_state_from_arrays(x, w, sigmas, A, invA, pc, psucc,
+                         device: DeviceLike = None) -> MOState:
+    """The port's MO-CMA-ES state from the JAX package's ``MOState``
+    fields as numpy arrays."""
+    fields = dict(x=x, w=w, sigmas=sigmas, A=A, invA=invA, pc=pc,
+                  psucc=psucc)
+    return MOState(**{k: to_tensor(np.asarray(v, MO_FIELDS[k]), device)
+                      for k, v in fields.items()})
+
+
+def mo_state_to_arrays(state: MOState) -> Dict[str, np.ndarray]:
+    """The MO-CMA-ES state's fields as numpy arrays, by name."""
+    return {k: to_numpy(getattr(state, k)) for k in MO_FIELDS}

@@ -9,9 +9,16 @@ better" (the reference's ``wvalues``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_on(weights: Tuple[float, ...],
+                device: torch.device) -> torch.Tensor:
+    return torch.tensor(weights, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +35,11 @@ class FitnessSpec:
         return len(self.weights)
 
     def warray(self, device=None) -> torch.Tensor:
-        return torch.tensor(self.weights, dtype=torch.float32, device=device)
+        """The weights as float32 on ``device``, made once a device and
+        shared (read-only): a tensor made from host data on the card
+        waits for it, and every generation weighs its values."""
+        return _weights_on(self.weights, torch.device(
+            "cpu" if device is None else device))
 
     def wvalues(self, values: torch.Tensor) -> torch.Tensor:
         """Weighted values: ``values * weights``."""

@@ -37,6 +37,7 @@ from deap_tpu_torch.ops.kernels_real import (
     fused_variation_eval_real,
     real_bits,
 )
+from deap_tpu_torch.ops.linalg import eigh_jacobi
 from deap_tpu_torch.ops.mutation import (
     mut_es_log_normal,
     mut_flip_bit,

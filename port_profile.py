@@ -4,7 +4,8 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
-                            [--rastrigin] [--gp] [--cmaes] [--mu-lambda]
+                            [--rastrigin] [--gp] [--cmaes]
+                            [--eigh lapack|jacobi ...] [--mu-lambda]
                             [--hw] [--sass]
                             [--k7-variants]
                             [--package-root DIR]
@@ -50,6 +51,8 @@ run):
   on the card at the loop's shapes (``chip_smoke.time_ms``): generate,
   evaluate, the sort, the rank-mu product, ``eigh``, the whole update;
   the host time of ``eigh`` and of the update while the card is busy;
+  ``--eigh lapack jacobi`` runs it with each eigensolver in turn
+  (``torch.linalg.eigh``, J1), with J1's device time a generation;
 - ``--mu-lambda``: ``chip_smoke.py``'s (μ + λ) and (μ, λ) OneMax loops
   (``bench.py``'s operators; μ = λ = 100,000 and μ 20,000, λ 100,000; L
   100; fitness statistics, hall of fame 1; ``var_or`` through K1), 10
@@ -332,8 +335,9 @@ def waits_for_card(fn):
     return host * 1e3
 
 
-def profile_cmaes(dev, out_dir, facts):
-    """The bare CMA-ES loop profiled, then its parts timed alone."""
+def profile_cmaes(dev, out_dir, facts, eigh="lapack"):
+    """The bare CMA-ES loop with ``eigh_impl=eigh`` profiled, then its
+    parts timed alone."""
     import torch
     from chip_smoke import (CMA_DIM, CMA_LAMBDA, CMA_NGEN, CMA_SIGMA,
                             CMA_START, time_ms)
@@ -343,7 +347,7 @@ def profile_cmaes(dev, out_dir, facts):
     from deap_tpu_torch.strategies import cma
 
     strat = cma.Strategy(torch.full((CMA_DIM,), CMA_START), sigma=CMA_SIGMA,
-                         lambda_=CMA_LAMBDA, device=dev)
+                         lambda_=CMA_LAMBDA, eigh_impl=eigh, device=dev)
     gen = make_generator(89, dev)
     state = {"st": strat.initial_state()}
 
@@ -353,7 +357,9 @@ def profile_cmaes(dev, out_dir, facts):
             state["st"] = strat.update(state["st"], pop,
                                        benchmarks.sphere(pop))
 
-    profile("cmaes_n100_lam4096", run, 5, CMA_NGEN, out_dir, facts)
+    name = "cmaes_n100_lam4096" + ("" if eigh == "lapack" else f"_{eigh}")
+    profile(name, run, 5, CMA_NGEN, out_dir, facts,
+            kernels=("jacobi_rounds_kernel",))
     st = state["st"]
     genomes = strat.generate(gen, st)
     values = benchmarks.sphere(genomes)
@@ -365,18 +371,18 @@ def profile_cmaes(dev, out_dir, facts):
         "evaluate": lambda: benchmarks.sphere(genomes),
         "sort": lambda: lex_sort_desc(w),
         "rank-mu product": lambda: (strat.weights * artmp.T) @ artmp,
-        "eigh": lambda: torch.linalg.eigh(st.C),
+        "eigh": lambda: strat._eigh(st.C),
         "update": lambda: strat.update(st, genomes, values),
     }
     times = {k: time_ms(fn, flush) for k, fn in parts.items()}
-    print(f"[{facts}] cmaes parts alone, device us (median of 25, L2 "
-          f"flushed): " + ", ".join(f"{k} {v * 1e3:.2f}"
+    print(f"[{facts}] cmaes ({eigh!r}) parts alone, device us (median of "
+          f"25, L2 flushed): " + ", ".join(f"{k} {v * 1e3:.2f}"
                                     for k, v in times.items()))
     host = {k: waits_for_card(parts[k])
             for k in ("eigh", "update", "generate")}
     spin = waits_for_card(torch.cuda.synchronize)
-    print(f"[{facts}] cmaes host ms of a call while the card spins (a "
-          f"synchronise waits {spin:.3f} ms): "
+    print(f"[{facts}] cmaes ({eigh!r}) host ms of a call while the card "
+          f"spins (a synchronise waits {spin:.3f} ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
 
@@ -1147,6 +1153,10 @@ def main():
     parser.add_argument("--cmaes", action="store_true",
                         help="profile CMA-ES at dim 100, lambda 4096 and "
                              "time its parts")
+    parser.add_argument("--eigh", nargs="+", default=["lapack"],
+                        choices=["lapack", "jacobi"],
+                        help="the eigensolvers --cmaes profiles, in turns "
+                             "(default lapack)")
     parser.add_argument("--mu-lambda", action="store_true",
                         help="profile the (mu + lambda) and (mu, lambda) "
                              "OneMax loops (var_or through K1)")
@@ -1207,6 +1217,9 @@ def main():
             if args.hw and name in HW_LOOPS:
                 for prng in ("input", "hw"):
                     HW_LOOPS[name](dev, args.out, facts, prng)
+            elif name == "cmaes":
+                for eigh in args.eigh:
+                    profile_cmaes(dev, args.out, facts, eigh)
             else:
                 PROFILES[name](dev, args.out, facts)
         print(facts)

@@ -173,3 +173,66 @@ def test_var_or_loops_and_es_operators_stand_alone(no_card):
     for loop in (talg.ea_mu_plus_lambda, talg.ea_mu_comma_lambda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             loop(gen, pop, None, 4, 8, 0.5, 0.2, 1)
+
+
+def test_cma_family_and_jacobi_stand_alone(no_card):
+    """The Jacobi eigensolver, ``'jacobi'`` CMA-ES, (1+λ)-CMA-ES, MO-CMA-ES
+    and BIPOP run without jax or the JAX package, and their entry points
+    raise without a card unless asked for the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from deap_tpu_torch import Toolbox, algorithms, benchmarks, convert
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.ops import eigh_jacobi, linalg
+        from deap_tpu_torch.strategies import (
+            Strategy, StrategyMultiObjective, StrategyOnePlusLambda,
+            bipop_cmaes, hypervolume_contributions_2d)
+        import chip_smoke, port_profile
+        w, V = eigh_jacobi(torch.eye(5) * 2)
+        assert w.tolist() == [2.0] * 5 and eigh_jacobi.launches == 0
+        gen = make_generator(0, "cpu")
+        s = Strategy(torch.zeros(4), 1.0, lambda_=8, eigh_impl="jacobi",
+                     device="cpu")
+        st = s.initial_state()
+        pop = s.generate(gen, st)
+        st = s.update(st, pop, benchmarks.sphere(pop))
+        p = torch.ones(3)
+        o = StrategyOnePlusLambda(p, benchmarks.sphere(p[None]), 1.0,
+                                  lambda_=4, device="cpu")
+        os = o.initial_state()
+        g = o.generate(gen, os)
+        os = o.update(os, g, benchmarks.sphere(g))
+        convert.one_plus_lambda_state_to_arrays(os)
+        x0 = torch.rand(6, 3, generator=gen)
+        m = StrategyMultiObjective(x0, benchmarks.zdt1(x0), 0.1, lambda_=9,
+                                   device="cpu")
+        ms = m.initial_state()
+        g = m.generate(gen, ms)
+        ms = m.update(ms, g, benchmarks.zdt1(g["x"].clamp(0, 1)))
+        assert ms.x.shape == (6, 3)
+        convert.mo_state_to_arrays(ms)
+        bx, bf, lbs = bipop_cmaes(gen, lambda x: (x * x).sum(-1), 2,
+                                  nrestarts=1, device="cpu")
+        assert len(lbs) == 1
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    from deap_tpu_torch import strategies
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        strategies.Strategy(torch.zeros(3), 1.0, eigh_impl="jacobi")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        strategies.StrategyOnePlusLambda(torch.zeros(3), 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        strategies.StrategyMultiObjective(torch.zeros(4, 3),
+                                          torch.zeros(4, 2), 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        strategies.bipop_cmaes(tdevice.make_generator(0, "cpu"),
+                               lambda x: x.sum(-1), 3)
