@@ -224,10 +224,18 @@ DIST_SEEDS, DIST_NGEN = 4, 20
 # lambda 4096, centroid 5.0, sigma 0.5, 50 generations (NGEN)
 CMA_DIM, CMA_LAMBDA, CMA_START, CMA_SIGMA, CMA_NGEN = 100, 4096, 5.0, 0.5, 50
 # J1, the Jacobi eigensolver: d at every edge of its design (an odd d's
-# bye, a warp, the shared-memory limit at 170, device memory above) by
-# batches of 1 and 3, and the batched shapes of a CMA serving bucket
-J1_DIMS = (2, 3, 5, 8, 9, 16, 31, 32, 33, 64, 100, 127, 128, 170, 171, 192)
+# bye; two 2x2 blocks a pass thread from 11; a second V warp at 35, the
+# twelfth at 96; two SMs a matrix from 39 (linalg.J1_SPLIT_MIN_D); a
+# second and third pivot warp at 65 and 129; the shared-memory limit at
+# 169 and 170, one ring slot at 170; device memory above) by batches of 1
+# and 3, the d of the split range also by one matrix more than half the
+# SMs (one SM a matrix, j1_shapes), and the batched shapes of a CMA
+# serving bucket
+J1_DIMS = (2, 3, 5, 8, 9, 11, 16, 31, 32, 33, 35, 38, 39, 40, 64, 65, 96,
+           100, 127, 128, 129, 169, 170, 171, 192)
 J1_BATCHES, J1_BUCKETS = (1, 3), ((1024, 10), (256, 30))
+# the shapes of J1's phase clock (port_profile.J1_SHAPES' names)
+J1_PHASE_SHAPES = ("j1", "j1_1024x10", "j1_256x30")
 # float32 operations an SM issues per clock, a fused multiply-add counted
 # as two (the data sheet's 67 TFLOP/s at 132 SMs and 1980 MHz)
 FP32_FLOPS_PER_SM_CLOCK = 256
@@ -2146,8 +2154,9 @@ def strategy_phases(torch, dev, tag, report):
 
     # ---------------------------------- J1 against its plain version --
     cma_C = runs["lapack"][1].C
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst, cases = 0.0, 0
-    for d, batch in j1_shapes():
+    for d, batch in j1_shapes(sms):
         inputs = j1_inputs(torch, dev, d, batch, cma_C)
         got = [linalg.eigh_jacobi(C) for C in inputs.values()]
         want = linalg.eigh_jacobi_plain(torch.cat(list(inputs.values())))
@@ -2162,7 +2171,9 @@ def strategy_phases(torch, dev, tag, report):
             worst = max(worst, max_abs_err(w, ws), max_abs_err(V, Vs))
             cases += 1
     print(f"{tag} eigh_jacobi == eigh_jacobi_plain bitwise at {cases} cases "
-          f"(d {', '.join(map(str, J1_DIMS))} by batch 1 and 3, and "
+          f"(d {', '.join(map(str, J1_DIMS))} by batch 1 and 3, those from "
+          f"{linalg.J1_SPLIT_MIN_D} to {linalg.J1_SHARED_MAX_D} also by "
+          f"batch {sms // 2 + 1} on one SM each, and "
           f"{' and '.join(f'[{b}, {d}]' for b, d in J1_BUCKETS)}; random "
           f"SPD, identity, repeated diagonal, an off-diagonal below tiny, "
           f"CMA-ES's C): worst max_abs_err {worst}; shared memory up to d "
@@ -2170,8 +2181,18 @@ def strategy_phases(torch, dev, tag, report):
     print_ptxas("jacobi_eigh", "jacobi_rounds_kernel")
 
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    # J1's phase clock: a -DDTT_J1_PHASES build, bitwise equal to J1
+    import port_profile
+    split = port_profile.j1_phases(dev, flush, shapes=J1_PHASE_SHAPES)
+    for name in J1_PHASE_SHAPES:
+        head = f"{name}_clocks_per_round_"
+        print(f"{tag} J1's phase clock, {name}, SM clocks a round of a "
+              f"block (thread 0 of the A warps, the first V thread): "
+              + ", ".join(f"{k.removeprefix(head)} {v:.1f}"
+                          for k, v in split.items() if k.startswith(head))
+              + "; the instrumented call "
+              f"{split[f'{name}_phases_ms'] * 1e3:.2f} us")
     rate = memory_rate(torch.cuda.get_device_name(0))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flops_per_sm = FP32_FLOPS_PER_SM_CLOCK * max_sm_clock_hz()
     times = {}
     for shape in ((CMA_DIM, CMA_DIM),) + tuple((b, d, d)
@@ -2184,7 +2205,9 @@ def strategy_phases(torch, dev, tag, report):
         library_ms = time_ms(lambda: torch.linalg.eigh(C), flush)
         ops = j1_flops(d) * nmat
         nbytes = nmat * (2 * d * d + d) * 4
-        ops_ms = ops / (min(nmat, sms) * flops_per_sm) * 1e3
+        # the SMs the launch can use: two a matrix where J1 splits
+        used = linalg.j1_sms(d, nmat, sms)
+        ops_ms = ops / (used * flops_per_sm) * 1e3
         bytes_ms = nbytes / rate * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         times[str(list(shape))] = {
@@ -2193,7 +2216,7 @@ def strategy_phases(torch, dev, tag, report):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
         print(f"{tag} eigh_jacobi {list(shape)}: {ms * 1e3:.2f} us (bound "
               f"{bound_ms * 1e3:.2f} us by operations: {ops:.3e} float32 "
-              f"operations on {min(nmat, sms)} SMs, {nbytes / 1e6:.3f} MB; "
+              f"operations on {used} SMs, {nbytes / 1e6:.3f} MB; "
               f"plain {plain_ms * 1e3:.1f} us, its launches timed from the "
               f"host; torch.linalg.eigh {library_ms * 1e3:.2f} us)")
     del flush
@@ -2286,10 +2309,15 @@ def strategy_phases(torch, dev, tag, report):
           f"best {best_f:.3e} (gate < {BIPOP_GATE})")
 
 
-def j1_shapes():
-    """``(d, batch)`` of J1's card check: ``J1_DIMS`` by ``J1_BATCHES``,
-    then the serving buckets."""
-    return [(d, b) for d in J1_DIMS for b in J1_BATCHES] + [
+def j1_shapes(sms):
+    """``(d, batch)`` of J1's card check on a card of ``sms`` SMs:
+    ``J1_DIMS`` by ``J1_BATCHES``, the d that split over two SMs at those
+    batches also at one matrix more than a split launch holds (one SM a
+    matrix), then the serving buckets."""
+    from deap_tpu_torch.ops import linalg
+    split = [(d, sms // 2 + 1) for d in J1_DIMS
+             if linalg._j1_splits(d, 1, sms)]
+    return [(d, b) for d in J1_DIMS for b in J1_BATCHES] + split + [
         (d, b) for b, d in J1_BUCKETS]
 
 

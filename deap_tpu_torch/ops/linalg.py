@@ -11,9 +11,15 @@ pivots set to zero; the diagonal, sorted stably, is the spectrum. The
 schedule is fixed, so there is no data-dependent control flow.
 
 - :func:`eigh_jacobi` (J1, ``csrc/jacobi_eigh.cu``): one CUDA block a
-  matrix, every round in one launch, A and V in shared memory up to d
-  :data:`J1_SHARED_MAX_D` and in device memory above. The JAX function
-  is XLA, not Pallas: J1 is the port's own kernel for it.
+  matrix, every round in one launch; A warps compute a round's rotations
+  and make one in-place pass over A by 2x2 pair blocks, V warps rotate V's
+  rows behind them from a ring of the last rounds' rotations
+  (:func:`_j1_split`), or, where every matrix's two blocks fit on the card
+  at once (:func:`_j1_splits`), from a log in device memory on a second
+  SM; A and Vᵀ in shared memory up to
+  d :data:`J1_SHARED_MAX_D` and in device memory above; the spectrum
+  sorted in the kernel. The JAX function is XLA, not Pallas: J1 is the
+  port's own kernel for it.
 - :func:`eigh_jacobi_plain`: the same rounds in plain PyTorch (about
   twenty launches a round on the card).
 
@@ -51,6 +57,9 @@ JACOBI_W_RTOL, JACOBI_RECON_TOL = 2e-5, 1e-4
 J1_MAX_SHARED = 232_448
 #: J1's threads a block, at most
 J1_MAX_THREADS = 1024
+#: the ctypes argument types of J1's launcher, ``csrc/jacobi_eigh.cu::
+#: jacobi_eigh``
+J1_ARGTYPES = (_build.PTR,) * 4 + (_build.INT,) * 11 + (_build.PTR,) * 4
 
 
 def _round_robin_schedule(d: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -84,29 +93,129 @@ def default_sweeps(d: int) -> int:
     return 5 + max(0, int(np.ceil(np.log2(d / 8))) if d > 8 else 0)
 
 
-def _shared_bytes(d: int, ld: int) -> int:
-    """J1's dynamic shared memory at row stride ``ld``: A and V when they
-    live there, and each pair's c, s and packed (p, q)."""
-    npairs = (d + d % 2) // 2
-    return 2 * d * ld * 4 + 12 * npairs
+#: the most ring slots (rounds of rotations the V warps may lag by)
+J1_MAX_SLOTS = 2
+#: J1's V threads and pass threads, at most
+J1_MAX_V_THREADS, J1_MAX_PASS_THREADS = 384, 512
+#: the largest d J1 takes (a round's pair is stored as p | q << 16)
+J1_MAX_D = 32767
+#: J1 gives each pair a pivot thread up to this many pairs (d 1,920),
+#: beside a pass warp and a V warp; above it, this many pivot threads
+#: take the pairs in turn
+J1_MAX_PIVOT_THREADS, J1_PAIRS_IN_TURN_THREADS = J1_MAX_THREADS - 64, 128
+
+
+def _npairs(d: int) -> int:
+    return (d + d % 2) // 2
+
+
+def _j1_pivots(d: int) -> int:
+    """J1's pivot threads: a thread a pair, in whole warps, up to
+    :data:`J1_MAX_PIVOT_THREADS`; above it
+    :data:`J1_PAIRS_IN_TURN_THREADS`, each taking the pairs ``k, k +
+    threads, ...`` in turn."""
+    n = -(-_npairs(d) // 32) * 32
+    return n if n <= J1_MAX_PIVOT_THREADS else J1_PAIRS_IN_TURN_THREADS
+
+
+def _shared_bytes(d: int, ld: int, slots: int) -> int:
+    """J1's dynamic shared memory at A's row stride ``ld`` (0: A and V in
+    device memory): Vᵀ (column stride d rounded up to even) and A (its
+    size rounded up to even) where they live there, and ``slots`` rounds
+    of each pair's c, s (float2) and packed (p, q) (int32)."""
+    ldv = d + d % 2
+    return ((4 * (d * ldv + (d * ld + 1) // 2 * 2) if ld else 0)
+            + 12 * _npairs(d) * slots)
+
+
+def _j1_split(d: int) -> Tuple[int, int, int]:
+    """``(n_a, n_v, groups)``: J1's pivot and pass threads, its V threads,
+    and the pass threads a column pair. :func:`_j1_pivots` pivot threads;
+    a V warp for about each 400 (pair, row) units of V a round, at
+    most :data:`J1_MAX_V_THREADS`; pass threads for about two of the
+    m²/4 blocks each, at most :data:`J1_MAX_PASS_THREADS`. The pass
+    threads ``t < groups · m/2`` own column pair ``t mod m/2`` and the row
+    pairs ``t div m/2 + j · groups``; above d 1,024 they are fewer than the
+    pairs (one group, each thread the column pairs ``t, t + n_pass,
+    ...``). Shared-memory accesses set J1's round, and one warp issues
+    them far below an SM's rate, so each role has warps in proportion to
+    its share; these counts came out best of a sweep of splits on the
+    H100."""
+    if d > J1_MAX_D:
+        raise ValueError(f"eigh_jacobi's kernel takes d up to {J1_MAX_D}, "
+                         f"got {d}")
+    npairs = _npairs(d)
+    n_pivot = _j1_pivots(d)
+    n_v = min(J1_MAX_V_THREADS, J1_MAX_THREADS - n_pivot - 32,
+              32 * max(1, round(npairs * d / 400)))
+    n_pass = min(J1_MAX_PASS_THREADS, J1_MAX_THREADS - n_pivot - n_v,
+                 -(-npairs * npairs // 64) * 32)
+    groups = max(1, min(npairs, n_pass // npairs))
+    if groups > 1:
+        n_pass = -(-groups * npairs // 32) * 32
+    return n_pivot + n_pass, n_v, groups
 
 
 def _j1_plan(d: int) -> Tuple[int, int, int]:
     """``(ld, shared_bytes, threads)`` of J1 at dimension ``d``. ``ld`` is
-    the row stride of A and V in shared memory: odd (``d + 1`` for an even
-    d) so that a warp walking a column hits 32 banks, ``d`` where the
-    padding does not fit, and 0 where A and V do not fit at all (they
-    stay in device memory; only the pair data is shared)."""
-    npairs = (d + d % 2) // 2
-    threads = min(J1_MAX_THREADS, max(32, -(-npairs * d // 32) * 32))
+    A's row stride in shared memory: odd (``d + 1`` for an even d) where
+    it fits, ``d`` where the padding does not, and 0 where A and Vᵀ do
+    not fit at all (they stay in device memory; only the ring is shared).
+    The ring takes as many slots as fit, up to :data:`J1_MAX_SLOTS`;
+    ``threads`` is :func:`_j1_split`'s."""
+    n_a, n_v, _ = _j1_split(d)
+    return _j1_layout(d)[:2] + (n_a + n_v,)
+
+
+def _j1_layout(d: int) -> Tuple[int, int, int]:
+    """``(ld, shared_bytes, slots)``, as :func:`_j1_plan` says."""
     for ld in ((d + 1, d) if d % 2 == 0 else (d,)):
-        if _shared_bytes(d, ld) <= J1_MAX_SHARED:
-            return ld, _shared_bytes(d, ld), threads
-    return 0, 12 * npairs, threads
+        room = J1_MAX_SHARED - _shared_bytes(d, ld, 0)
+        slots = min(J1_MAX_SLOTS, room // (12 * _npairs(d)))
+        if slots >= 1:
+            return ld, _shared_bytes(d, ld, slots), slots
+    slots = min(J1_MAX_SLOTS, J1_MAX_SHARED // (12 * _npairs(d)))
+    return 0, _shared_bytes(d, 0, slots), slots
 
 
 #: the largest d whose A and V J1 keeps in shared memory (170)
 J1_SHARED_MAX_D = max(d for d in range(2, 256) if _j1_plan(d)[0])
+#: J1 splits a matrix over two SMs (A's rounds on one, V's on the other)
+#: from this d up to :data:`J1_SHARED_MAX_D`, where both blocks of every
+#: matrix fit on the card at once: ``port_profile.py --kernel-times``'
+#: ``j1_split_min_d`` on an NVIDIA H100 80GB HBM3 at 700 W, the smallest
+#: d from which the split beat one SM a matrix at batch 1 at every larger
+#: d timed (within 1-3% up to d 64, 28% at d 100, 33% at d 170; at d 100
+#: also with half the SMs' matrices, 66)
+J1_SPLIT_MIN_D = 39
+#: the rounds the V block of a split copies at a time (csrc's kLogBatch)
+J1_LOG_BATCH = 8
+
+
+def _j1_splits(d: int, nmat: int, sms: int) -> bool:
+    """Whether J1 gives each of ``nmat`` matrices two blocks on two of the
+    card's ``sms`` SMs, one for A's rounds and one for V's (a cooperative
+    launch: each block takes more than half an SM's shared memory, so
+    all ``2 nmat`` must fit on the SMs at once)."""
+    return 2 * nmat <= sms and J1_SPLIT_MIN_D <= d <= J1_SHARED_MAX_D
+
+
+def _j1_split_plan(d: int) -> Tuple[int, int, int, int]:
+    """``(ld, shared_bytes, n_a, n_v)`` of a split J1: A's row stride,
+    the dynamic shared bytes of each block (more than half an SM's, so the
+    two blocks take two SMs), the A block's pivot and pass threads and the
+    V block's threads (a (pair, row pair) unit each, up to 1024)."""
+    ld = _j1_layout(d)[0]
+    ldv, npairs = d + d % 2, _npairs(d)
+    need = 4 * max(d * ldv, d * ld + 1) + 12 * npairs * J1_LOG_BATCH
+    n_v = min(J1_MAX_THREADS, -(-npairs * (ldv // 2) // 32) * 32)
+    return ld, max(need, J1_MAX_SHARED // 2 + 16), _j1_split(d)[0], n_v
+
+
+def j1_sms(d: int, nmat: int, sms: int) -> int:
+    """The SMs J1's launch on ``nmat`` matrices of dimension ``d`` can use
+    on a card of ``sms`` SMs: two a matrix where it splits."""
+    return min(2 * nmat if _j1_splits(d, nmat, sms) else nmat, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,14 +242,6 @@ def _plain_tables(d: int, device: torch.device):
     to = lambda a: torch.from_numpy(a).to(device)
     return (to(ps.astype(np.int64)), to(qs.astype(np.int64)), to(real),
             to(pair_of), to(partner), to(role), to(piv))
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_tables(d: int, device: torch.device) -> torch.Tensor:
-    """J1's schedule: ``int32[m - 1, m // 2]``, each pair packed as ``p |
-    q << 16``."""
-    ps, qs = _round_robin_schedule(d)
-    return torch.from_numpy(ps | (qs << 16)).to(device)
 
 
 def _check_square(C: torch.Tensor) -> int:
@@ -213,9 +314,9 @@ def eigh_jacobi(C: torch.Tensor,
     (a stable sort), ``C ≈ V diag(w) Vᵀ``. ``sweeps`` defaults to
     :func:`default_sweeps`.
 
-    On the card J1 runs every round in one launch, one block a matrix,
-    and ``torch.sort`` orders the spectrum; a CUDA tensor must be float32
-    and contiguous. A CPU tensor takes the plain version. ``launches``
+    On the card J1 runs every round and orders the spectrum in one
+    launch, one block a matrix; a CUDA tensor must be float32 and
+    contiguous. A CPU tensor takes the plain version. ``launches``
     counts J1's launches.
     """
     d = _check_square(C)
@@ -229,28 +330,53 @@ def eigh_jacobi(C: torch.Tensor,
         raise ValueError("eigh_jacobi's kernel needs a contiguous matrix")
     if d == 1:
         return C[..., 0, 0][..., None], torch.ones_like(C)
+    fn = _build.function("jacobi_eigh", "jacobi_eigh", J1_ARGTYPES)
+    w, V, err = _j1_launch(fn, C, sweeps)
+    eigh_jacobi.launches += 1
+    _build.check("jacobi_eigh", err, "eigh_jacobi")
+    return w, V
+
+
+def _j1_launch(fn, C: torch.Tensor, sweeps: Optional[int]):
+    """Launch J1's launcher ``fn`` (``csrc/jacobi_eigh.cu::jacobi_eigh``, or
+    the same source built with other flags) on a checked float32 CUDA
+    ``C [..., d, d]`` (d >= 2): ``(w, V, err)``, the spectrum ascending
+    with V's columns in its order, and the launcher's CUDA error code."""
+    d = C.shape[-1]
     sweeps = default_sweeps(d) if sweeps is None else int(sweeps)
     batch = C.shape[:-2]
     nmat = math.prod(batch)
     w = torch.empty(batch + (d,), dtype=torch.float32, device=C.device)
     V = torch.empty(batch + (d, d), dtype=torch.float32, device=C.device)
     if nmat == 0:
-        return w, V
-    ld, smem, threads = _j1_plan(d)
-    # A lives in device memory where it does not fit in shared memory
-    work = (torch.empty(0, device=C.device) if ld else
-            torch.empty(batch + (d, d), dtype=torch.float32,
-                        device=C.device))
-    pairs = _kernel_tables(d, C.device)
-    P, I = _build.PTR, _build.INT
-    fn = _build.function("jacobi_eigh", "jacobi_eigh",
-                         [P, P, P, P, P, I, I, I, I, I, I, I, P])
-    err = fn(C.data_ptr(), pairs.data_ptr(), w.data_ptr(), V.data_ptr(),
-             work.data_ptr(), nmat, d, pairs.shape[0], sweeps, ld, smem,
-             threads, torch.cuda.current_stream(C.device).cuda_stream)
-    eigh_jacobi.launches += 1
-    _build.check("jacobi_eigh", err, "eigh_jacobi")
-    return _sorted(w, V)
+        return w, V, 0
+    n_pivot = _j1_pivots(d)
+    n_a, n_v, groups = _j1_split(d)
+    split = _j1_splits(d, nmat, torch.cuda.get_device_properties(
+        C.device).multi_processor_count)
+    none = torch.empty(0, device=C.device)
+    if split:
+        ld, smem, n_a, n_v = _j1_split_plan(d)
+        slots, work = 1, none
+        npairs = _npairs(d)
+        rounds = sweeps * (2 * npairs - 1)
+        log = torch.empty(nmat * rounds * npairs * 3, dtype=torch.int32,
+                          device=C.device)
+        ready = torch.zeros(nmat, dtype=torch.int32, device=C.device)
+        order = torch.empty(nmat * d, dtype=torch.int32, device=C.device)
+    else:
+        ld, smem, slots = _j1_layout(d)
+        log = ready = order = none
+        # Vᵀ and A live in device memory where they do not fit in shared
+        # memory
+        work = (none if ld else
+                torch.empty(batch + (2, d, d + d % 2), dtype=torch.float32,
+                            device=C.device))
+    err = fn(C.data_ptr(), w.data_ptr(), V.data_ptr(), work.data_ptr(), nmat,
+             d, sweeps, ld, smem, n_pivot, n_a, n_v, groups, slots,
+             int(split), log.data_ptr(), ready.data_ptr(), order.data_ptr(),
+             torch.cuda.current_stream(C.device).cuda_stream)
+    return w, V, err
 
 
 eigh_jacobi.launches = 0

@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
                             [--hw] [--sass]
                             [--k7-variants]
                             [--package-root DIR]
-    python3 port_profile.py --kernel-times [--package-root DIR]
+    python3 port_profile.py --kernel-times [--only PREFIX] [--package-root DIR]
 
 ``--package-root DIR`` (default: this checkout) picks the
 ``deap_tpu_torch`` that every mode builds (into DIR's own ``build/``),
@@ -90,7 +90,9 @@ ranked rows) and over the 31 launches of one ``nd='dc'`` selection at
 16,384 rows (their sum, each launch timed alone), K7 at 100k and 50k
 rows, K6-hw and K6 at pop 100k and 30 genes, K9 on ``bench_gp.py``'s
 gen-0 and evolved schedules (after the L2 flush, and K4-hw and K9 also
-without it), and beside them K5-hw with mutation off, K2-hw and K6-hw
+without it), J1 at d 100, on the serving buckets [1024, 10] and [256, 30]
+and at d 192 (device memory) beside ``torch.linalg.eigh`` on the same
+inputs, and beside them K5-hw with mutation off, K2-hw and K6-hw
 with crossover and mutation off, K6 with crossover, mutation or both off, ``torch.index_select`` of K4-hw's
 winners (computed beforehand), torch copies of the byte, the packed
 and the float32 genomes and of K9's value buffers, a read-only torch pass
@@ -102,7 +104,10 @@ a 200-generation ``ea_simple_packed`` and four 50-generation
 the last three's launch counts); where
 the package's source has K5-hw's phase clock, it also splits K5-hw's
 generation by phase from a build with ``-DDTT_K5_PHASES``, and for this
-checkout's package K9's items from a build with ``-DDTT_K9_PHASES``.
+checkout's package K9's items from a build with ``-DDTT_K9_PHASES`` and
+J1's rounds by role from one with ``-DDTT_J1_PHASES``. ``--only PREFIX``
+keeps the entries whose names start with PREFIX and skips the checksum
+runs and the other phase clocks (``--only j1``: J1 alone).
 Two versions
 compare on one card by runs in turns: that one, this one, this one, that
 one.
@@ -617,7 +622,7 @@ def sass_philox(out_dir, facts, library="evolve_packed"):
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
 
-def kernel_times(dev, facts, root, reps=25):
+def kernel_times(dev, facts, root, reps=25, only=None):
     """Time K5-hw and K5 (one 50-generation call each), K2-hw, K2, K3-hw,
     K3, K4-hw and K4 (one generation each) at the main path's shapes, pop 100k
     and L 100, K6-hw and K6 at ``bench_suite.py``'s Rastrigin shape (pop
@@ -739,6 +744,7 @@ def kernel_times(dev, facts, root, reps=25):
                             ("copy_only", dict(cxpb=0.0, mutpb=0.0)))},
     }
     calls.update(k1_k7_k8_calls(dev, reps))
+    calls.update(j1_calls(dev, reps))
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
@@ -752,18 +758,27 @@ def kernel_times(dev, facts, root, reps=25):
             lambda dst=torch.empty_like(buf), buf=buf: (dst.copy_(buf),
                                                         no_fitness), reps)
     times = {"package": os.path.relpath(root, ROOT)}
+    if only:
+        calls = {k: v for k, v in calls.items() if k.startswith(only)}
     for name, (call, n_reps, *cold) in calls.items():
         genomes, fitness = call()
-        times[f"{name}_sum"] = int(genomes.view(torch.uint8).sum()) + int(
-            fitness.double().sum())
+        times[f"{name}_sum"] = int(
+            genomes.contiguous().view(torch.uint8).sum()) + int(
+                fitness.double().sum())
         times[f"{name}_ms"] = time_ms(call, (cold or [flush])[0],
                                       reps=n_reps)
-    times.update(k8_dc_times(dev, flush))
-    times.update(run_checksums(dev))
-    if "DTT_K5_PHASES" in (_build.CSRC / "evolve_packed.cu").read_text():
-        times.update(k5_hw_phases(pk, fit, key, flush))
+    if not only:
+        times.update(k8_dc_times(dev, flush))
+        times.update(run_checksums(dev))
+        if "DTT_K5_PHASES" in (_build.CSRC / "evolve_packed.cu").read_text():
+            times.update(k5_hw_phases(pk, fit, key, flush))
     if root == ROOT:  # its launch follows this checkout's launcher
-        times.update(k9_phases(cases, flush))
+        if not only:
+            times.update(k9_phases(cases, flush))
+        if not only or only.startswith("j1"):
+            times.update(j1_phases(dev, flush))
+    if "j1_split_d100_ms" in times:
+        times["j1_split_min_d"] = j1_split_edge(times)
     print(f"[{facts}] kernel times {json.dumps(times)}")
 
 
@@ -977,6 +992,146 @@ def k9_cases(dev):
     return cases
 
 
+#: J1's shapes in ``--kernel-times``: CMA-ES's C at dim 100, the two
+#: serving buckets, and d 192 (A and V in device memory)
+J1_SHAPES = {"j1": (100, 100), "j1_1024x10": (1024, 10, 10),
+             "j1_256x30": (256, 30, 30), "j1_d192": (192, 192)}
+
+
+def j1_matrices(dev):
+    """J1's inputs at ``J1_SHAPES``, by name: ``chip_smoke.j1_inputs``'
+    random SPD matrices (the same in every package)."""
+    import math
+    import torch
+    from chip_smoke import j1_inputs
+    out = {}
+    for name, shape in J1_SHAPES.items():
+        d, nmat = shape[-1], math.prod(shape[:-2])
+        C = j1_inputs(torch, dev, d, nmat, torch.eye(d, device=dev))["spd"]
+        out[name] = C.reshape(shape)
+    return out
+
+
+#: the d at which ``j1_calls`` times J1 at batch 1 split over two SMs and
+#: on one SM (``j1_split_d*``, ``j1_one_sm_d*``): where the split starts to
+#: pay, ``linalg.J1_SPLIT_MIN_D``
+J1_SPLIT_DIMS = (16, 32, 34, 35, 36, 37, 38, 39, 40, 48, 64, 100, 170)
+
+
+def j1_calls(dev, reps):
+    """J1 at ``J1_SHAPES`` and ``torch.linalg.eigh`` on the same inputs
+    (``j1_torch_eigh*``), each returning ``(V, w)`` for the checksum. Where
+    the package splits a matrix over two SMs (``linalg._j1_splits``), also
+    J1 with the split forced on and off: at batch 1 for each d of
+    ``J1_SPLIT_DIMS``, and at d 100 for the most matrices a split launch
+    holds, half the card's SMs (``j1_split_<batch>x100``,
+    ``j1_one_sm_<batch>x100``)."""
+    import torch
+    from chip_smoke import j1_inputs
+    from deap_tpu_torch.ops import linalg
+    calls = {}
+    for name, C in j1_matrices(dev).items():
+        calls[name] = (lambda C=C: linalg.eigh_jacobi(C)[::-1], reps)
+        calls[f"j1_torch_eigh{name[2:]}"] = (
+            lambda C=C: torch.linalg.eigh(C)[::-1], reps)
+    if not hasattr(linalg, "_j1_splits"):
+        return calls
+    plan = linalg._j1_splits
+
+    def forced(C, split):
+        linalg._j1_splits = lambda d, nmat, sms: split
+        try:
+            return linalg.eigh_jacobi(C)[::-1]
+        finally:
+            linalg._j1_splits = plan
+
+    most = torch.cuda.get_device_properties(dev).multi_processor_count // 2
+    for d, nmat, tag in ([(d, 1, f"d{d}") for d in J1_SPLIT_DIMS]
+                         + [(100, most, f"{most}x100")]):
+        C = j1_inputs(torch, dev, d, nmat, torch.eye(d, device=dev))["spd"]
+        calls[f"j1_split_{tag}"] = (lambda C=C: forced(C, True), reps)
+        calls[f"j1_one_sm_{tag}"] = (lambda C=C: forced(C, False), reps)
+    return calls
+
+
+def j1_split_edge(times):
+    """The smallest d of ``J1_SPLIT_DIMS`` from which J1 split over two SMs
+    is faster than on one SM at every larger d measured (None where the
+    times lack the entries)."""
+    edge = None
+    for d in reversed(J1_SPLIT_DIMS):
+        split, one = (times.get(f"j1_{k}_d{d}_ms") for k in ("split", "one_sm"))
+        if split is None or one is None or split >= one:
+            break
+        edge = d
+    return edge
+
+
+def j1_phases(dev, flush, reps=10, shapes=None):
+    """J1's rounds split by phase, from a build of csrc/jacobi_eigh.cu
+    with ``-DDTT_J1_PHASES`` (thread 0 of each block, and in a design with
+    warps of its own for V the first of them, adds the SM clocks of each
+    phase of every round to device totals; the library names its phases),
+    at ``J1_SHAPES`` (or those of them named in ``shapes``): each phase's
+    SM clocks a round (per block), and the
+    instrumented call's time (its cost against the uninstrumented one).
+    The instrumented build's ``w`` and ``V`` must equal J1's bitwise."""
+    import ctypes
+    import subprocess
+    import torch
+    from chip_smoke import time_ms
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.ops import linalg
+
+    lib_path = str(_build.BUILD_DIR / "libjacobi_eigh-phases.so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDTT_J1_PHASES", "-o",
+         lib_path, str(_build.CSRC / "jacobi_eigh.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc -DDTT_J1_PHASES failed:\n{done.stdout}")
+    lib = ctypes.CDLL(lib_path)
+    run = lib.jacobi_eigh
+    run.argtypes, run.restype = list(linalg.J1_ARGTYPES), _build.INT
+    lib.jacobi_eigh_phase_names.restype = ctypes.c_char_p
+    names = lib.jacobi_eigh_phase_names().decode().split(",")
+    read = lib.jacobi_eigh_phases
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), _build.INT]
+    read.restype = _build.INT
+    out = {}
+    for name, C in j1_matrices(dev).items():
+        if shapes and name not in shapes:
+            continue
+        d = C.shape[-1]
+        nmat = C.numel() // (d * d)
+        rounds = linalg.default_sweeps(d) * (d + d % 2 - 1)
+
+        def call(C=C):
+            w, V, err = linalg._j1_launch(run, C, None)
+            if err:
+                raise RuntimeError(f"J1 (phases build): CUDA error {err}")
+            return w, V
+
+        got = call() + linalg.eigh_jacobi(C)
+        torch.cuda.synchronize()
+        w, V, wk, Vk = (t.view(torch.int32) for t in got)
+        if not (torch.equal(w, wk) and torch.equal(V, Vk)):
+            raise RuntimeError(f"J1 (phases build) differs from J1 on {name}")
+        clocks = (ctypes.c_ulonglong * len(names))()
+        read(clocks, 1)  # clear the first calls' totals
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        if read(clocks, 1):
+            raise RuntimeError("J1 (phases build): reading the clocks failed")
+        out[f"{name}_phases_ms"] = time_ms(call, flush, reps=reps)
+        for phase, c in zip(names, clocks):
+            out[f"{name}_clocks_per_round_{phase}"] = c / (reps * nmat
+                                                            * rounds)
+    return out
+
+
 K9_PHASES = ("decode_level_descriptors", "wait", "work", "count_ticket")
 
 
@@ -1174,8 +1329,14 @@ def main():
                         help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw, "
                              "K4 and K1 at pop 100k, L 100, K8 and K7 at the "
                              "NSGA-II path's shapes, K6-hw and K6 at 30 "
-                             "genes, and K9 on the GP schedules "
-                             "(alone: nothing else runs)")
+                             "genes, K9 on the GP schedules and J1 at d "
+                             "100, 192 and the serving buckets (alone: "
+                             "nothing else runs)")
+    parser.add_argument("--only", metavar="PREFIX",
+                        help="with --kernel-times: only the entries whose "
+                             "names start with PREFIX (e.g. j1), without "
+                             "the checksum runs and the other phase "
+                             "clocks")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "
                              "profiled and timed (e.g. an "
@@ -1192,7 +1353,8 @@ def main():
     sys.path.insert(0, root)
     if args.kernel_times:
         from deap_tpu_torch.device import gpu_facts
-        kernel_times(torch.device("cuda"), gpu_facts(), root)
+        kernel_times(torch.device("cuda"), gpu_facts(), root,
+                     only=args.only)
         return 0
     from deap_tpu_torch import FitnessSpec, Toolbox, _build, algorithms, ops
     from deap_tpu_torch.core.population import init_population
