@@ -158,7 +158,26 @@ Phases (any failure ends the script with a non-zero exit code):
     generations, best below 1e-6), MO-CMA-ES on ZDT1 (µ = λ = 16, 5
     genes, 500 generations, hypervolume of [11, 11] above 116; then µ =
     λ = 100, 30 genes, timed) and BIPOP-CMA-ES on sphere (dim 5, 2
-    restarts, best below 1e-8).
+    restarts, best below 1e-8);
+17. the rest of the strategies and NSGA-III / dense SPEA2: the JAX
+    package's gates at its test sizes (DE on sphere, n 300, 10 genes, 200
+    generations, best below 1e-2 and a monotone trajectory; PSO on h1, 20
+    particles, 1000 generations, above 1.6, monotone; PBIL on 50-bit
+    OneMax, λ 20, 50 generations, hall of fame at least 45; EMNA on
+    sphere, N 30, λ 1000, 150 generations, below 1e-3; multi-swarm and
+    speciation PSO on two peaks, above 9, speciation also a particle
+    within 1.5 of the second peak; NSGA-III on ZDT1, µ 16, 5 genes, 100
+    generations, 13 reference points, hypervolume of [11, 11] above
+    116), the reference examples at their sizes timed (``examples/pso/multiswarm.py``,
+    ``examples/pso/speciation.py``, ``examples/de/dynamic.py``,
+    ``examples/ga/nsga3.py``), then the full widths: NSGA-III on DTLZ2 at
+    mu 50,000 (union 100k, 12 variables, 91 reference points, NSGA-II's
+    variation) for 3 generations after one of warm-up with K7 launched
+    once per front peeled, K7's device time and the niching loop's host
+    time, then one selection on a converged union (one front, n_fill =
+    mu) with its peak memory; DE and PSO on Rastrigin at pop 100k, 30 genes, 20
+    generations after 2; dense ``sel_spea2`` on an over-full ZDT1 union of
+    2,000 rows to 1,000.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -166,6 +185,7 @@ numbers, the card's name and power limit from ``nvidia-smi``, and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -256,6 +276,21 @@ MU_COMMA, MU_NGEN = 20_000, 20
 # examples/es/fctmin.py and examples/ga/kursawefct.py
 FCT_MU, FCT_LAMBDA, FCT_DIM, FCT_NGEN, FCT_MIN_STRATEGY = 10, 100, 30, 100, 0.5
 KUR_N, KUR_NGEN = 100, 50
+# the JAX package's gates of the rest of the strategies and of NSGA-III
+# (tests/test_strategies.py, tests/test_multiswarm_bipop.py,
+# tests/test_mo.py): DE on sphere, PSO on h1, PBIL on OneMax, EMNA on
+# sphere, multi-swarm and speciation PSO on two peaks, NSGA-III on ZDT1
+DE_N, DE_DIM, DE_NGEN, DE_GATE = 300, 10, 200, 1e-2
+PSO_N, PSO_NGEN, PSO_GATE = 20, 1000, 1.6
+PBIL_DIM, PBIL_LAMBDA, PBIL_NGEN, PBIL_GATE = 50, 20, 50, 45.0
+EMNA_DIM, EMNA_LAMBDA, EMNA_NGEN, EMNA_GATE = 30, 1000, 150, 1e-3
+MS_STEPS, SP_N, SP_STEPS, PEAK_GATE = 40, 60, 30, 9.0
+N3_MU, N3_DIM, N3_NGEN, N3_P, N3_HV_GATE = 16, 5, 100, 12, 116.0
+# NSGA-III at bench.py's NSGA-II width: uniform_reference_points(3, 12);
+# DE and PSO at the continuous GA's width (RA_N x RA_DIM Rastrigin), 20
+# generations after 2; dense SPEA2 on an over-full ZDT1 union
+N3_WIDE_P, WIDE_NGEN, WIDE_WARM = 12, 20, 2
+SPEA2_N, SPEA2_K = 2000, 1000
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -701,6 +736,7 @@ def main():
     cma_phases(torch, dev, tag, report, record)
     mu_lambda_phases(torch, dev, tag, report)
     strategy_phases(torch, dev, tag, report)
+    swarm_nsga3_phases(torch, dev, tag, report)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -2309,6 +2345,289 @@ def strategy_phases(torch, dev, tag, report):
           f"best {best_f:.3e} (gate < {BIPOP_GATE})")
 
 
+def swarm_nsga3_phases(torch, dev, tag, report):
+    """Phase 17: the rest of the strategies and NSGA-III / dense SPEA2 —
+    the JAX package's gates, the reference examples timed, then NSGA-III
+    at mu 50,000 through K7 (from a random start and on a converged
+    union), DE and PSO at pop 100k and dense SPEA2 at 2,000 rows. Adds
+    NSGA-III's K7 launches to K7's line. The card-against-CPU checks of
+    each step are ``tests/test_torch_a6_cuda.py``."""
+    from deap_tpu_torch import Toolbox, algorithms, benchmarks, mo, ops
+    from deap_tpu_torch.core.fitness import FitnessSpec
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.mo import emo
+    from deap_tpu_torch.native import hypervolume
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.ops.linalg import norm_rn
+    from deap_tpu_torch.strategies import (
+        EMNA, PBIL, PSO, DifferentialEvolution, MultiSwarmPSO,
+        SpeciationPSO)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def gate(what, ok, detail, wall, gens):
+        if not ok:
+            fail(f"{what}: {detail}")
+        print(f"{tag} {what}: {gens} generations in {wall:.3f} s = "
+              f"{wall / gens * 1e3:.3f} ms/gen; {detail}")
+
+    def monotone(traj):
+        return bool((traj[1:] >= traj[:-1]).all())
+
+    # ----------------------------------------- the JAX package's gates --
+    de = DifferentialEvolution(benchmarks.sphere, F=1.0, CR=0.25)
+    g = make_generator(2, dev)
+    pop = init_population(g, DE_N, ops.uniform_genome(DE_DIM, -3.0, 3.0),
+                          FitnessSpec((-1.0,)), device=dev)
+    (pop, traj), wall = timed(lambda: de.run(g, pop, DE_NGEN))
+    best = float(-pop.wvalues[:, 0].max())
+    gate(f"DE sphere n={DE_N} dim={DE_DIM}", best < DE_GATE
+         and monotone(traj), f"best {best:.3e} (gate < {DE_GATE}), "
+         f"monotone {monotone(traj)}", wall, DE_NGEN)
+
+    pso = PSO(benchmarks.h1, smin=0.001, smax=3.0, device=dev)
+    g = make_generator(9, dev)
+    s = pso.init(g, PSO_N, 2, pmin=-6.0, pmax=6.0, smin=-3.0, smax=3.0)
+    (s, traj), wall = timed(lambda: pso.run(g, s, PSO_NGEN))
+    best = float(s.gbest_w[0])
+    gate(f"PSO h1 n={PSO_N}", best > PSO_GATE and monotone(traj),
+         f"gbest {best:.5f} (gate > {PSO_GATE}), monotone "
+         f"{monotone(traj)}", wall, PSO_NGEN)
+
+    pbil = PBIL(ndim=PBIL_DIM, learning_rate=0.3, mut_prob=0.1,
+                mut_shift=0.05, lambda_=PBIL_LAMBDA, device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", lambda x: x.sum(-1))
+    tb.register("generate", pbil.generate)
+    tb.register("update", pbil.update)
+    (_, _, hof), wall = timed(lambda: algorithms.ea_generate_update(
+        make_generator(1, dev), pbil.initial_state(make_generator(2, dev)),
+        tb, PBIL_NGEN, pbil.spec, halloffame_size=1, device=dev))
+    best = float(hof.fitness[0, 0])
+    gate(f"PBIL OneMax L={PBIL_DIM} lambda={PBIL_LAMBDA}",
+         best >= PBIL_GATE, f"hall of fame {best} (gate >= {PBIL_GATE})",
+         wall, PBIL_NGEN)
+
+    emna = EMNA(centroid=[5.0] * EMNA_DIM, sigma=5.0, mu=EMNA_LAMBDA // 4,
+                lambda_=EMNA_LAMBDA, device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.sphere)
+    tb.register("generate", emna.generate)
+    tb.register("update", emna.update)
+    (_, _, hof), wall = timed(lambda: algorithms.ea_generate_update(
+        make_generator(4, dev), emna.initial_state(), tb, EMNA_NGEN,
+        emna.spec, halloffame_size=1, device=dev))
+    best = float(hof.fitness[0, 0])
+    gate(f"EMNA sphere N={EMNA_DIM} lambda={EMNA_LAMBDA}", best < EMNA_GATE,
+         f"best {best:.3e} (gate < {EMNA_GATE})", wall, EMNA_NGEN)
+
+    ms = MultiSwarmPSO(two_peaks, pmin=-6.0, pmax=6.0, rcloud=0.5,
+                       device=dev)
+    g = make_generator(0, dev)
+    s = ms.init(g, nswarms=3, nparticles=8, dim=2, capacity=8)
+
+    def ms_run(s):
+        for _ in range(MS_STEPS):
+            s = ms.step(g, s)
+        return s
+    s, wall = timed(lambda: ms_run(s))
+    best = float(ms.best(s)[1])
+    gate("multi-swarm PSO two peaks, 3 swarms of 8 in 8 slots",
+         best > PEAK_GATE and int(s.nevals) > 0,
+         f"best {best:.4f} (gate > {PEAK_GATE}), {int(s.active.sum())} "
+         f"swarms", wall, MS_STEPS)
+
+    sp = SpeciationPSO(two_peaks, pmin=-6.0, pmax=6.0, rs=3.0, pmax_size=10,
+                       device=dev)
+    g = make_generator(8, dev)
+    s = sp.init(g, n=SP_N, dim=2)
+
+    def sp_run(s):
+        for _ in range(SP_STEPS):
+            s = sp.step(g, s)
+        return s
+    s, wall = timed(lambda: sp_run(s))
+    best = float(s.pbest_f.max())
+    near = float(norm_rn(s.pbest_x - 3.0).min())
+    gate(f"speciation PSO two peaks n={SP_N}", best > PEAK_GATE
+         and near < 1.5, f"best {best:.4f} (gate > {PEAK_GATE}), nearest "
+         f"to the second peak {near:.4f} (gate < 1.5)", wall, SP_STEPS)
+
+    pop, wall = timed(lambda: nsga3_zdt1_run(make_generator(12, dev), dev))
+    hv = hypervolume(pop.fitness.cpu().numpy(), [11.0, 11.0])
+    gate(f"NSGA-III ZDT1 mu={N3_MU} dim={N3_DIM} p={N3_P}",
+         hv > N3_HV_GATE and float(pop.genomes.min()) >= 0.0
+         and float(pop.genomes.max()) <= 1.0,
+         f"hypervolume of [11, 11] {hv:.4f} (gate > {N3_HV_GATE})", wall,
+         N3_NGEN)
+
+    # ------------------------------------ the reference examples, timed --
+    for name, fn in (("examples/pso/multiswarm.py", multiswarm_example),
+                     ("examples/pso/speciation.py", speciation_example),
+                     ("examples/de/dynamic.py", de_dynamic_example),
+                     ("examples/ga/nsga3.py", nsga3_example)):
+        (result, gens, detail), wall = timed(lambda fn=fn: fn(dev))
+        if not math.isfinite(result):
+            fail(f"{name}: {detail}")
+        print(f"{tag} {name}: {gens} generations in {wall:.3f} s = "
+              f"{wall / gens * 1e3:.3f} ms/gen; {detail}")
+
+    # ---------------------------------- NSGA-III at mu 50k through K7 --
+    @contextlib.contextmanager
+    def k7_clock(events):
+        """CUDA events around each peel's K7 count while open
+        (``kernels.dominated_counts``, which ``nd_rank_tiled`` calls once
+        a peel: K7 and a cast to int32): K7's device time inside a run.
+        K7's wrapper counts its launches through its own module name, so
+        that name stays bound."""
+        k7_fn = kernels.dominated_counts
+
+        def clocked(*args, **kwargs):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = k7_fn(*args, **kwargs)
+            pair[1].record()
+            events.append(pair)
+            return out
+        kernels.dominated_counts = clocked
+        try:
+            yield
+        finally:
+            kernels.dominated_counts = k7_fn
+
+    def k7_ms(events):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events)
+
+    def selection_parts(wu):
+        """One NSGA-III selection of MO_POP rows from ``wu`` in its parts:
+        the plan (K7's device time and launches in it), the draws, the
+        niching loop; the peak memory above what was allocated before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        events = []
+        with k7_clock(events):
+            plan, t_plan = timed(lambda: emo.nsga3_plan(wu, MO_POP, ref))
+        u, t_draws = timed(lambda: emo.nsga3_draws(g, plan))
+        keep, t_fill = timed(lambda: emo.nsga3_select_scaled(plan, MO_POP,
+                                                             u))
+        peak = torch.cuda.max_memory_allocated() - base
+        if not (keep.shape == (MO_POP,)
+                and int(torch.unique(keep).shape[0]) == MO_POP):
+            fail(f"NSGA-III's selection from a union of {wu.shape[0]} rows "
+                 f"is not {MO_POP} distinct rows")
+        return plan, {"plan": t_plan * 1e3, "k7": k7_ms(events),
+                      "k7_launches": len(events), "draws": t_draws * 1e3,
+                      "niching": t_fill * 1e3,
+                      "peak_mib": peak / 2 ** 20}
+
+    m = MO_NOBJ
+    ref = mo.uniform_reference_points(m, N3_WIDE_P).to(dev)
+    g = make_generator(5, dev)
+    x = torch.rand((MO_POP, MO_DIM), generator=g, device=dev)
+    wm = -benchmarks.dtlz2(x, m)
+    x, wm = nsga3_generation(g, x, wm, ref)  # warm-up
+    inputs, fills, events = [], [], []
+    reset_counts()
+    with k7_clock(events):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MO_NGEN):
+            x, wm = nsga3_generation(g, x, wm, ref, inputs, fills)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    k7 = kernels.dominated_weight_sums.launches
+    k8 = kernels.dominated_weight_maxes.launches
+    peels = [mo.nd_rank(v, impl="tiled", return_peels=True,
+                        cover_k=MO_POP if kind == "nsga3" else None)[1]
+             for kind, v in inputs]
+    if k7 != sum(peels) or k8 != 0 or len(events) != k7:
+        fail(f"NSGA-III: K7 launched {k7} times ({len(events)} clocked) "
+             f"for {sum(peels)} fronts peeled (K8 {k8})")
+    report["k7"]["nsga3_launches"] = k7
+    if not (x.shape == (MO_POP, MO_DIM) and bool(torch.isfinite(wm).all())
+            and float(x.min()) >= 0.0 and float(x.max()) <= 1.0
+            and torch.allclose(wm, -benchmarks.dtlz2(x, m), rtol=1e-6,
+                               atol=0.0)):
+        fail("NSGA-III's final population is wrong")
+    ms_gen = wall_s / MO_NGEN * 1e3
+    k7_gen = k7_ms(events) / MO_NGEN
+    print(f"{tag} NSGA-III DTLZ2 mu={MO_POP} (union {2 * MO_POP}, m={m}, "
+          f"dim {MO_DIM}, {ref.shape[0]} reference points): {MO_NGEN} "
+          f"generations in {wall_s:.3f} s = {ms_gen:.3f} ms/gen; fronts "
+          f"peeled per selection {peels} (dcd, nsga3 per generation); K7 "
+          f"launches {k7} = the fronts peeled, K7 device time {k7_gen:.3f} "
+          f"ms/gen ({k7_gen / ms_gen:.1%}); n_fill per generation "
+          f"{[f[0] for f in fills]} of partial fronts {[f[1] for f in fills]}")
+    # the last selection's union, then a converged one: DTLZ2's distance
+    # variables at 0.5 put every row on the front, so n_fill = mu
+    xc = torch.rand((2 * MO_POP, MO_DIM), generator=g, device=dev)
+    xc[:, m - 1:] = 0.5
+    for what, wu in (("the last selection's union", inputs[-1][1]),
+                     ("a converged union", -benchmarks.dtlz2(xc, m))):
+        plan, t = selection_parts(wu)
+        _, t_sel = timed(lambda wu=wu: mo.sel_nsga3(g, wu, MO_POP, ref))
+        print(f"{tag} NSGA-III selection alone on {what} ({wu.shape[0]} "
+              f"rows, n_fill {plan.n_fill}, partial front "
+              f"{plan.partial_idx.shape[0]}): sel_nsga3 "
+              f"{t_sel * 1e3:.3f} ms; plan {t['plan']:.3f} ms (K7 "
+              f"{t['k7']:.3f} ms device time in {t['k7_launches']} "
+              f"launches), draws {t['draws']:.3f} ms, niching on the host "
+              f"{t['niching']:.3f} ms ({t['niching'] / ms_gen:.1%} of the "
+              f"ms/gen above); peak memory {t['peak_mib']:.1f} MiB above "
+              f"the union")
+
+    # ----------------------------- DE and PSO at pop 100k, Rastrigin --
+    lo, hi = RA_LOW, RA_UP
+    de = DifferentialEvolution(benchmarks.rastrigin, F=1.0, CR=0.25)
+    g = make_generator(21, dev)
+    pop = init_population(g, RA_N, ops.uniform_genome(RA_DIM, lo, hi),
+                          FitnessSpec((-1.0,)), device=dev)
+    pop, _ = de.run(g, pop, WIDE_WARM)
+    start = float(-pop.wvalues[:, 0].max())
+    (pop, traj), wall = timed(lambda: de.run(g, pop, WIDE_NGEN))
+    best = float(-pop.wvalues[:, 0].max())
+    gate(f"DE Rastrigin n={RA_N} dim={RA_DIM} (after {WIDE_WARM} of "
+         f"warm-up)", best <= start and monotone(traj)
+         and bool(torch.isfinite(pop.fitness).all()),
+         f"best {start:.4f} -> {best:.4f}", wall, WIDE_NGEN)
+    pso = PSO(benchmarks.rastrigin, smin=0.001, smax=3.0,
+              spec=FitnessSpec((-1.0,)), device=dev)
+    g = make_generator(22, dev)
+    s = pso.init(g, RA_N, RA_DIM, lo, hi, -3.0, 3.0)
+    s, _ = pso.run(g, s, WIDE_WARM)
+    start = float(-s.gbest_w[0])
+    (s, traj), wall = timed(lambda: pso.run(g, s, WIDE_NGEN))
+    best = float(-s.gbest_w[0])
+    gate(f"PSO Rastrigin n={RA_N} dim={RA_DIM} (after {WIDE_WARM} of "
+         f"warm-up)", best <= start and monotone(traj)
+         and bool(torch.isfinite(s.x).all()),
+         f"gbest {start:.4f} -> {best:.4f}", wall, WIDE_NGEN)
+
+    # ---------------------------------- dense SPEA2, over-full 2,000 --
+    g = make_generator(31, dev)
+    f1 = torch.sort(torch.rand(SPEA2_N, generator=g, device=dev)).values
+    w = -torch.stack([f1, 1.0 - torch.sqrt(f1)], 1)   # ZDT1's front
+    idx, wall = timed(lambda: mo.sel_spea2(None, w, SPEA2_K))
+    nd = emo.dominance_matrix(w).sum(1) == 0
+    n_nd = int(nd.sum())
+    if not (idx.shape == (SPEA2_K,) and len(set(idx.tolist())) == SPEA2_K
+            and bool(nd[idx].all())):
+        fail("dense sel_spea2 on the over-full union is wrong")
+    print(f"{tag} dense sel_spea2 on an over-full ZDT1 union of {SPEA2_N} "
+          f"rows ({n_nd} non-dominated) to {SPEA2_K}: {wall:.3f} s for "
+          f"{n_nd - SPEA2_K} removals = {wall / (n_nd - SPEA2_K) * 1e3:.3f} "
+          f"ms a removal")
+
+
 def j1_shapes(sms):
     """``(d, batch)`` of J1's card check on a card of ``sms`` SMs:
     ``J1_DIMS`` by ``J1_BATCHES``, the d that split over two SMs at those
@@ -3122,6 +3441,197 @@ def nsga2_generation(g, x, w, nd="standard", inputs=None):
         inputs.append(("nsga2", wall))
     keep = mo.sel_nsga2(None, wall, x.shape[0], nd=nd)
     return xall[keep], wall[keep]
+
+
+def nsga3_generation(g, x, w, ref_points, inputs=None, fills=None):
+    """:func:`nsga2_generation` with ``sel_nsga3`` as the environmental
+    selection (its plan, draws and niching, so ``fills`` can collect each
+    selection's ``(n_fill, partial front)``). Returns the survivors'
+    genomes and weighted values."""
+    import torch
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import mo
+    from deap_tpu_torch.mo import emo
+    if inputs is not None:
+        inputs.append(("dcd", w))
+    parents = x[mo.sel_tournament_dcd(g, w, x.shape[0])]
+    noise = torch.randn(parents.shape, generator=g, device=x.device)
+    off = torch.clamp(parents + 0.02 * noise, 0.0, 1.0)
+    xall = torch.cat([x, off])
+    wall = torch.cat([w, -bm.dtlz2(off, w.shape[1])])
+    if inputs is not None:
+        inputs.append(("nsga3", wall))
+    plan = emo.nsga3_plan(wall, x.shape[0], ref_points)
+    if fills is not None:
+        fills.append((plan.n_fill, int(plan.partial_idx.shape[0])))
+    keep = emo.nsga3_select_scaled(plan, x.shape[0],
+                                   emo.nsga3_draws(g, plan))
+    return xall[keep], wall[keep]
+
+
+def two_peaks(x):
+    """The JAX package's static two-peak landscape (its multi-swarm
+    tests): maxima 10 at -3·1 and 8 at +3·1."""
+    import torch
+    from deap_tpu_torch.ops.linalg import norm_rn
+    return torch.maximum(10.0 - norm_rn(x + 3.0), 8.0 - norm_rn(x - 3.0))
+
+
+def nsga3_zdt1_run(g, dev, ngen=None):
+    """The JAX package's NSGA-III ZDT1 gate (tests/test_mo.py): µ 16, 5
+    genes, DCD mating selection, bounded SBX (η 20, cxpb 0.9) and
+    polynomial mutation (η 20, indpb 1/5, mutpb 1), ``sel_nsga3`` over the
+    union with ``uniform_reference_points(2, 12)``. Returns the final
+    population."""
+    from deap_tpu_torch import Toolbox, algorithms, benchmarks, mo, ops
+    from deap_tpu_torch.core.fitness import FitnessSpec
+    from deap_tpu_torch.core.population import (concat, gather,
+                                                init_population)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.zdt1)
+    tb.register("mate", ops.cx_simulated_binary_bounded, eta=20.0, low=0.0,
+                up=1.0)
+    tb.register("mutate", ops.mut_polynomial_bounded, eta=20.0, low=0.0,
+                up=1.0, indpb=1.0 / N3_DIM)
+    ref = mo.uniform_reference_points(2, N3_P).to(dev)
+    pop = init_population(g, N3_MU, ops.uniform_genome(N3_DIM),
+                          FitnessSpec((-1.0, -1.0)), device=dev)
+    pop = algorithms.evaluate_invalid(pop, tb.evaluate)
+    for _ in range(N3_NGEN if ngen is None else ngen):
+        idx = mo.sel_tournament_dcd(g, pop.wvalues, N3_MU)
+        off = algorithms.var_and(g, gather(pop, idx), tb, cxpb=0.9,
+                                 mutpb=1.0)
+        off = algorithms.evaluate_invalid(off, tb.evaluate)
+        pool = concat([pop, off])
+        pop = gather(pool, mo.sel_nsga3(g, pool.wvalues, N3_MU, ref))
+    return pop
+
+
+def _mp_config(scenario, dim):
+    """A moving-peaks configuration as the examples build it: the
+    scenario without its peak and basis functions (``function1``, no
+    basis)."""
+    from deap_tpu_torch.benchmarks import movingpeaks as mp
+    return mp.MovingPeaksConfig(dim=dim, **{
+        k: v for k, v in getattr(mp, scenario).items()
+        if k not in ("pfunc", "bfunc")})
+
+
+def multiswarm_example(dev, epochs=4, gens=30):
+    """``examples/pso/multiswarm.py``: SCENARIO_2 at dim 5, 4 swarms of 5
+    in 12 slots, rcloud 0.5 · move severity, ``epochs`` of ``gens`` steps
+    with a change of the landscape after each. Returns ``(best,
+    steps, detail)``."""
+    from deap_tpu_torch.benchmarks import movingpeaks as mp
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.strategies import MultiSwarmPSO
+    cfg = _mp_config("SCENARIO_2", 5)
+    land = {"s": mp.mp_init(make_generator(68, dev), cfg)}
+    ms = MultiSwarmPSO(lambda x: mp.mp_evaluate(cfg, land["s"], x)[1][:, 0],
+                       pmin=cfg.min_coord, pmax=cfg.max_coord,
+                       rcloud=0.5 * cfg.move_severity, device=dev)
+    g = make_generator(69, dev)
+    s = ms.init(g, nswarms=4, nparticles=5, dim=5, capacity=12)
+    bests = []
+    for _ in range(epochs):
+        for _ in range(gens):
+            s = ms.step(g, s)
+        bests.append((float(ms.best(s)[1]),
+                      float(mp.global_maximum(cfg, land["s"]))))
+        land["s"] = mp.change_peaks(cfg, land["s"])
+    return bests[-1][0], epochs * gens, (
+        "best / optimum per epoch " + ", ".join(
+            f"{b:.2f}/{o:.2f}" for b, o in bests)
+        + f"; {int(s.active.sum())} swarms")
+
+
+def speciation_example(dev, steps=60):
+    """``examples/pso/speciation.py``: SCENARIO_1 at dim 5, n 100, rs =
+    100 / 50^(1/5), species capped at 10, ``steps`` steps."""
+    from deap_tpu_torch.benchmarks import movingpeaks as mp
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.strategies import SpeciationPSO, species_seeds
+    cfg = _mp_config("SCENARIO_1", 5)
+    state = mp.mp_init(make_generator(71, dev), cfg)
+    rs = (cfg.max_coord - cfg.min_coord) / (50 ** (1.0 / 5))
+    sp = SpeciationPSO(lambda x: mp.mp_evaluate(cfg, state, x)[1][:, 0],
+                       pmin=cfg.min_coord, pmax=cfg.max_coord, rs=rs,
+                       pmax_size=10, rcloud=1.0, device=dev)
+    g = make_generator(72, dev)
+    s = sp.init(g, n=100, dim=5)
+    for _ in range(steps):
+        s = sp.step(g, s)
+    best = float(sp.best(s)[1])
+    seeds, _ = species_seeds(s.pbest_x, s.pbest_f, rs)
+    return best, steps, (f"best {best:.2f} (optimum "
+                         f"{float(mp.global_maximum(cfg, state)):.2f}); "
+                         f"{int(seeds.sum())} species")
+
+
+def de_dynamic_example(dev, epochs=6, gens=20):
+    """``examples/de/dynamic.py``: DE (F 0.5, CR 0.9, maximising) on
+    SCENARIO_1 at dim 2, n 100, ``epochs`` of ``gens`` generations, the
+    population re-evaluated after each change."""
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.benchmarks import movingpeaks as mp
+    from deap_tpu_torch.core.fitness import FitnessSpec
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.strategies import DifferentialEvolution
+    cfg = _mp_config("SCENARIO_1", 2)
+    state = mp.mp_init(make_generator(61, dev), cfg)
+    pop = init_population(make_generator(62, dev), 100, ops.uniform_genome(
+        2, cfg.min_coord, cfg.max_coord), FitnessSpec((1.0,)), device=dev)
+    g = make_generator(63, dev)
+    bests = []
+    for _ in range(epochs):
+        de = DifferentialEvolution(
+            lambda x, st=state: mp.mp_evaluate(cfg, st, x)[1][:, 0], F=0.5,
+            CR=0.9, spec=FitnessSpec((1.0,)))
+        pop, _ = de.run(g, pop, gens)
+        bests.append((float(pop.wvalues.max()),
+                      float(mp.global_maximum(cfg, state))))
+        state = mp.change_peaks(cfg, state)
+        pop = pop.invalidate(pop.valid)
+    return bests[-1][0], epochs * gens, "best / optimum per epoch " + \
+        ", ".join(f"{b:.2f}/{o:.2f}" for b, o in bests)
+
+
+def nsga3_example(dev, ngen=100):
+    """``examples/ga/nsga3.py``: DTLZ2, 3 objectives, p 12 (91 reference
+    points), µ 92, 7 genes, tournament 2, bounded SBX (η 30) and
+    polynomial mutation (η 20, indpb 1/7), cxpb = mutpb = 1, ``sel_nsga3``
+    over the union, ``ngen`` generations."""
+    from deap_tpu_torch import Toolbox, algorithms, benchmarks, mo, ops
+    from deap_tpu_torch.core.fitness import FitnessSpec
+    from deap_tpu_torch.core.population import (concat, gather,
+                                                init_population)
+    from deap_tpu_torch.device import make_generator
+    nobj, p, ndim = 3, 12, 7
+    ref = mo.uniform_reference_points(nobj, p).to(dev)
+    mu = int(ref.shape[0] + (4 - ref.shape[0] % 4) % 4)
+    tb = Toolbox()
+    tb.register("evaluate", lambda x: benchmarks.dtlz2(x, nobj))
+    tb.register("mate", ops.cx_simulated_binary_bounded, eta=30.0, low=0.0,
+                up=1.0)
+    tb.register("mutate", ops.mut_polynomial_bounded, eta=20.0, low=0.0,
+                up=1.0, indpb=1.0 / ndim)
+    tb.register("select", ops.sel_tournament, tournsize=2)
+    pop = init_population(make_generator(21, dev), mu, ops.uniform_genome(
+        ndim, 0.0, 1.0), FitnessSpec((-1.0,) * nobj), device=dev)
+    pop = algorithms.evaluate_invalid(pop, tb.evaluate)
+    g = make_generator(22, dev)
+    for _ in range(ngen):
+        idx = tb.select(g, pop.wvalues, pop.size)
+        off = algorithms.var_and(g, gather(pop, idx), tb, cxpb=1.0,
+                                 mutpb=1.0)
+        off = algorithms.evaluate_invalid(off, tb.evaluate)
+        pool = concat([pop, off])
+        pop = gather(pool, mo.sel_nsga3(g, pool.wvalues, mu, ref))
+    spread = float(pop.fitness.max(0).values.min())
+    dist = float((pop.fitness.norm(dim=1) - 1.0).mean())
+    return spread, ngen, (f"population {pop.size}, objective spread "
+                          f"{spread:.3f}, mean ||f|| - 1 {dist:.4f}")
 
 
 def fused_onemax_generation(g, genomes, fit, variation=None, prng="input"):

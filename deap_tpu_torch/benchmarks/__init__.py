@@ -2,7 +2,9 @@
 
 Port of the functions of :mod:`deap_tpu.benchmarks` that the port's
 paths use: sphere and Rastrigin (the continuous GA), ZDT1, DTLZ2
-(NSGA-II) and Kursawe ((μ + λ) NSGA-II). The JAX package's functions
+(NSGA-II, NSGA-III), Kursawe ((μ + λ) NSGA-II), Griewank (DE) and h1
+(PSO); :mod:`.movingpeaks` is the dynamic landscape of the multi-swarm,
+speciation and dynamic-DE strategies. The JAX package's functions
 take one genome ``f32[dim]`` and are ``vmap``-ed; these take the
 population ``f32[n, dim]`` and return ``f32[n, nobj]`` (minimisation).
 """
@@ -13,9 +15,10 @@ import math
 
 import torch
 
-from deap_tpu_torch.benchmarks import tools  # noqa: F401
+from deap_tpu_torch.benchmarks import movingpeaks, tools  # noqa: F401
 
-__all__ = ["sphere", "rastrigin", "zdt1", "dtlz2", "kursawe"]
+__all__ = ["sphere", "rastrigin", "griewank", "h1", "zdt1", "dtlz2",
+           "kursawe", "movingpeaks"]
 
 
 def sphere(x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +31,35 @@ def rastrigin(x: torch.Tensor) -> torch.Tensor:
     the origin."""
     term = x * x - 10.0 * torch.cos(2.0 * math.pi * x)
     return 10.0 * x.shape[1] + term.sum(1, keepdim=True)
+
+
+#: Griewank against the JAX package's on the CPU: within ``GRIEWANK_RTOL``
+#: of ``1 + Σ x²/4000 + Π |cos|`` (torch's ``cos`` and ``sqrt`` of the
+#: index are not XLA's, and the product runs in another order)
+GRIEWANK_RTOL = 1e-6
+
+
+def griewank(x: torch.Tensor) -> torch.Tensor:
+    """Griewank, ``f = Σ x_i²/4000 − Π cos(x_i / sqrt(i)) + 1`` (i from
+    1); optimum 0 at the origin."""
+    i = torch.arange(1, x.shape[1] + 1, dtype=x.dtype, device=x.device)
+    return ((x * x).sum(1, keepdim=True) / 4000.0
+            - torch.cos(x / torch.sqrt(i)).prod(1, keepdim=True) + 1.0)
+
+
+#: h1 against the JAX package's on the CPU: within ``H1_RTOL`` (torch's
+#: ``sin`` and ``sqrt`` are not XLA's)
+H1_RTOL = 1e-6
+
+
+def h1(x: torch.Tensor) -> torch.Tensor:
+    """The 2-D maximisation landscape h1, optimum 2 at (8.6998, 6.7665):
+    ``(sin²(x0 − x1/8) + sin²(x1 + x0/8)) / (sqrt((x0 − 8.6998)² + (x1 −
+    6.7665)²) + 1)``."""
+    x0, x1 = x[:, 0], x[:, 1]
+    num = torch.sin(x0 - x1 / 8.0) ** 2 + torch.sin(x1 + x0 / 8.0) ** 2
+    den = torch.sqrt((x0 - 8.6998) ** 2 + (x1 - 6.7665) ** 2) + 1.0
+    return (num / den)[:, None]
 
 
 def _zdt_g(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,11 @@
-"""Multi-objective selection: NSGA-II, SPEA2 at scale, non-dominated
-sorting and crowding.
+"""Multi-objective selection: NSGA-II, NSGA-III, SPEA2 (dense and at
+scale), non-dominated sorting and crowding.
 
-Port of the NSGA-II and streaming-SPEA2 part of :mod:`deap_tpu.mo.emo`.
-Every selector takes weighted values ``w: f32[n, nobj]`` (maximisation)
-and returns ``int64[k]`` indices; randomness comes from a
-``torch.Generator``, and each random selector has a draw-taking core
-(``_dcd_winners``, ``_spea2_stream_pick``) that the tests feed with the
-JAX package's draws.
+Port of :mod:`deap_tpu.mo.emo`. Every selector takes weighted values
+``w: f32[n, nobj]`` (maximisation) and returns ``int64[k]`` indices;
+randomness comes from a ``torch.Generator``, and each random selector
+has a draw-taking core (``_dcd_winners``, ``_spea2_stream_pick``,
+:func:`nsga3_select`) that the tests feed with the JAX package's draws.
 
 Non-dominated sorting is one contract over five engines (:func:`nd_rank`):
 the dominance-matrix peel, its streaming twin through K7
@@ -19,13 +18,15 @@ place that rule gives the TPU.
 
 from __future__ import annotations
 
-from typing import Optional
+import bisect
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
 from deap_tpu_torch.mo.ndsort import _finish, nd_rank_prefix, nd_rank_sweep3
+from deap_tpu_torch.ops.linalg import norm_rn
 from deap_tpu_torch.ops.kernels import (
     dominated_weight_sums,
     nd_rank_tiled,
@@ -36,6 +37,9 @@ from deap_tpu_torch.ops.kernels import (
 __all__ = [
     "dominance_matrix", "nd_rank", "nd_rank_staircase", "sort_nondominated",
     "crowding_distances", "sel_nsga2", "sel_tournament_dcd", "dcd_draws",
+    "NSGA3Memory", "NSGA3Plan", "nsga3_plan", "nsga3_draws",
+    "nsga3_select", "nsga3_select_scaled", "sel_nsga3",
+    "SelNSGA3WithMemory", "sel_spea2",
     "spea2_fitness_stream", "sel_spea2_stream", "uniform_reference_points",
     "ND_TILED_THRESHOLD", "ND_PREFIX_THRESHOLD", "ND_SWEEP_THRESHOLD",
 ]
@@ -286,6 +290,248 @@ def sel_tournament_dcd(generator: torch.Generator, w: torch.Tensor, k: int,
     return _dcd_winners(w, k, p1, p2, coin, peel_budget)
 
 
+# --------------------------------------------------------------- NSGA-III ----
+
+class NSGA3Memory(NamedTuple):
+    best_point: torch.Tensor
+    worst_point: torch.Tensor
+    extreme_points: torch.Tensor
+
+
+def _find_extreme_points(fitnesses, best_point, extreme_points=None):
+    """The row of least achievement scalarising function on each axis."""
+    if extreme_points is not None:
+        fitnesses = torch.cat([fitnesses, extreme_points], 0)
+    ft = fitnesses - best_point
+    nobj = best_point.shape[0]
+    eye = torch.eye(nobj, dtype=torch.bool, device=ft.device)
+    asf_w = torch.where(eye, 1.0, 1e6)
+    asf = (ft[None, :, :] * asf_w[:, None, :]).amax(2)  # [nobj, n]
+    return fitnesses[torch.argmin(asf, 1)]
+
+
+def _find_intercepts(extreme_points, best_point, current_worst, front_worst):
+    """The hyperplane's axis intercepts, or ``front_worst`` where they are
+    degenerate. ``torch.linalg.solve_ex`` neither raises on a singular
+    matrix nor waits for the card's error check: a nonzero ``info`` or a
+    non-finite solution takes the fallback, as the JAX package's
+    non-finite solution does."""
+    nobj = extreme_points.shape[1]
+    b = torch.ones(nobj, dtype=extreme_points.dtype,
+                   device=extreme_points.device)
+    A = extreme_points - best_point
+    x, info = torch.linalg.solve_ex(A, b[:, None])
+    x = x[:, 0]
+    intercepts = 1.0 / x
+    residual_ok = ((A @ x - b).abs() <= 1e-6 + 1e-4 * b.abs()).all()
+    ok = ((info == 0) & torch.isfinite(x).all() & (x != 0.0).all()
+          & (intercepts > 1e-6).all()
+          & ((intercepts + best_point) <= current_worst).all()
+          & residual_ok)
+    return torch.where(ok, intercepts, front_worst)
+
+
+def _associate_to_niche(fitnesses, ref_points, best_point, intercepts):
+    """Each row's nearest reference direction and its perpendicular
+    distance to it."""
+    fn = (fitnesses - best_point) / (intercepts - best_point)
+    norm = norm_rn(ref_points)
+    proj_len = fn @ ref_points.T / norm[None, :]                 # [n, nref]
+    proj = proj_len[:, :, None] * (ref_points / norm[:, None])[None, :, :]
+    distances = norm_rn(proj - fn[:, None, :])
+    return torch.argmin(distances, 1), distances.amin(1)
+
+
+class NSGA3Plan(NamedTuple):
+    """What :func:`nsga3_plan` settles before the niching draws: ranks,
+    the rows taken whole, the partial front (``partial_idx``, ascending)
+    with its niches and distances, the niche counts of the rows taken,
+    the number of rows to fill from the partial front and the memory."""
+    ranks: torch.Tensor        # int32[n]
+    ahead: torch.Tensor        # bool[n]
+    partial_idx: torch.Tensor  # int64[m]
+    niches: torch.Tensor       # int64[m]
+    dist: torch.Tensor         # f32[m]
+    counts: torch.Tensor       # int64[nref]
+    n_fill: int
+    memory: NSGA3Memory
+
+
+def nsga3_plan(w: torch.Tensor, k: int, ref_points: torch.Tensor,
+               best_point=None, worst_point=None, extreme_points=None,
+               nd: str = "standard") -> NSGA3Plan:
+    """NSGA-III up to its niching draws: ranks (peeling stops once ``k``
+    rows are ranked: exact, since the rows left unpeeled keep rank n,
+    above the cut), the ideal, worst and extreme points, the intercepts
+    and each row's niche. One synchronise reads the rows to fill and the
+    partial front's size."""
+    ranks = nd_rank(w, impl=_impl_of(nd), cover_k=k)
+    fitnesses = -w  # minimisation space
+    if best_point is not None and worst_point is not None:
+        best_point = torch.minimum(fitnesses.amin(0), best_point)
+        worst_point = torch.maximum(fitnesses.amax(0), worst_point)
+    else:
+        best_point = fitnesses.amin(0)
+        worst_point = fitnesses.amax(0)
+    extreme = _find_extreme_points(fitnesses, best_point, extreme_points)
+    intercepts = _find_intercepts(extreme, best_point, worst_point,
+                                  fitnesses.amax(0))
+    niches, dist = _associate_to_niche(
+        fitnesses, ref_points.to(w.device), best_point, intercepts)
+    cut = torch.sort(ranks).values[k - 1]
+    ahead = ranks < cut
+    counts = torch.zeros(ref_points.shape[0], dtype=torch.int64,
+                         device=w.device).index_add_(0, niches,
+                                                     ahead.to(torch.int64))
+    # the one synchronise: where the cut's front starts and ends
+    n_ahead, end = torch.stack([ahead.sum(), (ranks <= cut).sum()]).tolist()
+    partial_idx = torch.nonzero_static(ranks == cut, size=end - n_ahead)[:, 0]
+    n_fill = k - n_ahead
+    return NSGA3Plan(ranks, ahead, partial_idx, niches[partial_idx],
+                     dist[partial_idx], counts, n_fill,
+                     NSGA3Memory(best_point, worst_point, extreme))
+
+
+def nsga3_draws(generator: torch.Generator, plan: NSGA3Plan):
+    """The niching loop's draws in one call, ``u [n_fill, 2]``: a uniform
+    an iteration for its niche and one for its row, each scaled onto the
+    candidates in ascending order (:func:`nsga3_select_scaled`). Their
+    memory is ``n_fill`` pairs whatever the partial front's size."""
+    return torch.rand((plan.n_fill, 2), generator=generator,
+                      device=generator.device)
+
+
+def _niching_host(plan: NSGA3Plan, draws: torch.Tensor, scaled: bool):
+    """The niching loop on the host after one copy of the partial front's
+    niches and distances, the counts and ``draws``. ``scaled``: ``draws
+    [n_fill, 2]``, the candidate at ``floor(u · candidates)``; else
+    ``draws [n_fill, nref + m]``, a uniform a niche and a partial-front
+    row, the candidate of largest draw (ties to the lowest index).
+
+    The open niches are kept by count (each count's list ascending) and
+    each niche's available rows as an ascending list, so an iteration
+    costs list steps, not passes over every niche or row: a niche leaves
+    its count's list when picked and joins the next count's while it has
+    rows; the least count's list is the candidates. A niche of count 0
+    has lost no row, so its closest row is read from all its rows."""
+    niches, counts, n_fill = plan.niches, plan.counts, plan.n_fill
+    m, nref = niches.shape[0], counts.shape[0]
+    packed = torch.cat([niches.to(torch.float32), plan.dist,
+                        counts.to(torch.float32),
+                        draws.reshape(-1)]).cpu().numpy()
+    niches_h = packed[:m].astype(np.int64)
+    dist_h = packed[m:2 * m]
+    counts_h = packed[2 * m:2 * m + nref].astype(np.int64).tolist()
+    u = packed[2 * m + nref:].reshape(n_fill, -1)
+    if scaled:  # float64: u < 1 keeps u · len below len
+        u = u.astype(np.float64).tolist()
+
+        def pick(i, role, idx):
+            return int(u[i][role] * len(idx))
+    else:
+        niche_u, member_u = u[:, :nref], u[:, nref:]
+
+        def pick(i, role, idx):
+            return int(np.argmax((member_u if role else niche_u)[i, idx]))
+    order = np.argsort(niches_h, kind="stable")
+    starts = np.searchsorted(niches_h[order], np.arange(nref + 1))
+    members, levels = [], {}
+    for j in range(nref):
+        mem = order[starts[j]:starts[j + 1]]
+        members.append(mem.tolist())
+        if len(mem):
+            levels.setdefault(counts_h[j], []).append(j)
+    taken = np.zeros(m, bool)
+    cand = []
+    for i in range(n_fill):
+        if not cand:
+            level = min(levels)
+            cand = levels.pop(level)
+        niche = cand.pop(pick(i, 0, cand))
+        mem = members[niche]
+        if level == 0:
+            chosen = mem.pop(int(np.argmin(dist_h[mem])))
+        else:
+            chosen = mem.pop(pick(i, 1, mem))
+        taken[chosen] = True
+        if mem:
+            bisect.insort(levels.setdefault(level + 1, []), niche)
+    return torch.from_numpy(taken).to(niches.device)
+
+
+def _nsga3_choose(plan: NSGA3Plan, k: int, draws: torch.Tensor,
+                  scaled: bool) -> torch.Tensor:
+    n = plan.ranks.shape[0]
+    chosen_mask = plan.ahead.clone()
+    if plan.n_fill > 0:
+        chosen_mask[plan.partial_idx] = _niching_host(plan, draws, scaled)
+    key = torch.where(chosen_mask, plan.ranks, n + 1)
+    return torch.sort(key, stable=True).indices[:k]
+
+
+def nsga3_select(plan: NSGA3Plan, k: int, niche_u: torch.Tensor,
+                 member_u: torch.Tensor) -> torch.Tensor:
+    """NSGA-III's choice on the JAX package's draws: the rows ahead of
+    the cut, then ``n_fill`` rows of the partial front, one an iteration:
+    among the open niches of least count the one of largest
+    ``niche_u [n_fill, nref]``, and in it the closest row if its count is
+    0, else the row of largest ``member_u [n_fill, m]`` (a draw a
+    partial-front row; ties to the lowest index). The loop runs in numpy
+    after one copy."""
+    return _nsga3_choose(plan, k, torch.cat([niche_u, member_u], 1), False)
+
+
+def nsga3_select_scaled(plan: NSGA3Plan, k: int,
+                        u: torch.Tensor) -> torch.Tensor:
+    """:func:`nsga3_select` on :func:`nsga3_draws`' ``u [n_fill, 2]``:
+    iteration ``i`` takes the open niche of least count at
+    ``floor(u[i, 0] · candidates)`` and, where its count is not 0, the
+    available row at ``floor(u[i, 1] · rows)``, both in ascending order.
+    A uniform choice, as the argmax of a uniform an index is, in
+    ``n_fill`` pairs of draws where that takes ``n_fill · (nref + m)``."""
+    return _nsga3_choose(plan, k, u, True)
+
+
+def sel_nsga3(generator: torch.Generator, w: torch.Tensor, k: int,
+              ref_points: torch.Tensor, best_point=None, worst_point=None,
+              extreme_points=None, return_memory: bool = False,
+              nd: str = "standard"):
+    """NSGA-III selection (Deb & Jain 2014): whole fronts in rank order;
+    the last partial front filled by reference-point niching, one row at
+    a time from a least-populated niche (its closest row when the niche
+    is empty, else a random one).
+
+    Pass the previous generation's memory (best, worst and extreme
+    points) for the ``selNSGA3WithMemory`` behaviour. ``nd`` follows
+    :func:`sel_nsga2`. On the card at M >= 3 and n >= 8192 the ranks peel
+    through K7; the niching loop runs on the host
+    (:func:`nsga3_select_scaled`).
+    """
+    plan = nsga3_plan(w, k, ref_points, best_point, worst_point,
+                      extreme_points, nd)
+    chosen = nsga3_select_scaled(plan, k, nsga3_draws(generator, plan))
+    return (chosen, plan.memory) if return_memory else chosen
+
+
+class SelNSGA3WithMemory:
+    """NSGA-III carrying the best, worst and extreme points across
+    generations."""
+
+    def __init__(self, ref_points):
+        self.ref_points = ref_points
+        self.memory = None
+
+    def __call__(self, generator, w, k):
+        mem = self.memory
+        chosen, self.memory = sel_nsga3(
+            generator, w, k, self.ref_points,
+            best_point=None if mem is None else mem.best_point,
+            worst_point=None if mem is None else mem.worst_point,
+            extreme_points=None if mem is None else mem.extreme_points,
+            return_memory=True)
+        return chosen
+
+
 # -------------------------------------------------------- reference points ----
 
 def uniform_reference_points(nobj: int, p: int = 4,
@@ -373,8 +619,117 @@ def sel_spea2_stream(generator: torch.Generator, w: torch.Tensor, k: int,
     return _spea2_stream_pick(w, k, u, candidates)
 
 
+# ------------------------------------------------------------ dense SPEA2 ----
+
+def _two_sum(a, b):
+    """Error-free addition: ``(s, err)`` with ``s = fl(a + b)`` and ``s +
+    err == a + b`` exactly (Knuth's TwoSum). Each operation is rounded
+    alone: no ``torch.compile``, no ``addcmul``."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod_f32(a, b):
+    """Error-free float32 product by Veltkamp splitting: ``(p, err)`` with
+    ``p = fl(a·b)`` and ``p + err == a·b``."""
+    split = 4097.0                          # 2^12 + 1 for float32
+    ca, cb = a * split, b * split
+    ah = ca - (ca - a)
+    al = a - ah
+    bh = cb - (cb - b)
+    bl = b - bh
+    p = a * b
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
+
+
+def _d2_compensated(w: torch.Tensor):
+    """Pairwise squared distances in double-float32: ``(hi, lo)``, the
+    float32 head and its residual, ~48 significant bits together — the
+    float64 tie structure from float32 inputs."""
+    n, nobj = w.shape
+    hi = torch.zeros((n, n), dtype=torch.float32, device=w.device)
+    lo = torch.zeros((n, n), dtype=torch.float32, device=w.device)
+    for c in range(nobj):
+        d, derr = _two_sum(w[:, c][:, None], -w[:, c][None, :])
+        p, perr = _two_prod_f32(d, d)
+        # (d + derr)² = d² + 2·d·derr + derr²; d² = p + perr exactly
+        corr = perr + 2.0 * d * derr + derr * derr
+        hi, e = _two_sum(hi, p)
+        lo = lo + (e + corr)
+    return hi, lo
+
+
+def _truncate(mask: torch.Tensor, count: int, k: int, d2_hi: torch.Tensor,
+              d2_lo: torch.Tensor) -> torch.Tensor:
+    """SPEA2's archive truncation: while more than ``k`` rows live, drop
+    the live row whose ascending vector of distances to the others is
+    lexicographically least, compared on ``(hi, lo)`` to full depth;
+    residual ties drop the lowest live index. A host loop: each removal
+    reads the live rows (one synchronise) and each step of its tie loop
+    the number of candidates left."""
+    mask = mask.clone()
+    while count > k:
+        live = torch.nonzero(mask)[:, 0]
+        m = live.shape[0]
+        eye = torch.eye(m, dtype=torch.bool, device=mask.device)
+        ddh = torch.where(eye, torch.inf,
+                          d2_hi.index_select(0, live).index_select(1, live))
+        ddl = torch.where(eye, 0.0,
+                          d2_lo.index_select(0, live).index_select(1, live))
+        # each row ascending by (hi, lo): a stable sort by lo, then by hi
+        order = torch.sort(ddl, dim=1, stable=True).indices
+        order = order.gather(1, torch.sort(ddh.gather(1, order), dim=1,
+                                           stable=True).indices)
+        rows_h, rows_l = ddh.gather(1, order), ddl.gather(1, order)
+        cand = torch.ones(m, dtype=torch.bool, device=mask.device)
+        j = 0
+        while j < m and int(cand.sum()) > 1:
+            colh = torch.where(cand, rows_h[:, j], torch.inf)
+            cand = cand & (colh == colh.min())
+            coll = torch.where(cand, rows_l[:, j], torch.inf)
+            cand = cand & (coll == coll.min())
+            j += 1
+        mask[live[torch.argmax(cand.to(torch.uint8))]] = False
+        count -= 1
+    return mask
+
+
+def sel_spea2(generator, w: torch.Tensor, k: int) -> torch.Tensor:
+    """SPEA2 environmental selection (Zitzler 2001) with the dense
+    ``[n, n]`` matrices.
+
+    Strength and raw fitness from the dominance matrix; an under-full
+    non-dominated archive is filled by raw fitness plus k-NN density
+    (k = √n, over all other rows, the algorithm as published); an
+    over-full one is truncated by :func:`_truncate` on double-float32
+    distances (float64 inputs compare their plain distances).
+    ``generator`` is not used: the selection is deterministic.
+    """
+    del generator
+    n = w.shape[0]
+    dom = dominance_matrix(w)                       # dom[i, j]: j dominates i
+    strength = dom.sum(0)
+    raw = torch.where(dom, strength[None, :], 0).sum(1)
+    nd_mask = raw < 1
+    n_nd = int(nd_mask.sum())
+    d2 = _pairwise_d2(w)
+    fill_score = raw + _knn_density(d2, _knn_kth(n))
+    if n_nd <= k:
+        return lexsort([fill_score, (~nd_mask).to(torch.uint8)])[:k]
+    if w.dtype == torch.float32:
+        d2_hi, d2_lo = _d2_compensated(w)
+    else:
+        d2_hi, d2_lo = d2, torch.zeros_like(d2)
+    final = _truncate(nd_mask, n_nd, k, d2_hi, d2_lo)
+    return lexsort([fill_score, (~final).to(torch.uint8)])[:k]
+
+
 # DEAP-style aliases
 selNSGA2 = sel_nsga2
+selNSGA3 = sel_nsga3
+selSPEA2 = sel_spea2
 selTournamentDCD = sel_tournament_dcd
 sortNondominated = sort_nondominated
 sortLogNondominated = sort_nondominated

@@ -41,8 +41,9 @@ import torch
 
 from deap_tpu_torch import _build
 
-__all__ = ["eigh_jacobi", "eigh_jacobi_plain", "default_sweeps",
-           "J1_SHARED_MAX_D", "JACOBI_W_RTOL", "JACOBI_RECON_TOL"]
+__all__ = ["eigh_jacobi", "eigh_jacobi_plain", "default_sweeps", "sqrt_rn",
+           "norm_rn", "div_rn", "J1_SHARED_MAX_D", "JACOBI_W_RTOL",
+           "JACOBI_RECON_TOL"]
 
 #: the plain version against the JAX function on the same input (the JAX
 #: function's jitted rounds contract ``a*b + c``, the port rounds each
@@ -251,12 +252,33 @@ def _check_square(C: torch.Tensor) -> int:
     return int(C.shape[-1])
 
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root, as the kernel's ``__fsqrt_rn``:
     through float64, whose root rounds to float32 without a double
     rounding error. ``torch.sqrt`` on the CPU is vectorised and may be off
     by an ulp."""
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def div_rn(x, c) -> torch.Tensor:
+    """``x / c`` correctly rounded on every device, for a tensor and a
+    number in either order: PyTorch's CUDA kernels multiply by a Python
+    number's reciprocal, and ``number / tensor`` is ``reciprocal(tensor) ·
+    number`` everywhere; a 0-d tensor operand takes the true division."""
+    if isinstance(x, torch.Tensor):
+        return x / torch.full((), c, dtype=x.dtype, device=x.device)
+    return torch.full((), x, dtype=c.dtype, device=c.device) / c
+
+
+def norm_rn(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """``‖x‖`` over the last axis as XLA computes a short row's norm on
+    the CPU: the squares added left to right, then :func:`sqrt_rn`."""
+    sq = x * x
+    acc = sq[..., 0]
+    for c in range(1, sq.shape[-1]):
+        acc = acc + sq[..., c]
+    acc = sqrt_rn(acc)
+    return acc[..., None] if keepdim else acc
 
 
 def _sorted(w: torch.Tensor, V: torch.Tensor):
@@ -289,9 +311,9 @@ def eigh_jacobi_plain(C: torch.Tensor,
         app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]
         small = (apq.abs() <= tiny) | ~real[r]
         tau = (aqq - app) / torch.where(small, 1.0, 2.0 * apq)
-        t = torch.sign(tau) / (tau.abs() + _sqrt_rn(1.0 + tau * tau))
+        t = torch.sign(tau) / (tau.abs() + sqrt_rn(1.0 + tau * tau))
         t = torch.where(tau == 0.0, 1.0, t)
-        c = torch.reciprocal(_sqrt_rn(1.0 + t * t))
+        c = torch.reciprocal(sqrt_rn(1.0 + t * t))
         s = torch.where(small, 0.0, t * c)
         c = torch.where(small, 1.0, c)
         # per index: its pair's c, and the partner term's coefficient

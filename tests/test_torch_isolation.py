@@ -236,3 +236,67 @@ def test_cma_family_and_jacobi_stand_alone(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         strategies.bipop_cmaes(tdevice.make_generator(0, "cpu"),
                                lambda x: x.sum(-1), 3)
+
+
+def test_rest_of_strategies_and_nsga3_stand_alone(no_card):
+    """PSO, DE, PBIL, EMNA, the multi-swarm and speciation swarms, moving
+    peaks, NSGA-III and dense SPEA2 run without jax or the JAX package,
+    and their entry points raise without a card unless asked for the
+    CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from deap_tpu_torch import benchmarks, convert, mo, strategies
+        from deap_tpu_torch.benchmarks import movingpeaks as mp
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.strategies import (
+            EMNA, PBIL, PSO, DifferentialEvolution, MultiSwarmPSO,
+            SpeciationPSO, species_seeds)
+        import chip_smoke
+        gen = make_generator(0, "cpu")
+        pso = PSO(benchmarks.h1, smin=0.001, smax=3.0, device="cpu")
+        s, traj = pso.run(gen, pso.init(gen, 8, 2, -6, 6, -3, 3), 3)
+        assert traj.shape == (3,)
+        pbil = PBIL(16, device="cpu")
+        st = pbil.initial_state(gen)
+        x = pbil.generate(gen, st)
+        st = pbil.update(st, x, x.sum(-1))
+        emna = EMNA([1.0] * 4, 1.0, 3, 6, device="cpu")
+        es = emna.initial_state()
+        x = emna.generate(gen, es)
+        emna.update(es, x, benchmarks.griewank(x))
+        cfg = mp.MovingPeaksConfig(dim=2, **mp.SCENARIO_3)
+        land = mp.mp_init(gen, cfg)
+        land, v = mp.mp_evaluate(cfg, land, torch.rand(5, 2) * 100,
+                                 exact=True)
+        ms = MultiSwarmPSO(chip_smoke.two_peaks, -6.0, 6.0, device="cpu")
+        ms.step(gen, ms.init(gen, 2, 3, 2, capacity=4))
+        sp = SpeciationPSO(chip_smoke.two_peaks, -6.0, 6.0, 2.0,
+                           device="cpu")
+        sp.step(gen, sp.init(gen, 10, 2))
+        w = -benchmarks.dtlz2(torch.rand(40, 7, generator=gen), 3)
+        ref = mo.uniform_reference_points(3, 4)
+        assert mo.sel_nsga3(gen, w, 20, ref).shape == (20,)
+        assert mo.sel_spea2(None, w, 10).shape == (10,)
+        assert len(strategies.__all__) == 20
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    from deap_tpu_torch import strategies
+    from deap_tpu_torch.benchmarks import movingpeaks as mp
+    f = lambda x: x.sum(-1)  # noqa: E731
+    for make in (lambda: strategies.PSO(f), lambda: strategies.PBIL(4),
+                 lambda: strategies.EMNA([0.0], 1.0, 1, 2),
+                 lambda: strategies.MultiSwarmPSO(f, 0.0, 1.0),
+                 lambda: strategies.SpeciationPSO(f, 0.0, 1.0, 1.0),
+                 lambda: mp.mp_init(tdevice.make_generator(0),
+                                    mp.MovingPeaksConfig(dim=2))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
