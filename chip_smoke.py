@@ -107,6 +107,22 @@ Phases (any failure ends the script with a non-zero exit code):
     once per evaluation and its levels counted (= the evaluated trees'
     heights), after a 5-generation run at pop 256 that must equal the
     same run through the plain version bit for bit;
+12b. the rest of GP: K9 with ``lt``/``eq`` live on the typed spambase
+    population (``spam_set(57)``, pop 4096, width 64, on 4601 rows made
+    by ``examples/gp/spambase.py``'s ``make_dataset`` rule, and on
+    integer rows with NaN and infinity) and ``lf`` live on semantic
+    mutants, bitwise against its plain version; J2 (``ant_rollout``)
+    bitwise against its plain version on the card, a CPU run of the plain
+    version and the native simulator (eaten and steps) on 4096 trees of
+    width 80 (half crossover children) and on Koza's solution (89 eaten),
+    timed beside its bound and the native simulator's host time;
+    ``examples/gp/spambase.py``'s typed program (tournament 3, cxpb 0.5,
+    mutpb 0.2) at pop 4096 through K9 and ``examples/gp/ant.py``'s (543
+    moves, static limit 17, tournament 7) at pop 4096 through J2, 10
+    generations each, one launch an evaluation; then ADF symbolic
+    regression (``adf_symbreg.py``, pop 200), HARM (``symbreg_harm.py``,
+    pop 300, 600 trial children, through K9) and the semantic operators
+    with ``lf`` through K9 (pop 256), a few generations each;
 13. K6's Philox path (``prng='hw'``, ``bench_suite.py``'s call): against
     its plain version on ``ops.philox.hw_real_bits``' streams at pop 100k
     and at n 1001 (crossed genes bitwise, mutated genes and fitness at
@@ -214,6 +230,33 @@ RA_LOW, RA_UP = -5.12, 5.12
 # 4096, genome width 64, 50 generations, gate best MSE <= 0.05 (MSE_GATE)
 GP_POP, GP_ML, GP_P, GP_NGEN, GP_CXPB, GP_MUTPB = 4096, 64, 256, 50, 0.5, 0.1
 GP_MSE_GATE, GP_SMALL_POP, GP_SMALL_NGEN = 0.05, 256, 5
+# the rest of GP at full width: examples/gp/spambase.py's typed program
+# (spam_set, make_generator_typed(1, 4), typed one-point crossover and
+# node replacement, tournament 3, cxpb 0.5, mutpb 0.2) at bench_gp.py's
+# pop 4096 and width 64 on the UCI spambase's shape (57 features, 4601
+# rows, made by make_dataset's rule), and examples/gp/ant.py's program
+# (gen_half_and_half(1, 4), one-point crossover and mut_uniform under
+# static_limit(17), tournament 7) at pop 4096, width 80, 543 moves; 10
+# generations each
+SPAM_FEATURES, SPAM_ROWS, SPAM_POP, SPAM_ML, SPAM_NGEN = 57, 4601, 4096, 64, 10
+ANT_POP, ANT_ML, ANT_MOVES, ANT_NGEN = 4096, 80, 543, 10
+# the integer operations a rollout step needs at least (the stack read,
+# the node load, its test and the stack pointer, then an operator's end
+# load and push or an action's move count and turn or step): J2's bound
+# counts them at the card's 64 integer operations a clock an SM
+J2_STEP_OPS = 8
+# the examples' own sizes, a few generations each: adf_symbreg.py (pop
+# 200), symbreg_harm.py (pop 300, 600 trial children), and the semantic
+# operators on math_set(1) plus lf (pop 256, programs up to 128 nodes)
+ADF_POP, ADF_NGEN = 200, 3
+HARM_POP, HARM_NBR, HARM_NGEN = 300, 600, 5
+SEM_POP, SEM_ML, SEM_NGEN = 256, 128, 3
+# Koza's hand solution of the Santa Fe trail: 89 pieces in 543 moves
+KOZA_SOLUTION = (
+    "if_food_ahead(move_forward, prog3(turn_left, "
+    "prog2(if_food_ahead(move_forward, turn_right), "
+    "prog2(turn_right, prog2(turn_left, turn_right))), "
+    "prog2(if_food_ahead(move_forward, turn_left), move_forward)))")
 # device memory rates by card name (NVIDIA data sheets), bytes per second
 MEMORY_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 compares issued per SM per clock (4 schedulers x 32 lanes)
@@ -466,12 +509,14 @@ def main():
     report = {}
 
     def record(key, name, source, replaces, err, ms, plain_ms, nbytes,
-               compares=0, imads=0):
+               compares=0, imads=0, int_ops=0):
         """One kernel's line; the bound is the larger of its bytes over the
-        memory rate and its operations (float32 compares, or the integer
-        multiplies of its Philox calls) over their rate."""
+        memory rate and its operations (float32 compares, the integer
+        multiplies of its Philox calls, or other integer operations, at
+        the integer multiply's rate) over their rate."""
         bytes_ms = nbytes / rate * 1e3
-        ops_ms = (compares / compares_per_s + imads / imads_per_s) * 1e3
+        ops_ms = (compares / compares_per_s
+                  + (imads + int_ops) / imads_per_s) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         report[key] = {"name": name, "route": "cuda", "source": source,
@@ -481,8 +526,9 @@ def main():
                        "library_ms": None}
         print(f"{tag} {name}: {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} "
               f"us by {bound_by}: {nbytes / 1e6:.2f} MB, {compares:.3e} "
-              f"compares, {imads:.3e} integer multiplies; plain "
-              f"{plain_ms * 1e3:.2f} us), max_abs_err {err}")
+              f"compares, {imads:.3e} integer multiplies, {int_ops:.3e} "
+              f"other integer operations; plain {plain_ms * 1e3:.2f} us), "
+              f"max_abs_err {err}")
 
     # ----------------------------------------- K1 fused_variation check --
     gen = make_generator(1, dev)
@@ -732,6 +778,7 @@ def main():
     hw_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
     gp_phases(torch, dev, tag, report, record)
+    gp_rest_phases(torch, dev, tag, report, record)
     real_hw_phases(torch, dev, tag, report, record)
     cma_phases(torch, dev, tag, report, record)
     mu_lambda_phases(torch, dev, tag, report)
@@ -741,7 +788,7 @@ def main():
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
                                    "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
-                                   "k5_hw", "k6_hw", "j1")]}))
+                                   "k5_hw", "k6_hw", "j1", "j2")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -751,13 +798,15 @@ def main():
 
 def launch_counters():
     """Every kernel wrapper's launch counter."""
+    from deap_tpu_torch.gp import ant
     from deap_tpu_torch.ops import kernels, kernels_real, linalg, packed
     return (kernels.fused_variation, kernels.fused_variation_eval,
             packed.fused_variation_eval_packed,
             packed.sel_tournament_gather_packed, packed.evolve_packed,
             kernels_real.fused_variation_eval_real,
             kernels.dominated_weight_sums, kernels.dominated_weight_maxes,
-            kernels.gp_grouped_dispatch, linalg.eigh_jacobi)
+            kernels.gp_grouped_dispatch, linalg.eigh_jacobi,
+            ant.ant_rollout)
 
 
 def reset_counts():
@@ -3395,6 +3444,418 @@ def gp_phases(torch, dev, tag, report, record):
           f"{ms * 1e3:.2f} us (bound {nbytes / rate * 1e6:.2f} us by bytes: {nbytes / 1e6:.2f} MB; plain {plain_ms * 1e3:.2f} "
           f"us)")
     del flush
+
+
+def gp_rest_phases(torch, dev, tag, report, record):
+    """Phase 12b: the rest of GP. K9 with ``lt``/``eq`` (typed spambase) and
+    ``lf`` (semantic offspring) live against its plain version; J2 against
+    its plain version on the card, the native simulator and a CPU run of
+    the plain version, and timed; the typed spambase and ant programs at
+    full width through K9 and J2; then ADF, HARM and semantic GP at the
+    examples' sizes."""
+    import numpy as np
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.gp import ant
+    from deap_tpu_torch.native import ant_binding
+    from deap_tpu_torch.ops import kernels
+
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    k9 = kernels.gp_grouped_dispatch
+    spec = FitnessSpec((1.0,))
+
+    # ------------------------------------- K9 with lt, eq and lf live --
+    def k9_vs_plain(what, pset, trees, X, need, timed=False):
+        """K9 and its plain version, both on the card, over the whole value
+        buffer of the deduped grouped schedule of ``trees`` (``timed``:
+        both timed, into K9's line as ``typed``)."""
+        n_args = pset.n_args
+        interp = gp.make_batch_interpreter(pset, trees["nodes"].shape[1],
+                                           mode="grouped")
+        sched, _ = interp.schedule(trees)
+        live = {pset.primitives[b].name for b in interp.mask}
+        if not need <= live:
+            fail(f"K9 on {what}: {sorted(need - live)} not live")
+        args = [torch.from_numpy(sched[k]).to(dev) for k in
+                ("chunk_ops", "src_idx", "src_const", "src_isc")]
+        buf = torch.zeros((n_args + sched["nchunks"] * 128, X.shape[0]),
+                          device=dev)
+        buf[:n_args] = X.T
+        bufs = [buf.clone(), buf]
+        bufs[0][n_args:] = float("nan")
+        del buf
+        before = k9.launches
+        got = k9(bufs[0], *args, interp.branches, chunk=128, n_args=n_args,
+                 levels=sched["level_starts"])
+        want = kernels.gp_grouped_dispatch_plain(
+            bufs[1], *args, interp.branches, chunk=128, n_args=n_args)
+        torch.cuda.synchronize()
+        if k9.launches != before + 1 or not bitwise_equal(got, want):
+            fail(f"gp_grouped_dispatch differs from its plain version on "
+                 f"{what} (or launched {k9.launches - before} times)")
+        err = max_abs_err(got.nan_to_num(), want.nan_to_num())
+        print(f"{tag} gp_grouped_dispatch == plain bitwise on {what}, one "
+              f"launch: {sched['n_instructions']} instructions of "
+              f"{len(sched['root_idx'])} distinct trees, "
+              f"{len(sched['level_starts']) - 1} levels, P {X.shape[0]}, "
+              f"live {sorted(live)}")
+        if timed:
+            kw = dict(chunk=128, n_args=n_args)
+            ms = time_ms(lambda: k9(bufs[0], *args, interp.branches,
+                                    levels=sched["level_starts"], **kw),
+                         flush)
+            plain_ms = time_ms(lambda: kernels.gp_grouped_dispatch_plain(
+                bufs[1], *args, interp.branches, **kw), flush, reps=3)
+            nbytes = k9_bytes(sched, interp.branches, X.shape[0])
+            bound_ms = nbytes / memory_rate(torch.cuda.get_device_name(0)) \
+                * 1e3
+            report["k9"]["typed"] = {"ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms}
+            print(f"{tag} gp_grouped_dispatch on {what}: {ms * 1e3:.2f} us "
+                  f"(bound {bound_ms * 1e3:.2f} us by bytes: "
+                  f"{nbytes / 1e6:.2f} MB; plain {plain_ms * 1e3:.2f} us)")
+        del bufs, got, want
+        return err
+
+    g = make_generator(51, dev)
+    X = torch.rand((SPAM_ROWS, SPAM_FEATURES), generator=g, device=dev) * 100
+    y = ((X[:, 0] > 40.0) | ((X[:, 1] > 60.0) & (X[:, 2] < 20.0))).to(
+        torch.float32)
+    spam = gp.spam_set(SPAM_FEATURES)
+    pop = init_population(g, SPAM_POP,
+                          gp.make_generator_typed(spam, SPAM_ML, 1, 4), spec,
+                          device=dev)
+    start = pop.genomes
+    err = k9_vs_plain(f"typed spambase gen 0 (pop {SPAM_POP}, width "
+                      f"{SPAM_ML})", spam, start, X, {"lt", "eq"},
+                      timed=True)
+    # ties for eq, and NaN and infinity among the operands
+    Xi = torch.floor(X[:97, :] / 25)
+    Xi[0, 0], Xi[1, 1], Xi[2, 2] = float("nan"), float("inf"), -0.0
+    err = max(err, k9_vs_plain("typed spambase gen 0 on integer data with "
+                               "NaN and inf (P 97)", spam, start, Xi,
+                               {"lt", "eq"}))
+    sem = gp.add_semantic_primitives(gp.math_set(1))
+    parents = gp.gen_half_and_half(sem, SEM_ML, 1, 3)(g, 512)
+    sem_expr = gp.make_generator(sem, 8, 0, 2, "full")
+    kids = gp.make_mut_semantic(sem, sem_expr, SEM_ML)(g, parents)
+    err = max(err, k9_vs_plain(
+        "semantic mutants (pop 512, width 128, P 256)", sem, kids,
+        (torch.rand((256, 1), generator=g, device=dev) - 0.5) * 80,
+        {"lf"}))
+    report["k9"]["max_abs_err"] = max(report["k9"]["max_abs_err"], err)
+
+    # --------------------------------- typed spambase at full width --
+    interp = gp.make_batch_interpreter(spam, SPAM_ML, mode="grouped")
+    tb = Toolbox()
+    tb.register("evaluate",
+                lambda gs: (interp(gs, X) == y).to(torch.float32).mean(-1))
+    tb.register("mate", gp.make_cx_one_point_typed(spam))
+    tb.register("mutate", gp.make_mut_node_replacement_typed(spam))
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, hof = algorithms.ea_simple(g, pop, tb, 0.5, 0.2,
+                                             SPAM_NGEN, halloffame_size=1,
+                                             device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k9.launches
+    report["k9"]["typed_launches"] = launches
+    if launches != SPAM_NGEN + 1:
+        fail(f"typed spambase: K9 launched {launches} times for "
+             f"{SPAM_NGEN + 1} evaluations")
+    scan = gp.make_batch_interpreter(spam, SPAM_ML, mode="scan")
+    want = (scan(pop.genomes, X) == y).to(torch.float32).mean(-1)
+    if not (bool(pop.valid.all()) and torch.equal(pop.fitness[:, 0], want)):
+        fail("typed spambase: the population's accuracy differs from the "
+             "scan interpreter's")
+    best = float(hof.fitness[0, 0])
+    print(f"{tag} typed spambase (spam_set({SPAM_FEATURES}), {SPAM_ROWS} "
+          f"rows) pop={SPAM_POP} width={SPAM_ML}: {SPAM_NGEN} generations "
+          f"in {wall:.3f} s incl. gen-0 evaluation = "
+          f"{wall / SPAM_NGEN * 1e3:.3f} ms/gen; best accuracy "
+          f"{float(pop.fitness.max()):.4f} (hall of fame {best:.4f}); K9 "
+          f"launches {launches} = the evaluations; accuracy == the scan "
+          f"interpreter's")
+    best_tree = {k: v[0] for k, v in hof.genomes.items()}
+    print(f"  best tree: {gp.to_string(best_tree, spam)}")
+    del start, pop, hof, interp, scan, X, Xi, y
+
+    # ------------------------------------------------------- J2 checks --
+    trail, start_cell = ant.parse_trail()
+    grid = torch.as_tensor(trail, device=dev)
+    words = ant.pack_trail(grid)
+    apset = ant.ant_pset()
+    max_steps = ANT_MOVES * ANT_ML + ANT_ML
+    koza = gp.from_string(KOZA_SOLUTION, apset, ANT_ML, device=dev)
+    trees = gp.gen_half_and_half(apset, ANT_ML, 1, 4)(g, ANT_POP)
+    half = ANT_POP // 2
+    # crossover children: their padding holds copies of other nodes
+    kids, _ = gp.make_cx_one_point(apset)(
+        g, {k: v[:half] for k, v in trees.items()},
+        {k: v[half:] for k, v in trees.items()})
+    trees = {k: torch.cat([trees[k][:half], kids[k]]) for k in trees}
+    args = (trees["nodes"], trees["length"], grid, start_cell, ANT_MOVES,
+            max_steps, 1, words)
+    before = ant.ant_rollout.launches
+    eaten, steps = ant.ant_rollout(*args)
+    pe, ps = ant.ant_rollout_plain(*args[:-1])
+    torch.cuda.synchronize()
+    cpu = ant.ant_rollout_plain(trees["nodes"].cpu(), trees["length"].cpu(),
+                                grid.cpu(), start_cell, ANT_MOVES, max_steps)
+    ant_binding.library()  # g++ builds it at first use: not timed
+    host_nodes = trees["nodes"].cpu().numpy()
+    host_length = trees["length"].cpu().numpy()
+    t0 = time.perf_counter()
+    native = ant_binding.ant_eval(host_nodes, host_length, trail,
+                                  start_cell, max_moves=ANT_MOVES)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    if ant.ant_rollout.launches != before + 1:
+        fail("ant_rollout did not launch once")
+    if not (torch.equal(eaten, pe) and torch.equal(steps, ps)
+            and torch.equal(eaten.cpu(), cpu[0])
+            and torch.equal(steps.cpu(), cpu[1])
+            and np.array_equal(eaten.cpu().numpy(), native)):
+        fail("ant_rollout differs from its plain version, the CPU run or "
+             "the native simulator")
+    ke, _ = ant.ant_rollout(koza["nodes"], koza["length"], grid, start_cell,
+                            ANT_MOVES, max_steps, 1, words)
+    kp, _ = ant.ant_rollout_plain(koza["nodes"], koza["length"], grid,
+                                  start_cell, ANT_MOVES, max_steps)
+    kn = ant_binding.ant_eval(koza["nodes"], koza["length"], trail,
+                              start_cell, max_moves=ANT_MOVES)
+    if not (ke.tolist() == kp.tolist() == kn.tolist() == [89]):
+        fail(f"Koza's solution eats {ke.tolist()} (J2), {kp.tolist()} "
+             f"(plain), {kn.tolist()} (native), not 89")
+    total_steps = int(steps.sum())
+    print(f"{tag} ant_rollout == plain on the card == a CPU run of the plain "
+          f"version == the native simulator (eaten and steps) on "
+          f"{ANT_POP} trees of width {ANT_ML} (half crossover children), "
+          f"{ANT_MOVES} moves: eaten {int(eaten.min())}-{int(eaten.max())}, "
+          f"steps {int(steps.min())}-{int(steps.max())} (sum "
+          f"{total_steps}); Koza's solution eats 89 on all three")
+    ms = time_ms(lambda: ant.ant_rollout(*args), flush)
+    plain_ms = time_ms(lambda: ant.ant_rollout_plain(*args[:-1]), flush,
+                       reps=1)
+    # what J2 must move: the trees and lengths in, the trail's words in,
+    # eaten and steps out
+    nbytes = (trees["nodes"].numel() * 4 + ANT_POP * 4 + words.numel() * 4
+              + 2 * ANT_POP * 4)
+    record("j2", "ant_rollout", "deap_tpu_torch/csrc/ant_rollout.cu",
+           "deap_tpu/gp/ant.py:117", 0.0, ms, plain_ms, nbytes,
+           int_ops=total_steps * J2_STEP_OPS)
+    report["j2"]["native_host_ms"] = native_ms
+    print(f"  J2: {ms * 1e3:.2f} us a launch at pop {ANT_POP}; the native "
+          f"simulator {native_ms * 1e3:.2f} us on the host; the longest "
+          f"rollout {int(steps.max())} steps of one thread")
+    print_ptxas("ant_rollout", "ant_rollout_kernel")
+
+    # ----------------------------------- the ant program at full width --
+    limit = gp.static_limit(lambda gg: gp.tree_height(gg, apset), 17)
+    tb = Toolbox()
+    tb.register("evaluate", ant.make_ant_evaluator(
+        apset, ANT_ML, trail, start_cell, max_moves=ANT_MOVES))
+    tb.register("mate", limit(gp.make_cx_one_point(apset)))
+    tb.register("mutate", limit(gp.make_mut_uniform(
+        apset, gp.make_generator(apset, 24, 0, 2, "full"))))
+    tb.register("select", ops.sel_tournament, tournsize=7)
+    pop = init_population(g, ANT_POP, gp.gen_half_and_half(apset, ANT_ML, 1,
+                                                           4), spec,
+                          device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, hof = algorithms.ea_simple(g, pop, tb, 0.5, 0.2, ANT_NGEN,
+                                             halloffame_size=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ant.ant_rollout.launches
+    report["j2"]["launches"] = launches
+    native = ant_binding.ant_eval(pop.genomes["nodes"],
+                                  pop.genomes["length"], trail, start_cell,
+                                  max_moves=ANT_MOVES)
+    if launches != ANT_NGEN + 1:
+        fail(f"ant: J2 launched {launches} times for {ANT_NGEN + 1} "
+             f"evaluations")
+    if not (bool(pop.valid.all()) and np.array_equal(
+            pop.fitness[:, 0].cpu().numpy(), native.astype(np.float32))):
+        fail("ant: the population's fitness differs from the native "
+             "simulator's")
+    print(f"{tag} ant (examples/gp/ant.py) pop={ANT_POP} width={ANT_ML} "
+          f"{ANT_MOVES} moves: {ANT_NGEN} generations in {wall:.3f} s incl. "
+          f"gen-0 evaluation = {wall / ANT_NGEN * 1e3:.3f} ms/gen; most "
+          f"food {float(pop.fitness.max())} (hall of fame "
+          f"{float(hof.fitness[0, 0])}); J2 launches {launches} = the "
+          f"evaluations; fitness == the native simulator's")
+    del pop, hof, trees, kids, args
+
+    # --------------------------------------- the examples' small runs --
+    adf_phase(torch, dev, tag, g)
+    harm_phase(torch, dev, tag, g)
+    semantic_phase(torch, dev, tag, g)
+    del flush
+
+
+def same_values(a, b):
+    """Bitwise equal where finite or infinite, NaN in the same places."""
+    import torch
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bitwise_equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def adf_phase(torch, dev, tag, g):
+    """examples/gp/adf_symbreg.py at its size (pop 200) for ADF_NGEN
+    generations: rows of the batch interpreter equal the one-individual
+    interpreter's, the best MSE finite."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch.core.population import init_population
+    branches = adf_branches(gp)
+    X = (torch.arange(20, dtype=torch.float32, device=dev) * 0.1 - 1.0)[:,
+                                                                       None]
+    y = X[:, 0] ** 4 + X[:, 0] ** 3 + X[:, 0] ** 2 + X[:, 0]
+    interp = gp.make_adf_batch_interpreter(branches)
+    tb = Toolbox()
+    tb.register("evaluate",
+                lambda gs: -((interp(gs, X) - y) ** 2).mean(-1))
+    tb.register("mate", gp.branch_wise_cx(
+        [gp.make_cx_one_point(ps) for ps, _ in branches]))
+    tb.register("mutate", gp.branch_wise_mut(
+        [gp.make_mut_uniform(ps, gp.make_generator(ps, 16, 0, 2, "full"))
+         for ps, _ in branches]))
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    pop = init_population(g, ADF_POP, gp.make_adf_generator(branches, 1, 2),
+                          FitnessSpec((1.0,)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = algorithms.ea_simple(g, pop, tb, 0.5, 0.2, ADF_NGEN,
+                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = gp.make_adf_interpreter(branches)
+    preds = interp(pop.genomes, X)
+    for r in (0, ADF_POP // 2, ADF_POP - 1):
+        ind = tuple({k: v[r] for k, v in b.items()} for b in pop.genomes)
+        if not same_values(one(ind, X), preds[r]):
+            fail("ADF: a row's values differ from the one-individual "
+                 "interpreter's")
+    best = -float(pop.fitness.max())
+    if not math.isfinite(best) or len(logbook) != ADF_NGEN + 1:
+        fail(f"ADF run: best MSE {best}, {len(logbook)} records")
+    print(f"{tag} ADF symbolic regression (adf_symbreg.py) pop={ADF_POP}: "
+          f"{ADF_NGEN} generations in {wall:.3f} s = "
+          f"{wall / ADF_NGEN * 1e3:.3f} ms/gen; best MSE {best:.6f}; rows "
+          f"== the one-individual interpreter")
+
+
+def adf_branches(gp):
+    """examples/gp/adf_symbreg.py's branches: MAIN calls ADF0-ADF2, ADF0
+    calls ADF1 and ADF2, ADF1 calls ADF2."""
+    adf2 = gp.math_set(n_args=2, trig=False, erc=False, name="ADF2")
+    adf1 = gp.math_set(n_args=2, trig=False, erc=False, name="ADF1")
+    adf1.add_adf("ADF2", 2, branch=3)
+    adf0 = gp.math_set(n_args=2, trig=False, erc=False, name="ADF0")
+    adf0.add_adf("ADF1", 2, branch=2)
+    adf0.add_adf("ADF2", 2, branch=3)
+    main = gp.math_set(n_args=1, trig=True, erc=True, name="MAIN")
+    main.add_adf("ADF0", 2, branch=1)
+    main.add_adf("ADF1", 2, branch=2)
+    main.add_adf("ADF2", 2, branch=3)
+    return [(main, 48), (adf0, 24), (adf1, 24), (adf2, 24)]
+
+
+def harm_phase(torch, dev, tag, g):
+    """examples/gp/symbreg_harm.py at its size (pop 300, 600 trial
+    children) for HARM_NGEN generations, evaluated through K9: one launch
+    an evaluation, the sizes within the width."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, gp, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.support.stats import Statistics
+    pset = gp.math_set(1)
+    X = (torch.arange(20, dtype=torch.float32, device=dev) * 0.1 - 1.0)[:,
+                                                                       None]
+    y = X[:, 0] ** 4 + X[:, 0] ** 3 + X[:, 0] ** 2 + X[:, 0]
+    interp = gp.make_batch_interpreter(pset, 64, mode="grouped")
+    tb = Toolbox()
+    tb.register("evaluate", lambda gs: -((interp(gs, X) - y) ** 2).mean(-1))
+    tb.register("mate", gp.make_cx_one_point(pset))
+    tb.register("mutate", gp.make_mut_uniform(
+        pset, gp.make_generator(pset, 32, 0, 2, "full")))
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    sizes = Statistics(lambda p: p.genomes["length"].to(torch.float32))
+    sizes.register("avg", torch.mean)
+    sizes.register("max", torch.max)
+    pop = init_population(g, HARM_POP, gp.gen_half_and_half(pset, 64, 1, 2),
+                          FitnessSpec((1.0,)), device=dev)
+    before = kernels.gp_grouped_dispatch.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = gp.harm(g, pop, tb, 0.5, 0.1, HARM_NGEN,
+                              nbrindsmodel=HARM_NBR, stats=sizes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.gp_grouped_dispatch.launches - before
+    avg = [float(r["avg"]) for r in logbook]
+    if launches != HARM_NGEN + 1 or not bool(pop.valid.all()) or \
+            max(avg) >= 64:
+        fail(f"HARM: K9 launched {launches} times for {HARM_NGEN + 1} "
+             f"evaluations, mean sizes {avg}")
+    print(f"{tag} HARM symbolic regression (symbreg_harm.py) pop={HARM_POP}, "
+          f"{HARM_NBR} trial children: {HARM_NGEN} generations in "
+          f"{wall:.3f} s = {wall / HARM_NGEN * 1e3:.3f} ms/gen; best MSE "
+          f"{-float(pop.fitness.max()):.6f}; mean size "
+          f"{' -> '.join(f'{a:.1f}' for a in avg)}; K9 launches {launches}")
+
+
+def semantic_phase(torch, dev, tag, g):
+    """The semantic operators on math_set(1) plus lf (pop 256, programs up
+    to 128 nodes) for SEM_NGEN generations of ea_simple, evaluated
+    through K9 (lf live): one launch an evaluation, the fitness equal to
+    the scan interpreter's."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.ops import kernels
+    pset = gp.add_semantic_primitives(gp.math_set(1))
+    X = (torch.arange(20, dtype=torch.float32, device=dev) * 0.1 - 1.0)[:,
+                                                                       None]
+    y = X[:, 0] ** 4 + X[:, 0] ** 3 + X[:, 0] ** 2 + X[:, 0]
+    interp = gp.make_batch_interpreter(pset, SEM_ML, mode="grouped")
+    expr = gp.make_generator(pset, 8, 0, 2, "full")
+    tb = Toolbox()
+    tb.register("evaluate", lambda gs: -((interp(gs, X) - y) ** 2).mean(-1))
+    tb.register("mate", gp.make_cx_semantic(pset, expr, SEM_ML))
+    tb.register("mutate", gp.make_mut_semantic(pset, expr, SEM_ML))
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    pop = init_population(g, SEM_POP, gp.gen_half_and_half(pset, SEM_ML, 1,
+                                                           2),
+                          FitnessSpec((1.0,)), device=dev)
+    before = kernels.gp_grouped_dispatch.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, logbook, _ = algorithms.ea_simple(g, pop, tb, 0.5, 0.2, SEM_NGEN,
+                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.gp_grouped_dispatch.launches - before
+    scan = gp.make_batch_interpreter(pset, SEM_ML, mode="scan")
+    want = -((scan(pop.genomes, X) - y) ** 2).mean(-1)
+    live = {pset.primitives[b].name for b in interp.mask}
+    if launches != SEM_NGEN + 1 or "lf" not in live or not same_values(
+            pop.fitness[:, 0], want):
+        fail(f"semantic GP: K9 launched {launches} times for "
+             f"{SEM_NGEN + 1} evaluations, live {sorted(live)}, or the "
+             f"fitness differs from the scan interpreter's")
+    print(f"{tag} semantic GP (math_set(1) + lf) pop={SEM_POP} width "
+          f"{SEM_ML}: {SEM_NGEN} generations in {wall:.3f} s = "
+          f"{wall / SEM_NGEN * 1e3:.3f} ms/gen; best MSE "
+          f"{-float(pop.fitness.max()):.6f}; mean size "
+          f"{float(pop.genomes['length'].float().mean()):.1f}; K9 launches "
+          f"{launches}; fitness == the scan interpreter's (bitwise, NaN "
+          f"where it is NaN)")
 
 
 def symbreg_data(dev):

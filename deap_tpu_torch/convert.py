@@ -1,5 +1,6 @@
-"""Carry population, hall-of-fame, Pareto-archive, GP-genome, strategy
-and moving-peaks state between the two packages.
+"""Carry population, hall-of-fame, Pareto-archive, GP-genome (one tree
+a row, or a tuple of branches), strategy and moving-peaks state between
+the two packages.
 
 The port never imports the JAX package, so state crosses as numpy arrays
 plus the weights tuple: ``np.asarray`` of a ``deap_tpu`` ``Population``'s
@@ -107,6 +108,20 @@ def gp_genomes_to_arrays(genomes: Dict[str, torch.Tensor]
     arrays."""
     return {k: to_numpy(genomes[k]).astype(dtype, copy=False)
             for k, dtype in _GP_DTYPES.items()}
+
+
+def adf_genomes_from_arrays(branches: Sequence[Dict[str, Any]],
+                            device: DeviceLike = None):
+    """The port's multi-branch (ADF) trees from the JAX package's tuple
+    of branch genome dicts. Typed trees are plain genome dicts:
+    :func:`gp_genomes_from_arrays` carries them."""
+    return tuple(gp_genomes_from_arrays(b, device) for b in branches)
+
+
+def adf_genomes_to_arrays(genomes) -> tuple:
+    """The port's multi-branch trees as the JAX package's tuple of branch
+    genome dicts of numpy arrays."""
+    return tuple(gp_genomes_to_arrays(b) for b in genomes)
 
 
 #: the fields of a CMA-ES state and their dtypes

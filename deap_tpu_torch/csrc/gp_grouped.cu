@@ -154,8 +154,9 @@ struct LevelStarts {
 
 __device__ __forceinline__ int op_arity(int code) {
   switch (code) {
-    case 0: case 5: case 6: case 7: case 10: return 1;
-    case 1: case 2: case 3: case 4: case 8: case 9: case 11: return 2;
+    case 0: case 5: case 6: case 7: case 10: case 15: return 1;
+    case 1: case 2: case 3: case 4: case 8: case 9: case 11: case 13:
+    case 14: return 2;
     case 12: return 3;
     default: return 0;
   }
@@ -180,6 +181,11 @@ __device__ __forceinline__ float apply_op(int code, float a, float b,
     case 10: return 1.0f - a;                     // not
     case 11: return fabsf(a - b);                 // xor
     case 12: return a > 0.5f ? b : c;             // if_then_else
+    case 13: return a < b ? 1.0f : 0.0f;          // lt (NaN: 0)
+    case 14: return a == b ? 1.0f : 0.0f;         // eq (NaN: 0)
+    // lf, the logistic: expf (not __expf) and an IEEE division, each
+    // rounded as PyTorch's CUDA exp, add and reciprocal round them
+    case 15: return 1.0f / (1.0f + expf(-a));
     default: return __int_as_float(0x7fc00000);   // a bad branch: NaN
   }
 }

@@ -66,12 +66,13 @@ def child_table(nodes: torch.Tensor, length: torch.Tensor,
 
 def _prim_rows(pset: PrimitiveSet,
                mask: Optional[Sequence[int]] = None) -> Callable:
-    """``prim_rows(ops_in) -> [(node_id, row), ...]`` over the primitives
-    of ``mask`` (live opcode ids; ``None``: the whole set)."""
+    """``prim_rows(ops_in, node) -> [(node_id, row), ...]`` over the
+    primitives of ``mask`` (live opcode ids; ``None``: the whole set);
+    the slot's node ids ``node`` are not needed here."""
     ids = range(pset.n_ops) if mask is None else sorted(mask)
     prims = [(i, pset.primitives[i]) for i in ids]
 
-    def prim_rows(ops_in):
+    def prim_rows(ops_in, node=None):
         return [(i, p.fn(*ops_in[:p.arity])) for i, p in prims]
 
     return prim_rows
@@ -84,7 +85,9 @@ def _prepare(pset, max_len, genomes, X):
     ML = min(nodes.shape[1], max_len)
     arity = pset.arity_table(nodes.device)
     C = child_table(nodes[:, :ML], length, arity, max(pset.max_arity, 1))
-    return nodes[:, :ML], consts[:, :ML], length, C, X.T.to(torch.float32)
+    # the argument rows, [n_args, P] (or [n_args, n, P] for per-tree X)
+    return (nodes[:, :ML], consts[:, :ML], length, C,
+            X.movedim(-1, 0).to(torch.float32))
 
 
 def run_data_pass(pset: PrimitiveSet, max_len: int, genomes, X,
@@ -92,11 +95,14 @@ def run_data_pass(pset: PrimitiveSet, max_len: int, genomes, X,
                   ) -> torch.Tensor:
     """Scan-mode evaluation of every tree: fill ``out[n, ML, P]`` slot by
     slot from the right, children before parents. ``max_active`` (>= every
-    tree's length) bounds the pass to the live prefix. Returns the roots'
-    rows ``f32[n, P]``."""
+    tree's length) bounds the pass to the live prefix. ``X`` is
+    ``f32[P, n_args]``, or ``f32[n, P, n_args]`` to give each tree its own
+    points (an ADF call's operands). ``prim_rows(ops_in, node)`` gets the
+    slot's node ids too, so it may leave out a row no tree selects.
+    Returns the roots' rows ``f32[n, P]``."""
     nodes, consts, length, C, argsT = _prepare(pset, max_len, genomes, X)
     n, ML = nodes.shape
-    P = X.shape[0]
+    P = X.shape[-2]
     const_row = pset.n_ops + pset.n_args
     rows_of = torch.arange(n, device=nodes.device)
     out = torch.zeros((n, ML, P), dtype=torch.float32, device=nodes.device)
@@ -105,8 +111,8 @@ def run_data_pass(pset: PrimitiveSet, max_len: int, genomes, X,
         # padded slots act as inert constants
         node = torch.where(rt < length, nodes[:, rt], const_row)
         ops_in = [out[rows_of, C[:, rt, i]] for i in range(C.shape[2])]
-        rows = prim_rows(ops_in) + [(pset.n_ops + j, a)
-                                    for j, a in enumerate(argsT)]
+        rows = prim_rows(ops_in, node) + [(pset.n_ops + j, a)
+                                          for j, a in enumerate(argsT)]
         # every constant-family id shares the one constant row
         row = node.clamp_max(const_row)[:, None]
         res = consts[:, rt, None].expand(n, P)
@@ -449,7 +455,7 @@ class BatchInterpreter:
             if first is not None:
                 nodes, consts, length = (nodes[first], consts[first],
                                          length[first])
-            arity = np.asarray(self.pset.arity_list(), np.int32)
+            arity = np.asarray(self.pset.arity_list() + [0], np.int32)
             ends = _ends_np(nodes, length, arity)
             depths = _depths_np(ends, length)
             sched = build_grouped_schedule(self.pset, nodes, consts, length,

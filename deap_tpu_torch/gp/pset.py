@@ -36,6 +36,7 @@ class _Primitive:
     arity: int
     fmt: Optional[str] = None  # e.g. "({0} + {1})" for pretty printing
     device_op: Optional[str] = None  # key of DEVICE_OPS, or None
+    adf: Optional[int] = None  # branch index when this is an ADF call
 
     def format(self, *args: str) -> str:
         if self.fmt:
@@ -64,7 +65,7 @@ class PrimitiveSet:
         self.const_names: List[str] = []
         self.erc_sampler: Optional[Callable] = None
         self.erc_name: Optional[str] = None
-        self._arity_tables: dict = {}
+        self._tables: dict = {}
 
     # ------------------------------------------------------------ builder ----
 
@@ -88,6 +89,21 @@ class PrimitiveSet:
                                  f"not {arity}")
         self.primitives.append(
             _Primitive(name or fn.__name__, fn, arity, fmt, device_op))
+
+    def add_adf(self, name: str, arity: int, branch: int) -> None:
+        """Register an Automatically Defined Function call: the node
+        evaluates branch ``branch`` of the same individual on its
+        ``arity`` operand rows. Only the interpreters of
+        :mod:`deap_tpu_torch.gp.adf` evaluate such nodes (it has no device
+        op, so the grouped kernel refuses it)."""
+        if arity < 1:
+            raise ValueError("ADFs take at least one argument")
+        self.primitives.append(_Primitive(name, None, arity, None, None,
+                                          branch))
+
+    @property
+    def has_adf(self) -> bool:
+        return any(p.adf is not None for p in self.primitives)
 
     def add_terminal(self, value: float, name: Optional[str] = None) -> None:
         """Register a constant terminal, sampled uniformly among fixed
@@ -159,16 +175,28 @@ class PrimitiveSet:
         return ([p.arity for p in self.primitives]
                 + [0] * (self.vocab - self.n_ops))
 
-    def arity_table(self, device="cpu") -> torch.Tensor:
-        """``int64[vocab]`` on ``device`` — operator arities then zeros
-        for terminals. Cached per device against the vocabulary state, so
-        a set extended after the first call rebuilds."""
-        key = (torch.device(device), tuple(self.arity_list()))
-        table = self._arity_tables.get(key)
+    def _layout(self) -> tuple:
+        """What the set's static tables depend on."""
+        return tuple(self.arity_list()), tuple(self.const_values)
+
+    def table(self, what: str, device, build: Callable) -> torch.Tensor:
+        """The static table ``what`` of the set on ``device``: ``build()``,
+        a host tensor, copied there once per device and vocabulary state
+        (a set extended later rebuilds), so that an operator on the card
+        does not wait for a copy from the host."""
+        key = (what, torch.device(device), self._layout())
+        table = self._tables.get(key)
         if table is None:
-            table = self._arity_tables[key] = torch.tensor(
-                key[1], dtype=torch.int64, device=key[0])
+            table = self._tables[key] = build().to(key[1])
         return table
+
+    def arity_table(self, device="cpu") -> torch.Tensor:
+        """``int64[vocab + 1]`` on ``device`` — operator arities then zeros
+        for terminals, and a last 0 for id ``vocab``: the padding id
+        ``const_id`` of a set with no constant terminal (the JAX package's
+        gather clamps it onto a terminal)."""
+        return self.table("arity", device, lambda: torch.tensor(
+            self.arity_list() + [0], dtype=torch.int64))
 
     def terminal_of_choice(self, choice: torch.Tensor,
                            erc: torch.Tensor):
@@ -177,8 +205,8 @@ class PrimitiveSet:
         as the JAX package's ``sample_terminal`` maps its two draws."""
         node = (self.n_ops + choice).to(torch.int32)
         if self.n_consts:
-            pool = torch.tensor(self.const_values, dtype=torch.float32,
-                                device=choice.device)
+            pool = self.table("consts", choice.device, lambda: torch.tensor(
+                self.const_values, dtype=torch.float32))
             fixed = pool[(choice - self.n_args).clamp(0, self.n_consts - 1)]
         else:
             fixed = torch.zeros(choice.shape, dtype=torch.float32,

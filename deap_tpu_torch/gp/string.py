@@ -1,8 +1,9 @@
 """Host-side tree display and parsing.
 
 Port of :mod:`deap_tpu.gp.string`: ``to_string`` renders one prefix
-tree as an expression, ``from_string`` parses ``name(arg, ...)`` prefix
-syntax into a one-tree population. Both walk host arrays.
+tree as an expression, ``to_graph`` gives its nodes, edges and labels for
+graph libraries, ``from_string`` parses ``name(arg, ...)`` prefix syntax
+into a one-tree population. All walk host arrays.
 """
 
 from __future__ import annotations
@@ -46,6 +47,33 @@ def to_string(genome, pset: PrimitiveSet) -> str:
     if end != length:
         raise ValueError(f"malformed prefix tree: used {end} of {length}")
     return s
+
+
+def to_graph(genome, pset: PrimitiveSet):
+    """``(nodes, edges, labels)`` of one prefix tree, for graph libraries
+    (the reference's ``gp.graph``): node ids are prefix positions,
+    ``edges`` the (parent, child) pairs, ``labels`` id → primitive or
+    terminal name. Feed to ``networkx.Graph`` or pygraphviz as the
+    reference documents."""
+    nodes_arr = _host(genome["nodes"]).reshape(-1)
+    consts = _host(genome["consts"]).reshape(-1)
+    length = int(_host(genome["length"]).reshape(-1)[0])
+    arity = pset.arity_list()
+    labels = {i: pset.node_name(int(nodes_arr[i]), consts[i])
+              for i in range(length)}
+    edges = []
+    # a stack of [parent, children still to come] along the prefix walk
+    stack: list = []
+    for i in range(length):
+        if stack:
+            edges.append((stack[-1][0], i))
+            stack[-1][1] -= 1
+            if stack[-1][1] == 0:
+                stack.pop()
+        a = arity[int(nodes_arr[i])]
+        if a > 0:
+            stack.append([i, a])
+    return list(range(length)), edges, labels
 
 
 def from_string(expr: str, pset: PrimitiveSet, max_len: int,

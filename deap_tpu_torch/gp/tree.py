@@ -9,8 +9,12 @@ JAX package.
 Each random operator is split into a draw and a **draw-taking core**:
 the generator's core takes per-tree heights and grow flags and per-slot
 terminal tests, terminal choices, ERC values and op choices; crossover's
-its cut points; mutation's its point and donor trees. The tests hand the
-cores the JAX package's own draws; the operators draw with a
+its cut points (or, leaf-biased, its leaf flags and point scores);
+mutation's its point and donor trees, or the scores and choices of node
+replacement, ephemeral resampling, insertion and shrinking. A uniform
+pick among the eligible slots of a tree is the argmax of uniform scores
+over them (:func:`masked_argmax`), as in the JAX package. The tests hand
+the cores the JAX package's own draws; the operators draw with a
 ``torch.Generator`` and call the same cores.
 """
 
@@ -38,6 +42,14 @@ def randint_below(generator: torch.Generator,
     bits = torch.randint(0, 2 ** 62, high.shape, generator=generator,
                          device=generator.device)
     return bits % high.to(torch.int64)
+
+
+def masked_argmax(mask: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """A uniform pick among the ``mask``ed entries of the last axis: the
+    first argmax of ``scores`` there, ``-1`` elsewhere (entry 0 when
+    nothing is masked in), the JAX package's ``argmax(where(mask, scores,
+    -1.0))``. ``int64``."""
+    return torch.where(mask, scores, -1.0).argmax(-1)
 
 
 # ------------------------------------------------------------- generation ----
@@ -320,6 +332,51 @@ def make_cx_one_point(pset: PrimitiveSet) -> Callable:
     return cx
 
 
+def leaf_biased_points(arity: torch.Tensor, g: Genome,
+                       want_leaf: torch.Tensor,
+                       scores: torch.Tensor) -> torch.Tensor:
+    """Each tree's crossover point below the root: a terminal where
+    ``want_leaf``, else an operator, uniform by ``scores [n, L]``; any
+    non-root node when the tree has none of that class."""
+    nodes, length = g["nodes"], g["length"]
+    k = torch.arange(nodes.shape[1], device=nodes.device)
+    in_tree = (k >= 1) & (k < length[:, None])
+    is_leaf = arity[nodes.to(torch.int64)] == 0
+    mask = in_tree & torch.where(want_leaf[:, None], is_leaf, ~is_leaf)
+    mask = torch.where(mask.any(1, keepdim=True), mask, in_tree)
+    return masked_argmax(mask, scores)
+
+
+def cx_leaf_biased_core(arity: torch.Tensor, g1: Genome, g2: Genome,
+                        leaf1: torch.Tensor, leaf2: torch.Tensor,
+                        s1: torch.Tensor, s2: torch.Tensor
+                        ) -> Tuple[Genome, Genome]:
+    """Leaf-biased crossover on its draws: per tree the leaf flag
+    (``u < termpb``) and the point scores ``[n, L]``."""
+    i1 = leaf_biased_points(arity, g1, leaf1, s1)
+    i2 = leaf_biased_points(arity, g2, leaf2, s2)
+    return cx_one_point_core(arity, g1, g2, i1, i2)
+
+
+def make_cx_one_point_leaf_biased(pset: PrimitiveSet,
+                                  termpb: float = 0.1) -> Callable:
+    """Leaf-biased crossover (cxOnePointLeafBiased): each tree picks a
+    terminal point with probability ``termpb``, else an operator (Koza's
+    90/10 rule), each tree with its own draw."""
+    p = _f32(termpb)
+
+    def cx(generator: torch.Generator, g1: Genome, g2: Genome):
+        n, dev = g1["length"].shape[0], generator.device
+        leaf1 = torch.rand(n, generator=generator, device=dev) < p
+        leaf2 = torch.rand(n, generator=generator, device=dev) < p
+        s1 = torch.rand(g1["nodes"].shape, generator=generator, device=dev)
+        s2 = torch.rand(g2["nodes"].shape, generator=generator, device=dev)
+        return cx_leaf_biased_core(pset.arity_table(g1["nodes"].device),
+                                   g1, g2, leaf1, leaf2, s1, s2)
+
+    return cx
+
+
 # -------------------------------------------------------------- mutation ----
 
 def mut_uniform_core(arity: torch.Tensor, g: Genome, i: torch.Tensor,
@@ -341,6 +398,216 @@ def make_mut_uniform(pset: PrimitiveSet, expr: Callable) -> Callable:
         donor = expr(generator, length.shape[0])
         return mut_uniform_core(pset.arity_table(g["nodes"].device), g, i,
                                 donor)
+
+    return mut
+
+
+def _at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[t, i[t]]`` for every row ``t``."""
+    return a.gather(1, i.to(torch.int64)[:, None])[:, 0]
+
+
+def set_node(g: Genome, i: torch.Tensor, node: torch.Tensor,
+             value: torch.Tensor) -> Genome:
+    """Each tree with slot ``i`` set to ``node`` and its constant to
+    ``value``."""
+    i = i.to(torch.int64)[:, None]
+    return {"nodes": g["nodes"].scatter(1, i, node.to(torch.int32)[:, None]),
+            "consts": g["consts"].scatter(1, i, value[:, None]),
+            "length": g["length"]}
+
+
+def draw_terminals(pset: PrimitiveSet, generator: torch.Generator, shape):
+    """Untyped terminal draws of ``shape``: ``(choice, erc)`` for
+    :meth:`PrimitiveSet.terminal_of_choice`."""
+    dev = generator.device
+    choice = torch.randint(0, pset.n_terminal_choices, shape,
+                           generator=generator, device=dev)
+    erc = (pset.erc_sampler(generator, shape) if pset.has_erc
+           else torch.zeros(shape, device=dev))
+    return choice, erc
+
+
+def mut_node_replacement_core(pset: PrimitiveSet, g: Genome,
+                              i: torch.Tensor, term_choice: torch.Tensor,
+                              erc: torch.Tensor,
+                              op_scores: torch.Tensor) -> Genome:
+    """Node replacement on its draws: the point ``i``, a terminal draw
+    (``term_choice``, ``erc``) and operator scores ``[n, n_ops]``; a
+    terminal becomes the drawn terminal, an operator the best-scored
+    operator of its arity."""
+    dev = g["nodes"].device
+    arity = pset.arity_table(dev)
+    node = _at(g["nodes"], i).to(torch.int64)
+    ar = arity[node]
+    def build():
+        pools = torch.zeros((pset.max_arity + 1, max(pset.n_ops, 1)),
+                            dtype=torch.bool)
+        for j, prim in enumerate(pset.primitives):
+            pools[prim.arity, j] = True
+        return pools
+
+    op_node = masked_argmax(pset.table("arity_pools", dev, build)[ar],
+                            op_scores)
+    term_node, term_val = pset.terminal_of_choice(term_choice.to(torch.int64),
+                                                  erc)
+    is_term = ar == 0
+    return set_node(g, i, torch.where(is_term, term_node, op_node),
+                    torch.where(is_term, term_val, _at(g["consts"], i)))
+
+
+def make_mut_node_replacement(pset: PrimitiveSet) -> Callable:
+    """Swap one node for another of the same arity (mutNodeReplacement):
+    terminals get a fresh terminal draw, operators an operator of equal
+    arity."""
+
+    def mut(generator: torch.Generator, g: Genome) -> Genome:
+        n, dev = g["length"].shape[0], generator.device
+        i = randint_below(generator, g["length"].to(torch.int64).clamp_min(1))
+        choice, erc = draw_terminals(pset, generator, (n,))
+        op_scores = torch.rand((n, max(pset.n_ops, 1)), generator=generator,
+                               device=dev)
+        return mut_node_replacement_core(pset, g, i, choice, erc, op_scores)
+
+    return mut
+
+
+def mut_ephemeral_core(g: Genome, is_erc: torch.Tensor, mode: str,
+                       pick_scores: torch.Tensor,
+                       values: torch.Tensor) -> Genome:
+    """Ephemeral resampling on its draws: ``values [n, L]`` replace the
+    constants of the live slots where ``is_erc`` (``mode='all'``), or of
+    the one such slot best by ``pick_scores`` (``'one'``)."""
+    k = torch.arange(g["nodes"].shape[1], device=g["nodes"].device)
+    is_erc = is_erc & (k < g["length"][:, None])
+    if mode == "one":
+        chosen = masked_argmax(is_erc, pick_scores)
+        is_erc = is_erc & (k == chosen[:, None])
+    return {"nodes": g["nodes"],
+            "consts": torch.where(is_erc, values, g["consts"]),
+            "length": g["length"]}
+
+
+def make_mut_ephemeral(pset: PrimitiveSet, mode: str = "one") -> Callable:
+    """Resample ephemeral constants (mutEphemeral): ``mode='one'``
+    redraws a single random ERC node of each tree, ``'all'`` every one."""
+    if not pset.has_erc:
+        raise ValueError("primitive set has no ephemeral constant")
+    if mode not in ("one", "all"):
+        raise ValueError(mode)
+
+    def mut(generator: torch.Generator, g: Genome) -> Genome:
+        shape, dev = g["nodes"].shape, generator.device
+        pick = torch.rand(shape, generator=generator, device=dev)
+        values = pset.erc_sampler(generator, shape).to(torch.float32)
+        return mut_ephemeral_core(g, g["nodes"] == pset.erc_id, mode, pick,
+                                  values)
+
+    return mut
+
+
+def insert_core(arity: torch.Tensor, g: Genome, i: torch.Tensor,
+                op: torch.Tensor, pos: torch.Tensor, t_nodes: torch.Tensor,
+                t_vals: torch.Tensor, post_offset: int) -> Genome:
+    """Insertion on its draws: operator ``op`` goes above the subtree at
+    ``i``, which becomes its argument ``pos``; its other arguments are the
+    terminals ``t_nodes``/``t_vals [n, max_ar]``. Argument slot ``pos + 1
+    + m`` after the subtree takes terminal ``pos + m + 1 - post_offset``,
+    as the JAX package's untyped (``post_offset`` 1) and typed (0)
+    operators index them."""
+    nodes, consts = g["nodes"], g["consts"]
+    n, L = nodes.shape
+    max_ar = t_nodes.shape[1]
+    dev = nodes.device
+    i = i.to(torch.int64)
+    e = subtree_end(nodes, arity, i)
+    seg = (e - i)[:, None]
+    op = op.to(torch.int64)
+    ar = arity[op][:, None]
+    pos = pos.to(torch.int64)[:, None]
+    k = torch.arange(1 + max_ar + L, device=dev)
+    in_pre = (k >= 1) & (k < 1 + pos)
+    in_sub = (k >= 1 + pos) & (k < 1 + pos + seg)
+    in_post = (k >= 1 + pos + seg) & (k < seg + ar)
+    pre = (k - 1).clamp(0, max_ar - 1).expand(n, -1)
+    sub = (i[:, None] + k - 1 - pos).clamp(0, L - 1)
+    post = (k - post_offset - seg).clamp(0, max_ar - 1)
+
+    def donor(own, terms, first):
+        out = torch.where(in_pre, terms.gather(1, pre), torch.where(
+            in_sub, own.gather(1, sub), torch.where(
+                in_post, terms.gather(1, post), 0)))
+        out[:, 0] = first
+        return out
+
+    donor_nodes = donor(nodes, t_nodes.to(nodes.dtype), op.to(nodes.dtype))
+    donor_consts = donor(consts, t_vals.to(consts.dtype), 0.0)
+    return _splice(g, i, e, donor_nodes, donor_consts, torch.zeros_like(i),
+                   (seg + ar)[:, 0])
+
+
+def make_mut_insert(pset: PrimitiveSet) -> Callable:
+    """Insert a new operator above a random subtree (mutInsert): the old
+    subtree becomes one randomly chosen argument of the new node; the
+    other arguments are fresh terminals."""
+    max_ar = max(pset.max_arity, 1)
+
+    def mut(generator: torch.Generator, g: Genome) -> Genome:
+        n, dev = g["length"].shape[0], generator.device
+        arity = pset.arity_table(g["nodes"].device)
+        i = randint_below(generator, g["length"].to(torch.int64).clamp_min(1))
+        op = torch.randint(0, pset.n_ops, (n,), generator=generator,
+                           device=dev)
+        pos = randint_below(generator, arity[op].clamp_min(1))
+        t_nodes, t_vals = pset.terminal_of_choice(
+            *draw_terminals(pset, generator, (n, max_ar)))
+        return insert_core(arity, g, i, op, pos, t_nodes, t_vals, 1)
+
+    return mut
+
+
+def shrink_core(arity: torch.Tensor, max_ar: int, g: Genome,
+                node_ok: torch.Tensor, scores: torch.Tensor,
+                child: torch.Tensor) -> Genome:
+    """Shrinking on its draws: the operator slot best by ``scores`` among
+    ``node_ok`` collapses onto its argument ``child``; trees with no such
+    slot, or shorter than 3 nodes, pass through."""
+    nodes = g["nodes"]
+    has = node_ok.any(1) & (g["length"] >= 3)
+    i = masked_argmax(node_ok, scores)
+    child = child.to(torch.int64)
+    c_begin = i + 1
+    for j in range(max_ar):
+        c_begin = torch.where(j < child, subtree_end(nodes, arity, c_begin),
+                              c_begin)
+    c_end = subtree_end(nodes, arity, c_begin)
+    e = subtree_end(nodes, arity, i)
+    out = _splice(g, i, e, nodes, g["consts"], c_begin, c_end - c_begin)
+    return tree_where(has, out, g)
+
+
+def shrinkable_slots(arity: torch.Tensor, g: Genome) -> torch.Tensor:
+    """Operator slots below the root, ``bool[n, L]``."""
+    k = torch.arange(g["nodes"].shape[1], device=g["nodes"].device)
+    in_tree = (k >= 1) & (k < g["length"][:, None])
+    return (arity[g["nodes"].to(torch.int64)] > 0) & in_tree
+
+
+def make_mut_shrink(pset: PrimitiveSet) -> Callable:
+    """Collapse a random operator node below the root onto one of its
+    argument subtrees (mutShrink); trees with no operator below the root,
+    or shorter than 3 nodes, pass through unchanged."""
+    max_ar = max(pset.max_arity, 1)
+
+    def mut(generator: torch.Generator, g: Genome) -> Genome:
+        arity = pset.arity_table(g["nodes"].device)
+        node_ok = shrinkable_slots(arity, g)
+        scores = torch.rand(node_ok.shape, generator=generator,
+                            device=generator.device)
+        ar = arity[_at(g["nodes"], masked_argmax(node_ok, scores)).to(
+            torch.int64)]
+        child = randint_below(generator, ar.clamp_min(1))
+        return shrink_core(arity, max_ar, g, node_ok, scores, child)
 
     return mut
 

@@ -59,7 +59,8 @@ __all__ = ["fused_variation", "KERNEL_DTYPES", "fused_bits", "philox_key",
            "fused_variation_eval", "fused_variation_eval_plain",
            "dominated_weight_sums", "dominated_weight_maxes",
            "dominated_counts", "strengths_tiled", "nd_rank_tiled",
-           "GP_DEVICE_OPS", "gp_grouped_dispatch",
+           "GP_DEVICE_OPS", "gp_lt", "gp_eq", "gp_logistic",
+           "gp_grouped_dispatch",
            "gp_grouped_dispatch_plain", "k9_item_shape", "k9_work_items"]
 
 #: genome dtypes the kernel takes: bool (as one byte) and float32
@@ -772,7 +773,27 @@ GP_DEVICE_OPS: Dict[str, Tuple[int, int]] = {
     "not": (10, 1),
     "xor": (11, 2),
     "if_then_else": (12, 3),
+    "lt": (13, 2),
+    "eq": (14, 2),
+    "lf": (15, 1),
 }
+
+
+def gp_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Device op ``lt``: ``a < b`` as 0.0/1.0 (NaN compares false)."""
+    return (a < b).to(torch.float32)
+
+
+def gp_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Device op ``eq``: ``a == b`` as 0.0/1.0 (NaN compares false)."""
+    return (a == b).to(torch.float32)
+
+
+def gp_logistic(a: torch.Tensor) -> torch.Tensor:
+    """Device op ``lf``, the logistic ``1 / (1 + exp(-a))``, rounded as
+    K9 rounds it: ``exp`` (on the card PyTorch's kernel calls the same
+    ``expf``), then the add, then an IEEE reciprocal, each alone."""
+    return torch.reciprocal(torch.exp(-a) + 1.0)
 
 
 def gp_grouped_dispatch_plain(buf: torch.Tensor, chunk_ops: torch.Tensor,
@@ -782,7 +803,12 @@ def gp_grouped_dispatch_plain(buf: torch.Tensor, chunk_ops: torch.Tensor,
     """Plain PyTorch version of :func:`gp_grouped_dispatch`: the JAX
     package's XLA chunk loop, chunk by chunk in order — gather the
     operand rows, let constants replace them, apply the chunk's
-    primitive, write the chunk's rows. Updates ``buf`` in place."""
+    primitive, write the chunk's rows. Updates ``buf`` in place.
+
+    The primitive's own ``fn`` computes each chunk, so a primitive with a
+    device op must round as the kernel's code does: the stock sets use
+    one elementwise torch operation a code, and :func:`gp_lt`,
+    :func:`gp_eq` and :func:`gp_logistic` for codes 13-15."""
     isc = src_isc.to(torch.bool)
     for c, b in enumerate(chunk_ops.tolist()):
         prim = ops[b]
@@ -897,9 +923,9 @@ def gp_grouped_dispatch(buf: torch.Tensor, chunk_ops: torch.Tensor,
     launch, by value), and carries the levels' order itself; on the
     CPU the chunk loop runs (:func:`gp_grouped_dispatch_plain`). Kernel
     and plain version agree bitwise: each element is one IEEE operation
-    (or ``cosf``/``sinf`` on the card) on the same operands. The wrapper's
-    ``launches`` counts the launches (one a call), ``levels`` the levels
-    they evaluated.
+    (or ``cosf``/``sinf``/``expf`` on the card) on the same operands. The
+    wrapper's ``launches`` counts the launches (one a call), ``levels``
+    the levels they evaluated.
 
     :param buf: ``f32[n_args + nchunks·chunk, P]``, argument rows filled;
         updated in place and returned.
