@@ -98,6 +98,25 @@ Phases (any failure ends the script with a non-zero exit code):
     K7 equal those through the dominance matrix, then mu 50,000 (union
     100k, 12 variables) for 3 generations after one of warm-up, with K7
     launched once per front peeled;
+11b. J3 and J4, the row passes of the M = 2 staircase and the M = 3
+    sweep (``csrc/nd_scan.cu``): each bitwise against its plain version at
+    n 1-1000 on uniform rows, ties, ``-inf`` rows, duplicates, one front
+    and a chain; J3 with its front maxima forced across the edge of shared
+    memory and on chains of 58,112, 58,113 and 100,000 rows; J3 timed on
+    ZDT1 values at the 50k run's 50k and 100k rows, J4 on DTLZ2 unions of
+    16,384 and 100k rows (where its ranks equal ``nd='tiled'``'s), each
+    beside its bound, its plain version and its serial chain's floor;
+    bench.py's NSGA-II DTLZ2 generation at mu 50k with ``nd='sweep'`` (J4
+    launched once, the survivors equal K7's); then bench_suite.py's two
+    ZDT1 NSGA-II configurations as it calls them (30 genes, bounded SBX
+    and polynomial mutation at eta 20, cxpb 0.9, mutpb 1.0, DCD, then
+    ``sel_nsga2`` over the union): ``nsga2_zdt1_pop2000`` (``nd='standard'``,
+    50 generations, J3 launched 0 times: ``auto`` takes the dominance
+    matrix at 2000 and 4000 rows) and ``nsga2_zdt1_pop50k``
+    (``nd='staircase'``, 10 generations after one of warm-up, J3 launched
+    twice a generation; the last union's ranks equal the plain version's
+    and ``nd='tiled'``'s), each gaining hypervolume (the native library,
+    which must have built), and one more 50k generation in its parts;
 12. K9, the GP grouped evaluator: bitwise against its plain version on
     the grouped schedule of a ``gen_half_and_half`` population under
     ``math_set(1)`` (pop 4096, width 64, 256 points, deduped as the loop
@@ -334,6 +353,19 @@ N3_MU, N3_DIM, N3_NGEN, N3_P, N3_HV_GATE = 16, 5, 100, 12, 116.0
 # generations after 2; dense SPEA2 on an over-full ZDT1 union
 N3_WIDE_P, WIDE_NGEN, WIDE_WARM = 12, 20, 2
 SPEA2_N, SPEA2_K = 2000, 1000
+# bench_suite.py's two ZDT1 NSGA-II configurations (bench_nsga2,
+# bench_nsga2_50k): 30 genes in [0, 1], bounded SBX (eta 20) with cxpb
+# 0.9, polynomial mutation (eta 20, indpb 1/30) with mutpb 1.0, DCD mating
+# selection, sel_nsga2 over the union; mu 2000 with nd='standard' for
+# bench_suite.py's NGEN 50, mu 50k with nd='staircase' for its 10
+ZDT1_DIM, ZDT1_CXPB, ZDT1_MUTPB, ZDT1_ETA = 30, 0.9, 1.0, 20.0
+ZDT1_SMALL_MU, ZDT1_SMALL_NGEN, ZDT1_MU, ZDT1_NGEN = 2000, 50, 50_000, 10
+# J3 at the 50k run's two sizes (DCD's parents, the union) and J4 on
+# DTLZ2 unions at 16,384 and 100k rows; the kinds of rows both are held
+# against their plain versions on
+J3_SIZES, J4_SIZES = (ZDT1_MU, 2 * ZDT1_MU), (16_384, 2 * MO_POP)
+ND_KINDS = ("random", "ties", "neg_inf", "nan", "duplicates", "one_front",
+            "chain")
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -777,6 +809,7 @@ def main():
     whole_generation_phases(torch, dev, tag, report, record)
     hw_phases(torch, dev, tag, report, record)
     mo_phases(torch, dev, tag, report, record)
+    nd_scan_phases(torch, dev, tag, report, record)
     gp_phases(torch, dev, tag, report, record)
     gp_rest_phases(torch, dev, tag, report, record)
     real_hw_phases(torch, dev, tag, report, record)
@@ -788,7 +821,8 @@ def main():
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
                                    "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
-                                   "k5_hw", "k6_hw", "j1", "j2")]}))
+                                   "k5_hw", "k6_hw", "j1", "j2", "j3",
+                                   "j4")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -799,6 +833,7 @@ def main():
 def launch_counters():
     """Every kernel wrapper's launch counter."""
     from deap_tpu_torch.gp import ant
+    from deap_tpu_torch.mo import emo, ndsort
     from deap_tpu_torch.ops import kernels, kernels_real, linalg, packed
     return (kernels.fused_variation, kernels.fused_variation_eval,
             packed.fused_variation_eval_packed,
@@ -806,7 +841,7 @@ def launch_counters():
             kernels_real.fused_variation_eval_real,
             kernels.dominated_weight_sums, kernels.dominated_weight_maxes,
             kernels.gp_grouped_dispatch, linalg.eigh_jacobi,
-            ant.ant_rollout)
+            ant.ant_rollout, emo.nd_rank_staircase, ndsort.nd_rank_sweep3)
 
 
 def reset_counts():
@@ -3259,6 +3294,370 @@ def mo_phases(torch, dev, tag, report, record):
           f"{k7 / MO_NGEN:.1f} per generation; first front {front.shape[0]} "
           f"rows, mean ||f||-1 {dist:.4f}")
 
+
+
+def nd_scan_rows(torch, dev, kind, n, m, seed):
+    """Weighted values ``[n, m]`` of one of :data:`ND_KINDS` on ``dev``:
+    uniform rows, a small integer grid (ties and duplicates), uniform rows
+    with ``-inf`` rows and values among them (invalid individuals), the
+    same with NaN, seven distinct rows repeated, rows on the plane ``Σ w =
+    1`` (one front), and a chain (each row dominated by another: n
+    fronts)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "ties":
+        return torch.randint(0, 6, (n, m), generator=g, device=dev).float()
+    if kind == "duplicates":
+        rows = torch.rand((7, m), generator=g, device=dev)
+        return rows[torch.randint(0, 7, (n,), generator=g, device=dev)]
+    if kind == "chain":
+        i = torch.randperm(n, generator=g, device=dev).float()
+        return -i[:, None].expand(n, m).contiguous()
+    w = torch.rand((n, m), generator=g, device=dev)
+    if kind == "one_front":
+        return w / w.sum(1, keepdim=True)
+    if kind in ("neg_inf", "nan"):
+        bad = -math.inf if kind == "neg_inf" else math.nan
+        w[torch.rand(n, generator=g, device=dev) < 0.1, m - 1] = bad
+        w[::17] = bad
+    return w
+
+
+@contextlib.contextmanager
+def j3_shared_slots(emo, slots):
+    """J3 keeps its front maxima in shared memory up to ``slots`` (the
+    rest in device memory) inside the ``with`` block."""
+    saved, emo.J3_SHARED_SLOTS = emo.J3_SHARED_SLOTS, slots
+    try:
+        yield
+    finally:
+        emo.J3_SHARED_SLOTS = saved
+
+
+def zdt1_toolbox():
+    """bench_suite.py's ZDT1 operators: zdt1 at 30 genes, bounded SBX and
+    polynomial mutation (eta 20, bounds 0 and 1, indpb 1/30)."""
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch import benchmarks as bm
+    tb = Toolbox()
+    tb.register("evaluate", bm.zdt1)
+    tb.register("mate", ops.cx_simulated_binary_bounded, eta=ZDT1_ETA,
+                low=0.0, up=1.0)
+    tb.register("mutate", ops.mut_polynomial_bounded, eta=ZDT1_ETA, low=0.0,
+                up=1.0, indpb=1.0 / ZDT1_DIM)
+    return tb
+
+
+def zdt1_start(dev, seed, mu, tb):
+    """A generator and an evaluated population of ``mu`` uniform genomes of
+    30 genes in [0, 1] (bench_suite.py's init)."""
+    from deap_tpu_torch import FitnessSpec, algorithms, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    g = make_generator(seed, dev)
+    pop = init_population(g, mu, ops.uniform_genome(ZDT1_DIM, 0.0, 1.0),
+                          FitnessSpec((-1.0, -1.0)), device=dev)
+    return g, algorithms.evaluate_invalid(pop, tb.evaluate)
+
+
+def nsga2_zdt1_generation(g, pop, tb, nd="standard", unions=None):
+    """bench_suite.py's ZDT1 NSGA-II generation (bench_nsga2's and
+    bench_nsga2_50k's step): DCD mating selection of mu parents,
+    ``var_and`` (cxpb 0.9, mutpb 1.0), evaluation, ``sel_nsga2`` over the
+    union of 2 mu rows. ``unions`` collects each union's weighted
+    values. Returns the survivors."""
+    from deap_tpu_torch import algorithms, mo
+    from deap_tpu_torch.core.population import concat, gather
+    mu = pop.size
+    idx = mo.sel_tournament_dcd(g, pop.wvalues, mu)
+    off = algorithms.var_and(g, gather(pop, idx), tb, ZDT1_CXPB, ZDT1_MUTPB)
+    off = algorithms.evaluate_invalid(off, tb.evaluate)
+    pool = concat([pop, off])
+    if unions is not None:
+        unions.append(pool.wvalues)
+    return gather(pool, mo.sel_nsga2(None, pool.wvalues, mu, nd=nd))
+
+
+def nd_scan_phases(torch, dev, tag, report, record):
+    """Phase 11b: J3 and J4 (``csrc/nd_scan.cu``) against their plain
+    versions and K7's ranks, timed beside their bounds and chain floors;
+    bench_suite.py's two ZDT1 NSGA-II configurations; J4 through
+    ``sel_nsga2(nd='sweep')`` on NSGA-II's DTLZ2 union; the native
+    hypervolume."""
+    from deap_tpu_torch import algorithms, mo, native
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.core.population import concat, gather
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.mo import emo, ndsort
+    from deap_tpu_torch.ops import kernels
+
+    if not native.HAVE_NATIVE_HV:
+        fail("the native hypervolume did not build (HAVE_NATIVE_HV False)")
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+    seeds = iter(range(1000, 2000))
+
+    # --------------------------------------------------- J3 checks --
+    def j3_check(w, what, slots=emo.J3_SHARED_SLOTS):
+        _, neg, head = emo.staircase_inputs(w)
+        with j3_shared_slots(emo, slots):
+            got = emo.staircase_rows(neg, head)
+        want = emo.staircase_rows_plain(neg, head)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"J3 differs from its plain version on {what}")
+        return got
+
+    cases = 0
+    for n in (1, 2, 31, 32, 33, 1000):
+        for kind in ND_KINDS:
+            j3_check(nd_scan_rows(torch, dev, kind, n, 2, next(seeds)),
+                     f"{kind} rows, n={n}")
+            cases += 1
+    # the front maxima across the edge of shared memory: forced low on a
+    # 2000-row chain, then at the card's capacity on chains around it
+    for slots in (1, 31, 32, 33, 1000, 1999, 2000):
+        j3_check(nd_scan_rows(torch, dev, "chain", 2000, 2, 7),
+                 f"a 2000-row chain, {slots} shared slots", slots)
+        cases += 1
+    for n in (emo.J3_SHARED_SLOTS, emo.J3_SHARED_SLOTS + 1, 2 * ZDT1_MU):
+        ranks = j3_check(nd_scan_rows(torch, dev, "chain", n, 2, 8),
+                         f"a {n}-row chain")
+        if int(ranks.max()) != n - 1:
+            fail(f"J3 found {int(ranks.max()) + 1} fronts in a {n}-chain")
+        cases += 1
+    print(f"{tag} J3 staircase_rows == plain bitwise at {cases} cases "
+          f"(n 1-1000 by {', '.join(ND_KINDS)}; a 2000-row chain with 1-2000 "
+          f"shared slots; chains of {emo.J3_SHARED_SLOTS}, "
+          f"{emo.J3_SHARED_SLOTS + 1} and {2 * ZDT1_MU} rows, their maxima "
+          f"past shared memory)")
+    print_ptxas("nd_scan", "staircase_kernel")
+
+    # J3 at the 50k run's sizes on ZDT1 values of uniform genomes: time,
+    # bound (bytes: neg_f2 and head read, ranks written) and the serial
+    # chain: heads x one search round, a round's time read from the same
+    # kernel on one front (every head one round); and the same pass with
+    # every front maximum in device memory (one shared slot), the yardstick
+    # of the split
+    gen = make_generator(41, dev)
+    j3 = {}
+    for n in J3_SIZES:
+        w = -bm.zdt1(torch.rand((n, ZDT1_DIM), generator=gen, device=dev))
+        _, neg, head = emo.staircase_inputs(w)
+        got = j3_check(w, f"ZDT1 values, n={n}")
+        ms = time_ms(lambda: emo.staircase_rows(neg, head), flush)
+        with j3_shared_slots(emo, 1):
+            device_ms = time_ms(lambda: emo.staircase_rows(neg, head), flush)
+        plain_ms = time_ms(lambda: emo.staircase_rows_plain(neg, head),
+                           flush, reps=3)
+        _, neg1, head1 = emo.staircase_inputs(nd_scan_rows(
+            torch, dev, "one_front", n, 2, 9))
+        round_ms = time_ms(lambda: emo.staircase_rows(neg1, head1),
+                           flush) / int(head1.sum())
+        heads = int(head.sum())
+        fronts = int(got.max()) + 1
+        j3[n] = dict(ms=ms, plain_ms=plain_ms, chain_floor_ms=heads * round_ms,
+                     device_ms=device_ms, nbytes=9 * n)
+        print(f"{tag} J3 at n={n} (ZDT1, {fronts} fronts, {heads} heads): "
+              f"{ms * 1e3:.2f} us, {ms / n * 1e6:.1f} ns a row; every front "
+              f"maximum in device memory {device_ms * 1e3:.2f} us; plain "
+              f"{plain_ms * 1e3:.2f} us; one round a head (one front) "
+              f"{round_ms * 1e6:.1f} ns, so heads x one round = "
+              f"{heads * round_ms * 1e3:.2f} us")
+    n = J3_SIZES[1]
+    record("j3", "nd_rank_staircase (staircase_rows)",
+           "deap_tpu_torch/csrc/nd_scan.cu", "deap_tpu/mo/emo.py:274", 0.0,
+           j3[n]["ms"], j3[n]["plain_ms"], j3[n]["nbytes"])
+    report["j3"].update(
+        chain_floor_ms=j3[n]["chain_floor_ms"],
+        all_device_ms=j3[n]["device_ms"],
+        ms_50k=j3[J3_SIZES[0]]["ms"], plain_ms_50k=j3[J3_SIZES[0]]["plain_ms"],
+        chain_floor_ms_50k=j3[J3_SIZES[0]]["chain_floor_ms"],
+        all_device_ms_50k=j3[J3_SIZES[0]]["device_ms"])
+
+    # --------------------------------------------------- J4 checks --
+    def j4_check(w, what):
+        _, Q, U, head, F = ndsort.sweep3_inputs(w)
+        got = ndsort.sweep3_rows(Q, U, head, F)
+        want = ndsort.sweep3_rows_plain(Q, U, head, F)
+        torch.cuda.synchronize()
+        if not bitwise_equal(got, want):
+            fail(f"J4 differs from its plain version on {what}")
+        return (Q, U, head, F), got
+
+    cases = 0
+    for n in (1, 2, 31, 32, 33, 1000):
+        for kind in ND_KINDS:
+            j4_check(nd_scan_rows(torch, dev, kind, n, 3, next(seeds)),
+                     f"{kind} rows, n={n}")
+            cases += 1
+    print(f"{tag} J4 sweep3_rows == plain bitwise at {cases} cases (n "
+          f"1-1000 by {', '.join(ND_KINDS)})")
+    print_ptxas("nd_scan", "sweep_kernel")
+    j4 = {}
+    for n in J4_SIZES:
+        w = -bm.dtlz2(torch.rand((n, MO_DIM), generator=gen, device=dev),
+                      MO_NOBJ)
+        args, _ = j4_check(w, f"a DTLZ2 union, n={n}")
+        ranks = mo.nd_rank(w, impl="sweep")
+        if not torch.equal(ranks, mo.nd_rank(w, impl="tiled")):
+            fail(f"nd_rank sweep (J4) differs from tiled (K7) at n={n}")
+        ms = time_ms(lambda: ndsort.sweep3_rows(*args), flush)
+        plain_ms = time_ms(lambda: ndsort.sweep3_rows_plain(*args), flush,
+                           reps=3)
+        # the chain's floor: n copies of one row (one head, so every row
+        # only its update: a load, a store and a barrier)
+        dup = ndsort.sweep3_inputs(w[:1].expand(n, MO_NOBJ).contiguous())
+        floor_ms = time_ms(lambda: ndsort.sweep3_rows(*dup[1:]), flush)
+        Q = args[0]
+        j4[n] = dict(ms=ms, plain_ms=plain_ms, chain_floor_ms=floor_ms,
+                     nbytes=2 * Q.numel() * Q.element_size() + n + 4 * n)
+        print(f"{tag} J4 at n={n} (DTLZ2, {int(ranks.max()) + 1} fronts, "
+              f"{Q.shape[1]} table columns, state {args[3] + 2} floats): "
+              f"{ms * 1e3:.2f} us, {ms / n * 1e6:.1f} ns a row; plain "
+              f"{plain_ms * 1e3:.2f} us; on {n} copies of one row "
+              f"{floor_ms * 1e3:.2f} us; equal to nd='tiled' on every row")
+    n = J4_SIZES[1]
+    record("j4", "nd_rank_sweep3 (sweep3_rows)",
+           "deap_tpu_torch/csrc/nd_scan.cu", "deap_tpu/mo/ndsort.py:102",
+           0.0, j4[n]["ms"], j4[n]["plain_ms"], j4[n]["nbytes"])
+    report["j4"].update(
+        chain_floor_ms=j4[n]["chain_floor_ms"],
+        ms_16384=j4[J4_SIZES[0]]["ms"],
+        plain_ms_16384=j4[J4_SIZES[0]]["plain_ms"],
+        chain_floor_ms_16384=j4[J4_SIZES[0]]["chain_floor_ms"])
+    del flush
+
+    # J4 on a main path's selection: bench.py's NSGA-II DTLZ2 generation
+    # at mu 50k with its union ranked by nd='sweep' (DCD through K7)
+    g = make_generator(43, dev)
+    x = torch.rand((MO_POP, MO_DIM), generator=g, device=dev)
+    wm = -bm.dtlz2(x, MO_NOBJ)
+    inputs = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x2, w2 = nsga2_generation(g, x, wm, "sweep", inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report["j4"]["launches"] = ndsort.nd_rank_sweep3.launches
+    if ndsort.nd_rank_sweep3.launches != 1:
+        fail(f"sel_nsga2(nd='sweep') launched J4 "
+             f"{ndsort.nd_rank_sweep3.launches} times in one generation")
+    union = inputs[1][1]
+    if not torch.equal(mo.sel_nsga2(None, union, MO_POP, nd="sweep"),
+                       mo.sel_nsga2(None, union, MO_POP, nd="tiled")):
+        fail("sel_nsga2 through J4 (sweep) differs from it through K7")
+    print(f"{tag} NSGA-II DTLZ2 mu={MO_POP} with nd='sweep': one generation "
+          f"in {wall:.3f} s, J4 launches 1, K7 launches "
+          f"{kernels.dominated_weight_sums.launches} (DCD); survivors equal "
+          f"nd='tiled''s")
+
+    # ------------------------------ bench_suite.py's ZDT1 NSGA-II --
+    tb = zdt1_toolbox()
+    ref = [11.0, 11.0]
+    g, pop = zdt1_start(dev, 51, ZDT1_SMALL_MU, tb)
+    hv0 = bm.tools.hypervolume(pop, ref)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZDT1_SMALL_NGEN):
+        pop = nsga2_zdt1_generation(g, pop, tb, "standard")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (emo.nd_rank_staircase.launches,
+                ndsort.nd_rank_sweep3.launches)
+    if launches != (0, 0):
+        fail(f"nsga2_zdt1_pop2000 launched J3, J4 {launches} times: auto "
+             f"should take the dominance matrix at 2000 and 4000 rows")
+    hv = bm.tools.hypervolume(pop, ref)
+    if not (bool(torch.isfinite(pop.fitness).all()) and hv > hv0
+            and float(pop.genomes.min()) >= 0.0
+            and float(pop.genomes.max()) <= 1.0):
+        fail(f"nsga2_zdt1_pop2000's population is wrong (hypervolume "
+             f"{hv0} -> {hv})")
+    print(f"{tag} nsga2_zdt1_pop2000 (mu {ZDT1_SMALL_MU}, nd='standard'): "
+          f"{ZDT1_SMALL_NGEN} generations in {wall:.3f} s = "
+          f"{wall / ZDT1_SMALL_NGEN * 1e3:.3f} ms/gen; auto takes the "
+          f"dominance matrix at {ZDT1_SMALL_MU} and {2 * ZDT1_SMALL_MU} rows, "
+          f"so J3 and J4 launch 0 times; hypervolume of {ref} "
+          f"{hv0:.4f} -> {hv:.4f} (native)")
+
+    g, pop = zdt1_start(dev, 52, ZDT1_MU, tb)
+    hv0 = bm.tools.hypervolume(pop, ref)
+    pop = nsga2_zdt1_generation(g, pop, tb, "staircase")      # warm-up
+    unions = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZDT1_NGEN):
+        pop = nsga2_zdt1_generation(g, pop, tb, "staircase", unions)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    j3_launches = emo.nd_rank_staircase.launches
+    report["j3"]["launches"] = j3_launches
+    if j3_launches != 2 * ZDT1_NGEN:
+        fail(f"nsga2_zdt1_pop50k launched J3 {j3_launches} times in "
+             f"{ZDT1_NGEN} generations (DCD's {ZDT1_MU} rows and the "
+             f"union's {2 * ZDT1_MU}: 2 a generation)")
+    hv = bm.tools.hypervolume(pop, ref)
+    if not (bool(torch.isfinite(pop.fitness).all()) and hv > hv0
+            and pop.genomes.shape == (ZDT1_MU, ZDT1_DIM)
+            and float(pop.genomes.min()) >= 0.0
+            and float(pop.genomes.max()) <= 1.0):
+        fail(f"nsga2_zdt1_pop50k's population is wrong (hypervolume "
+             f"{hv0} -> {hv})")
+    last = unions[-1]
+    ranks = mo.nd_rank(last, impl="staircase")
+    order, neg, head = emo.staircase_inputs(last)
+    plain = torch.empty_like(ranks)
+    plain[order] = emo.staircase_rows_plain(neg, head)
+    if not bitwise_equal(ranks, plain):
+        fail("J3's ranks of the last union differ from the plain version's")
+    if not torch.equal(ranks, mo.nd_rank(last, impl="tiled")):
+        fail("J3's ranks of the last union differ from nd='tiled''s (K7)")
+    print(f"{tag} nsga2_zdt1_pop50k (mu {ZDT1_MU}, union {2 * ZDT1_MU}, "
+          f"nd='staircase'): {ZDT1_NGEN} generations in {wall:.3f} s = "
+          f"{wall / ZDT1_NGEN * 1e3:.3f} ms/gen; J3 launches {j3_launches} = "
+          f"{j3_launches / ZDT1_NGEN:.0f} a generation; the last union's "
+          f"ranks ({int(ranks.max()) + 1} fronts) equal the plain "
+          f"version's bitwise and nd='tiled''s; hypervolume of {ref} "
+          f"{hv0:.4f} -> {hv:.4f} (native)")
+
+    # one more generation in its parts, each alone after a synchronise
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    w = pop.wvalues
+    split = {}
+    _, split["dcd nd_rank (sort, J3)"] = timed(lambda: mo.nd_rank(w))
+    r = mo.nd_rank(w)
+    _, split["dcd crowding"] = timed(lambda: mo.crowding_distances(w, r))
+    idx, split["dcd whole"] = timed(lambda: mo.sel_tournament_dcd(g, w,
+                                                                  ZDT1_MU))
+    off, split["variation"] = timed(lambda: algorithms.var_and(
+        g, gather(pop, idx), tb, ZDT1_CXPB, ZDT1_MUTPB))
+    off, split["evaluation"] = timed(lambda: algorithms.evaluate_invalid(
+        off, tb.evaluate))
+    pool = concat([pop, off])
+    wu = pool.wvalues
+    _, split["union nd_rank (sort, J3)"] = timed(lambda: mo.nd_rank(
+        wu, impl="staircase", cover_k=ZDT1_MU))
+    ru = mo.nd_rank(wu, impl="staircase", cover_k=ZDT1_MU)
+    _, split["union crowding"] = timed(lambda: mo.crowding_distances(wu, ru))
+    _, split["sel_nsga2 whole"] = timed(lambda: mo.sel_nsga2(
+        None, wu, ZDT1_MU, nd="staircase"))
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)
+    for what, v in (("J3 device, DCD", w), ("J3 device, union", wu)):
+        _, neg, head = emo.staircase_inputs(v)
+        split[what] = time_ms(lambda: emo.staircase_rows(neg, head), flush,
+                              reps=5)
+    del flush
+    print(f"{tag} nsga2_zdt1_pop50k, one generation in parts (ms, host "
+          f"clock around each part alone; J3 device by CUDA events): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
 def gp_phases(torch, dev, tag, report, record):
     """Phase 12: K9 at the GP path's shapes, and bench_gp.py's symbolic

@@ -7,7 +7,8 @@ sources and the flags, so an edited kernel is rebuilt and a stale one is
 never loaded. Builds happen at first use (or all at once, in parallel,
 through :func:`build`); nothing is compiled when a module is imported.
 ``nvcc``'s register and spill report is kept beside each library as
-``.log``.
+``.log``. The host libraries of :mod:`deap_tpu_torch.native` are built
+the same way by the host's ``g++`` (:func:`host_library`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "deap_tpu_torch"
 SOURCES = ("fused_variation", "packed_variation", "selgather_packed",
            "dominance", "fused_variation_eval", "fused_variation_real",
-           "evolve_packed", "gp_grouped", "jacobi_eigh", "ant_rollout")
+           "evolve_packed", "gp_grouped", "jacobi_eigh", "ant_rollout",
+           "nd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,3 +120,45 @@ def check(lib_name: str, err: int, what: str) -> None:
     if err:
         msg = library(lib_name).dtt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_HOST_LIBS: Dict[Path, ctypes.CDLL] = {}
+
+
+def _native_target_flags() -> bytes:
+    """What ``-march=native`` resolves to on this host (a library built
+    for another host's CPU may not run here)."""
+    out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                         capture_output=True, check=True)
+    return out.stdout
+
+
+def host_target(src: Path, stem: str, flags: Sequence[str]) -> Path:
+    """Where :func:`host_library` keeps the build of ``src``:
+    ``BUILD_DIR/lib<stem>-<hash>.so``, the hash over the flags (and, with
+    ``-march=native``, what they resolve to here) and the source."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    if "-march=native" in flags:
+        digest.update(_native_target_flags())
+    digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def host_library(src: Path, stem: str, flags: Sequence[str]) -> ctypes.CDLL:
+    """The loaded host library of the C++ source ``src``, built with
+    ``g++ flags`` on first use (:func:`host_target`)."""
+    with _LOCK:
+        lib = _HOST_LIBS.get(src)
+        if lib is not None:
+            return lib
+        target = host_target(src, stem, flags)
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            out = subprocess.run(["g++", *flags, str(src), "-o", str(tmp)],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"g++ failed for {src}:\n{out.stderr}")
+            os.replace(tmp, target)
+        lib = _HOST_LIBS[src] = ctypes.CDLL(str(target))
+        return lib

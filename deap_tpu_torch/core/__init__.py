@@ -4,6 +4,7 @@ from deap_tpu_torch.core.fitness import (
     lex_ge,
     lex_gt,
     lex_sort_desc,
+    wvalues,
 )
 from deap_tpu_torch.core.population import (
     Population,
@@ -21,6 +22,7 @@ __all__ = [
     "lex_gt",
     "lex_ge",
     "lex_sort_desc",
+    "wvalues",
     "gather",
     "concat",
     "init_population",

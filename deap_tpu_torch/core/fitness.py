@@ -47,6 +47,12 @@ class FitnessSpec:
         return values * self.warray(values.device)
 
 
+def wvalues(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted values ``values * weights``, the helpers' "bigger is
+    better" form."""
+    return values * weights
+
+
 def dominates(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """Pareto dominance of weighted values ``wa`` over ``wb``: no worse in
     every objective, strictly better in one. Broadcasts over leading

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from deap_tpu_torch import _build
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
 from deap_tpu_torch.mo.ndsort import _finish, nd_rank_prefix, nd_rank_sweep3
 from deap_tpu_torch.ops.linalg import norm_rn
@@ -35,7 +36,8 @@ from deap_tpu_torch.ops.kernels import (
 )
 
 __all__ = [
-    "dominance_matrix", "nd_rank", "nd_rank_staircase", "sort_nondominated",
+    "dominance_matrix", "nd_rank", "nd_rank_staircase", "staircase_rows",
+    "staircase_rows_plain", "staircase_inputs", "sort_nondominated",
     "crowding_distances", "sel_nsga2", "sel_tournament_dcd", "dcd_draws",
     "NSGA3Memory", "NSGA3Plan", "nsga3_plan", "nsga3_draws",
     "nsga3_select", "nsga3_select_scaled", "sel_nsga3",
@@ -128,31 +130,24 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
     return (ranks, peels) if return_peels else ranks
 
 
-def nd_rank_staircase(w: torch.Tensor, max_rank: Optional[int] = None,
-                      return_peels: bool = False):
-    """Exact 2-objective non-domination ranks in O(n log n) work.
+#: front maxima J3 keeps in shared memory at most (227 KB a block on the
+#: H100); past them it keeps the rest in device memory
+J3_SHARED_SLOTS = 232_448 // 4
 
-    Rows in lexicographic descending ``(w0, w1)`` order; one scalar per
-    front, its largest ``w1`` so far, kept negated (ascending). A row's
-    rank is the count of fronts whose maximum covers it, one binary
-    search; identical rows share their group head's rank. The pass over
-    the rows is a Python loop of a few tensor ops per row.
-    """
-    n, nobj = w.shape
-    if nobj != 2:
-        raise ValueError(f"nd_rank_staircase needs nobj == 2, got {nobj}")
-    if n == 0:
-        ranks = torch.zeros(0, dtype=torch.int32, device=w.device)
-        return (ranks, 0) if return_peels else ranks
-    order = lex_sort_desc(w)
-    f2 = w[order, 1]
-    neg_f2 = -f2
-    head = torch.ones(n, dtype=torch.bool, device=w.device)
-    head[1:] = ~((w[order[1:], 0] == w[order[:-1], 0]) & (f2[1:] == f2[:-1]))
+
+def staircase_rows_plain(neg_f2: torch.Tensor,
+                         head: torch.Tensor) -> torch.Tensor:
+    """Plain version of J3: the staircase's pass over the sorted rows, a
+    Python loop of a few tensor ops per row (it reads ``head`` to the
+    host). ``neg_f2`` is ``-w1`` in lex-descending order, ``head`` marks
+    the first row of each group of identical rows; returns the sorted
+    ranks, ``int32[n]``."""
+    n = neg_f2.shape[0]
     # slot n is a dump: a row of -inf counts every slot (rank n, as in
     # the JAX package) and its write is dropped there
-    neg_m = torch.full((n + 1,), torch.inf, dtype=w.dtype, device=w.device)
-    sorted_ranks = torch.empty(n, dtype=torch.int64, device=w.device)
+    neg_m = torch.full((n + 1,), torch.inf, dtype=neg_f2.dtype,
+                       device=neg_f2.device)
+    sorted_ranks = torch.empty(n, dtype=torch.int64, device=neg_f2.device)
     r = None
     for i, is_head in enumerate(head.tolist()):
         if is_head:
@@ -163,8 +158,84 @@ def nd_rank_staircase(w: torch.Tensor, max_rank: Optional[int] = None,
             r = torch.searchsorted(neg_m[:n], x, right=True)
             neg_m[r] = x
         sorted_ranks[i:i + 1] = r
-    return _finish(sorted_ranks.to(torch.int32), order, n, max_rank,
+    return sorted_ranks.to(torch.int32)
+
+
+def staircase_rows(neg_f2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The staircase's row pass (J3): sorted ranks ``int32[n]`` of the
+    rows ``neg_f2`` (float32, ``-w1`` in lex-descending order) with their
+    group heads ``head`` (bool).
+
+    On the card one launch of ``csrc/nd_scan.cu::staircase_kernel`` walks
+    every row, the front maxima in shared memory up to
+    :data:`J3_SHARED_SLOTS` and in device memory past them;
+    each launch adds one to ``nd_rank_staircase.launches``. On a CPU
+    tensor :func:`staircase_rows_plain` runs. Both give the same ranks."""
+    if neg_f2.device.type == "cpu":
+        return staircase_rows_plain(neg_f2, head)
+    if neg_f2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {neg_f2.device}")
+    n = neg_f2.shape[0]
+    if neg_f2.dtype != torch.float32 or head.dtype != torch.bool:
+        raise ValueError("J3 takes float32 neg_f2 and a bool head")
+    if neg_f2.dim() != 1 or head.shape != (n,) or head.device != \
+            neg_f2.device:
+        raise ValueError("neg_f2 and head must be [n] on one card")
+    if n >= 2 ** 30:
+        raise ValueError(f"J3 takes fewer than 2^30 rows, got {n}")
+    ranks = torch.empty(n, dtype=torch.int32, device=neg_f2.device)
+    if n == 0:
+        return ranks
+    shared = min(n, J3_SHARED_SLOTS)
+    spill = torch.empty(max(n - shared, 1), dtype=torch.float32,
+                        device=neg_f2.device)
+    neg_f2, head = neg_f2.contiguous(), head.contiguous()
+    stream = torch.cuda.current_stream(neg_f2.device).cuda_stream
+    PT, I = _build.PTR, _build.INT
+    fn = _build.function("nd_scan", "staircase_rows",
+                         [PT, PT, I, I, PT, PT, PT])
+    err = fn(neg_f2.data_ptr(), head.data_ptr(), n, shared,
+             spill.data_ptr(), ranks.data_ptr(), stream)
+    nd_rank_staircase.launches += 1
+    _build.check("nd_scan", err, "staircase_rows")
+    return ranks
+
+
+def staircase_inputs(w: torch.Tensor):
+    """The staircase's sort: the lex-descending order of ``w`` (``[n,
+    2]``), ``-w1`` in that order and the group heads (the first of each
+    run of identical rows)."""
+    n = w.shape[0]
+    order = lex_sort_desc(w)
+    f2 = w[order, 1]
+    head = torch.ones(n, dtype=torch.bool, device=w.device)
+    head[1:] = ~((w[order[1:], 0] == w[order[:-1], 0]) & (f2[1:] == f2[:-1]))
+    return order, -f2, head
+
+
+def nd_rank_staircase(w: torch.Tensor, max_rank: Optional[int] = None,
+                      return_peels: bool = False):
+    """Exact 2-objective non-domination ranks in O(n log n) work.
+
+    Rows in lexicographic descending ``(w0, w1)`` order; one scalar per
+    front, its largest ``w1`` so far, kept negated (ascending). A row's
+    rank is the count of fronts whose maximum covers it, one binary
+    search; identical rows share their group head's rank; a row with
+    ``w1 = -inf`` ranks ``n``, as in the JAX package. The pass over the
+    rows is :func:`staircase_rows`: J3 on the card, one launch.
+    """
+    n, nobj = w.shape
+    if nobj != 2:
+        raise ValueError(f"nd_rank_staircase needs nobj == 2, got {nobj}")
+    if n == 0:
+        ranks = torch.zeros(0, dtype=torch.int32, device=w.device)
+        return (ranks, 0) if return_peels else ranks
+    order, neg_f2, head = staircase_inputs(w)
+    return _finish(staircase_rows(neg_f2, head), order, n, max_rank,
                    return_peels)
+
+
+nd_rank_staircase.launches = 0
 
 
 def sort_nondominated(w: torch.Tensor, k: int,

@@ -23,8 +23,9 @@ Port of :mod:`deap_tpu.mo.ndsort`. Two facts carry both engines:
   the chain DP. O(n²·m) work, as one peel, whatever the front count.
 
 Both steps are sequential. The JAX package runs them as ``lax.scan`` /
-``fori_loop``; here :func:`nd_rank_sweep3` is a Python loop with a few
-tensor ops per row, and the in-block pass of :func:`nd_rank_prefix`
+``fori_loop``; here :func:`nd_rank_sweep3`'s pass is one launch of J4
+on the card (:func:`sweep3_rows`; its plain version a Python loop with a
+few tensor ops per row), and the in-block pass of :func:`nd_rank_prefix`
 relaxes the whole block at once until nothing changes (as many rounds
 as the longest chain inside the block, plus one), which reaches the same
 fixpoint as the row-by-row pass. Ranks are bit-identical to the
@@ -39,10 +40,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deap_tpu_torch import _build
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
 from deap_tpu_torch.ops.kernels import dominated_weight_maxes
 
-__all__ = ["nd_rank_sweep3", "nd_rank_prefix"]
+__all__ = ["nd_rank_sweep3", "sweep3_inputs", "sweep3_rows",
+           "sweep3_rows_plain", "nd_rank_prefix"]
 
 
 def _finish(sorted_ranks: torch.Tensor, order: torch.Tensor, n: int,
@@ -96,12 +99,29 @@ def _lowbit(t: torch.Tensor) -> torch.Tensor:
 def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
                    return_peels: bool = False):
     """Exact 3-objective non-domination ranks in O(n log² n) work, with a
-    sequential pass of n steps (see the module docstring)."""
+    sequential pass of n steps (see the module docstring): the tables of
+    :func:`sweep3_inputs`, then :func:`sweep3_rows` (J4 on the card, one
+    launch)."""
     n, nobj = w.shape
     if nobj != 3:
         raise ValueError(f"nd_rank_sweep3 needs nobj == 3, got {nobj}")
     if n == 0:
         return _empty(w, return_peels)
+    order, Q, U, head, F = sweep3_inputs(w)
+    return _finish(sweep3_rows(Q, U, head, F), order, n, max_rank,
+                   return_peels)
+
+
+nd_rank_sweep3.launches = 0
+
+
+def sweep3_inputs(w: torch.Tensor):
+    """The sweep's tables for ``w`` (``[n, 3]``, n >= 1): the lex-descending
+    order, the gather and scatter tables ``Q``, ``U`` (``int32[n, A*A]``
+    as in the JAX package, A the bit length of n), the group heads and
+    the pool size ``F`` (the state has ``F + 2`` slots: ``F`` the scatter
+    dump, ``F + 1`` the gather dump, never written)."""
+    n = w.shape[0]
     dev = w.device
     i64 = dict(dtype=torch.int64, device=dev)
     A = int(n).bit_length()          # max Fenwick chain length
@@ -121,6 +141,8 @@ def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
     cge_z = torch.searchsorted(-z[zsort], -z, right=True)
 
     off, F = _fenwick_offsets(n, dev)
+    if F + 2 > 2**31 - 1:
+        raise ValueError(f"the sweep's int32 slots hold fewer rows than {n}")
     UD, QD = F, F + 1     # scatter dump / gather dump (never written)
 
     # node membership: each point sits in the <= A outer nodes of its
@@ -154,7 +176,7 @@ def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
         x = q_tab[:, a] + 1
         for _ in range(A):
             ok = valid & (x <= m_t)
-            u_cols.append(torch.where(ok, base + x - 1, UD))
+            u_cols.append(torch.where(ok, base + x - 1, UD).to(torch.int32))
             x = x + _lowbit(x)
     U = torch.stack(u_cols, 1)                             # [n, A*A]
 
@@ -180,17 +202,26 @@ def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
         x = lo - base
         for _ in range(A):
             okq = validq & (x > 0)
-            q_cols.append(torch.where(okq, base + x - 1, QD))
+            q_cols.append(torch.where(okq, base + x - 1, QD).to(torch.int32))
             x = x - _lowbit(x)
         t = torch.where(validq, t - _lowbit(t), t)
     Q = torch.stack(q_cols, 1)                             # [n, A*A]
 
-    # the sweep: the state holds rank + 1 per inserted slot, so a query's
-    # max is the new rank (0 = undominated); float32 is exact for ranks
-    # below 2^24. Within a row of U only the dump slot repeats, and every
-    # write to it stores the same value.
-    state = torch.zeros(F + 2, dtype=torch.float32, device=dev)
-    ranks_f = torch.empty(n, dtype=torch.float32, device=dev)
+    return order, Q, U, head, F
+
+
+def sweep3_rows_plain(Q: torch.Tensor, U: torch.Tensor, head: torch.Tensor,
+                      F: int) -> torch.Tensor:
+    """Plain version of J4: the sweep over the sorted rows, a Python loop
+    of a gather, a max and a scatter-max per row (it reads ``head`` to the
+    host). The state holds rank + 1 per inserted slot, so a query's max is
+    the new rank (0 = undominated); float32 is exact for ranks below
+    2^24. Within a row of ``U`` only the dump slot ``F`` repeats, and
+    every write to it stores the same value. Returns the sorted ranks,
+    ``int32[n]``."""
+    n = Q.shape[0]
+    state = torch.zeros(F + 2, dtype=torch.float32, device=Q.device)
+    ranks_f = torch.empty(n, dtype=torch.float32, device=Q.device)
     r = None
     for i, is_head in enumerate(head.tolist()):
         if is_head:
@@ -198,8 +229,48 @@ def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
         ranks_f[i] = r
         u = U[i]
         state[u] = torch.maximum(state[u], r + 1.0)
-    return _finish(ranks_f.to(torch.int32), order, n, max_rank,
-                   return_peels)
+    return ranks_f.to(torch.int32)
+
+
+def sweep3_rows(Q: torch.Tensor, U: torch.Tensor, head: torch.Tensor,
+                F: int) -> torch.Tensor:
+    """The sweep's row pass (J4): sorted ranks ``int32[n]`` from the
+    gather and scatter tables ``Q``, ``U`` (``int32[n, A*A]`` slots of a
+    state of ``F + 2`` floats) and the group heads ``head`` (bool).
+
+    On the card one launch of ``csrc/nd_scan.cu::sweep_kernel`` walks
+    every row in one block, the state in device memory; each launch adds
+    one to ``nd_rank_sweep3.launches``. On a CPU tensor
+    :func:`sweep3_rows_plain` runs. Both give the same ranks."""
+    if Q.device.type == "cpu":
+        return sweep3_rows_plain(Q, U, head, F)
+    if Q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {Q.device}")
+    n = Q.shape[0]
+    if Q.dtype != torch.int32 or U.dtype != torch.int32 or \
+            head.dtype != torch.bool:
+        raise ValueError("J4 takes int32 tables and a bool head")
+    if Q.dim() != 2 or U.shape != Q.shape or head.shape != (n,) or \
+            U.device != Q.device or head.device != Q.device:
+        raise ValueError("Q and U must be [n, A*A] and head [n], on one "
+                         "card")
+    cols = Q.shape[1]
+    if not 1 <= cols <= 1024:
+        raise ValueError(f"J4 takes 1-1024 table columns, got {cols}")
+    ranks = torch.empty(n, dtype=torch.int32, device=Q.device)
+    if n == 0:
+        return ranks
+    state = torch.zeros(F + 2, dtype=torch.float32, device=Q.device)
+    Q, U, head = Q.contiguous(), U.contiguous(), head.contiguous()
+    stream = torch.cuda.current_stream(Q.device).cuda_stream
+    PT, I = _build.PTR, _build.INT
+    fn = _build.function("nd_scan", "sweep3_rows",
+                         [PT, PT, PT, I, I, PT, PT, PT])
+    err = fn(Q.data_ptr(), U.data_ptr(), head.data_ptr(), n, cols,
+             state.data_ptr(), ranks.data_ptr(), stream)
+    nd_rank_sweep3.launches += 1
+    _build.check("nd_scan", err, "sweep3_rows")
+    return ranks
 
 
 def _chain_in_block(blk: torch.Tensor, base: torch.Tensor) -> torch.Tensor:

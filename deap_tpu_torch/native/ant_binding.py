@@ -12,53 +12,32 @@ tests and ``chip_smoke.py`` hold the two equal.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from deap_tpu_torch._build import BUILD_DIR
+from deap_tpu_torch._build import BUILD_DIR  # noqa: F401 (where it builds)
+from deap_tpu_torch._build import host_library, host_target
 
 SRC = Path(__file__).resolve().parent / "src" / "ant.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-_LIB = {}
-_LOCK = threading.Lock()
 _I32P = ctypes.POINTER(ctypes.c_int32)
 
 
 def _target() -> Path:
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    digest.update(SRC.read_bytes())
-    return BUILD_DIR / f"libant-{digest.hexdigest()[:16]}.so"
+    return host_target(SRC, "ant", GXX_FLAGS)
 
 
 def library() -> ctypes.CDLL:
     """The loaded simulator, built with ``g++`` on first use."""
-    with _LOCK:
-        lib = _LIB.get("ant")
-        if lib is not None:
-            return lib
-        target = _target()
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            out = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o",
-                                  str(tmp)], capture_output=True, text=True)
-            if out.returncode != 0:
-                raise RuntimeError(f"g++ failed for {SRC}:\n{out.stderr}")
-            os.replace(tmp, target)
-        lib = ctypes.CDLL(str(target))
-        lib.dtt_ant_eval.restype = None
-        lib.dtt_ant_eval.argtypes = [
-            _I32P, _I32P, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P]
-        _LIB["ant"] = lib
-        return lib
+    lib = host_library(SRC, "ant", GXX_FLAGS)
+    lib.dtt_ant_eval.restype = None
+    lib.dtt_ant_eval.argtypes = [
+        _I32P, _I32P, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32P]
+    return lib
 
 
 def ant_eval(nodes, lengths, trail, start, max_moves: int = 600,

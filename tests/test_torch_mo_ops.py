@@ -162,7 +162,7 @@ def test_metrics_and_optimal_fronts_match_jax():
         ttools.diversity(front, [0.0, 1.0], [1.0, 0.0]),
         jtools.diversity(front, [0.0, 1.0], [1.0, 0.0]), rtol=1e-6)
     with pytest.raises(ValueError, match="no analytic front"):
-        ttools.optimal_front("zdt3")
+        ttools.optimal_front("kursawe")
 
 
 def _archive_pops(rng, n, L, weights):

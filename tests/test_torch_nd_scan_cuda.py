@@ -1,0 +1,124 @@
+"""J3 and J4 (``csrc/nd_scan.cu``) on the card against their plain
+versions, at n 1-100k on every kind of rows of ``chip_smoke.ND_KINDS``
+(uniform, ties, ``-inf`` rows, NaN rows, duplicates, one front, a chain);
+J3 with ``emo.J3_SHARED_SLOTS`` lowered to force its front maxima across
+the edge of shared memory, at the card's own edge (chains of
+58,111-58,113 rows) and on a 100k-row chain (every maximum past the
+first 58,112 in device memory).
+
+These tests need a CUDA card and the CUDA toolkit; they skip without a
+card. On a machine with one, from the repository's root:
+
+    python -m pytest tests/test_torch_nd_scan_cuda.py -m cuda -q --noconftest
+
+Tolerance: both kernels equal their plain versions bitwise.
+"""
+
+import pytest
+import torch
+
+from chip_smoke import ND_KINDS, j3_shared_slots, nd_scan_rows
+from deap_tpu_torch import mo
+from deap_tpu_torch.mo import emo, ndsort
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _j3(w, slots=emo.J3_SHARED_SLOTS):
+    _, neg, head = emo.staircase_inputs(w)
+    before = emo.nd_rank_staircase.launches
+    with j3_shared_slots(emo, slots):
+        got = emo.staircase_rows(neg, head)
+    want = emo.staircase_rows_plain(neg, head)
+    torch.cuda.synchronize()
+    assert emo.nd_rank_staircase.launches == before + 1
+    return torch.equal(got, want), got
+
+
+def _j4(w):
+    _, Q, U, head, F = ndsort.sweep3_inputs(w)
+    before = ndsort.nd_rank_sweep3.launches
+    got = ndsort.sweep3_rows(Q, U, head, F)
+    want = ndsort.sweep3_rows_plain(Q, U, head, F)
+    torch.cuda.synchronize()
+    assert ndsort.nd_rank_sweep3.launches == before + 1
+    return torch.equal(got, want)
+
+
+SIZES = (1, 2, 3, 31, 32, 33, 63, 64, 65, 1000, 4097)
+
+
+@pytest.mark.parametrize("kind", ND_KINDS)
+def test_j3_equals_plain(card, kind):
+    for n in SIZES:
+        assert _j3(nd_scan_rows(torch, card, kind, n, 2, n))[0], (kind, n)
+
+
+@pytest.mark.parametrize("kind", ["random", "neg_inf", "nan", "duplicates"])
+def test_j3_equals_plain_at_100k(card, kind):
+    assert _j3(nd_scan_rows(torch, card, kind, 100_000, 2, 3))[0]
+
+
+@pytest.mark.parametrize("slots", [1, 2, 31, 32, 33, 1500, 2999, 3000])
+def test_j3_across_the_shared_memory_edge(card, slots):
+    for kind in ("chain", "random", "ties"):
+        ok, _ = _j3(nd_scan_rows(torch, card, kind, 3000, 2, slots), slots)
+        assert ok, (kind, slots)
+
+
+@pytest.mark.parametrize("n", [emo.J3_SHARED_SLOTS - 1, emo.J3_SHARED_SLOTS,
+                               emo.J3_SHARED_SLOTS + 1, 100_000])
+def test_j3_chains_past_shared_memory(card, n):
+    ok, ranks = _j3(nd_scan_rows(torch, card, "chain", n, 2, 4))
+    assert ok and int(ranks.max()) == n - 1
+
+
+def test_j3_nd_rank_keeps_invalid_rows_at_n_and_matches_tiled(card):
+    w = nd_scan_rows(torch, card, "random", 8192, 2, 5)
+    assert torch.equal(mo.nd_rank(w, impl="staircase"),
+                       mo.nd_rank(w, impl="tiled"))
+    w = nd_scan_rows(torch, card, "neg_inf", 8192, 2, 6)
+    ranks = mo.nd_rank(w)      # auto: the staircase at n >= 8192
+    assert bool((ranks[w[:, 1] == -torch.inf] == 8192).all())
+
+
+def test_j3_refuses_what_it_does_not_take(card):
+    neg = torch.zeros(10, device=card)
+    head = torch.ones(10, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):
+        emo.staircase_rows(neg.double(), head)
+    with pytest.raises(ValueError):
+        emo.staircase_rows(neg, head[:5])
+
+
+@pytest.mark.parametrize("kind", ND_KINDS)
+def test_j4_equals_plain(card, kind):
+    for n in SIZES:
+        assert _j4(nd_scan_rows(torch, card, kind, n, 3, n)), (kind, n)
+
+
+def test_j4_equals_plain_and_tiled_at_16384(card):
+    w = nd_scan_rows(torch, card, "random", 16_384, 3, 7)
+    assert _j4(w)
+    assert torch.equal(mo.nd_rank(w, impl="sweep"),
+                       mo.nd_rank(w, impl="tiled"))
+
+
+def test_j4_equals_plain_at_100k(card):
+    assert _j4(nd_scan_rows(torch, card, "ties", 100_000, 3, 8))
+
+
+def test_j4_refuses_what_it_does_not_take(card):
+    w = nd_scan_rows(torch, card, "random", 50, 3, 9)
+    _, Q, U, head, F = ndsort.sweep3_inputs(w)
+    with pytest.raises(ValueError):
+        ndsort.sweep3_rows(Q.long(), U, head, F)
+    with pytest.raises(ValueError):
+        ndsort.sweep3_rows(Q, U[:10], head, F)
