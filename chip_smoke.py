@@ -99,13 +99,18 @@ Phases (any failure ends the script with a non-zero exit code):
     100k, 12 variables) for 3 generations after one of warm-up, with K7
     launched once per front peeled;
 11b. J3 and J4, the row passes of the M = 2 staircase and the M = 3
-    sweep (``csrc/nd_scan.cu``): each bitwise against its plain version at
-    n 1-1000 on uniform rows, ties, ``-inf`` rows, duplicates, one front
-    and a chain; J3 with its front maxima forced across the edge of shared
-    memory and on chains of 58,112, 58,113 and 100,000 rows; J3 timed on
-    ZDT1 values at the 50k run's 50k and 100k rows, J4 on DTLZ2 unions of
+    sweep (``csrc/nd_scan.cu``, both in chunks of 32 rows): each bitwise
+    against its plain version at n 1-1000 on uniform rows, ties, ``-inf``
+    rows, NaN rows, duplicates, one front and a chain, and on a chain of
+    100,000 rows (as many fronts as rows); J3 with its front maxima forced
+    across the edge of shared memory and on chains of 58,112 and 58,113
+    rows; J3 timed on ZDT1 values at the 50k run's 50k and 100k rows (and
+    with every front maximum in device memory), J4 on DTLZ2 unions of
     16,384 and 100k rows (where its ranks equal ``nd='tiled'``'s), each
-    beside its bound, its plain version and its serial chain's floor;
+    beside its bound, its plain version and its chunk floor (J3 on one
+    front: no chain; J4 on copies of one row: no gather, no chain), and
+    the whole ``nd_rank`` through J4 (``impl='sweep'``) against K7's
+    (``impl='tiled'``) on those unions, host clock, tables included;
     bench.py's NSGA-II DTLZ2 generation at mu 50k with ``nd='sweep'`` (J4
     launched once, the survivors equal K7's); then bench_suite.py's two
     ZDT1 NSGA-II configurations as it calls them (30 genes, bounded SBX
@@ -366,6 +371,8 @@ ZDT1_SMALL_MU, ZDT1_SMALL_NGEN, ZDT1_MU, ZDT1_NGEN = 2000, 50, 50_000, 10
 J3_SIZES, J4_SIZES = (ZDT1_MU, 2 * ZDT1_MU), (16_384, 2 * MO_POP)
 ND_KINDS = ("random", "ties", "neg_inf", "nan", "duplicates", "one_front",
             "chain")
+# the row counts both are held at on each kind: around one and two chunks
+ND_SIZES = (1, 2, 31, 32, 33, 63, 64, 65, 1000)
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -482,6 +489,20 @@ def time_ms(fn, flush, reps=25):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def whole_ms(torch, fn, reps=5):
+    """Median host time of ``fn()`` from a synchronised card to its work's
+    end (one call first, as warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -3322,6 +3343,21 @@ def nd_scan_rows(torch, dev, kind, n, m, seed):
     return w
 
 
+def nd_random_tables(torch, dev, n, cols, F, u_valid, seed):
+    """Gather and scatter tables ``Q``, ``U`` (int32 ``[n, cols]``) that
+    any sweep takes, on ``dev``: random slots of a pool of F, each U row's
+    distinct but for its pad F, ``u_valid`` of U's entries and 3% of Q's
+    real (Q's pad F + 1), and the head flags (the first row a head)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = torch.rand((n, F), generator=g, device=dev).argsort(1)[:, :cols]
+    U[torch.rand((n, cols), generator=g, device=dev) >= u_valid] = F
+    Q = torch.randint(0, F, (n, cols), generator=g, device=dev)
+    Q[torch.rand((n, cols), generator=g, device=dev) < 0.97] = F + 1
+    head = torch.rand(n, generator=g, device=dev) < 0.8
+    head[0] = True
+    return Q.int(), U.int(), head
+
+
 @contextlib.contextmanager
 def j3_shared_slots(emo, slots):
     """J3 keeps its front maxima in shared memory up to ``slots`` (the
@@ -3407,14 +3443,14 @@ def nd_scan_phases(torch, dev, tag, report, record):
         return got
 
     cases = 0
-    for n in (1, 2, 31, 32, 33, 1000):
+    for n in ND_SIZES:
         for kind in ND_KINDS:
             j3_check(nd_scan_rows(torch, dev, kind, n, 2, next(seeds)),
                      f"{kind} rows, n={n}")
             cases += 1
     # the front maxima across the edge of shared memory: forced low on a
     # 2000-row chain, then at the card's capacity on chains around it
-    for slots in (1, 31, 32, 33, 1000, 1999, 2000):
+    for slots in (1, 31, 32, 33, 1000, 1999, 2000, emo.j3_slots(2000)):
         j3_check(nd_scan_rows(torch, dev, "chain", 2000, 2, 7),
                  f"a 2000-row chain, {slots} shared slots", slots)
         cases += 1
@@ -3425,18 +3461,19 @@ def nd_scan_phases(torch, dev, tag, report, record):
             fail(f"J3 found {int(ranks.max()) + 1} fronts in a {n}-chain")
         cases += 1
     print(f"{tag} J3 staircase_rows == plain bitwise at {cases} cases "
-          f"(n 1-1000 by {', '.join(ND_KINDS)}; a 2000-row chain with 1-2000 "
+          f"(n {', '.join(map(str, ND_SIZES))} by {', '.join(ND_KINDS)}; "
+          f"a 2000-row chain with 1-{emo.j3_slots(2000)} "
           f"shared slots; chains of {emo.J3_SHARED_SLOTS}, "
           f"{emo.J3_SHARED_SLOTS + 1} and {2 * ZDT1_MU} rows, their maxima "
           f"past shared memory)")
     print_ptxas("nd_scan", "staircase_kernel")
 
     # J3 at the 50k run's sizes on ZDT1 values of uniform genomes: time,
-    # bound (bytes: neg_f2 and head read, ranks written) and the serial
-    # chain: heads x one search round, a round's time read from the same
-    # kernel on one front (every head one round); and the same pass with
-    # every front maximum in device memory (one shared slot), the yardstick
-    # of the split
+    # bound (bytes: neg_f2 and head read, ranks written), the chunk floor
+    # (the same kernel on one front of as many rows: every chunk's search,
+    # ranks and stores, its chain skipped, since no row's x is above an
+    # earlier one's) and the same pass with every front maximum in device
+    # memory (one shared slot, the same search), the yardstick of the split
     gen = make_generator(41, dev)
     j3 = {}
     for n in J3_SIZES:
@@ -3450,27 +3487,25 @@ def nd_scan_phases(torch, dev, tag, report, record):
                            flush, reps=3)
         _, neg1, head1 = emo.staircase_inputs(nd_scan_rows(
             torch, dev, "one_front", n, 2, 9))
-        round_ms = time_ms(lambda: emo.staircase_rows(neg1, head1),
-                           flush) / int(head1.sum())
+        floor_ms = time_ms(lambda: emo.staircase_rows(neg1, head1), flush)
         heads = int(head.sum())
         fronts = int(got.max()) + 1
-        j3[n] = dict(ms=ms, plain_ms=plain_ms, chain_floor_ms=heads * round_ms,
+        j3[n] = dict(ms=ms, plain_ms=plain_ms, chunk_floor_ms=floor_ms,
                      device_ms=device_ms, nbytes=9 * n)
         print(f"{tag} J3 at n={n} (ZDT1, {fronts} fronts, {heads} heads): "
               f"{ms * 1e3:.2f} us, {ms / n * 1e6:.1f} ns a row; every front "
-              f"maximum in device memory {device_ms * 1e3:.2f} us; plain "
-              f"{plain_ms * 1e3:.2f} us; one round a head (one front) "
-              f"{round_ms * 1e6:.1f} ns, so heads x one round = "
-              f"{heads * round_ms * 1e3:.2f} us")
+              f"maximum in device memory {device_ms * 1e3:.2f} us "
+              f"({device_ms / ms:.3f}x); plain {plain_ms * 1e3:.2f} us; on "
+              f"one front of {n} rows (no chain) {floor_ms * 1e3:.2f} us")
     n = J3_SIZES[1]
     record("j3", "nd_rank_staircase (staircase_rows)",
            "deap_tpu_torch/csrc/nd_scan.cu", "deap_tpu/mo/emo.py:274", 0.0,
            j3[n]["ms"], j3[n]["plain_ms"], j3[n]["nbytes"])
     report["j3"].update(
-        chain_floor_ms=j3[n]["chain_floor_ms"],
+        chunk_floor_ms=j3[n]["chunk_floor_ms"],
         all_device_ms=j3[n]["device_ms"],
         ms_50k=j3[J3_SIZES[0]]["ms"], plain_ms_50k=j3[J3_SIZES[0]]["plain_ms"],
-        chain_floor_ms_50k=j3[J3_SIZES[0]]["chain_floor_ms"],
+        chunk_floor_ms_50k=j3[J3_SIZES[0]]["chunk_floor_ms"],
         all_device_ms_50k=j3[J3_SIZES[0]]["device_ms"])
 
     # --------------------------------------------------- J4 checks --
@@ -3484,13 +3519,28 @@ def nd_scan_phases(torch, dev, tag, report, record):
         return (Q, U, head, F), got
 
     cases = 0
-    for n in (1, 2, 31, 32, 33, 1000):
+    for n in ND_SIZES:
         for kind in ND_KINDS:
             j4_check(nd_scan_rows(torch, dev, kind, n, 3, next(seeds)),
                      f"{kind} rows, n={n}")
             cases += 1
-    print(f"{tag} J4 sweep3_rows == plain bitwise at {cases} cases (n "
-          f"1-1000 by {', '.join(ND_KINDS)})")
+    # tables wider than the sweep's own (chunks of 28 and 12 rows)
+    for cols in (484, 1024):
+        Q, U, head = nd_random_tables(torch, dev, 1000, cols, 3000, 0.1, cols)
+        got = ndsort.sweep3_rows(Q, U, head, 3000)
+        if not bitwise_equal(got, ndsort.sweep3_rows_plain(Q, U, head, 3000)):
+            fail(f"J4 differs from its plain version on random tables of "
+                 f"{cols} columns")
+        cases += 1
+    n = 2 * MO_POP
+    _, ranks = j4_check(nd_scan_rows(torch, dev, "chain", n, 3, 8),
+                        f"a {n}-row chain")
+    if int(ranks.max()) != n - 1:
+        fail(f"J4 found {int(ranks.max()) + 1} fronts in a {n}-chain")
+    print(f"{tag} J4 sweep3_rows == plain bitwise at {cases + 1} cases (n "
+          f"{', '.join(map(str, ND_SIZES))} by {', '.join(ND_KINDS)}; "
+          f"random tables of 484 and 1024 columns; a {n}-row chain, {n} "
+          f"fronts)")
     print_ptxas("nd_scan", "sweep_kernel")
     j4 = {}
     for n in J4_SIZES:
@@ -3503,27 +3553,39 @@ def nd_scan_phases(torch, dev, tag, report, record):
         ms = time_ms(lambda: ndsort.sweep3_rows(*args), flush)
         plain_ms = time_ms(lambda: ndsort.sweep3_rows_plain(*args), flush,
                            reps=3)
-        # the chain's floor: n copies of one row (one head, so every row
-        # only its update: a load, a store and a barrier)
+        # the chunk floor: n copies of one row (one head, so every chunk
+        # only its staging, owner pass and scatter: no gather, no chain)
         dup = ndsort.sweep3_inputs(w[:1].expand(n, MO_NOBJ).contiguous())
         floor_ms = time_ms(lambda: ndsort.sweep3_rows(*dup[1:]), flush)
+        # the whole call a user makes, tables and sort included, through
+        # J4 and through K7's peeling (host clock, median of 5)
+        whole = {impl: whole_ms(torch, lambda impl=impl: mo.nd_rank(
+            w, impl=impl)) for impl in ("sweep", "tiled")}
         Q = args[0]
-        j4[n] = dict(ms=ms, plain_ms=plain_ms, chain_floor_ms=floor_ms,
-                     nbytes=2 * Q.numel() * Q.element_size() + n + 4 * n)
+        j4[n] = dict(ms=ms, plain_ms=plain_ms, chunk_floor_ms=floor_ms,
+                     nbytes=2 * Q.numel() * Q.element_size() + n + 4 * n,
+                     whole=whole)
         print(f"{tag} J4 at n={n} (DTLZ2, {int(ranks.max()) + 1} fronts, "
-              f"{Q.shape[1]} table columns, state {args[3] + 2} floats): "
+              f"{Q.shape[1]} table columns, pool {args[3]} slots): "
               f"{ms * 1e3:.2f} us, {ms / n * 1e6:.1f} ns a row; plain "
-              f"{plain_ms * 1e3:.2f} us; on {n} copies of one row "
-              f"{floor_ms * 1e3:.2f} us; equal to nd='tiled' on every row")
+              f"{plain_ms * 1e3:.2f} us; on {n} copies of one row (no "
+              f"gather, no chain) {floor_ms * 1e3:.2f} us; equal to "
+              f"nd='tiled' on every row; whole nd_rank (host clock) "
+              f"impl='sweep' {whole['sweep']:.3f} ms, impl='tiled' "
+              f"{whole['tiled']:.3f} ms")
     n = J4_SIZES[1]
     record("j4", "nd_rank_sweep3 (sweep3_rows)",
            "deap_tpu_torch/csrc/nd_scan.cu", "deap_tpu/mo/ndsort.py:102",
            0.0, j4[n]["ms"], j4[n]["plain_ms"], j4[n]["nbytes"])
     report["j4"].update(
-        chain_floor_ms=j4[n]["chain_floor_ms"],
+        chunk_floor_ms=j4[n]["chunk_floor_ms"],
         ms_16384=j4[J4_SIZES[0]]["ms"],
         plain_ms_16384=j4[J4_SIZES[0]]["plain_ms"],
-        chain_floor_ms_16384=j4[J4_SIZES[0]]["chain_floor_ms"])
+        chunk_floor_ms_16384=j4[J4_SIZES[0]]["chunk_floor_ms"],
+        nd_rank_sweep_ms=j4[n]["whole"]["sweep"],
+        nd_rank_tiled_ms=j4[n]["whole"]["tiled"],
+        nd_rank_sweep_ms_16384=j4[J4_SIZES[0]]["whole"]["sweep"],
+        nd_rank_tiled_ms_16384=j4[J4_SIZES[0]]["whole"]["tiled"])
     del flush
 
     # J4 on a main path's selection: bench.py's NSGA-II DTLZ2 generation
@@ -3655,9 +3717,14 @@ def nd_scan_phases(torch, dev, tag, report, record):
         split[what] = time_ms(lambda: emo.staircase_rows(neg, head), flush,
                               reps=5)
     del flush
+    ms_gen = wall / ZDT1_NGEN * 1e3
+    j3_gen = split["J3 device, DCD"] + split["J3 device, union"]
+    report["j3"].update(zdt1_50k_ms_per_gen=ms_gen, zdt1_50k_j3_ms=j3_gen)
     print(f"{tag} nsga2_zdt1_pop50k, one generation in parts (ms, host "
           f"clock around each part alone; J3 device by CUDA events): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; J3 {j3_gen:.3f} ms of the loop's {ms_gen:.3f} ms/gen = "
+          f"{j3_gen / ms_gen:.1%}")
 
 def gp_phases(torch, dev, tag, report, record):
     """Phase 12: K9 at the GP path's shapes, and bench_gp.py's symbolic

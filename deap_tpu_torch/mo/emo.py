@@ -135,6 +135,13 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
 J3_SHARED_SLOTS = 232_448 // 4
 
 
+def j3_slots(n: int) -> int:
+    """J3's slots for the front maxima of ``n`` rows
+    (``csrc/nd_scan.cu::j3_slots``): n fronts at most and the ``2 B`` past
+    the F-th that its bucket search reads, ``B = ceil(F / 32)``."""
+    return n + 2 * -(-n // 32)
+
+
 def staircase_rows_plain(neg_f2: torch.Tensor,
                          head: torch.Tensor) -> torch.Tensor:
     """Plain version of J3: the staircase's pass over the sorted rows, a
@@ -167,8 +174,10 @@ def staircase_rows(neg_f2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     group heads ``head`` (bool).
 
     On the card one launch of ``csrc/nd_scan.cu::staircase_kernel`` walks
-    every row, the front maxima in shared memory up to
-    :data:`J3_SHARED_SLOTS` and in device memory past them;
+    the rows in chunks of 32 (each chunk's searches against the front
+    maxima as the chunk found them, then a chain over the chunk's own
+    writes), the maxima in shared memory up to :data:`J3_SHARED_SLOTS`
+    and in device memory past them;
     each launch adds one to ``nd_rank_staircase.launches``. On a CPU
     tensor :func:`staircase_rows_plain` runs. Both give the same ranks."""
     if neg_f2.device.type == "cpu":
@@ -186,8 +195,9 @@ def staircase_rows(neg_f2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     ranks = torch.empty(n, dtype=torch.int32, device=neg_f2.device)
     if n == 0:
         return ranks
-    shared = min(n, J3_SHARED_SLOTS)
-    spill = torch.empty(max(n - shared, 1), dtype=torch.float32,
+    slots = j3_slots(n)
+    shared = min(slots, J3_SHARED_SLOTS)
+    spill = torch.empty(max(slots - shared, 1), dtype=torch.int32,
                         device=neg_f2.device)
     neg_f2, head = neg_f2.contiguous(), head.contiguous()
     stream = torch.cuda.current_stream(neg_f2.device).cuda_stream

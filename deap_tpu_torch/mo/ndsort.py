@@ -239,9 +239,11 @@ def sweep3_rows(Q: torch.Tensor, U: torch.Tensor, head: torch.Tensor,
     state of ``F + 2`` floats) and the group heads ``head`` (bool).
 
     On the card one launch of ``csrc/nd_scan.cu::sweep_kernel`` walks
-    every row in one block, the state in device memory; each launch adds
-    one to ``nd_rank_sweep3.launches``. On a CPU tensor
-    :func:`sweep3_rows_plain` runs. Both give the same ranks."""
+    the rows in chunks of up to 32 in one block (each chunk's gathers
+    against the state as the chunk found it, then a chain over the
+    chunk's own writes), the state and each slot's owner mask in device
+    memory; each launch adds one to ``nd_rank_sweep3.launches``. On a CPU
+    tensor :func:`sweep3_rows_plain` runs. Both give the same ranks."""
     if Q.device.type == "cpu":
         return sweep3_rows_plain(Q, U, head, F)
     if Q.device.type != "cuda":
@@ -260,14 +262,19 @@ def sweep3_rows(Q: torch.Tensor, U: torch.Tensor, head: torch.Tensor,
     ranks = torch.empty(n, dtype=torch.int32, device=Q.device)
     if n == 0:
         return ranks
-    state = torch.zeros(F + 2, dtype=torch.float32, device=Q.device)
+    # per slot of the pool: rank + 1 of the rows inserted there, and the
+    # owner mask of the chunk's rows that write there (the two pads'
+    # slots too, which the kernel skips)
+    slots = torch.zeros((F + 2, 2), dtype=torch.int32, device=Q.device)
     Q, U, head = Q.contiguous(), U.contiguous(), head.contiguous()
+    # the kernel stages whole chunks 16 bytes a copy
+    Q, U = (t.clone() if t.data_ptr() % 16 else t for t in (Q, U))
     stream = torch.cuda.current_stream(Q.device).cuda_stream
     PT, I = _build.PTR, _build.INT
     fn = _build.function("nd_scan", "sweep3_rows",
-                         [PT, PT, PT, I, I, PT, PT, PT])
-    err = fn(Q.data_ptr(), U.data_ptr(), head.data_ptr(), n, cols,
-             state.data_ptr(), ranks.data_ptr(), stream)
+                         [PT, PT, PT, I, I, I, PT, PT, PT])
+    err = fn(Q.data_ptr(), U.data_ptr(), head.data_ptr(), n, cols, F,
+             slots.data_ptr(), ranks.data_ptr(), stream)
     nd_rank_sweep3.launches += 1
     _build.check("nd_scan", err, "sweep3_rows")
     return ranks

@@ -9,7 +9,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
                             [--hw] [--sass]
                             [--k7-variants]
                             [--package-root DIR]
-    python3 port_profile.py --kernel-times [--only PREFIX] [--package-root DIR]
+    python3 port_profile.py --kernel-times [--only PREFIX ...]
+                            [--package-root DIR]
 
 ``--package-root DIR`` (default: this checkout) picks the
 ``deap_tpu_torch`` that every mode builds (into DIR's own ``build/``),
@@ -105,9 +106,14 @@ the last three's launch counts); where
 the package's source has K5-hw's phase clock, it also splits K5-hw's
 generation by phase from a build with ``-DDTT_K5_PHASES``, and for this
 checkout's package K9's items from a build with ``-DDTT_K9_PHASES`` and
-J1's rounds by role from one with ``-DDTT_J1_PHASES``. ``--only PREFIX``
-keeps the entries whose names start with PREFIX and skips the checksum
-runs and the other phase clocks (``--only j1``: J1 alone).
+J1's rounds by role from one with ``-DDTT_J1_PHASES``; J3 at the ZDT1
+50k run's 50k and 100k rows (also with every front maximum in device
+memory) and J4 on DTLZ2 unions of 16,384 and 100k rows.
+For this checkout's package J3's and J4's chunks split by phase too,
+from a build with ``-DDTT_ND_PHASES``. ``--only PREFIX ...`` keeps the
+entries whose names start with one of the PREFIXes and skips the
+checksum runs and the other phase clocks (``--only j1``: J1 alone;
+``--only j3 j4``: J3 and J4 and their phase clock).
 Two versions
 compare on one card by runs in turns: that one, this one, this one, that
 one.
@@ -743,12 +749,21 @@ def kernel_times(dev, facts, root, reps=25, only=None):
                             ("no_mutation", dict(mutpb=0.0)),
                             ("copy_only", dict(cxpb=0.0, mutpb=0.0)))},
     }
-    calls.update(k1_k7_k8_calls(dev, reps))
-    calls.update(j1_calls(dev, reps))
+    def wanted(*groups):
+        """Whether --only keeps any entry of these name prefixes."""
+        return not only or any(o.startswith(g) or g.startswith(o)
+                               for o in only for g in groups)
+
+    if wanted("k1", "k7", "k8", "torch_copy_f32", "torch_zeros_k8"):
+        calls.update(k1_k7_k8_calls(dev, reps))
+    if wanted("j1"):
+        calls.update(j1_calls(dev, reps))
+    if wanted("j3", "j4"):
+        calls.update(j3_j4_calls(dev))
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
-    cases = k9_cases(dev)
+    cases = k9_cases(dev) if wanted("k9", "torch_copy_k9") else []
     for name, call, *_ in cases:
         calls[name] = (call, reps)
         calls[f"{name}_warm"] = (call, reps, warm)
@@ -759,7 +774,8 @@ def kernel_times(dev, facts, root, reps=25, only=None):
                                                         no_fitness), reps)
     times = {"package": os.path.relpath(root, ROOT)}
     if only:
-        calls = {k: v for k, v in calls.items() if k.startswith(only)}
+        calls = {k: v for k, v in calls.items()
+                 if any(k.startswith(o) for o in only)}
     for name, (call, n_reps, *cold) in calls.items():
         genomes, fitness = call()
         times[f"{name}_sum"] = int(
@@ -775,8 +791,10 @@ def kernel_times(dev, facts, root, reps=25, only=None):
     if root == ROOT:  # its launch follows this checkout's launcher
         if not only:
             times.update(k9_phases(cases, flush))
-        if not only or only.startswith("j1"):
+        if wanted("j1_phases"):
             times.update(j1_phases(dev, flush))
+        if wanted("j3_phases", "j4_phases"):
+            times.update(nd_phases(dev, flush))
     if "j1_split_d100_ms" in times:
         times["j1_split_min_d"] = j1_split_edge(times)
     print(f"[{facts}] kernel times {json.dumps(times)}")
@@ -992,6 +1010,58 @@ def k9_cases(dev):
     return cases
 
 
+def nd_scan_inputs(dev):
+    """J3's and J4's inputs as ``chip_smoke.py`` phase 11b times them (the
+    same in every package), by name: the staircase's ``(neg_f2, head)`` of
+    ZDT1 values of uniform genomes at ``chip_smoke.J3_SIZES`` (``j3_50k``,
+    ``j3_100k``) and the sweep's ``(Q, U, head, F)`` of DTLZ2 unions at
+    ``chip_smoke.J4_SIZES`` (``j4_16384``, ``j4_100k``)."""
+    import torch
+    from chip_smoke import J3_SIZES, J4_SIZES, MO_DIM, MO_NOBJ, ZDT1_DIM
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.mo import emo, ndsort
+
+    g = make_generator(41, dev)
+    out = {}
+    for n in J3_SIZES:
+        w = -bm.zdt1(torch.rand((n, ZDT1_DIM), generator=g, device=dev))
+        out[f"j3_{n // 1000}k"] = emo.staircase_inputs(w)[1:]
+    for n in J4_SIZES:
+        w = -bm.dtlz2(torch.rand((n, MO_DIM), generator=g, device=dev),
+                      MO_NOBJ)
+        tag = f"{n // 1000}k" if n % 1000 == 0 else str(n)
+        out[f"j4_{tag}"] = ndsort.sweep3_inputs(w)[1:]
+    return out
+
+
+def j3_j4_calls(dev, reps=10):
+    """``kernel_times``' entries for J3 and J4 on :func:`nd_scan_inputs`,
+    J3 also with every front maximum in device memory
+    (``j3_all_device_*``); each returns the ranks for the checksum."""
+    import torch
+    from chip_smoke import j3_shared_slots
+    from deap_tpu_torch.mo import emo, ndsort
+
+    none = torch.zeros(1, device=dev)
+
+    def all_device(neg, head):
+        with j3_shared_slots(emo, 1):
+            return emo.staircase_rows(neg, head)
+
+    calls = {}
+    for name, args in nd_scan_inputs(dev).items():
+        if name.startswith("j3"):
+            calls[name] = (lambda args=args: (emo.staircase_rows(*args),
+                                              none), reps)
+            calls[f"j3_all_device{name[2:]}"] = (lambda args=args: (
+                all_device(*args), none), reps)
+        else:
+            calls[name] = (lambda args=args: (ndsort.sweep3_rows(*args),
+                                              none), reps)
+    return calls
+
+
 #: J1's shapes in ``--kernel-times``: CMA-ES's C at dim 100, the two
 #: serving buckets, and d 192 (A and V in device memory)
 J1_SHAPES = {"j1": (100, 100), "j1_1024x10": (1024, 10, 10),
@@ -1129,6 +1199,83 @@ def j1_phases(dev, flush, reps=10, shapes=None):
         for phase, c in zip(names, clocks):
             out[f"{name}_clocks_per_round_{phase}"] = c / (reps * nmat
                                                             * rounds)
+    return out
+
+
+def nd_phases(dev, flush, reps=5):
+    """J3's and J4's chunks split by phase, from a build of
+    csrc/nd_scan.cu with ``-DDTT_ND_PHASES`` (lane 0 of J3's warp and
+    thread 0 of J4's block add the SM clocks of each phase of every chunk
+    to device totals; the library names the phases), on
+    :func:`nd_scan_inputs`, one front of J3's 100k rows (no chain) and
+    100k copies of one DTLZ2 row (no gather, no chain): each phase's SM
+    clocks a chunk of 32 rows, and the instrumented call's time. The
+    instrumented build runs through the wrappers and must give their
+    ranks bitwise."""
+    import ctypes
+    import subprocess
+    import torch
+    from chip_smoke import (J3_SIZES, J4_SIZES, MO_NOBJ, nd_scan_rows,
+                            time_ms)
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.mo import emo, ndsort
+
+    lib_path = str(_build.BUILD_DIR / "libnd_scan-phases.so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDTT_ND_PHASES", "-o",
+         lib_path, str(_build.CSRC / "nd_scan.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc -DDTT_ND_PHASES failed:\n{done.stdout}")
+    lib = ctypes.CDLL(lib_path)
+    lib.dtt_error_string.argtypes = [_build.INT]
+    lib.dtt_error_string.restype = ctypes.c_char_p
+    lib.nd_scan_phase_names.argtypes = [_build.INT]
+    lib.nd_scan_phase_names.restype = ctypes.c_char_p
+    names = [lib.nd_scan_phase_names(k).decode().split(",") for k in (0, 1)]
+    read = lib.nd_scan_phases
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), _build.INT]
+    read.restype = _build.INT
+    inputs = nd_scan_inputs(dev)
+    n3, n4 = J3_SIZES[1], J4_SIZES[1]
+    inputs[f"j3_one_front_{n3 // 1000}k"] = emo.staircase_inputs(
+        nd_scan_rows(torch, dev, "one_front", n3, 2, 9))[1:]
+    w = nd_scan_rows(torch, dev, "random", 1, MO_NOBJ, 9)
+    inputs[f"j4_copies_{n4 // 1000}k"] = ndsort.sweep3_inputs(
+        w.expand(n4, MO_NOBJ).contiguous())[1:]
+    cases = {name: (0, emo.staircase_rows, args) if name.startswith("j3")
+             else (1, ndsort.sweep3_rows, args)
+             for name, args in inputs.items()}
+    want = {name: fn(*args) for name, (_, fn, args) in cases.items()}
+    clocks = (ctypes.c_ulonglong * (2 * len(names[0])))()
+    out = {}
+    saved = _build._LIBS.get("nd_scan")
+    _build._LIBS["nd_scan"] = lib
+    try:
+        for name, (kernel, fn, args) in cases.items():
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want[name]):
+                raise RuntimeError(f"nd_scan (phases build) differs on {name}")
+            read(clocks, 1)  # clear the first call's totals
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+            if read(clocks, 1):
+                raise RuntimeError("nd_scan (phases build): reading the "
+                                   "clocks failed")
+            chunks = -(-got.shape[0] // 32)
+            row = clocks[kernel * len(names[0]):(kernel + 1) * len(names[0])]
+            out[f"{name}_phases_ms"] = time_ms(lambda: fn(*args), flush,
+                                               reps=reps)
+            for phase, c in zip(names[kernel], row):
+                out[f"{name}_clocks_per_chunk_{phase}"] = c / (reps * chunks)
+    finally:
+        if saved is None:
+            _build._LIBS.pop("nd_scan")
+        else:
+            _build._LIBS["nd_scan"] = saved
     return out
 
 
@@ -1332,11 +1479,11 @@ def main():
                              "genes, K9 on the GP schedules and J1 at d "
                              "100, 192 and the serving buckets (alone: "
                              "nothing else runs)")
-    parser.add_argument("--only", metavar="PREFIX",
+    parser.add_argument("--only", metavar="PREFIX", nargs="+",
                         help="with --kernel-times: only the entries whose "
-                             "names start with PREFIX (e.g. j1), without "
-                             "the checksum runs and the other phase "
-                             "clocks")
+                             "names start with one of the PREFIXes (e.g. "
+                             "j1, or j3 j4), without the checksum runs and "
+                             "the other phase clocks")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "
                              "profiled and timed (e.g. an "

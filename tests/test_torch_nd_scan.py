@@ -10,15 +10,22 @@ ZDT1 NSGA-II generation on the JAX package's draws.
   w1 is NaN), one front, a full chain (as many fronts as rows),
   ``max_rank`` and ``return_peels``.
 - A numpy replay of ``csrc/nd_scan.cu::staircase_kernel``: rows in
-  chunks of 32, a head's search 32 pivots a round at a stride of
-  ``ceil(len / 32)`` (the ballot of pivots <= x is a prefix of the
-  lanes), the front maxima split between a shared array of ``shared``
-  slots and a device array past it; equal to the plain version at every
-  split, with at most ``max_rounds(F)`` rounds a head (1 up to 32
-  fronts, 2 up to 1,056, 3 up to 33,824).
-- A numpy replay of ``sweep_kernel``: a thread a table column, reads of
-  the row's state before its writes, the block max as warp maxima; equal
-  to the plain version, and the tables keep within a row only the dump
+  chunks of 32, every lane's bucket search against the front maxima as
+  the chunk found them (32 pivots, then ceil(log2(B + 1)) steps; the
+  maxima split between a shared array of ``shared`` slots and a device
+  array past it), the
+  mask of earlier writing lanes with x <= its own, the 31-step chain, the
+  head rank carried across chunks and every writer's x min-stored at its
+  slot (the kernel's atomicMin); equal to the plain version on every kind
+  at n 1-2000 and at several splits, those at F and 2 F among them.
+- A numpy replay of ``sweep_kernel``: chunks of 32 rows (12 at 1024
+  columns), each row's bit at its U slots, each head's gather of the
+  chunk-start state and of the owner masks at its Q slots, the bits moved
+  to their rows' heads, the chain, the carried head rank and the scatter
+  in any order; equal to the plain version on every kind at n 1-2000 and
+  on random tables (wide ones, and ones whose U rows are 90% real
+  slots). The owner masks equal the intersection of U[i'] and Q[i] on
+  every in-chunk pair, and the tables keep within a row only the dump
   slot repeated.
 - One generation of ``bench_suite.py``'s ZDT1 NSGA-II (DCD, bounded SBX
   η 20 with cxpb 0.9, polynomial η 20 with indpb 1/30 and mutpb 1.0,
@@ -47,6 +54,7 @@ from deap_tpu.core.population import init_population as j_init
 from deap_tpu.core.toolbox import Toolbox as JToolbox
 from deap_tpu.mo import emo as jemo
 from deap_tpu.mo import ndsort as jndsort
+from chip_smoke import nd_random_tables
 from deap_tpu_torch import benchmarks as tbm
 from deap_tpu_torch import mo as tmo
 from deap_tpu_torch.mo import emo as temo
@@ -156,85 +164,136 @@ def test_small_and_empty_inputs():
 
 # ------------------------------------------------------- J3's replay ----
 
+#: the row counts the replays run at on every kind (a chain runs at 2000)
+REPLAY_NS = (1, 31, 32, 33, 63, 64, 65, 700, 2000)
+
+
+def _last_at_or_before(bits, k):
+    """The highest set bit of ``bits`` at or below ``k``, or -1."""
+    upto = bits & ((2 << k) - 1)
+    return upto.bit_length() - 1
+
+
+def order_key(x):
+    """csrc/nd_scan.cu::order_key: int32 keys that order as the float32
+    values do (NaN aside), -0.0 and +0.0 as one."""
+    b = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.int32)
+    return np.where(b >= 0, b, b ^ np.int32(0x7FFFFFFF))
+
+
+def j3_search(sm, gm, shared, fronts, key):
+    """A lane's search in J3: the count of the maxima neg_m[0..F) <= key
+    and its dependent steps: the pivots of 32 buckets of B = ceil(F / 32)
+    maxima (one load, the lanes' pivots compared by shuffles; past F the
+    last maximum again), then a search of ceil(log2(B + 1)) loads from the
+    first bucket whose pivot is above it, unclamped (the slots past F are
+    unopened: above every key that writes). Every slot it reads lies below
+    F + 2 B, in the shared array below ``shared`` and in the device array
+    past it."""
+    if fronts == 0:
+        return 0, 0
+
+    def max_at(q):
+        assert 0 <= q < fronts + 2 * B
+        return sm[q] if q < shared else gm[q - shared]
+
+    B = -(-fronts // 32)
+    pivots = [max_at(min((lane + 1) * B, fronts) - 1) for lane in range(32)]
+    r = min(sum(int(p <= key) for p in pivots) * B, fronts)
+    s, k = 1 << (B.bit_length() - 1), 1
+    while s:
+        r = r + s if max_at(r + s - 1) <= key else r
+        s >>= 1
+        k += 1
+    return r, k
+
+
 def j3_replay(neg_f2, head, shared):
-    """csrc/nd_scan.cu::staircase_kernel's order in numpy. Returns the
-    sorted ranks, the search rounds of each head and the fronts."""
+    """csrc/nd_scan.cu::staircase_kernel's order in numpy: 32-row chunks;
+    every lane's bucket search against the front maxima as the chunk
+    found them, as order keys in ``temo.j3_slots(n)`` slots split between
+    a shared array of ``shared`` and a device array past it
+    (:func:`j3_search`); the mask of
+    earlier writing lanes with x <= its own; the 31-step chain; non-heads
+    from the last head (carried across chunks); every writer's x
+    min-stored at its slot (its atomicMin on order keys: the slot keeps
+    its last writer's x). Returns the sorted ranks, the dependent steps of
+    each search and the fronts."""
     n = neg_f2.shape[0]
-    sm = np.full(shared, np.nan, np.float32)
-    gm = np.full(max(n - shared, 1), np.nan, np.float32)
-    lanes = np.arange(32)
-    fronts, r = 0, 0
+    no_front = order_key(np.float32([np.inf]))[0]
+    sm = np.full(shared, no_front, np.int32)       # maxima as order keys
+    gm = np.full(max(temo.j3_slots(n) - shared, 1), no_front, np.int32)
+    fronts, carry = 0, 0
     ranks = np.empty(n, np.int32)
-    rounds = []
+    steps = []
     for base in range(0, n, 32):
-        heads = head[base:base + 32]          # the chunk's ballot
-        for j in range(min(32, n - base)):
-            x = neg_f2[base + j]
-            if heads[j]:
-                if not x < np.inf:
-                    r = n
-                else:
-                    before = fronts
-                    lo, length, k_rounds = 0, fronts, 0
-                    while length > 0:
-                        step = (length + 31) // 32
-                        p = lo + (lanes + 1) * step - 1
-                        live = p < lo + length
-                        pc = np.where(live, p, 0)
-                        vals = np.where(pc < shared,
-                                        sm[np.minimum(pc, shared - 1)],
-                                        gm[np.maximum(pc - shared, 0)])
-                        le = live & (vals <= x)
-                        k = int(le.sum())
-                        assert le[:k].all() and not le[k:].any()  # a prefix
-                        lo += k * step
-                        length = min(step - 1, length - k * step)
-                        k_rounds += 1
-                    r = lo
-                    if r < shared:
-                        sm[r] = x
-                    else:
-                        gm[r - shared] = x
-                    fronts += r == fronts
-                    rounds.append((k_rounds, before))
-            ranks[base + j] = r
-    return ranks, rounds, fronts
+        rows = min(32, n - base)
+        x = neg_f2[base:base + rows]
+        key = order_key(x)
+        is_head = head[base:base + rows].astype(bool)
+        writes = is_head & (x < np.inf)
+        r = np.zeros(rows, np.int64)
+        for j in range(rows):                # each lane's search
+            r[j], k = j3_search(sm, gm, shared, fronts, key[j])
+            steps.append((k, fronts))
+        mask = [sum(1 << k for k in range(j) if writes[k] and x[k] <= x[j])
+                if writes[j] else 0 for j in range(rows)]
+        any_bits = functools.reduce(lambda a, b: a | b, mask, 0)
+        for k in range(min(rows, 31)):       # the chain
+            if any_bits >> k & 1:
+                rk = r[k]
+                for j in range(rows):
+                    if mask[j] >> k & 1:
+                        r[j] = max(r[j], rk + 1)
+        r[is_head & ~writes] = n
+        heads = sum(1 << j for j in range(rows) if is_head[j])
+        for j in range(rows):
+            src = _last_at_or_before(heads, j)
+            ranks[base + j] = r[src] if src >= 0 else carry
+        if heads:
+            carry = int(r[heads.bit_length() - 1])
+        for j in np.flatnonzero(writes)[::-1]:   # any order: a min
+            if r[j] < shared:
+                sm[r[j]] = min(sm[r[j]], key[j])
+            else:
+                gm[r[j] - shared] = min(gm[r[j] - shared], key[j])
+        if writes.any():
+            fronts = max(fronts, int(r[writes].max()) + 1)
+    return ranks, steps, fronts
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "neg_inf", "chain",
-                                  "nan"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_j3_replay_equals_plain_at_every_split(kind):
-    n = 2000 if kind == "chain" else 700
-    w = T(_rows(kind, n, 2, 30 + KINDS.index(kind)))
-    _, neg_f2, head = temo.staircase_inputs(w)
-    want = temo.staircase_rows_plain(neg_f2, head).numpy()
-    fronts = int(want[want < n].max()) + 1
-    for shared in sorted({1, 31, 32, 33, fronts // 2, fronts, n}):
-        got, rounds, F = j3_replay(neg_f2.numpy(), head.numpy(),
-                                   max(1, min(shared, n)))
-        assert np.array_equal(got, want), shared
-        assert F == fronts
-        assert all(k <= max_rounds(f) for k, f in rounds)
-
-
-def max_rounds(length):
-    """The most rounds J3's search takes over ``length`` maxima."""
-    return 0 if length == 0 else 1 + max_rounds((length + 31) // 32 - 1)
+    for n in REPLAY_NS:
+        w = T(_rows(kind, n, 2, 30 + n + KINDS.index(kind)))
+        _, neg_f2, head = temo.staircase_inputs(w)
+        want = temo.staircase_rows_plain(neg_f2, head).numpy()
+        fronts = int(want[want < n].max()) + 1 if (want < n).any() else 0
+        slots = temo.j3_slots(n)
+        # shared == F: the write that opens front F is the first to land
+        # in device memory; past F + 2 B the search reads only shared slots
+        edges = (1, 33, fronts // 2, fronts, fronts + 1, 2 * fronts - 1,
+                 2 * fronts, n, slots)
+        for shared in sorted({min(max(e, 1), slots) for e in edges}):
+            got, steps, F = j3_replay(neg_f2.numpy(), head.numpy(), shared)
+            assert np.array_equal(got, want), (n, shared)
+            assert F == fronts
+            # a search takes 1 + ceil(log2(B + 1)) dependent steps
+            assert all(k == (1 + (-(-f // 32)).bit_length() if f else 0)
+                       for k, f in steps)
 
 
 def test_j3_rounds_on_a_chain():
-    # every head of a chain opens a front: all pivots cover it
+    # every head of a chain opens a front: its search passes every maximum
+    # and its mask holds every earlier lane of its chunk
     w = T(_rows("chain", 2000, 2, 5))
     _, neg_f2, head = temo.staircase_inputs(w)
-    _, rounds, fronts = j3_replay(neg_f2.numpy(), head.numpy(), 2000)
-    assert fronts == 2000
-    assert all(k <= max_rounds(f) for k, f in rounds)
-    by_f = {f: k for k, f in rounds}
-    # a chain's search ends past the last pivot: one round while the
-    # stride divides F, two otherwise, past 32 fronts
-    assert [by_f[f] for f in (1, 32, 33, 64, 65, 1999)] == [1, 1, 2, 1, 2, 2]
-    assert [max_rounds(f) for f in (0, 1, 32, 33, 1056, 1057, 1999)] == \
-        [0, 1, 1, 2, 2, 3, 3]
+    got, steps, fronts = j3_replay(neg_f2.numpy(), head.numpy(), 1000)
+    assert fronts == 2000 and np.array_equal(got, np.arange(2000))
+    # F 0, 32 (buckets of 1), 64 (of 2), 480 (of 15), 1984 (of 62: over
+    # shared and device memory)
+    assert [steps[i] for i in (0, 32, 64, 480, 1984)] == [
+        (0, 0), (2, 32), (3, 64), (5, 480), (7, 1984)]
 
 
 def test_j3_wrapper_takes_the_plain_version_on_the_cpu():
@@ -252,42 +311,154 @@ def test_j3_wrapper_takes_the_plain_version_on_the_cpu():
 
 # ------------------------------------------------------- J4's replay ----
 
-def j4_replay(Q, U, head, F):
-    """csrc/nd_scan.cu::sweep_kernel's order in numpy: a thread a
-    column (padded to whole warps), every read of a row before its
-    writes, the max as warp maxima then their max."""
+def j4_chunk_rows(cols, smem=232_448 - 1024):
+    """csrc/nd_scan.cu::sweep_chunk_rows: 32 rows a chunk where two
+    stages of the chunk's Q and U rows (and two mbarriers) fit, else the
+    most that do, a multiple of 4."""
+    R = 32
+    while R > 4 and 16 + 16 * R * cols > smem:
+        R -= 4
+    return R
+
+
+def j4_remap(mask, heads):
+    """The chain warp's move of each bit of ``mask`` down to its row's head
+    (a segmented doubling), and whether one lies before the chunk's first
+    head (``carry``'s row)."""
+    full = 0xFFFFFFFF
+    down, s = ~heads & full, 1
+    while s < 32:
+        mask |= (mask & down) >> s
+        down &= (down << s) & full
+        s <<= 1
+    first = ((heads & -heads) - 1) & full
+    return mask & heads, bool(mask & first)
+
+
+def _owner_masks(U, F, base, rows):
+    """Each slot's owner mask of the chunk's rows (bit i: row base + i
+    writes there), as the kernel's atomicOr leaves it."""
+    owner = {}
+    for i in range(rows):
+        for u in U[base + i]:
+            if u != F:
+                owner[u] = owner.get(u, 0) | 1 << i
+    return owner
+
+
+def j4_replay(Q, U, head, F, R=None):
+    """csrc/nd_scan.cu::sweep_kernel's order in numpy: chunks of R rows;
+    every row's bit in the owner mask beside each of its U slots; each
+    head's max over its Q slots of the state as the chunk found it and the
+    OR of their owner masks (only the earlier rows'); each mask's bits
+    moved to their rows' heads, a bit before the first head a bound carry
+    + 1; the chain over heads; every row's r + 1 scatter-maxed at its U
+    slots. Returns the sorted ranks."""
     n, cols = Q.shape
-    threads = -(-cols // 32) * 32
-    state = np.zeros(F + 2, np.float32)
+    R = R or j4_chunk_rows(cols)
+    state = np.zeros(F, np.int64)
     ranks = np.empty(n, np.int32)
-    r = np.float32(0)
-    for i in range(n):
-        q, u = Q[i], U[i]
-        su = state[u].copy()
-        if head[i]:
-            v = np.zeros(threads, np.float32)
-            v[:cols] = state[q]
-            r = v.reshape(-1, 32).max(1).max()
-        ranks[i] = int(r)
-        state[u] = np.maximum(su, r + np.float32(1))
+    carry = 0
+    for base in range(0, n, R):
+        rows = min(R, n - base)
+        owner = _owner_masks(U, F, base, rows)
+        is_head = head[base:base + rows].astype(bool)
+        r = np.zeros(rows, np.int64)
+        mask = [0] * rows
+        for i in np.flatnonzero(is_head):
+            q = Q[base + i]
+            q = q[q != F + 1]
+            r[i] = state[q].max(initial=0)
+            m = functools.reduce(lambda a, s: a | owner.get(s, 0), q, 0)
+            mask[i] = m & ((1 << i) - 1)
+        heads = sum(1 << i for i in range(rows) if is_head[i])
+        for i in range(rows):
+            mask[i], before_first = j4_remap(mask[i], heads)
+            if before_first:
+                r[i] = max(r[i], carry + 1)
+        any_bits = functools.reduce(lambda a, b: a | b, mask, 0)
+        for k in range(31):                  # the chain, over heads
+            if any_bits >> k & 1:
+                rk = r[k]
+                for i in range(rows):
+                    if mask[i] >> k & 1:
+                        r[i] = max(r[i], rk + 1)
+        mine = np.empty(rows, np.int64)
+        for i in range(rows):
+            src = _last_at_or_before(heads, i)
+            mine[i] = r[src] if src >= 0 else carry
+        if heads:
+            carry = int(r[heads.bit_length() - 1])
+        ranks[base:base + rows] = mine
+        for i in range(rows):                # the scatter, in any order
+            u = U[base + i]
+            u = u[u != F]
+            np.maximum.at(state, u, mine[i] + 1)
     return ranks
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "neg_inf", "chain",
-                                  "nan"])
-def test_j4_replay_equals_plain(kind):
-    w = T(_rows(kind, 400, 3, 40 + KINDS.index(kind)))
+def _sweep_tables(kind, n, seed):
+    w = T(_rows(kind, n, 3, seed))
     _, Q, U, head, F = tndsort.sweep3_inputs(w)
-    Qn, Un = Q.numpy(), U.numpy()
-    # within a row only the scatter dump F repeats; Q never writes and U
-    # never reads the other's dump
-    for u in Un:
-        real = u[u != F]
-        assert np.unique(real).size == real.size
-    assert not (Qn == F).any() and not (Un == F + 1).any()
-    assert Qn.max() <= F + 1 and Un.max() <= F and Qn.min() >= 0
-    want = tndsort.sweep3_rows_plain(Q, U, head, F).numpy()
-    assert np.array_equal(j4_replay(Qn, Un, head.numpy(), F), want)
+    return Q, U, head, F
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_j4_replay_equals_plain(kind):
+    for n in REPLAY_NS:
+        Q, U, head, F = _sweep_tables(kind, n, 40 + n + KINDS.index(kind))
+        Qn, Un = Q.numpy(), U.numpy()
+        # within a row only the scatter dump F repeats; Q never writes and
+        # U never reads the other's dump
+        for u in Un:
+            real = u[u != F]
+            assert np.unique(real).size == real.size
+        assert not (Qn == F).any() and not (Un == F + 1).any()
+        assert Qn.max() <= F + 1 and Un.max() <= F and Qn.min() >= 0
+        want = tndsort.sweep3_rows_plain(Q, U, head, F).numpy()
+        got = j4_replay(Qn, Un, head.numpy(), F)
+        assert np.array_equal(got, want), n
+    # the chunks the kernel takes past 2^21 rows (1024 columns: 12 rows)
+    assert (j4_chunk_rows(289), j4_chunk_rows(441), j4_chunk_rows(484),
+            j4_chunk_rows(1024)) == (32, 32, 28, 12)
+    assert np.array_equal(j4_replay(Qn, Un, head.numpy(), F, R=12), want)
+
+
+@pytest.mark.parametrize("cols,u_valid", [(484, 0.1), (1024, 0.1),
+                                          (289, 0.9)])
+def test_j4_replay_on_random_tables(cols, u_valid):
+    Q, U, head = nd_random_tables(torch, "cpu", 300, cols, 3000, u_valid,
+                                  cols)
+    want = tndsort.sweep3_rows_plain(Q, U, head, 3000).numpy()
+    got = j4_replay(Q.numpy(), U.numpy(), head.numpy(), 3000)
+    assert np.array_equal(got, want) and int(want.max()) > 10
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_j4_relation_is_the_table_intersection(kind):
+    # the owner masks say row i' of a chunk writes at a slot that row i
+    # gathers exactly where U[i'] and Q[i] share a slot (dumps aside), on
+    # every in-chunk pair
+    for n in (65, 700):
+        Q, U, head, F = _sweep_tables(kind, n, 50 + KINDS.index(kind))
+        Qn, Un = Q.numpy(), U.numpy()
+        R = j4_chunk_rows(Qn.shape[1])
+        pairs = 0
+        for base in range(0, n, R):
+            rows = min(R, n - base)
+            owner = _owner_masks(Un, F, base, rows)
+            for i in range(rows):
+                q = Qn[base + i]
+                m = functools.reduce(lambda a, s: a | owner.get(s, 0),
+                                     q[q != F + 1], 0)
+                want = set(q[q != F + 1])
+                for k in range(i):
+                    u = Un[base + k]
+                    meets = bool(want & set(u[u != F]))
+                    assert bool(m >> k & 1) == meets, (n, base, k, i)
+                    pairs += meets
+        # on one front no earlier row's writes reach a later row's gather
+        assert (pairs == 0) == (kind == "one_front"), pairs
 
 
 def test_j4_wrapper_takes_the_plain_version_on_the_cpu():

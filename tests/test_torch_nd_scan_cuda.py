@@ -1,10 +1,13 @@
-"""J3 and J4 (``csrc/nd_scan.cu``) on the card against their plain
-versions, at n 1-100k on every kind of rows of ``chip_smoke.ND_KINDS``
-(uniform, ties, ``-inf`` rows, NaN rows, duplicates, one front, a chain);
-J3 with ``emo.J3_SHARED_SLOTS`` lowered to force its front maxima across
-the edge of shared memory, at the card's own edge (chains of
-58,111-58,113 rows) and on a 100k-row chain (every maximum past the
-first 58,112 in device memory).
+"""J3 and J4 (``csrc/nd_scan.cu``, both in chunks of rows) on the card
+against their plain versions, at n 1-100k on every kind of rows of
+``chip_smoke.ND_KINDS`` (uniform, ties, ``-inf`` rows, NaN rows,
+duplicates, one front, a chain) and on chains of 100k rows (as many
+fronts as rows); J3 with ``emo.J3_SHARED_SLOTS`` lowered to force its
+front maxima across the edge of shared memory, at the card's own edge
+(chains of 58,111-58,113 rows) and on a 100k-row chain (every maximum
+past the first 58,112 in device memory); J4 on random tables of 484 and
+1024 columns, where its chunks hold 28 and 12 rows (the tables of 2^21
+rows and more), and on tables whose U rows are 90% real slots.
 
 These tests need a CUDA card and the CUDA toolkit; they skip without a
 card. On a machine with one, from the repository's root:
@@ -17,7 +20,7 @@ Tolerance: both kernels equal their plain versions bitwise.
 import pytest
 import torch
 
-from chip_smoke import ND_KINDS, j3_shared_slots, nd_scan_rows
+from chip_smoke import ND_KINDS, j3_shared_slots, nd_random_tables, nd_scan_rows
 from deap_tpu_torch import mo
 from deap_tpu_torch.mo import emo, ndsort
 
@@ -66,7 +69,8 @@ def test_j3_equals_plain_at_100k(card, kind):
     assert _j3(nd_scan_rows(torch, card, kind, 100_000, 2, 3))[0]
 
 
-@pytest.mark.parametrize("slots", [1, 2, 31, 32, 33, 1500, 2999, 3000])
+@pytest.mark.parametrize("slots", [1, 2, 31, 32, 33, 1500, 2999, 3000,
+                                   emo.j3_slots(3000)])
 def test_j3_across_the_shared_memory_edge(card, slots):
     for kind in ("chain", "random", "ties"):
         ok, _ = _j3(nd_scan_rows(torch, card, kind, 3000, 2, slots), slots)
@@ -113,6 +117,25 @@ def test_j4_equals_plain_and_tiled_at_16384(card):
 
 def test_j4_equals_plain_at_100k(card):
     assert _j4(nd_scan_rows(torch, card, "ties", 100_000, 3, 8))
+
+
+def test_j4_chain_of_100k(card):
+    w = nd_scan_rows(torch, card, "chain", 100_000, 3, 10)
+    assert _j4(w)
+    assert int(mo.nd_rank(w, impl="sweep").max()) == 100_000 - 1
+
+
+@pytest.mark.parametrize("cols,u_valid", [(484, 0.1), (1024, 0.1),
+                                          (289, 0.9)])
+def test_j4_on_random_tables(card, cols, u_valid):
+    # any tables whose U rows repeat only the pad F give the plain
+    # version's ranks: wide ones (chunks of 28 and 12 rows) and dense ones
+    # (~260 owner bits a row)
+    Q, U, head = nd_random_tables(torch, card, 1000, cols, 3000, u_valid,
+                                  cols)
+    got = ndsort.sweep3_rows(Q, U, head, 3000)
+    assert torch.equal(got, ndsort.sweep3_rows_plain(Q, U, head, 3000))
+    assert int(got.max()) > 10
 
 
 def test_j4_refuses_what_it_does_not_take(card):
