@@ -135,15 +135,24 @@ Phases (any failure ends the script with a non-zero exit code):
     population (``spam_set(57)``, pop 4096, width 64, on 4601 rows made
     by ``examples/gp/spambase.py``'s ``make_dataset`` rule, and on
     integer rows with NaN and infinity) and ``lf`` live on semantic
-    mutants, bitwise against its plain version; J2 (``ant_rollout``)
-    bitwise against its plain version on the card, a CPU run of the plain
-    version and the native simulator (eaten and steps) on 4096 trees of
-    width 80 (half crossover children) and on Koza's solution (89 eaten),
-    timed beside its bound and the native simulator's host time;
+    mutants, bitwise against its plain version;
     ``examples/gp/spambase.py``'s typed program (tournament 3, cxpb 0.5,
-    mutpb 0.2) at pop 4096 through K9 and ``examples/gp/ant.py``'s (543
-    moves, static limit 17, tournament 7) at pop 4096 through J2, 10
-    generations each, one launch an evaluation; then ADF symbolic
+    mutpb 0.2) at pop 4096 through K9, 10 generations, one launch an
+    evaluation; J2 (``ant_rollout``, a walk without a stack) bitwise
+    against its plain version on the card, a CPU run of the plain version
+    and the native simulator (eaten and steps) on 4096 trees of width 80
+    (half crossover children), on 4096 trees whose root never closes or
+    of random ids (its stack walk; no native simulator), at step bounds
+    inside the prog runs it folds and on Koza's solution (89 eaten), its
+    table against
+    ``ant_walk_table`` and its iterations against ``ant_walk_replay``,
+    ``ptxas`` showing no local memory; ``examples/gp/ant.py``'s program
+    (543 moves, static limit 17, tournament 7) at pop 4096 through J2, 10
+    generations, one launch an evaluation; J2 on the evolved population
+    as on the first trees; J2 timed on both beside its bound, its plain
+    version, the native simulator's host time and its chain floor (the
+    longest ant's iterations times one dependent shared-memory load,
+    clocked by a pointer chase on the card); then ADF symbolic
     regression (``adf_symbreg.py``, pop 200), HARM (``symbreg_harm.py``,
     pop 300, 600 trial children, through K9) and the semantic operators
     with ``lf`` through K9 (pop 256), a few generations each;
@@ -269,12 +278,21 @@ ANT_POP, ANT_ML, ANT_MOVES, ANT_NGEN = 4096, 80, 543, 10
 # load and push or an action's move count and turn or step): J2's bound
 # counts them at the card's 64 integer operations a clock an SM
 J2_STEP_OPS = 8
+# J2's stack walk on trees that are not complete runs at this step bound
+# (random trees may loop without an action up to it); the step bounds
+# that fall inside the smoke's trees' folded prog runs; the ants whose
+# iterations the Python replay checks (the longest walks and the first)
+J2_STACK_STEPS, J2_CUT_STEPS, J2_REPLAY = 3000, (1, 2, 3, 4, 5, 7, 9, 17,
+                                                 100), 16
 # the examples' own sizes, a few generations each: adf_symbreg.py (pop
 # 200), symbreg_harm.py (pop 300, 600 trial children), and the semantic
 # operators on math_set(1) plus lf (pop 256, programs up to 128 nodes)
 ADF_POP, ADF_NGEN = 200, 3
 HARM_POP, HARM_NBR, HARM_NGEN = 300, 600, 5
 SEM_POP, SEM_ML, SEM_NGEN = 256, 128, 3
+# measuring kernels that the script builds beside ``_build.SOURCES``
+# (no path of the port runs them): J2's chain floor's shared-memory load
+PROBE_SOURCES = ("shared_chase",)
 # Koza's hand solution of the Santa Fe trail: 89 pieces in 543 moves
 KOZA_SOLUTION = (
     "if_food_ahead(move_forward, prog3(turn_left, "
@@ -550,7 +568,7 @@ def main():
 
     # ------------------------------------------------------------ build --
     t0 = time.perf_counter()
-    seconds = _build.build()
+    seconds = _build.build((*_build.SOURCES, *PROBE_SOURCES))
     print(f"build: {time.perf_counter() - t0:.2f} s wall for "
           f"{len(seconds)} kernels "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
@@ -3550,6 +3568,14 @@ def nd_scan_phases(torch, dev, tag, report, record):
         ranks = mo.nd_rank(w, impl="sweep")
         if not torch.equal(ranks, mo.nd_rank(w, impl="tiled")):
             fail(f"nd_rank sweep (J4) differs from tiled (K7) at n={n}")
+        # rows beside NaN rows: the sweep's query bounds order NaN as the
+        # largest value, so every NaN-free row ranks as K7's peel has it
+        w_nan = nd_scan_rows(torch, dev, "nan", n, MO_NOBJ, next(seeds))
+        clean = ~torch.isnan(w_nan).any(1)
+        if not torch.equal(mo.nd_rank(w_nan, impl="sweep")[clean],
+                           mo.nd_rank(w_nan, impl="tiled")[clean]):
+            fail(f"nd_rank sweep (J4) differs from tiled (K7) on the "
+                 f"NaN-free rows of the nan kind at n={n}")
         ms = time_ms(lambda: ndsort.sweep3_rows(*args), flush)
         plain_ms = time_ms(lambda: ndsort.sweep3_rows_plain(*args), flush,
                            reps=3)
@@ -3570,7 +3596,8 @@ def nd_scan_phases(torch, dev, tag, report, record):
               f"{ms * 1e3:.2f} us, {ms / n * 1e6:.1f} ns a row; plain "
               f"{plain_ms * 1e3:.2f} us; on {n} copies of one row (no "
               f"gather, no chain) {floor_ms * 1e3:.2f} us; equal to "
-              f"nd='tiled' on every row; whole nd_rank (host clock) "
+              f"nd='tiled' on every row, and on the {int(clean.sum())} "
+              f"NaN-free rows of the nan kind; whole nd_rank (host clock) "
               f"impl='sweep' {whole['sweep']:.3f} ms, impl='tiled' "
               f"{whole['tiled']:.3f} ms")
     n = J4_SIZES[1]
@@ -3912,19 +3939,477 @@ def gp_phases(torch, dev, tag, report, record):
     del flush
 
 
-def gp_rest_phases(torch, dev, tag, report, record):
-    """Phase 12b: the rest of GP. K9 with ``lt``/``eq`` (typed spambase) and
-    ``lf`` (semantic offspring) live against its plain version; J2 against
-    its plain version on the card, the native simulator and a CPU run of
-    the plain version, and timed; the typed spambase and ant programs at
-    full width through K9 and J2; then ADF, HARM and semantic GP at the
-    examples' sizes."""
-    import numpy as np
+def ant_trees(g):
+    """The J2 checks' trees: ``ANT_POP`` of ``examples/gp/ant.py``'s
+    ``gen_half_and_half(1, 4)`` at width ``ANT_ML``, the second half
+    replaced by one-point crossover children of the two halves (their
+    padding holds copies of other nodes)."""
+    import torch
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.gp import ant
+    apset = ant.ant_pset()
+    trees = gp.gen_half_and_half(apset, ANT_ML, 1, 4)(g, ANT_POP)
+    half = ANT_POP // 2
+    kids, _ = gp.make_cx_one_point(apset)(
+        g, {k: v[:half] for k, v in trees.items()},
+        {k: v[half:] for k, v in trees.items()})
+    return {k: torch.cat([trees[k][:half], kids[k]]) for k in trees}
+
+
+def ant_evolved(g, trail, start_cell):
+    """``examples/gp/ant.py``'s program at full width through J2 (pop
+    ``ANT_POP``, width ``ANT_ML``, ``ANT_MOVES`` moves; one-point crossover
+    and ``mut_uniform`` under ``static_limit(17)``, tournament 7, cxpb 0.5,
+    mutpb 0.2) for ``ANT_NGEN`` generations, every launch count set to 0
+    just before ``ea_simple``: ``(population, hall of fame, seconds)``."""
+    import torch
     from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
     from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.gp import ant
+    dev = g.device
+    apset = ant.ant_pset()
+    limit = gp.static_limit(lambda gg: gp.tree_height(gg, apset), 17)
+    tb = Toolbox()
+    tb.register("evaluate", ant.make_ant_evaluator(
+        apset, ANT_ML, trail, start_cell, max_moves=ANT_MOVES))
+    tb.register("mate", limit(gp.make_cx_one_point(apset)))
+    tb.register("mutate", limit(gp.make_mut_uniform(
+        apset, gp.make_generator(apset, 24, 0, 2, "full"))))
+    tb.register("select", ops.sel_tournament, tournsize=7)
+    pop = init_population(g, ANT_POP, gp.gen_half_and_half(apset, ANT_ML, 1,
+                                                           4),
+                          FitnessSpec((1.0,)), device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pop, _, hof = algorithms.ea_simple(g, pop, tb, 0.5, 0.2, ANT_NGEN,
+                                       halloffame_size=1, device=dev)
+    torch.cuda.synchronize()
+    return pop, hof, time.perf_counter() - t0
+
+
+#: the ids of ``gp.ant.ant_pset``: 3 operators, 3 actions (``kIds`` in
+#: csrc/ant_rollout.cu)
+J2_IDS = 6
+
+
+def _j2_arity(node):
+    """csrc/ant_rollout.cu::arity_of: prog3 3, the other operators (every
+    id below 3) 2, the rest 0."""
+    return 3 if node == 2 else (2 if node < 3 else 0)
+
+
+def walk_ends(row):
+    """The subtree ends of one tree as J2's right-to-left pass makes them,
+    the JAX evaluator's rule (``deap_tpu/gp/tree.py::subtree_end`` at
+    every slot): ``(ends, complete)``. ``ends[i]`` is the exclusive end of
+    slot ``i``'s subtree over the whole width, 1 where it does not close;
+    the length plays no part, as in the JAX evaluator. ``complete`` says
+    that the root's subtree closes and holds only the set's ids: J2 walks
+    its table, which never leaves the ``ends[0]`` slots."""
+    row = [int(v) for v in row]
+    ends = [1] * len(row)
+    stack = []
+    for i in range(len(row) - 1, -1, -1):
+        a = _j2_arity(row[i])
+        if a == 0:
+            e = i + 1
+        elif len(stack) >= a:   # an unclosed child's end is 1: so is e
+            e = stack[-a]
+            del stack[-a:]
+        else:                   # a child is missing: it never closes
+            e = 1
+            stack.clear()
+        stack.append(e)
+        ends[i] = e
+    closed = ends[0] > 1 or _j2_arity(row[0]) == 0
+    return ends, closed and all(0 <= v < J2_IDS for v in row[:ends[0]])
+
+
+def ant_walk_table(nodes):
+    """J2's successor table of each tree, ``int32[pop, L + 1, 2]``, in
+    ``gp.ant.ant_rollout_traced``'s layout, built in Python.
+
+    The stack walk of a complete tree (:func:`walk_ends`) is a program
+    counter moving from one ``if_food_ahead`` or action to the next, each
+    run of ``prog`` nodes on the way folded in with its steps: an action
+    goes on at the next slot, where the start of an ``if``'s second child
+    jumps to that ``if``'s end, again and again, and the root's end
+    restarts at the root."""
+    import numpy as np
+    from deap_tpu_torch.gp.ant import IF_FOOD_AHEAD, PROG2, PROG3
+    nodes = np.asarray(nodes)
+    pop, L = nodes.shape
+    table = np.zeros((pop, L + 1, 2), np.int64)
+    for t in range(pop):
+        row = [int(v) for v in nodes[t]]
+        ends, complete = walk_ends(row)
+        if not complete:
+            continue
+        n = ends[0]               # the root's slots
+        first = [0] * (n + 1)     # the first slot from p on not a prog
+        f = n
+        for p in range(n - 1, -1, -1):
+            f = f if row[p] in (PROG2, PROG3) else p
+            first[p] = f
+
+        def fold(p):
+            return first[p] | (first[p] - p) << 8
+
+        jump = [0] * (n + 1)      # an if's second child -> the if's end
+        for i in range(n):
+            if row[i] == IF_FOOD_AHEAD:
+                jump[ends[i + 1]] = ends[i]
+        after = [0] * (n + 1)     # where the walk goes once slot p - 1 ends
+        after[n] = fold(0)
+        for p in range(n - 1, 0, -1):
+            after[p] = after[jump[p]] if jump[p] else fold(p)
+        for s in range(n):
+            if row[s] == IF_FOOD_AHEAD:
+                table[t, s] = fold(s + 1), fold(ends[s + 1])
+            elif row[s] >= 3:
+                table[t, s] = after[s + 1] | (row[s] - 2) << 16, after[s + 1]
+        table[t, L] = fold(0), 1
+    return table.astype(np.int32)
+
+
+def ant_walk_replay(row, trail, start, max_moves, max_steps, start_dir=1):
+    """One ant's rollout in J2's order: ``(eaten, steps, iterations)``. A
+    complete tree walks :func:`ant_walk_table`'s entries (each prog run's
+    fold added with a clip at ``max_steps``, then one ``if`` or action),
+    any other tree the stack over :func:`walk_ends`' ends, a step an
+    iteration."""
+    import numpy as np
+    from deap_tpu_torch.gp.ant import (IF_FOOD_AHEAD, MOVE_FORWARD, PROG3,
+                                       TURN_LEFT, TURN_RIGHT)
+    dir_row, dir_col = (1, 0, -1, 0), (0, 1, 0, -1)
+    row = [int(v) for v in row]
+    L = len(row)
+    R, C = trail.shape
+    grid = np.array(trail, bool)
+    r, c = start
+    d = start_dir
+    moves = eaten = steps = iters = 0
+
+    def ahead():
+        return (r + dir_row[d]) % R, (c + dir_col[d]) % C
+
+    table = ant_walk_table(np.asarray(row, np.int64)[None])[0]
+    if table[L, 1]:
+        pair = int(table[L, 0])
+        while moves < max_moves:
+            steps += pair >> 8
+            if steps >= max_steps:     # max_steps falls inside a prog run
+                steps = max_steps
+                break
+            x, y = (int(v) for v in table[pair & 0xFF])
+            kind = x >> 16
+            ar, ac = ahead()
+            food = bool(grid[ar, ac])
+            pair = (x if food else y) & 0xFFFF
+            moves += kind != 0
+            d = (d + (0, 0, 3, 1)[kind]) % 4
+            if kind == 1:
+                r, c = ar, ac
+                if food:
+                    eaten += 1
+                    grid[r, c] = False
+            steps += 1
+            iters += 1
+        return eaten, steps, iters
+    ends, _ = walk_ends(row)
+    W = L + 3
+    stack = [0] * W
+    sp = 0
+    while moves < max_moves and steps < max_steps:
+        if sp == 0:
+            stack[0] = 0
+            sp = 1
+        idx = stack[min(sp - 1, W - 1)]
+        node = row[min(max(idx, 0), L - 1)]
+        sp -= 1
+        if node < 3:
+            c1 = idx + 1
+            c2 = ends[min(c1, L - 1)]
+            if node == IF_FOOD_AHEAD:
+                ar, ac = ahead()
+                pushed = [c1 if grid[ar, ac] else c2]
+            elif node == PROG3:
+                pushed = [ends[min(c2, L - 1)], c2, c1]
+            else:
+                pushed = [c2, c1]
+            for v in pushed:
+                if sp < W:
+                    stack[sp] = v
+                sp += 1
+        else:
+            moves += 1
+            action = node - 3
+            if action == TURN_LEFT:
+                d = (d + 3) % 4
+            elif action == TURN_RIGHT:
+                d = (d + 1) % 4
+            elif action == MOVE_FORWARD:
+                r, c = ahead()
+                if grid[r, c]:
+                    eaten += 1
+                    grid[r, c] = False
+        steps += 1
+        iters += 1
+    return eaten, steps, iters
+
+
+def j2_check(torch, dev, trees, grid, words, start, max_steps, what,
+             native_too=True):
+    """J2 on ``trees`` at ``ANT_MOVES`` moves, in one launch, against its
+    plain version on the card and a CPU run of it (eaten and steps) and,
+    where ``native_too``, the native simulator's food; then its traced
+    launch: its table against ``ant_walk_table``'s build and the
+    iterations of the ``J2_REPLAY`` longest walks and first ants against
+    ``ant_walk_replay``. Returns the counts the timing prints."""
+    import numpy as np
+    from deap_tpu_torch.gp import ant
+    from deap_tpu_torch.native import ant_binding
+    nodes = trees["nodes"].to(torch.int32).contiguous()
+    length = trees["length"].to(torch.int32).contiguous()
+    args = (nodes, length, grid, start, ANT_MOVES, max_steps, 1, words)
+    before = ant.ant_rollout.launches
+    eaten, steps = ant.ant_rollout(*args)
+    if ant.ant_rollout.launches != before + 1:
+        fail("ant_rollout did not launch once")
+    traced = ant.ant_rollout_traced(*args)
+    plain = ant.ant_rollout_plain(*args[:-1])
+    torch.cuda.synchronize()
+    host_nodes, host_length = nodes.cpu().numpy(), length.cpu().numpy()
+    cpu = ant.ant_rollout_plain(nodes.cpu(), length.cpu(), grid.cpu(), start,
+                                ANT_MOVES, max_steps)
+    same = all(torch.equal(a, b) for a, b in (
+        (eaten, plain[0]), (steps, plain[1]), (eaten, traced[0]),
+        (steps, traced[1]), (eaten.cpu(), cpu[0]), (steps.cpu(), cpu[1])))
+    native_ms = math.nan
+    if native_too:
+        t0 = time.perf_counter()
+        native = ant_binding.ant_eval(host_nodes, host_length,
+                                      grid.cpu().numpy(), start,
+                                      max_moves=ANT_MOVES)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        same &= np.array_equal(eaten.cpu().numpy(), native)
+    if not same:
+        fail(f"J2 differs from its plain version, a CPU run of it or the "
+             f"native simulator on {what}")
+    iters, table = traced[2].cpu(), traced[3].cpu()
+    if not np.array_equal(table.numpy(), ant_walk_table(host_nodes)):
+        fail(f"J2's table differs from ant_walk_table's on {what}")
+    eaten, steps = eaten.cpu(), steps.cpu()
+    if not bool((iters <= steps).all()):
+        fail(f"J2 ran more iterations than steps on {what}")
+    pick = set(torch.topk(iters, J2_REPLAY).indices.tolist())
+    trail = grid.cpu().numpy()
+    for i in sorted(pick | set(range(J2_REPLAY))):
+        got = (int(eaten[i]), int(steps[i]), int(iters[i]))
+        if ant_walk_replay(host_nodes[i], trail, start, ANT_MOVES,
+                               max_steps) != got:
+            fail(f"J2's iterations differ from the replay's on ant {i} of "
+                 f"{what}")
+    print(f"  J2 == plain on the card == a CPU run of it"
+          f"{' == the native simulator' if native_too else ''} (eaten and "
+          f"steps) on {what}: {nodes.shape[0]} trees of width "
+          f"{nodes.shape[1]}, {ANT_MOVES} moves, eaten {int(eaten.min())}-"
+          f"{int(eaten.max())}; table == ant_walk_table's "
+          f"({int(table[:, -1, 1].sum())} complete trees); iterations == "
+          f"the replay's on {len(pick | set(range(J2_REPLAY)))} ants")
+    return dict(what=what, iters_max=int(iters.max()),
+                iters_sum=int(iters.sum()), steps_min=int(steps.min()),
+                steps_max=int(steps.max()), steps_sum=int(steps.sum()),
+                native_ms=native_ms, complete=int(table[:, -1, 1].sum()))
+
+
+def shared_load_clocks(torch, dev, loads=1 << 20, reps=5):
+    """Clocks of one dependent shared-memory load: the fewest over ``reps``
+    pointer chases of ``loads`` loads by one thread
+    (``csrc/shared_chase.cu``)."""
+    from deap_tpu_torch import _build
+    clocks = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = _build.function("shared_chase", "shared_chase",
+                         [_build.INT] + [_build.PTR] * 3)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    best = math.inf
+    for _ in range(reps):
+        _build.check("shared_chase", fn(loads, clocks.data_ptr(),
+                                        sink.data_ptr(), stream),
+                     "shared_chase")
+        best = min(best, int(clocks.item()) / loads)
+    return best
+
+
+def no_local_memory(src, kernel):
+    """Fail unless ``ptxas`` gives ``kernel`` of ``csrc/<src>.cu`` a 0-byte
+    stack frame and no spills."""
+    import re
+    from deap_tpu_torch import _build
+    for name, line in ptxas_report(_build.build_log(src)):
+        if name == kernel:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m is None or any(int(v) for v in m.groups()):
+                fail(f"{kernel} keeps local memory: {line}")
+            return
+    fail(f"no ptxas report for {kernel}")
+
+
+def ant_phase(torch, dev, tag, report, record, g, flush):
+    """Phase 12b's ant: J2 against its plain version on the card, a CPU
+    run of it and the native simulator on the smoke's trees, on trees it
+    walks on the stack, at step bounds inside its folded prog runs and on
+    Koza's solution; ``examples/gp/ant.py``'s program at full width (the
+    main path, every count set to 0 just before it); J2 on the evolved
+    population; J2 timed on both tree sets beside its chain floor."""
+    import numpy as np
+    from deap_tpu_torch import gp
     from deap_tpu_torch.device import make_generator
     from deap_tpu_torch.gp import ant
     from deap_tpu_torch.native import ant_binding
+
+    # ------------------------------------------------------- J2 checks --
+    trail, start_cell = ant.parse_trail()
+    grid = torch.as_tensor(trail, device=dev)
+    words = ant.pack_trail(grid)
+    apset = ant.ant_pset()
+    max_steps = ANT_MOVES * ANT_ML + ANT_ML
+    koza = gp.from_string(KOZA_SOLUTION, apset, ANT_ML, device=dev)
+    trees = ant_trees(g)
+    ant_binding.library()  # g++ builds it at first use: not timed
+    smoke = j2_check(torch, dev, trees, grid, words, start_cell, max_steps,
+                     "the smoke's trees (half crossover children)")
+    # trees J2 walks on the stack: random ids, and the smoke's trees with
+    # a prog3 at every slot from their last node on (a root that never
+    # closes), at a step bound that such trees reach
+    gen = make_generator(77, dev)
+    half = ANT_POP // 2
+    tail = (torch.arange(ANT_ML, device=dev)
+            >= trees["length"][:, None] - 1)[:half]
+    broken = {"nodes": torch.randint(0, 6, (ANT_POP, ANT_ML), generator=gen,
+                                     device=dev, dtype=torch.int32),
+              "length": trees["length"]}
+    broken["nodes"][:half] = torch.where(tail, ant.PROG3,
+                                         trees["nodes"][:half])
+    incomplete = j2_check(torch, dev, broken, grid, words, start_cell,
+                          J2_STACK_STEPS, "broken and random trees",
+                          native_too=False)
+    # the step bound inside the prog runs the walk folds
+    for bound in J2_CUT_STEPS:
+        e, s_ = ant.ant_rollout(trees["nodes"], trees["length"], grid,
+                                start_cell, ANT_MOVES, bound, 1, words)
+        pe, ps = ant.ant_rollout_plain(trees["nodes"], trees["length"], grid,
+                                       start_cell, ANT_MOVES, bound)
+        if not (torch.equal(e, pe) and torch.equal(s_, ps)):
+            fail(f"J2 differs from its plain version at max_steps {bound}")
+    ke, _ = ant.ant_rollout(koza["nodes"], koza["length"], grid, start_cell,
+                            ANT_MOVES, max_steps, 1, words)
+    kp, _ = ant.ant_rollout_plain(koza["nodes"], koza["length"], grid,
+                                  start_cell, ANT_MOVES, max_steps)
+    kn = ant_binding.ant_eval(koza["nodes"], koza["length"], trail,
+                              start_cell, max_moves=ANT_MOVES)
+    if not (ke.tolist() == kp.tolist() == kn.tolist() == [89]):
+        fail(f"Koza's solution eats {ke.tolist()} (J2), {kp.tolist()} "
+             f"(plain), {kn.tolist()} (native), not 89")
+    stacked = ANT_POP - incomplete["complete"]
+    print(f"{tag} J2 == plain on the card on the smoke's trees at max_steps "
+          f"{', '.join(map(str, J2_CUT_STEPS))} (inside the folded prog "
+          f"runs); on {ANT_POP} broken and random trees ({stacked} of them "
+          f"on the stack walk, max_steps "
+          f"{J2_STACK_STEPS}): == plain on the card == a CPU run, steps "
+          f"{incomplete['steps_min']}-{incomplete['steps_max']}; Koza's "
+          f"solution eats 89 on all three")
+    print_ptxas("ant_rollout", "ant_rollout_kernel")
+    no_local_memory("ant_rollout", "ant_rollout_kernel")
+    load_clocks = shared_load_clocks(torch, dev)
+    clock = max_sm_clock_hz()
+    print(f"  J2: one dependent shared-memory load {load_clocks:.2f} clocks "
+          f"(a pointer chase of one thread; max SM clock "
+          f"{clock / 1e6:.0f} MHz)")
+
+    # ----------------------------------- the ant program at full width --
+    pop, hof, wall = ant_evolved(g, trail, start_cell)
+    launches = ant.ant_rollout.launches
+    native = ant_binding.ant_eval(pop.genomes["nodes"],
+                                  pop.genomes["length"], trail, start_cell,
+                                  max_moves=ANT_MOVES)
+    if launches != ANT_NGEN + 1:
+        fail(f"ant: J2 launched {launches} times for {ANT_NGEN + 1} "
+             f"evaluations")
+    if not (bool(pop.valid.all()) and np.array_equal(
+            pop.fitness[:, 0].cpu().numpy(), native.astype(np.float32))):
+        fail("ant: the population's fitness differs from the native "
+             "simulator's")
+    print(f"{tag} ant (examples/gp/ant.py) pop={ANT_POP} width={ANT_ML} "
+          f"{ANT_MOVES} moves: {ANT_NGEN} generations in {wall:.3f} s incl. "
+          f"gen-0 evaluation = {wall / ANT_NGEN * 1e3:.3f} ms/gen; most "
+          f"food {float(pop.fitness.max())} (hall of fame "
+          f"{float(hof.fitness[0, 0])}); J2 launches {launches} = the "
+          f"evaluations; fitness == the native simulator's")
+    evolved = j2_check(torch, dev, pop.genomes, grid, words, start_cell,
+                       max_steps, f"the population after {ANT_NGEN} "
+                       f"generations")
+
+    # J2 timed on both sets, beside its plain version, its bound (the
+    # steps' integer operations) and its chain floor (the longest ant's
+    # iterations, each one dependent shared-memory load)
+    times = {}
+    for name, t in (("smoke", trees), ("evolved", pop.genomes)):
+        args = (t["nodes"].to(torch.int32).contiguous(),
+                t["length"].to(torch.int32).contiguous(), grid, start_cell,
+                ANT_MOVES, max_steps, 1, words)
+        ms = time_ms(lambda: ant.ant_rollout(*args), flush)
+        plain_ms = time_ms(lambda: ant.ant_rollout_plain(*args[:-1]), flush,
+                           reps=1)
+        run = smoke if name == "smoke" else evolved
+        floor_ms = run["iters_max"] * load_clocks / clock * 1e3
+        times[name] = dict(ms=ms, plain_ms=plain_ms, floor_ms=floor_ms)
+        print(f"{tag} J2 on {run['what']}: {ms * 1e3:.2f} us a launch; "
+              f"plain {plain_ms * 1e3:.2f} us; the longest ant "
+              f"{run['iters_max']} iterations ({run['steps_max']} steps), "
+              f"chain floor {floor_ms * 1e3:.2f} us; iterations "
+              f"{run['iters_sum']} = {run['iters_sum'] / run['steps_sum']:.3f}"
+              f" of the steps; the native simulator {run['native_ms']:.2f} "
+              f"ms on the host")
+    # what J2 must move: the trees and lengths in, the trail's words in,
+    # eaten and steps out
+    nbytes = (trees["nodes"].numel() * 4 + ANT_POP * 4 + words.numel() * 4
+              + 2 * ANT_POP * 4)
+    record("j2", "ant_rollout", "deap_tpu_torch/csrc/ant_rollout.cu",
+           "deap_tpu/gp/ant.py:117", 0.0, times["smoke"]["ms"],
+           times["smoke"]["plain_ms"], nbytes,
+           int_ops=smoke["steps_sum"] * J2_STEP_OPS)
+    report["j2"].update(
+        launches=launches, native_host_ms=smoke["native_ms"],
+        chain_floor_ms=times["smoke"]["floor_ms"],
+        shared_load_clocks=load_clocks,
+        iterations_max=smoke["iters_max"], iterations_sum=smoke["iters_sum"],
+        steps_max=smoke["steps_max"], steps_sum=smoke["steps_sum"],
+        ms_evolved=times["evolved"]["ms"],
+        plain_ms_evolved=times["evolved"]["plain_ms"],
+        chain_floor_ms_evolved=times["evolved"]["floor_ms"],
+        iterations_max_evolved=evolved["iters_max"],
+        iterations_sum_evolved=evolved["iters_sum"],
+        steps_max_evolved=evolved["steps_max"],
+        steps_sum_evolved=evolved["steps_sum"],
+        native_host_ms_evolved=evolved["native_ms"])
+    del pop, hof, trees, broken
+
+
+def gp_rest_phases(torch, dev, tag, report, record):
+    """Phase 12b: the rest of GP. K9 with ``lt``/``eq`` (typed spambase) and
+    ``lf`` (semantic offspring) live against its plain version; the typed
+    spambase program at full width through K9; J2 against its plain
+    version on the card, the native simulator and a CPU run of the plain
+    version on generated, incomplete and evolved trees, and timed; the
+    ant program at full width through J2; then ADF, HARM and semantic GP
+    at the examples' sizes."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
     from deap_tpu_torch.ops import kernels
 
     flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
@@ -4050,113 +4535,7 @@ def gp_rest_phases(torch, dev, tag, report, record):
     print(f"  best tree: {gp.to_string(best_tree, spam)}")
     del start, pop, hof, interp, scan, X, Xi, y
 
-    # ------------------------------------------------------- J2 checks --
-    trail, start_cell = ant.parse_trail()
-    grid = torch.as_tensor(trail, device=dev)
-    words = ant.pack_trail(grid)
-    apset = ant.ant_pset()
-    max_steps = ANT_MOVES * ANT_ML + ANT_ML
-    koza = gp.from_string(KOZA_SOLUTION, apset, ANT_ML, device=dev)
-    trees = gp.gen_half_and_half(apset, ANT_ML, 1, 4)(g, ANT_POP)
-    half = ANT_POP // 2
-    # crossover children: their padding holds copies of other nodes
-    kids, _ = gp.make_cx_one_point(apset)(
-        g, {k: v[:half] for k, v in trees.items()},
-        {k: v[half:] for k, v in trees.items()})
-    trees = {k: torch.cat([trees[k][:half], kids[k]]) for k in trees}
-    args = (trees["nodes"], trees["length"], grid, start_cell, ANT_MOVES,
-            max_steps, 1, words)
-    before = ant.ant_rollout.launches
-    eaten, steps = ant.ant_rollout(*args)
-    pe, ps = ant.ant_rollout_plain(*args[:-1])
-    torch.cuda.synchronize()
-    cpu = ant.ant_rollout_plain(trees["nodes"].cpu(), trees["length"].cpu(),
-                                grid.cpu(), start_cell, ANT_MOVES, max_steps)
-    ant_binding.library()  # g++ builds it at first use: not timed
-    host_nodes = trees["nodes"].cpu().numpy()
-    host_length = trees["length"].cpu().numpy()
-    t0 = time.perf_counter()
-    native = ant_binding.ant_eval(host_nodes, host_length, trail,
-                                  start_cell, max_moves=ANT_MOVES)
-    native_ms = (time.perf_counter() - t0) * 1e3
-    if ant.ant_rollout.launches != before + 1:
-        fail("ant_rollout did not launch once")
-    if not (torch.equal(eaten, pe) and torch.equal(steps, ps)
-            and torch.equal(eaten.cpu(), cpu[0])
-            and torch.equal(steps.cpu(), cpu[1])
-            and np.array_equal(eaten.cpu().numpy(), native)):
-        fail("ant_rollout differs from its plain version, the CPU run or "
-             "the native simulator")
-    ke, _ = ant.ant_rollout(koza["nodes"], koza["length"], grid, start_cell,
-                            ANT_MOVES, max_steps, 1, words)
-    kp, _ = ant.ant_rollout_plain(koza["nodes"], koza["length"], grid,
-                                  start_cell, ANT_MOVES, max_steps)
-    kn = ant_binding.ant_eval(koza["nodes"], koza["length"], trail,
-                              start_cell, max_moves=ANT_MOVES)
-    if not (ke.tolist() == kp.tolist() == kn.tolist() == [89]):
-        fail(f"Koza's solution eats {ke.tolist()} (J2), {kp.tolist()} "
-             f"(plain), {kn.tolist()} (native), not 89")
-    total_steps = int(steps.sum())
-    print(f"{tag} ant_rollout == plain on the card == a CPU run of the plain "
-          f"version == the native simulator (eaten and steps) on "
-          f"{ANT_POP} trees of width {ANT_ML} (half crossover children), "
-          f"{ANT_MOVES} moves: eaten {int(eaten.min())}-{int(eaten.max())}, "
-          f"steps {int(steps.min())}-{int(steps.max())} (sum "
-          f"{total_steps}); Koza's solution eats 89 on all three")
-    ms = time_ms(lambda: ant.ant_rollout(*args), flush)
-    plain_ms = time_ms(lambda: ant.ant_rollout_plain(*args[:-1]), flush,
-                       reps=1)
-    # what J2 must move: the trees and lengths in, the trail's words in,
-    # eaten and steps out
-    nbytes = (trees["nodes"].numel() * 4 + ANT_POP * 4 + words.numel() * 4
-              + 2 * ANT_POP * 4)
-    record("j2", "ant_rollout", "deap_tpu_torch/csrc/ant_rollout.cu",
-           "deap_tpu/gp/ant.py:117", 0.0, ms, plain_ms, nbytes,
-           int_ops=total_steps * J2_STEP_OPS)
-    report["j2"]["native_host_ms"] = native_ms
-    print(f"  J2: {ms * 1e3:.2f} us a launch at pop {ANT_POP}; the native "
-          f"simulator {native_ms * 1e3:.2f} us on the host; the longest "
-          f"rollout {int(steps.max())} steps of one thread")
-    print_ptxas("ant_rollout", "ant_rollout_kernel")
-
-    # ----------------------------------- the ant program at full width --
-    limit = gp.static_limit(lambda gg: gp.tree_height(gg, apset), 17)
-    tb = Toolbox()
-    tb.register("evaluate", ant.make_ant_evaluator(
-        apset, ANT_ML, trail, start_cell, max_moves=ANT_MOVES))
-    tb.register("mate", limit(gp.make_cx_one_point(apset)))
-    tb.register("mutate", limit(gp.make_mut_uniform(
-        apset, gp.make_generator(apset, 24, 0, 2, "full"))))
-    tb.register("select", ops.sel_tournament, tournsize=7)
-    pop = init_population(g, ANT_POP, gp.gen_half_and_half(apset, ANT_ML, 1,
-                                                           4), spec,
-                          device=dev)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pop, logbook, hof = algorithms.ea_simple(g, pop, tb, 0.5, 0.2, ANT_NGEN,
-                                             halloffame_size=1, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ant.ant_rollout.launches
-    report["j2"]["launches"] = launches
-    native = ant_binding.ant_eval(pop.genomes["nodes"],
-                                  pop.genomes["length"], trail, start_cell,
-                                  max_moves=ANT_MOVES)
-    if launches != ANT_NGEN + 1:
-        fail(f"ant: J2 launched {launches} times for {ANT_NGEN + 1} "
-             f"evaluations")
-    if not (bool(pop.valid.all()) and np.array_equal(
-            pop.fitness[:, 0].cpu().numpy(), native.astype(np.float32))):
-        fail("ant: the population's fitness differs from the native "
-             "simulator's")
-    print(f"{tag} ant (examples/gp/ant.py) pop={ANT_POP} width={ANT_ML} "
-          f"{ANT_MOVES} moves: {ANT_NGEN} generations in {wall:.3f} s incl. "
-          f"gen-0 evaluation = {wall / ANT_NGEN * 1e3:.3f} ms/gen; most "
-          f"food {float(pop.fitness.max())} (hall of fame "
-          f"{float(hof.fitness[0, 0])}); J2 launches {launches} = the "
-          f"evaluations; fitness == the native simulator's")
-    del pop, hof, trees, kids, args
+    ant_phase(torch, dev, tag, report, record, g, flush)
 
     # --------------------------------------- the examples' small runs --
     adf_phase(torch, dev, tag, g)

@@ -12,7 +12,8 @@ children, ``if_food_ahead`` only the branch the food sensor picks,
 terminals act. :func:`ant_rollout` is that loop for a whole population:
 J2 (``csrc/ant_rollout.cu``, one thread an ant, one launch) on the
 card, its plain version :func:`ant_rollout_plain` (the JAX body, step
-for step on the batch) on the CPU. The host simulator is
+for step on the batch) on the CPU. J2 walks a complete tree without the
+stack, through a successor table. The host simulator is
 :mod:`deap_tpu_torch.native.ant_binding`, which a caller picks.
 """
 
@@ -77,6 +78,24 @@ J2_MAX_LEN = 256
 J2_MAX_WORDS = 128
 
 
+def _walk_ends_all(nodes: torch.Tensor) -> torch.Tensor:
+    """The subtree ends of every tree as J2's right-to-left pass makes
+    them, ``int64[n, L]`` (``nodes`` int64 ids of :func:`ant_pset`): the
+    JAX evaluator's rule (``deap_tpu/gp/tree.py::subtree_end`` at every
+    slot), the first slot ``j >= i`` where the arity walk from ``i``
+    closes, plus 1, over the whole width, and 1 where it never closes;
+    the length plays no part."""
+    n, L = nodes.shape
+    arity = ant_pset().arity_table(nodes.device)
+    ends = subtree_ends_all(nodes, torch.full((n,), L, dtype=torch.int64,
+                                              device=nodes.device), arity)
+    cs = (arity[nodes] - 1).cumsum(1)
+    prev = torch.cat([torch.zeros((n, 1), dtype=cs.dtype,
+                                  device=nodes.device), cs[:, :-1]], 1)
+    closed = cs.gather(1, ends - 1) <= prev - 1
+    return torch.where(closed, ends, 1)
+
+
 def ant_pset() -> PrimitiveSet:
     """The ant vocabulary: if_food_ahead(2), prog2(2), prog3(3);
     terminals move_forward / turn_left / turn_right. The primitive fns
@@ -127,14 +146,15 @@ def ant_rollout_plain(nodes: torch.Tensor, length: torch.Tensor,
                       max_moves: int, max_steps: int, start_dir: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`ant_rollout`: the JAX body, one step
-    of every ant at a time, the finished ants' states kept. Returns
-    ``(eaten int32[pop], steps int32[pop])``."""
+    of every ant at a time, the finished ants' states kept, on the JAX
+    evaluator's subtree ends (:func:`_walk_ends_all`; ``length``
+    unread).
+    Returns ``(eaten int32[pop], steps int32[pop])``."""
     n, L = nodes.shape
     dev = nodes.device
     R, C = trail.shape
     nodes = nodes.to(torch.int64)
-    ends = subtree_ends_all(nodes, length.to(torch.int64),
-                            ant_pset().arity_table(dev))
+    ends = _walk_ends_all(nodes)
     dir_row = torch.tensor(_DIR_ROW, device=dev)
     dir_col = torch.tensor(_DIR_COL, device=dev)
     ants = torch.arange(n, device=dev)
@@ -203,30 +223,8 @@ def pack_trail(trail: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def ant_rollout(nodes: torch.Tensor, length: torch.Tensor,
-                trail: torch.Tensor, start: Tuple[int, int], max_moves: int,
-                max_steps: int, start_dir: int = 1,
-                words: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Food eaten by each ant tree (J2): ``(eaten int32[pop], steps
-    int32[pop])``, the steps each rollout ran.
-
-    On the card one launch runs every rollout, one thread an ant; on a CPU
-    tensor :func:`ant_rollout_plain` runs. Both are integer arithmetic and
-    agree bit for bit. The wrapper's ``launches`` counts the launches.
-
-    :param nodes: ``int32[pop, L]`` prefix trees of :func:`ant_pset`,
-        ``L <= J2_MAX_LEN`` on the card.
-    :param length: ``int32[pop]``.
-    :param trail: ``bool[R, C]`` food map on the nodes' device.
-    :param start: ``(row, col)`` start cell; ``start_dir`` 0-3 (north,
-        east, south, west).
-    :param words: ``pack_trail(trail)``, when the caller keeps it (the
-        wrapper packs the trail otherwise, a few small launches).
-    """
-    if nodes.device.type == "cpu":
-        return ant_rollout_plain(nodes, length, trail, start, max_moves,
-                                 max_steps, start_dir)
+def _check_card_args(nodes, length, trail, max_moves, max_steps):
+    """J2's ``ValueError``s for a call on the card."""
     if nodes.device.type != "cuda":
         raise ValueError(f"no kernel for device {nodes.device}")
     pop, L = nodes.shape
@@ -243,6 +241,14 @@ def ant_rollout(nodes: torch.Tensor, length: torch.Tensor,
                          f"and a {R}x{C} trail")
     if not (0 <= max_steps < 2 ** 31 and 0 <= max_moves < 2 ** 31):
         raise ValueError("max_moves and max_steps must fit an int32")
+
+
+def _launch(nodes, trail, start, max_moves, max_steps, start_dir, words,
+            iterations=None, table=None):
+    """One launch of J2 on checked arguments: ``(eaten, steps)``, and the
+    walk's iterations and table where their outputs are given."""
+    pop, L = nodes.shape
+    R, C = trail.shape
     eaten = torch.empty(pop, dtype=torch.int32, device=nodes.device)
     steps = torch.empty(pop, dtype=torch.int32, device=nodes.device)
     if pop == 0:
@@ -252,20 +258,84 @@ def ant_rollout(nodes: torch.Tensor, length: torch.Tensor,
     elif (words.dtype != torch.int32 or words.device != nodes.device
           or words.shape != (R, -(-C // 32))):
         raise ValueError("words must be pack_trail(trail) on the card")
-    nodes, length = nodes.contiguous(), length.contiguous()
+    nodes = nodes.contiguous()
     stream = torch.cuda.current_stream(nodes.device).cuda_stream
     PT, I = _build.PTR, _build.INT
     fn = _build.function("ant_rollout", "ant_rollout",
-                         [PT, PT, PT] + [I] * 9 + [PT, PT, PT])
-    err = fn(nodes.data_ptr(), length.data_ptr(), words.data_ptr(), pop, L,
+                         [PT, PT] + [I] * 9 + [PT] * 5)
+    err = fn(nodes.data_ptr(), words.data_ptr(), pop, L,
              R, C, max_moves, max_steps, int(start[0]), int(start[1]),
-             start_dir, eaten.data_ptr(), steps.data_ptr(), stream)
+             start_dir, eaten.data_ptr(), steps.data_ptr(),
+             None if iterations is None else iterations.data_ptr(),
+             None if table is None else table.data_ptr(), stream)
     ant_rollout.launches += 1
     _build.check("ant_rollout", err, "ant_rollout")
     return eaten, steps
 
 
+def ant_rollout(nodes: torch.Tensor, length: torch.Tensor,
+                trail: torch.Tensor, start: Tuple[int, int], max_moves: int,
+                max_steps: int, start_dir: int = 1,
+                words: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Food eaten by each ant tree (J2): ``(eaten int32[pop], steps
+    int32[pop])``, the steps each rollout ran.
+
+    On the card one launch runs every rollout, one thread an ant: a
+    complete tree walks its successor table, one
+    ``if_food_ahead`` or action an iteration, any other tree the stack; on
+    a CPU tensor :func:`ant_rollout_plain` runs. Both are integer
+    arithmetic and agree bit for bit. The wrapper's ``launches`` counts
+    the launches.
+
+    :param nodes: ``int32[pop, L]`` prefix trees of :func:`ant_pset`,
+        ``L <= J2_MAX_LEN`` on the card.
+    :param length: ``int32[pop]``, which no walk reads: as the JAX
+        evaluator's, the rollout walks the root's subtree over the whole
+        width (the native simulator's subtree searches stop at the length,
+        so it agrees only on trees whose length is the root's end).
+    :param trail: ``bool[R, C]`` food map on the nodes' device.
+    :param start: ``(row, col)`` start cell; ``start_dir`` 0-3 (north,
+        east, south, west).
+    :param words: ``pack_trail(trail)``, when the caller keeps it (the
+        wrapper packs the trail otherwise, a few small launches).
+    """
+    if nodes.device.type == "cpu":
+        return ant_rollout_plain(nodes, length, trail, start, max_moves,
+                                 max_steps, start_dir)
+    _check_card_args(nodes, length, trail, max_moves, max_steps)
+    return _launch(nodes, trail, start, max_moves, max_steps, start_dir,
+                   words)
+
+
 ant_rollout.launches = 0
+
+
+def ant_rollout_traced(nodes: torch.Tensor, length: torch.Tensor,
+                       trail: torch.Tensor, start: Tuple[int, int],
+                       max_moves: int, max_steps: int, start_dir: int = 1,
+                       words: Optional[torch.Tensor] = None):
+    """:func:`ant_rollout` with what its walk did, on the card only:
+    ``(eaten, steps, iterations, table)`` from J2's one launch (counted
+    in ``ant_rollout.launches``). ``iterations int32[pop]`` are the walk's
+    loop trips (one an ``if`` or action, or one a step on the stack);
+    ``table int32[pop, L + 1, 2]`` is each tree's successor table. Entry
+    ``s`` of an ``if_food_ahead`` or action slot of a complete tree holds
+    ``x = target | fold << 8 | kind << 16`` (kind 0 ``if_food_ahead``,
+    1-3 the actions) and ``y = target | fold << 8``: an ``if`` goes to
+    ``x``'s pair with food ahead and to ``y``'s without, an action to
+    ``x``'s pair, equal to ``y``'s. A target is the first slot that is
+    not a ``prog``, its fold the ``prog`` slots skipped on the way. Row
+    ``L`` holds the root's pair and 1; every other entry is 0, and all
+    of a tree that J2 walks on the stack."""
+    _check_card_args(nodes, length, trail, max_moves, max_steps)
+    pop, L = nodes.shape
+    iterations = torch.empty(pop, dtype=torch.int32, device=nodes.device)
+    table = torch.empty((pop, L + 1, 2), dtype=torch.int32,
+                        device=nodes.device)
+    eaten, steps = _launch(nodes, trail, start, max_moves, max_steps,
+                           start_dir, words, iterations, table)
+    return eaten, steps, iterations, table
 
 
 def make_ant_evaluator(pset: PrimitiveSet, max_len: int,

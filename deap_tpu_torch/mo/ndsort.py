@@ -96,6 +96,20 @@ def _lowbit(t: torch.Tensor) -> torch.Tensor:
     return t & -t
 
 
+def _count_at_most(run: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(run, q, side='right')`` with NaN as the largest
+    value, as the JAX package sorts and searches: ``run`` ascending with
+    its NaNs at the end (as a stable sort leaves them), a number query
+    counts only the numbers of the run, a NaN query counts every entry.
+    ``torch.searchsorted`` alone steps past the run's NaNs for a number
+    query."""
+    nan = torch.isnan(run)
+    count = torch.searchsorted(torch.where(nan, torch.inf, run), q,
+                               right=True)
+    count = torch.minimum(count, (~nan).sum())
+    return torch.where(torch.isnan(q), run.shape[0], count)
+
+
 def nd_rank_sweep3(w: torch.Tensor, max_rank: Optional[int] = None,
                    return_peels: bool = False):
     """Exact 3-objective non-domination ranks in O(n log² n) work, with a
@@ -134,11 +148,11 @@ def sweep3_inputs(w: torch.Tensor):
     ysort = torch.sort(-y, stable=True).indices
     posy = torch.zeros(n, **i64)
     posy[ysort] = torch.arange(1, n + 1, **i64)
-    cge_y = torch.searchsorted(-y[ysort], -y, right=True)
+    cge_y = _count_at_most(-y[ysort], -y)
     zsort = torch.sort(-z, stable=True).indices
     rz = torch.zeros(n, **i64)
     rz[zsort] = torch.arange(n, **i64)
-    cge_z = torch.searchsorted(-z[zsort], -z, right=True)
+    cge_z = _count_at_most(-z[zsort], -z)
 
     off, F = _fenwick_offsets(n, dev)
     if F + 2 > 2**31 - 1:

@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
                             [--rastrigin] [--gp] [--cmaes]
                             [--eigh lapack|jacobi ...] [--mu-lambda]
                             [--hw] [--sass]
-                            [--k7-variants]
+                            [--k7-variants] [--j2-variants]
                             [--package-root DIR]
     python3 port_profile.py --kernel-times [--only PREFIX ...]
                             [--package-root DIR]
@@ -80,7 +80,11 @@ of ``csrc/philox.cuh``) by opcode (``cuobjdump -sass`` of the built
 kernels; the listings go to ``DIR``);
 ``--k7-variants`` times K7 at the NSGA-II path's sizes in builds with 4,
 8 and 16 query rows per thread and with the prune off, and the wrapper's
-sort and gathers alone.
+sort and gathers alone;
+``--j2-variants`` times J2 at pop 4096, width 80, 543 moves on
+``chip_smoke.py``'s trees and on the evolved population in this build
+and in one with ``-DDTT_J2_STACK_ONLY``, where every ant takes the stack
+walk.
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
 generations) and K2-hw, K2, K3-hw, K3, K4-hw and K4 (one generation) at pop 100k
@@ -113,7 +117,12 @@ For this checkout's package J3's and J4's chunks split by phase too,
 from a build with ``-DDTT_ND_PHASES``. ``--only PREFIX ...`` keeps the
 entries whose names start with one of the PREFIXes and skips the
 checksum runs and the other phase clocks (``--only j1``: J1 alone;
-``--only j3 j4``: J3 and J4 and their phase clock).
+``--only j3 j4``: J3 and J4 and their phase clock; ``--only j2``: J2 at
+pop 4096, width 80, 543 moves on ``chip_smoke.py``'s trees and on the
+population after the ant program's 10 generations, with the launches of
+a call, each set's iterations and steps where the package traces its
+walk, and, for this checkout's package, one dependent shared-memory
+load's clocks).
 Two versions
 compare on one card by runs in turns: that one, this one, this one, that
 one.
@@ -540,6 +549,64 @@ def k7_variants(dev, facts, rows=(4, 8, 16), reps=10):
               f" us")
 
 
+def j2_variants(dev, facts, reps=25):
+    """J2 at pop 4096, width 80, 543 moves on ``chip_smoke.ant_trees``
+    and on the population after ``chip_smoke.ant_evolved``'s 10
+    generations, in the default build of csrc/ant_rollout.cu and in one
+    with ``-DDTT_J2_STACK_ONLY`` (every ant takes the stack walk, in the
+    same shared memory); each bitwise against the default build (eaten
+    and steps), timed in turns (forward, then backward) as
+    ``chip_smoke.time_ms`` times."""
+    import torch
+    from chip_smoke import (ANT_ML, ANT_MOVES, ant_evolved, ant_trees,
+                            bitwise_equal, time_ms)
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.gp import ant
+
+    libs = build_variants("ant_rollout",
+                          {"counter walk": [],
+                           "stack walk": ["-DDTT_J2_STACK_ONLY"]},
+                          "ant_rollout_kernel")
+    default_lib = _build.library("ant_rollout")
+    trail, start = ant.parse_trail()
+    grid = torch.as_tensor(trail, device=dev)
+    words = ant.pack_trail(grid)
+    max_steps = ANT_MOVES * ANT_ML + ANT_ML
+    g = make_generator(61, dev)
+    sets = {"j2": ant_trees(g),
+            "j2_evolved": ant_evolved(g, trail, start)[0].genomes}
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+
+    def variant(name, args):
+        def call():
+            _build._LIBS["ant_rollout"] = libs[name]
+            try:
+                return ant.ant_rollout(*args)
+            finally:
+                _build._LIBS["ant_rollout"] = default_lib
+        return call
+
+    for set_name, t in sets.items():
+        args = (t["nodes"].to(torch.int32).contiguous(),
+                t["length"].to(torch.int32).contiguous(), grid, start,
+                ANT_MOVES, max_steps, 1, words)
+        want = ant.ant_rollout(*args)
+        calls = {name: variant(name, args) for name in libs}
+        for name, fn in calls.items():
+            got = fn()
+            if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"J2 {name} differs from the default "
+                                   f"build on {set_name}")
+        times = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            times[name].append(time_ms(calls[name], flush, reps=reps))
+        for name, ms in times.items():
+            print(f"[{facts}] J2 {set_name} {name}: "
+                  + ", ".join(f"{t * 1e3:.2f}" for t in ms) + " us "
+                  f"(max steps {int(want[1].max())})")
+
+
 def sass_loops(out_dir, library, kernel):
     """The loops of ``kernel`` (a mangled-name pattern) in ``cuobjdump
     -sass`` of the built ``csrc/<library>.cu``, each as the opcodes from
@@ -760,6 +827,10 @@ def kernel_times(dev, facts, root, reps=25, only=None):
         calls.update(j1_calls(dev, reps))
     if wanted("j3", "j4"):
         calls.update(j3_j4_calls(dev))
+    j2_counts = {}
+    if wanted("j2"):
+        j2, j2_counts = j2_calls(dev, reps, own=root == ROOT)
+        calls.update(j2)
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
@@ -783,6 +854,7 @@ def kernel_times(dev, facts, root, reps=25, only=None):
                 fitness.double().sum())
         times[f"{name}_ms"] = time_ms(call, (cold or [flush])[0],
                                       reps=n_reps)
+    times.update(j2_counts)
     if not only:
         times.update(k8_dc_times(dev, flush))
         times.update(run_checksums(dev))
@@ -1060,6 +1132,47 @@ def j3_j4_calls(dev, reps=10):
             calls[name] = (lambda args=args: (ndsort.sweep3_rows(*args),
                                               none), reps)
     return calls
+
+
+def j2_calls(dev, reps, own):
+    """``kernel_times``' entries for J2 at ``examples/gp/ant.py``'s width
+    80 and 543 moves, pop 4096: on ``chip_smoke.ant_trees`` (``j2``) and
+    on the population after ``chip_smoke.ant_evolved``'s 10 generations
+    (``j2_evolved``), each returning ``(eaten, steps)`` for the checksum;
+    beside them the launches of one call and, where the package traces
+    its walk, each set's iterations and steps; for this checkout's
+    package (``own``) the clocks of one dependent shared-memory load."""
+    import torch
+    from chip_smoke import (ANT_ML, ANT_MOVES, ant_evolved, ant_trees,
+                            shared_load_clocks)
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.gp import ant
+
+    trail, start = ant.parse_trail()
+    grid = torch.as_tensor(trail, device=dev)
+    words = ant.pack_trail(grid)
+    max_steps = ANT_MOVES * ANT_ML + ANT_ML
+    g = make_generator(61, dev)
+    sets = {"j2": ant_trees(g),
+            "j2_evolved": ant_evolved(g, trail, start)[0].genomes}
+    calls, counts = {}, {}
+    for name, t in sets.items():
+        args = (t["nodes"].to(torch.int32).contiguous(),
+                t["length"].to(torch.int32).contiguous(), grid, start,
+                ANT_MOVES, max_steps, 1, words)
+        calls[name] = (lambda args=args: ant.ant_rollout(*args), reps)
+        before = ant.ant_rollout.launches
+        ant.ant_rollout(*args)
+        counts[f"{name}_launches_a_call"] = ant.ant_rollout.launches - before
+        if hasattr(ant, "ant_rollout_traced"):
+            _, steps, iters, _ = ant.ant_rollout_traced(*args)
+            counts.update({f"{name}_iterations_max": int(iters.max()),
+                           f"{name}_iterations_sum": int(iters.sum()),
+                           f"{name}_steps_max": int(steps.max()),
+                           f"{name}_steps_sum": int(steps.sum())})
+    if own:
+        counts["j2_shared_load_clocks"] = shared_load_clocks(torch, dev)
+    return calls, counts
 
 
 #: J1's shapes in ``--kernel-times``: CMA-ES's C at dim 100, the two
@@ -1472,6 +1585,9 @@ def main():
     parser.add_argument("--k7-variants", action="store_true",
                         help="time K7 with 4, 8 and 16 query rows per "
                              "thread and with the prune off")
+    parser.add_argument("--j2-variants", action="store_true",
+                        help="time J2 with every ant on the stack walk "
+                             "beside the default build")
     parser.add_argument("--kernel-times", action="store_true",
                         help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw, "
                              "K4 and K1 at pop 100k, L 100, K8 and K7 at the "
@@ -1482,8 +1598,8 @@ def main():
     parser.add_argument("--only", metavar="PREFIX", nargs="+",
                         help="with --kernel-times: only the entries whose "
                              "names start with one of the PREFIXes (e.g. "
-                             "j1, or j3 j4), without the checksum runs and "
-                             "the other phase clocks")
+                             "j1, j2, or j3 j4), without the checksum runs "
+                             "and the other phase clocks")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "
                              "profiled and timed (e.g. an "
@@ -1519,9 +1635,11 @@ def main():
         sass_philox(args.out, facts)
     if args.k7_variants:
         k7_variants(dev, facts)
+    if args.j2_variants:
+        j2_variants(dev, facts)
     if args.hw and not any(name in HW_LOOPS for name in chosen):
         chosen += ["fused", "packed", "evolve"]
-    if chosen or args.sass or args.k7_variants:
+    if chosen or args.sass or args.k7_variants or args.j2_variants:
         for name in chosen:
             if args.hw and name in HW_LOOPS:
                 for prng in ("input", "hw"):

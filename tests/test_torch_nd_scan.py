@@ -100,11 +100,6 @@ def _rows(kind, n, m, seed):
 
 KINDS = ["random", "ties", "duplicates", "neg_inf", "one_front", "chain",
          "nan"]
-#: the JAX sweep places a NaN by a binary search over a sorted run that
-#: ends in NaNs, where each compare is false: its ranks of NaN rows
-#: follow that search's path, and the port's (NaN after every number, as
-#: torch.searchsorted has it) are not held to them
-SWEEP_KINDS = [k for k in KINDS if k != "nan"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,10 +132,28 @@ def test_staircase_plain_equals_jax_bitwise(kind):
         assert int(got.max()) == 0
 
 
-@pytest.mark.parametrize("kind", SWEEP_KINDS)
+@pytest.mark.parametrize("kind", KINDS)
 def test_sweep_plain_equals_jax_bitwise(kind):
+    # every row of every kind, the NaN rows' too: both packages search the
+    # sorted values with NaN as the largest value
     w = _rows(kind, N_SWEEP, 3, 10 + KINDS.index(kind))
     _check(jndsort.nd_rank_sweep3, tndsort.nd_rank_sweep3, w)
+
+
+def test_sweep_ranks_rows_beside_a_nan_as_the_jax_scan():
+    # a number's query bound counts only the numbers of a sorted run that
+    # ends in NaN (torch.searchsorted alone counts the NaN too, and ranked
+    # the last row 1)
+    w = np.array([[0.26161215, np.nan, 0.81422573],
+                  [0.09191594, 0.6001005, 0.7285605],
+                  [0.18790108, 0.05514663, 0.27496937]], np.float32)
+    got = _check(jndsort.nd_rank_sweep3, tndsort.nd_rank_sweep3, w)
+    assert got.tolist() == [0, 0, 0]
+    # NaN-free rows of the nan kind rank as the dominance peel ranks them
+    w = T(_rows("nan", 400, 3, 2))
+    clean = ~torch.isnan(w).any(1)
+    assert torch.equal(tmo.nd_rank(w, impl="sweep")[clean],
+                       tmo.nd_rank(w, impl="tiled")[clean])
 
 
 @pytest.mark.parametrize("engine", ["staircase", "sweep"])

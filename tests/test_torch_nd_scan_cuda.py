@@ -7,7 +7,9 @@ front maxima across the edge of shared memory, at the card's own edge
 (chains of 58,111-58,113 rows) and on a 100k-row chain (every maximum
 past the first 58,112 in device memory); J4 on random tables of 484 and
 1024 columns, where its chunks hold 28 and 12 rows (the tables of 2^21
-rows and more), and on tables whose U rows are 90% real slots.
+rows and more), and on tables whose U rows are 90% real slots; the whole
+``nd_rank(impl='sweep')`` through J4 against ``impl='tiled'`` on the
+NaN-free rows of the ``nan`` kind at 16,384 and 100k rows.
 
 These tests need a CUDA card and the CUDA toolkit; they skip without a
 card. On a machine with one, from the repository's root:
@@ -113,6 +115,18 @@ def test_j4_equals_plain_and_tiled_at_16384(card):
     assert _j4(w)
     assert torch.equal(mo.nd_rank(w, impl="sweep"),
                        mo.nd_rank(w, impl="tiled"))
+
+
+@pytest.mark.parametrize("n", [16_384, 100_000])
+def test_j4_nd_rank_equals_tiled_beside_nan_rows(card, n):
+    # the sweep's query bounds order NaN as the largest value, so rows
+    # that hold no NaN rank as K7's peel ranks them
+    w = nd_scan_rows(torch, card, "nan", n, 3, 9)
+    clean = ~torch.isnan(w).any(1)
+    before = ndsort.nd_rank_sweep3.launches
+    got = mo.nd_rank(w, impl="sweep")
+    assert ndsort.nd_rank_sweep3.launches == before + 1
+    assert torch.equal(got[clean], mo.nd_rank(w, impl="tiled")[clean])
 
 
 def test_j4_equals_plain_at_100k(card):
