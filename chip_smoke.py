@@ -226,7 +226,23 @@ Phases (any failure ends the script with a non-zero exit code):
     time, then one selection on a converged union (one front, n_fill =
     mu) with its peak memory; DE and PSO on Rastrigin at pop 100k, 30 genes, 20
     generations after 2; dense ``sel_spea2`` on an over-full ZDT1 union of
-    2,000 rows to 1,000.
+    2,000 rows to 1,000;
+18. the cart-pole neuroevolution (``bench_suite.py``'s
+    cartpole_neuro_pop10k) through J5, ``csrc/cartpole_rollout.cu``, a
+    thread an episode: J5's sinf, cosf and saturated tanhf bitwise
+    against torch's on the card; J5 bitwise against its plain version on
+    a balancing genome (every episode at the 500-step cap), NaN and
+    infinite genes and 45 shapes (P 1-10,000 by E 1, 3, 5 by max_steps 10,
+    200, 500); the configuration as bench_suite.py calls it (pop 10k,
+    ``mlp_policy((4, 16, 2))`` genomes N(0, 0.5^2), the mean return over
+    3 fixed episode starts of up to 500 steps, blend and Gaussian
+    variation, tournaments of 3, on the one-device mesh) for 20
+    generations, J5 launched 21 times and K1 never, best and mean fitness
+    higher than at gen 0; J5 bitwise on its gen-0 and last populations,
+    timed on both beside its bound, its plain version and its chain floor
+    (the longest episode's steps times one thread's clocks a step); then
+    ``var_and(fused='auto')`` with ``mut_uniform_int`` through K1's set
+    kind, bitwise against the unfused composition.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -391,6 +407,18 @@ ND_KINDS = ("random", "ties", "neg_inf", "nan", "duplicates", "one_front",
             "chain")
 # the row counts both are held at on each kind: around one and two chunks
 ND_SIZES = (1, 2, 31, 32, 33, 63, 64, 65, 1000)
+# bench_suite.py's cartpole_neuro_pop10k: pop 10k mlp_policy((4, 16, 2))
+# genomes N(0, 0.5^2), the mean return over 3 fixed episode starts of up to
+# 500 steps, blend (alpha 0.1), Gaussian mutation (sigma 0.3, indpb 0.1),
+# tournaments of 3, cxpb and mutpb 0.5, 20 generations
+CP_POP, CP_SIZES, CP_EPISODES, CP_STEPS, CP_NGEN = 10_000, (4, 16, 2), 3, 500, 20
+CP_SIGMA, CP_ALPHA, CP_MUT_SIGMA, CP_INDPB = 0.5, 0.1, 0.3, 0.1
+CP_CXPB, CP_MUTPB = 0.5, 0.5
+# J5's checked shapes (policies x episodes x max_steps), and the gains of
+# the balancing controller (x, x_dot, theta, theta_dot)
+J5_POPS, J5_EPISODES, J5_STEPS = (1, 3, 33, 1001, 10_000), (1, 3, 5), (
+    10, 200, 500)
+J5_BALANCE = (0.5, 1.0, 10.0, 2.0)
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -580,13 +608,14 @@ def main():
     report = {}
 
     def record(key, name, source, replaces, err, ms, plain_ms, nbytes,
-               compares=0, imads=0, int_ops=0):
+               compares=0, imads=0, int_ops=0, f32_ops=0):
         """One kernel's line; the bound is the larger of its bytes over the
-        memory rate and its operations (float32 compares, the integer
-        multiplies of its Philox calls, or other integer operations, at
-        the integer multiply's rate) over their rate."""
+        memory rate and its operations (float32 compares and other float32
+        operations at 128 lanes an SM a clock, the integer multiplies of
+        its Philox calls, or other integer operations, at the integer
+        multiply's rate) over their rate."""
         bytes_ms = nbytes / rate * 1e3
-        ops_ms = (compares / compares_per_s
+        ops_ms = ((compares + f32_ops) / compares_per_s
                   + (imads + int_ops) / imads_per_s) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -597,8 +626,9 @@ def main():
                        "library_ms": None}
         print(f"{tag} {name}: {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} "
               f"us by {bound_by}: {nbytes / 1e6:.2f} MB, {compares:.3e} "
-              f"compares, {imads:.3e} integer multiplies, {int_ops:.3e} "
-              f"other integer operations; plain {plain_ms * 1e3:.2f} us), "
+              f"compares, {f32_ops:.3e} other float32 operations, "
+              f"{imads:.3e} integer multiplies, {int_ops:.3e} other "
+              f"integer operations; plain {plain_ms * 1e3:.2f} us), "
               f"max_abs_err {err}")
 
     # ----------------------------------------- K1 fused_variation check --
@@ -856,12 +886,13 @@ def main():
     mu_lambda_phases(torch, dev, tag, report)
     strategy_phases(torch, dev, tag, report)
     swarm_nsga3_phases(torch, dev, tag, report)
+    cartpole_phases(torch, dev, tag, report, record)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
                                    "k8", "k9", "k2_hw", "k3_hw", "k4_hw",
                                    "k5_hw", "k6_hw", "j1", "j2", "j3",
-                                   "j4")]}))
+                                   "j4", "j5")]}))
     print(facts)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -871,10 +902,12 @@ def main():
 
 def launch_counters():
     """Every kernel wrapper's launch counter."""
+    from deap_tpu_torch.benchmarks import cartpole
     from deap_tpu_torch.gp import ant
     from deap_tpu_torch.mo import emo, ndsort
     from deap_tpu_torch.ops import kernels, kernels_real, linalg, packed
-    return (kernels.fused_variation, kernels.fused_variation_eval,
+    return (cartpole.cartpole_rollout, kernels.fused_variation,
+            kernels.fused_variation_eval,
             packed.fused_variation_eval_packed,
             packed.sel_tournament_gather_packed, packed.evolve_packed,
             kernels_real.fused_variation_eval_real,
@@ -3385,6 +3418,305 @@ def j3_shared_slots(emo, slots):
         yield
     finally:
         emo.J3_SHARED_SLOTS = saved
+
+
+def j5_shapes():
+    """J5's checked shapes: (P, E, max_steps)."""
+    return [(P, E, S) for P in J5_POPS for E in J5_EPISODES
+            for S in J5_STEPS]
+
+
+def j5_step_ops(H):
+    """J5's float32 operations a step at hidden width H, each sin, cos and
+    tanh counted as one: the hidden layer (a product, 3 fused
+    multiply-adds, the bias and tanh a unit), the outputs (H products or
+    fused multiply-adds, the bias and tanh each), the argmax's compare and
+    the physics (sin, cos, 17 products, sums and quotients, 4 fused
+    updates, 2 limit compares)."""
+    return 6 * H + 2 * (H + 2) + 1 + 25
+
+
+def balancing_genome(torch, dev, H=16):
+    """A hand-made mlp_policy((4, H, 2)) genome that balances the pole: one
+    hidden unit reads 0.5 x + 1.0 x_dot + 10 theta + 2 theta_dot, the
+    outputs are -4 and +4 times it (push right when it is positive)."""
+    g = torch.zeros(7 * H + 2, device=dev)
+    for k, w in enumerate(J5_BALANCE):
+        g[k * H] = w
+    g[5 * H], g[5 * H + 1] = -4.0, 4.0
+    return g
+
+
+def j5_check(torch, genomes, starts, max_steps, what):
+    """J5 against its plain version on the card, bitwise; its returns."""
+    from deap_tpu_torch.benchmarks import cartpole
+    got = cartpole.cartpole_rollout(genomes, starts, max_steps)
+    want = cartpole.cartpole_rollout_plain(genomes, starts, max_steps)
+    torch.cuda.synchronize()
+    if not bitwise_equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"J5 differs from its plain version on {what} ({bad} of "
+             f"{got.numel()} returns)")
+    return got
+
+
+def cartpole_phases(torch, dev, tag, report, record):
+    """Phase 18: bench_suite.py's cartpole_neuro_pop10k through J5
+    (``csrc/cartpole_rollout.cu``). J5's sin, cos and tanh against torch's
+    on the card; J5 bitwise against its plain version on a balancing
+    genome, NaN and infinite genes and ``j5_shapes``; the configuration as
+    bench_suite.py calls it (pop 10k, 3 episodes of up to 500 steps, 20
+    generations: J5 21 launches, K1 none), J5 bitwise on its gen-0 and
+    last populations and timed on both beside its bound, its chain floor
+    and its plain version; then K1's set kind through ``var_and`` with
+    ``mut_uniform_int``."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, ops
+    from deap_tpu_torch.benchmarks import cartpole
+    from deap_tpu_torch.core.population import gather, init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.support.stats import mean0
+
+    # --------------------------------------- J5's transcendentals --
+    g = make_generator(31, dev)
+    x = torch.cat([torch.randn(1 << 22, generator=g, device=dev) * sc
+                   for sc in (0.05, 0.3, 3.0, 10.0, 1e4)] + [
+        torch.randint(-2 ** 31, 2 ** 31, (1 << 22,), generator=g,
+                      device=dev, dtype=torch.int32).view(torch.float32),
+        torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan,
+                      cartpole.TANH_ONE, -cartpole.TANH_ONE,
+                      math.nextafter(cartpole.TANH_ONE, 0.0)], device=dev)])
+    for name, got, want in zip(("sin", "cos", "tanh_sat"),
+                               cartpole.cartpole_math(x),
+                               (torch.sin(x), torch.cos(x),
+                                cartpole.tanh_sat(x))):
+        if not bitwise_equal(got, want):
+            fail(f"J5's {name} differs from torch's on the card")
+    print(f"{tag} J5's sinf, cosf and saturated tanhf == torch.sin, "
+          f"torch.cos, tanh_sat bitwise on {x.numel()} floats (normal at 5 "
+          f"scales, every bit pattern, edges)")
+
+    # ----------------------------------------------------- J5 checks --
+    _, n = cartpole.mlp_policy(CP_SIZES)
+    bal = balancing_genome(torch, dev)
+    starts5 = cartpole.initial_state(g, 5)
+    r = j5_check(torch, bal[None].repeat(3, 1), starts5, CP_STEPS,
+                 "the balancing genome")
+    if not bool((r == CP_STEPS).all()):
+        fail(f"the balancing genome fell: {r.tolist()}")
+    odd = torch.randn((33, n), generator=g, device=dev)
+    odd[0, 0] = math.nan
+    odd[1, 100] = math.inf
+    odd[2, 112] = -math.inf
+    odd[3] = math.nan
+    odd[4, 64] = math.inf
+    odd[5, 80:82] = torch.tensor([math.inf, -math.inf], device=dev)
+    j5_check(torch, odd, starts5, 200, "NaN and infinite genes")
+    cases = 0
+    for P, E, S in j5_shapes():
+        sigma = 3.0 if cases % 2 else CP_SIGMA
+        gen_ = torch.randn((P, n), generator=g, device=dev) * sigma
+        j5_check(torch, gen_, cartpole.initial_state(g, E), S,
+                 f"P {P}, E {E}, max_steps {S}")
+        cases += 1
+    print(f"{tag} J5 == plain bitwise on the balancing genome (every "
+          f"episode {CP_STEPS} steps), NaN and infinite genes and {cases} "
+          f"shapes (P {J5_POPS} x E {J5_EPISODES} x max_steps {J5_STEPS}, "
+          f"sigma {CP_SIGMA} and 3)")
+    print_ptxas("cartpole_rollout", "cartpole_rollout_kernel")
+
+    # ------------------------- cartpole_neuro_pop10k at full width --
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, starts, tb, pop = cartpole_start(dev, 11)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pop0 = pop
+    fits = [pop.fitness[:, 0]]
+    for _ in range(CP_NGEN):
+        pop = cartpole_generation(g, pop, tb)
+        fits.append(pop.fitness[:, 0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    j5_launches = cartpole.cartpole_rollout.launches
+    k1_launches = kernels.fused_variation.launches
+    if j5_launches != CP_NGEN + 1 or k1_launches != 0:
+        fail(f"cart-pole: J5 launched {j5_launches} times (want "
+             f"{CP_NGEN + 1}), K1 {k1_launches} (want 0)")
+    best = [float(f.max()) for f in fits]
+    mean = [float(f.mean()) for f in fits]
+    capped = [int((f == CP_STEPS).sum()) for f in fits]
+    # the best fitness cannot pass the cap: where gen 0 already reaches it,
+    # more policies must reach it after the run
+    if not (bool(pop.valid.all()) and all(math.isfinite(v) for v in mean)
+            and mean[-1] > mean[0] and (best[-1] > best[0] or (
+                best[0] == best[-1] == CP_STEPS and capped[-1] > capped[0]))):
+        fail(f"cart-pole did not improve: best {best[0]} -> {best[-1]}, "
+             f"mean {mean[0]} -> {mean[-1]}, policies at the cap "
+             f"{capped[0]} -> {capped[-1]}")
+    returns = {}
+    for label, p in (("gen 0", pop0), (f"gen {CP_NGEN}", pop)):
+        r = j5_check(torch, p.genomes, starts, CP_STEPS,
+                     f"the {label} population")
+        returns[label] = r
+        if not torch.equal(p.fitness[:, 0], mean0(r.T)):
+            fail(f"cart-pole {label}: the fitness is not the mean return")
+    r0, rn = returns["gen 0"], returns[f"gen {CP_NGEN}"]
+    ms_gen = (t2 - t1) / CP_NGEN * 1e3
+    print(f"{tag} cartpole_neuro_pop10k (bench_suite.py): pop {CP_POP}, "
+          f"mlp_policy{CP_SIZES}, {CP_EPISODES} episodes of up to "
+          f"{CP_STEPS} steps: start {(t1 - t0) * 1e3:.3f} ms (init and gen-0 "
+          f"evaluation), {CP_NGEN} generations in {(t2 - t1):.3f} s = "
+          f"{ms_gen:.3f} ms/gen; best {best[0]:.3f} -> {best[-1]:.3f}, mean "
+          f"{mean[0]:.3f} -> {mean[-1]:.3f}, policies at the cap "
+          f"{capped[0]} -> {capped[-1]}; J5 launches {j5_launches}, K1 "
+          f"{k1_launches}; alive steps gen 0 {int(r0.sum())}, gen "
+          f"{CP_NGEN} {int(rn.sum())}; longest episode {int(r0.max())} -> "
+          f"{int(rn.max())} steps; episodes at the cap "
+          f"{int((r0 == CP_STEPS).sum())} -> {int((rn == CP_STEPS).sum())}")
+
+    # a generation in its parts (host clock to a synchronised card):
+    # selection and variation, the evaluation (J5 and the mean), the whole
+    idx = tb.select(g, pop.wvalues, pop.size)
+    parts = {
+        "select_vary": whole_ms(torch, lambda: algorithms.var_and(
+            g, gather(pop, tb.select(g, pop.wvalues, pop.size)), tb,
+            CP_CXPB, CP_MUTPB)),
+        "evaluate": whole_ms(torch, lambda: tb.evaluate(pop.genomes[idx])),
+        "generation": whole_ms(torch, lambda: cartpole_generation(g, pop,
+                                                                  tb))}
+    print(f"{tag} cart-pole generation in parts (evolved population, median "
+          f"of 5, host clock): selection and variation "
+          f"{parts['select_vary']:.3f} ms, evaluation "
+          f"{parts['evaluate']:.3f} ms, the whole {parts['generation']:.3f} "
+          f"ms")
+
+    # ---------------------------------------------- J5 timed --
+    flush = torch.empty(2 ** 27, dtype=torch.int32, device=dev)
+    clocks = torch.zeros(1, dtype=torch.int64, device=dev)
+    cartpole.cartpole_rollout(bal[None], starts[:1], CP_STEPS, clocks=clocks)
+    step_clocks = int(clocks.item()) / CP_STEPS
+    clock = max_sm_clock_hz()
+    H = CP_SIZES[1]
+    times = {}
+    for label, p, r in (("gen0", pop0, r0), ("evolved", pop, rn)):
+        genomes = p.genomes.contiguous()
+        ms = time_ms(lambda: cartpole.cartpole_rollout(genomes, starts,
+                                                       CP_STEPS), flush)
+        plain_ms = time_ms(lambda: cartpole.cartpole_rollout_plain(
+            genomes, starts, CP_STEPS), flush, reps=1)
+        floor_ms = float(r.max()) * step_clocks / clock * 1e3
+        times[label] = dict(ms=ms, plain_ms=plain_ms, floor_ms=floor_ms,
+                            alive=int(r.sum()), longest=int(r.max()))
+        print(f"{tag} J5 on the {label} population: {ms * 1e3:.2f} us a "
+              f"launch; plain {plain_ms * 1e3:.2f} us; the longest episode "
+              f"{int(r.max())} steps x {step_clocks:.1f} clocks a step (one "
+              f"thread alone, max SM clock {clock / 1e6:.0f} MHz) = chain "
+              f"floor {floor_ms * 1e3:.2f} us; {int(r.sum())} alive steps")
+    # what J5 must move: the genomes and starts in once, the returns out
+    nbytes = CP_POP * n * 4 + CP_EPISODES * 16 + CP_POP * CP_EPISODES * 4
+    record("j5", "cartpole_rollout",
+           "deap_tpu_torch/csrc/cartpole_rollout.cu",
+           "deap_tpu/benchmarks/cartpole.py:82", 0.0, times["gen0"]["ms"],
+           times["gen0"]["plain_ms"], nbytes,
+           f32_ops=times["gen0"]["alive"] * j5_step_ops(H))
+    ev = times["evolved"]
+    report["j5"].update(
+        launches=j5_launches, chain_floor_ms=times["gen0"]["floor_ms"],
+        step_clocks=step_clocks, longest_steps=times["gen0"]["longest"],
+        alive_steps=times["gen0"]["alive"], ms_per_gen=ms_gen,
+        ms_evolved=ev["ms"], plain_ms_evolved=ev["plain_ms"],
+        chain_floor_ms_evolved=ev["floor_ms"],
+        longest_steps_evolved=ev["longest"], alive_steps_evolved=ev["alive"],
+        policies_at_cap=[capped[0], capped[-1]], generation_parts_ms=parts,
+        bound_ms_evolved=max(
+            nbytes / memory_rate(torch.cuda.get_device_name(0)),
+            ev["alive"] * j5_step_ops(H) / compare_rate(dev)) * 1e3)
+    print(f"  J5 evolved bound {report['j5']['bound_ms_evolved'] * 1e3:.2f} "
+          f"us")
+    del flush
+
+    # ------------------------- K1's set kind: mut_uniform_int --
+    tb = Toolbox()
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_uniform_int, low=0, up=9, indpb=INDPB)
+    for n_, L_ in ((N, L), (1001, 33)):
+        pop = init_population(make_generator(5, dev), n_,
+                              ops.randint_genome(L_, 0, 9), FitnessSpec(
+                                  (1.0,)), device=dev)
+        pop = pop.replace(genomes=pop.genomes.to(torch.float32))
+        pop = pop.with_fitness(torch.zeros((n_, 1), device=dev))
+        sel = torch.randint(0, n_, (n_,), generator=make_generator(6, dev),
+                            device=dev)
+        before = kernels.fused_variation.launches
+        got = algorithms.var_and(make_generator(7, dev), pop, tb, CXPB,
+                                 MUTPB, fused="auto", sel_idx=sel)
+        launched = kernels.fused_variation.launches - before
+        want = algorithms.var_and(make_generator(7, dev), pop, tb, CXPB,
+                                  MUTPB, fused=False, sel_idx=sel)
+        torch.cuda.synchronize()
+        if launched != 1 or not (bitwise_equal(got.genomes, want.genomes)
+                                 and torch.equal(got.valid, want.valid)):
+            fail(f"var_and with mut_uniform_int at n {n_}, L {L_}: K1 "
+                 f"launched {launched} times or differs from the unfused "
+                 f"composition")
+    report["k1"]["set_kind_var_and"] = True
+    print(f"{tag} var_and(fused='auto') with mut_uniform_int takes K1's set "
+          f"kind (one launch) == the unfused composition bitwise at n {N}, "
+          f"L {L} and n 1001, L 33 (float32 genomes)")
+
+
+def cartpole_toolbox(starts):
+    """bench_suite.py's cartpole_neuro_pop10k operators: the fitness is the
+    mean return over the episode starts ``starts [E, 4]`` of
+    ``mlp_policy((4, 16, 2))`` genomes (J5 on the card; the sum times
+    float32(1/E), as jnp.mean rounds it), blend crossover (alpha 0.1),
+    Gaussian mutation (sigma 0.3, indpb 0.1), tournaments of 3."""
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch.benchmarks import cartpole
+    from deap_tpu_torch.support.stats import mean0
+    policy, _ = cartpole.mlp_policy(CP_SIZES)
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: mean0(cartpole.rollout_population(
+        policy, g, starts, CP_STEPS).T))
+    tb.register("mate", ops.cx_blend, alpha=CP_ALPHA)
+    tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=CP_MUT_SIGMA,
+                indpb=CP_INDPB)
+    tb.register("select", ops.sel_tournament, tournsize=TOURNSIZE)
+    return tb
+
+
+def cartpole_start(dev, seed, pop_size=None):
+    """bench_suite.py's start: a generator, the 3 episode starts fixed for
+    the run, the toolbox, and ``pop_size`` (CP_POP) genomes N(0, 0.5²)
+    evaluated and placed on the one-device mesh."""
+    from deap_tpu_torch import FitnessSpec, algorithms, ops, parallel
+    from deap_tpu_torch.benchmarks import cartpole
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    g = make_generator(seed, dev)
+    starts = cartpole.initial_state(g, CP_EPISODES)
+    tb = cartpole_toolbox(starts)
+    _, n = cartpole.mlp_policy(CP_SIZES)
+    pop = init_population(g, pop_size or CP_POP,
+                          ops.normal_genome(n, sigma=CP_SIGMA),
+                          FitnessSpec((1.0,)), device=dev)
+    pop = algorithms.evaluate_invalid(pop, tb.evaluate)
+    pop = parallel.shard_population(pop, parallel.population_mesh(
+        device=dev))
+    return g, starts, tb, pop
+
+
+def cartpole_generation(g, pop, tb):
+    """bench_suite.py's cart-pole step: tournament selection of the whole
+    population, ``var_and`` (cxpb 0.5, mutpb 0.5: blend has no fused
+    form, so the unfused composition), evaluation of the changed rows."""
+    from deap_tpu_torch import algorithms
+    from deap_tpu_torch.core.population import gather
+    idx = tb.select(g, pop.wvalues, pop.size)
+    off = algorithms.var_and(g, gather(pop, idx), tb, CP_CXPB, CP_MUTPB)
+    return algorithms.evaluate_invalid(off, tb.evaluate)
 
 
 def zdt1_toolbox():

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "deap_tpu_torch"
 SOURCES = ("fused_variation", "packed_variation", "selgather_packed",
            "dominance", "fused_variation_eval", "fused_variation_real",
            "evolve_packed", "gp_grouped", "jacobi_eigh", "ant_rollout",
-           "nd_scan")
+           "nd_scan", "cartpole_rollout")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,7 @@ Port of :mod:`deap_tpu.benchmarks`: the single-objective set (sphere,
 Rastrigin and its scaled and skewed forms, Griewank, h1, Ackley, ...),
 the multi-objective set (Kursawe, the ZDT and DTLZ families, Fonseca,
 Poloni, Schaffer's, Dent), and the modules :mod:`.binary` (bit-genome
-functions), :mod:`.gp` (symbolic-regression targets), :mod:`.tools`
+functions), :mod:`.cartpole` (the control task and its rollouts, J5), :mod:`.gp` (symbolic-regression targets), :mod:`.tools`
 (transforms and quality metrics) and :mod:`.movingpeaks` (the dynamic
 landscape). The JAX package's functions take one genome ``f32[dim]`` and
 are ``vmap``-ed; these take the population ``f32[n, dim]`` and return
@@ -18,7 +18,8 @@ import math
 
 import torch
 
-from deap_tpu_torch.benchmarks import binary, gp, movingpeaks, tools  # noqa: F401
+from deap_tpu_torch.benchmarks import (  # noqa: F401
+    binary, cartpole, gp, movingpeaks, tools)
 
 __all__ = [
     "rand", "plane", "sphere", "cigar", "rosenbrock", "h1", "ackley",
@@ -26,7 +27,8 @@ __all__ = [
     "rastrigin_skew", "schaffer", "schwefel", "himmelblau", "shekel",
     "kursawe", "schaffer_mo", "zdt1", "zdt2", "zdt3", "zdt4", "zdt6",
     "dtlz1", "dtlz2", "dtlz3", "dtlz4", "dtlz5", "dtlz6", "dtlz7",
-    "fonseca", "poloni", "dent", "binary", "gp", "movingpeaks", "tools",
+    "fonseca", "poloni", "dent", "binary", "cartpole", "gp", "movingpeaks",
+    "tools",
 ]
 
 #: the functions below against the JAX package's (``jax.jit`` of its

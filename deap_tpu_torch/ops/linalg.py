@@ -42,6 +42,7 @@ import torch
 from deap_tpu_torch import _build
 
 __all__ = ["eigh_jacobi", "eigh_jacobi_plain", "default_sweeps", "sqrt_rn",
+           "fma_rn",
            "norm_rn", "div_rn", "J1_SHARED_MAX_D", "JACOBI_W_RTOL",
            "JACOBI_RECON_TOL"]
 
@@ -268,6 +269,27 @@ def div_rn(x, c) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x / torch.full((), c, dtype=x.dtype, device=x.device)
     return torch.full((), x, dtype=c.dtype, device=c.device) / c
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a · b + c`` rounded once to float32, as the kernels' ``__fmaf_rn``
+    and XLA's contracted CPU loops: the product is exact in float64 and
+    the sum rounds there; where that sum lands exactly halfway between two
+    float32 neighbours and was itself rounded (its TwoSum error is not 0),
+    it steps one float64 ulp toward the exact value before the rounding to
+    float32, so the double rounding cannot flip a tie. (A tie of a result
+    in float32's subnormal range is not corrected: such sums need operands
+    below 1e-19.)"""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    if not bool(tie.any()):  # one read-back; ties are rare
+        return s.to(torch.float32)
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    step = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where(tie & (err != 0), step, s).to(torch.float32)
 
 
 def norm_rn(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:

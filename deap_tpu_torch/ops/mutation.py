@@ -1,15 +1,18 @@
 """Mutations on a batch of genomes.
 
-Port of ``mut_flip_bit``, ``mut_gaussian``, ``mut_polynomial_bounded``,
-``mut_es_log_normal`` and ``strategy_floor`` from
-:mod:`deap_tpu.ops.mutation`: ``(generator, g[n, L], ...) -> g`` (the ES
-mutation takes and returns the strategies too).
+Port of :mod:`deap_tpu.ops.mutation`: ``mut_flip_bit``,
+``mut_gaussian``, ``mut_polynomial_bounded``, ``mut_uniform_int``,
+``mut_shuffle_indexes``, ``mut_es_log_normal``, ``strategy_floor`` and
+``mut_two_opt``: ``(generator, g[n, L], ...) -> g`` (the ES mutation
+takes and returns the strategies too). ``genome_vmap`` has no
+counterpart: the port's operators are batched and draw from one
+generator.
 A ``fused_plan(**params)`` tag returns ``(kind, draw)`` where
 ``draw(generator, n, L, dtype) -> (mask, arg)`` makes exactly the
 operator's draws, so the fused variation plane computes the same
 children: ``("flip", ...)`` for flip-bit, ``("add", ...)`` with the
-Gaussian noise for ``mut_gaussian``. Polynomial bounded mutation has no
-fused form. Each real-valued operator's draws are made by a ``*_draws``
+Gaussian noise for ``mut_gaussian``, ``("set", ...)`` with the redrawn
+values for ``mut_uniform_int``. The other mutations have no fused form. Each real-valued operator's draws are made by a ``*_draws``
 function and applied by a draw-taking core.
 """
 
@@ -72,6 +75,90 @@ def _gaussian_fused(mu, sigma, indpb):
 
 
 mut_gaussian.fused_plan = _gaussian_fused
+
+
+# ------------------------------------------------------ uniform int ----
+
+def uniform_int_draws(generator, shape, indpb: float):
+    """The draws of :func:`mut_uniform_int` per gene: the mask
+    (probability ``indpb``), then the uniform."""
+    dev = generator.device
+    mask = torch.rand(shape, generator=generator, device=dev) < indpb
+    u = torch.rand(shape, generator=generator, device=dev)
+    return mask, u
+
+
+def _uniform_int_values(u, low, up, dtype):
+    """``low + floor(u · (up - low + 1))`` with the JAX package's dtype
+    steps: the bounds in the genome dtype, the product and the floor in
+    float32, then the cast."""
+    low_a = torch.as_tensor(low, dtype=dtype, device=u.device)
+    up_a = torch.as_tensor(up, dtype=dtype, device=u.device)
+    return (low_a + torch.floor(u * (up_a - low_a + 1))).to(dtype)
+
+
+def _uniform_int(g, low, up, mask, u):
+    """Uniform integer mutation on given draws (see :func:`mut_uniform_int`)."""
+    return torch.where(mask, _uniform_int_values(u, low, up, g.dtype), g)
+
+
+def mut_uniform_int(generator, g: torch.Tensor, low, up,
+                    indpb: float) -> torch.Tensor:
+    """Uniform integer mutation: each gene, with probability ``indpb``, is
+    redrawn in ``[low, up]`` (inclusive; scalars or per-gene sequences)."""
+    return _uniform_int(g, low, up, *uniform_int_draws(generator, g.shape,
+                                                        indpb))
+
+
+def _uniform_int_fused(low, up, indpb):
+    def draw(generator, n, L, dtype):
+        mask, u = uniform_int_draws(generator, (n, L), indpb)
+        return mask, _uniform_int_values(u, low, up, dtype)
+    return "set", draw
+
+
+mut_uniform_int.fused_plan = _uniform_int_fused
+
+
+# -------------------------------------------------- shuffle indexes ----
+
+def shuffle_indexes_draws(generator, shape, indpb: float):
+    """The draws of :func:`mut_shuffle_indexes` per slot: the swap mask
+    (probability ``indpb``), then the partner ``U{0..L-2}`` (bumped past
+    the slot by the core)."""
+    dev = generator.device
+    L = shape[-1]
+    do = torch.rand(shape, generator=generator, device=dev) < indpb
+    raw = torch.randint(0, max(L - 1, 1), shape, generator=generator,
+                        device=dev)
+    return do, raw
+
+
+def _shuffle_indexes(g, do, raw):
+    """Index shuffling on given draws: for each slot ``i`` in order where
+    ``do[:, i]``, swap it with slot ``raw + (raw >= i)`` (a partner past
+    the last slot, at L 1, is read clamped and never written, as XLA's
+    gather and scatter treat it)."""
+    g = g.clone()
+    n, L = g.shape
+    rows = torch.arange(n, device=g.device)
+    for i in range(L):
+        j = raw[:, i] + (raw[:, i] >= i).to(raw.dtype)
+        inside = j < L
+        jr = torch.clamp_max(j, L - 1)
+        vi, vj = g[:, i].clone(), g[rows, jr]
+        on = do[:, i]
+        g[:, i] = torch.where(on, vj, vi)
+        g[rows, jr] = torch.where(on & inside, vi, g[rows, jr])
+    return g
+
+
+def mut_shuffle_indexes(generator, g: torch.Tensor,
+                        indpb: float) -> torch.Tensor:
+    """Positional shuffle: slot by slot, each swaps with a uniform other
+    slot with probability ``indpb``."""
+    return _shuffle_indexes(g, *shuffle_indexes_draws(generator, g.shape,
+                                                      indpb))
 
 
 # ----------------------------------------------- polynomial bounded ----
@@ -170,3 +257,36 @@ def strategy_floor(minstrategy: float):
             return g, torch.maximum(s, torch.full_like(s, minstrategy))
         return wrapper
     return decorator
+
+
+# ------------------------------------------------------------ 2-opt ----
+
+def mut_two_opt(generator, g: torch.Tensor, dist: torch.Tensor,
+                steps=None) -> torch.Tensor:
+    """Best-improvement 2-opt on permutation genomes ``g [n, L]`` over the
+    symmetric distances ``dist [L, L]``: ``steps`` times (``L`` by
+    default), every row takes its most improving reversal of
+    ``g[i+1..j]`` (the first in row-major order of ``(i, j)``, ``i < j``)
+    where one improves, else stays. Deterministic; ``generator`` is
+    unused."""
+    del generator
+    n, L = g.shape
+    steps = L if steps is None else int(steps)
+    pos = torch.arange(L, device=g.device)
+    upper = pos[:, None] < pos[None, :]
+    rows = torch.arange(n, device=g.device)[:, None]
+    perm = g.to(torch.int64)
+    for _ in range(steps):
+        nxt = torch.roll(perm, -1, dims=1)
+        d_pp = dist[perm[:, :, None], perm[:, None, :]]
+        d_nn = dist[nxt[:, :, None], nxt[:, None, :]]
+        d_edge = dist[perm, nxt]
+        delta = d_pp + d_nn - d_edge[:, :, None] - d_edge[:, None, :]
+        delta = torch.where(upper, delta, torch.inf)
+        flat = torch.argmin(delta.reshape(n, L * L), dim=1)
+        i, j = flat // L, flat % L
+        improving = delta.reshape(n, L * L)[rows[:, 0], flat] < 0
+        inside = (pos > i[:, None]) & (pos <= j[:, None])
+        newpos = torch.where(inside, i[:, None] + 1 + j[:, None] - pos, pos)
+        perm = torch.where(improving[:, None], perm[rows, newpos], perm)
+    return perm.to(g.dtype)

@@ -1,17 +1,24 @@
 """Selection — batched, index-returning.
 
-Port of the tournament, random, best and worst parts of
-:mod:`deap_tpu.ops.selection`, with the counting-sort rank path
-(:func:`counting_order_desc`, :func:`sel_tournament_binned`). Operators take weighted fitness ``w:
+Port of :mod:`deap_tpu.ops.selection`: the tournaments, random, best
+and worst, the counting-sort rank path (:func:`counting_order_desc`,
+:func:`sel_tournament_binned`), the fitness-proportionate pair
+(:func:`sel_roulette`, :func:`sel_stochastic_universal_sampling`), the
+double tournament and the lexicase family. Each random selection draws
+in a ``*_draws`` function and picks in a draw-taking core, so a test can
+hand it the JAX package's draws. Operators take weighted fitness ``w:
 f32[n, nobj]`` and return ``int64[k]`` indices; callers materialise the
 selection with :func:`deap_tpu_torch.core.population.gather`.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from deap_tpu_torch.core.fitness import lex_gt, lex_sort_desc, lexsort
+from deap_tpu_torch.ops.linalg import div_rn
 
 
 def sel_random(generator: torch.Generator, w: torch.Tensor,
@@ -179,3 +186,223 @@ def sel_tournament_binned(generator: torch.Generator, w: torch.Tensor,
     ranks = torch.randint(0, w.shape[0], (tournsize, k), generator=generator,
                           device=generator.device)
     return order[ranks.amin(0)]
+
+
+# ------------------------------------------- fitness-proportionate ----
+
+def _validate_positive_mass(values: torch.Tensor, name: str) -> None:
+    """The roulette family's contract: non-negative values with a
+    positive total (one read-back of two numbers)."""
+    if values.shape[0]:
+        mn, total = torch.stack([values.min(), values.sum()]).tolist()
+        if mn < 0 or not total > 0:
+            raise ValueError(
+                f"{name}: fitness-proportionate selection needs "
+                f"non-negative values with positive total mass; got "
+                f"min={mn}, sum={total}")
+
+
+def _cumulative(w: torch.Tensor, values: Optional[torch.Tensor]):
+    """The best-first order and the cumulative values along it."""
+    if values is None:
+        values = w[..., 0]
+    order = lex_sort_desc(w)
+    return order, torch.cumsum(values[order], 0)
+
+
+def _roulette(w, u, values=None):
+    """Roulette on given uniforms ``u [k]`` (see :func:`sel_roulette`)."""
+    order, cs = _cumulative(w, values)
+    # the first index whose cumulative value exceeds the spin
+    pick = torch.searchsorted(cs, u * cs[-1], right=True)
+    return order[torch.clamp(pick, 0, w.shape[0] - 1)]
+
+
+def sel_roulette(generator: torch.Generator, w: torch.Tensor, k: int,
+                 values: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fitness-proportionate selection on the first objective: the rows
+    sorted best first, ``k`` spins over their cumulative values
+    (``values`` default to ``w[:, 0]``, which must be non-negative with a
+    positive total)."""
+    _validate_positive_mass(w[..., 0] if values is None else values,
+                            "sel_roulette")
+    u = torch.rand(k, generator=generator, device=generator.device)
+    return _roulette(w, u, values)
+
+
+def _sus(w, k: int, u, values=None):
+    """SUS on a given uniform ``u`` (0-d; see
+    :func:`sel_stochastic_universal_sampling`)."""
+    order, cs = _cumulative(w, values)
+    distance = div_rn(cs[-1], float(k))
+    points = u * distance + distance * torch.arange(
+        k, device=w.device).to(cs.dtype)
+    pick = torch.searchsorted(cs, points, right=False)
+    return order[torch.clamp(pick, 0, w.shape[0] - 1)]
+
+
+def sel_stochastic_universal_sampling(generator: torch.Generator,
+                                      w: torch.Tensor, k: int,
+                                      values: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """Stochastic universal sampling (Baker 1987): ``k`` evenly spaced
+    pointers from one random start over the best-first cumulative
+    values."""
+    _validate_positive_mass(w[..., 0] if values is None else values,
+                            "sel_stochastic_universal_sampling")
+    u = torch.rand((), generator=generator, device=generator.device)
+    return _sus(w, k, u, values)
+
+
+#: the roulette family against the JAX package's on its own uniforms: on
+#: integer-valued fitness (exact sums) the picks are bitwise; on
+#: fractional fitness torch's ``cumsum`` and XLA's add in other orders, so
+#: a pick may move to a neighbour where a pointer lies within
+#: ``ROULETTE_RTOL`` of the total from a cumulative boundary
+#: (``tests/test_torch_ops_rest.py``)
+ROULETTE_RTOL = 1e-5
+
+
+# ------------------------------------------------- double tournament ----
+
+def double_tournament_draws(generator: torch.Generator, n: int, k: int,
+                            fitness_size: int, fitness_first: bool):
+    """The draws of :func:`sel_double_tournament`: the aspirants
+    (``[k, 2, fitness_size]`` fitness first, else ``[k, fitness_size,
+    2]``), then the size round's uniforms (``[k]``, else ``[k,
+    fitness_size]``)."""
+    dev = generator.device
+    shape = (k, 2, fitness_size) if fitness_first else (k, fitness_size, 2)
+    aspirants = torch.randint(0, n, shape, generator=generator, device=dev)
+    u = torch.rand(shape[:1] if fitness_first else shape[:2],
+                   generator=generator, device=dev)
+    return aspirants, u
+
+
+def _double_tournament(w, lengths, aspirants, u, parsimony_size: float,
+                       fitness_first: bool):
+    """The double tournament on given draws."""
+    base_prob = parsimony_size / 2.0
+
+    def size_round(i1, i2):
+        l1, l2 = lengths[i1], lengths[i2]
+        first = torch.where(l1 > l2, i2, i1)
+        second = torch.where(l1 > l2, i1, i2)
+        p = torch.where(l1 == l2, 0.5, base_prob).to(u.dtype)
+        return torch.where(u < p, first, second)
+
+    if fitness_first:
+        finalists = _tournament_winners(w, aspirants)      # [k, 2]
+        return size_round(finalists[:, 0], finalists[:, 1])
+    cands = size_round(aspirants[..., 0], aspirants[..., 1])  # [k, fs]
+    return _tournament_winners(w, cands)
+
+
+def sel_double_tournament(generator: torch.Generator, w: torch.Tensor,
+                          lengths: torch.Tensor, k: int, fitness_size: int,
+                          parsimony_size: float,
+                          fitness_first: bool) -> torch.Tensor:
+    """Luke and Panait's double tournament: a fitness tournament of
+    ``fitness_size`` and a two-way size tournament on ``lengths``, in
+    either order, the shorter winning the size round with probability
+    ``parsimony_size / 2`` (0.5 on equal lengths)."""
+    aspirants, u = double_tournament_draws(generator, w.shape[0], k,
+                                           fitness_size, fitness_first)
+    return _double_tournament(w, lengths, aspirants, u, parsimony_size,
+                              fitness_first)
+
+
+# ------------------------------------------------------------ lexicase ----
+
+def lexicase_draws(generator: torch.Generator, k: int, ncases: int):
+    """The draws of the lexicase family: a case order a pick (``[k,
+    ncases]``, each a uniform permutation), then a uniform a pick for the
+    final choice."""
+    dev = generator.device
+    orders = torch.argsort(torch.rand((k, ncases), generator=generator,
+                                      device=dev), dim=1)
+    u = torch.rand(k, generator=generator, device=dev)
+    return orders, u
+
+
+def _masked_median(vals, mask):
+    """Median of ``vals [k, n]`` over ``mask`` a row, as the JAX
+    package's: the sorted values with the rest at +inf, the mean of the
+    two middle ones."""
+    s = torch.sort(torch.where(mask, vals, torch.inf), dim=1).values
+    m = mask.sum(1)
+    n = vals.shape[1]
+    lo = s.gather(1, torch.clamp_min((m - 1) // 2, 0)[:, None])[:, 0]
+    hi = s.gather(1, torch.clamp(m // 2, 0, n - 1)[:, None])[:, 0]
+    return 0.5 * (lo + hi)
+
+
+def _lexicase(values, weights, orders, u, survive):
+    """Lexicase picks on given draws: for each pick, the candidates that
+    survive each case in its order, then ``jax.random.choice(p=...)``'s
+    formula on the uniform: the first row whose cumulative share reaches
+    ``total · (1 - u)``."""
+    n = values.shape[0]
+    k, ncases = orders.shape
+    weights = torch.as_tensor(weights, dtype=values.dtype,
+                              device=values.device)
+    maximize = weights > 0
+    mask = torch.ones((k, n), dtype=torch.bool, device=values.device)
+    for c in range(ncases):
+        case = orders[:, c]
+        v = values[:, case].T                                # [k, n]
+        mx = maximize[case]
+        hi = torch.where(mask, v, -torch.inf).amax(1)
+        lo = torch.where(mask, v, torch.inf).amin(1)
+        best = torch.where(mx, hi, lo)
+        mask = mask & survive(v, mask, best[:, None], mx[:, None])
+    p = mask.to(values.dtype) / mask.sum(1, keepdim=True).to(values.dtype)
+    cs = torch.cumsum(p, 1)
+    r = cs[:, -1:] * (1 - u[:, None])
+    return torch.searchsorted(cs, r)[:, 0]
+
+
+def _survive_exact(v, mask, best, maximize):
+    return v == best
+
+
+def sel_lexicase(generator: torch.Generator, values: torch.Tensor, weights,
+                 k: int) -> torch.Tensor:
+    """Lexicase selection (Spector): per pick, the cases in a random
+    order, each keeping the candidates that equal the best on it;
+    ``values [n, ncases]``, ``weights [ncases]`` (positive: maximise)."""
+    return _lexicase(values, weights,
+                     *lexicase_draws(generator, k, values.shape[1]),
+                     _survive_exact)
+
+
+def _survive_epsilon(epsilon):
+    def survive(v, mask, best, maximize):
+        return torch.where(maximize, v >= best - epsilon,
+                           v <= best + epsilon)
+    return survive
+
+
+def sel_epsilon_lexicase(generator: torch.Generator, values: torch.Tensor,
+                         weights, k: int, epsilon: float) -> torch.Tensor:
+    """ε-lexicase (La Cava et al. 2016): a candidate survives a case
+    within ``epsilon`` of the best."""
+    return _lexicase(values, weights,
+                     *lexicase_draws(generator, k, values.shape[1]),
+                     _survive_epsilon(epsilon))
+
+
+def _survive_automatic(v, mask, best, maximize):
+    med = _masked_median(v, mask)[:, None]
+    mad = _masked_median((v - med).abs(), mask)[:, None]
+    return torch.where(maximize, v >= best - mad, v <= best + mad)
+
+
+def sel_automatic_epsilon_lexicase(generator: torch.Generator,
+                                   values: torch.Tensor, weights,
+                                   k: int) -> torch.Tensor:
+    """Automatic ε-lexicase: ε is the median absolute deviation of the
+    surviving candidates' values on the case."""
+    return _lexicase(values, weights,
+                     *lexicase_draws(generator, k, values.shape[1]),
+                     _survive_automatic)

@@ -1,13 +1,15 @@
 from deap_tpu_torch.support.hof import HallOfFame, hof_best, hof_init, hof_update
-from deap_tpu_torch.support.logbook import Logbook
+from deap_tpu_torch.support.logbook import Logbook, logbook_from_records
 from deap_tpu_torch.support.pareto import (
     ParetoArchive,
     nondominated_mask,
     pareto_init,
     pareto_update,
 )
-from deap_tpu_torch.support.stats import Statistics, fitness_stats
+from deap_tpu_torch.support.stats import (MultiStatistics, Statistics,
+                                          fitness_stats)
 
 __all__ = ["HallOfFame", "hof_best", "hof_init", "hof_update", "Logbook",
+           "logbook_from_records", "MultiStatistics",
            "ParetoArchive", "nondominated_mask", "pareto_init",
            "pareto_update", "Statistics", "fitness_stats"]

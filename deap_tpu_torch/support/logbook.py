@@ -4,7 +4,8 @@ column-aligned stream printing.
 A copy of :mod:`deap_tpu.support.logbook` (numpy only), kept here so the
 port never imports the JAX package. Algorithms record one entry per
 generation (``record(gen=..., nevals=..., **stats)``); dict-valued
-entries become chapters.
+entries become chapters. :func:`logbook_from_records` builds one from
+stacked per-generation records.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
+import torch
+from torch.utils import _pytree as pytree
 
 
 def _scalar(x):
@@ -137,3 +140,20 @@ class Logbook(list):
     def __str__(self, startindex: int = 0) -> str:
         text = self._txt(startindex)
         return "\n".join(text)
+
+
+def logbook_from_records(records, header=None) -> Logbook:
+    """A Logbook from a pytree (dicts, tuples, lists) of stacked
+    per-generation tensors or arrays, each leaf with leading axis
+    ``ngen``: one entry a generation."""
+    logbook = Logbook()
+    if header:
+        logbook.header = header
+    leaves, spec = pytree.tree_flatten(records)
+    if not leaves:
+        return logbook
+    leaves = [leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+              else np.asarray(leaf) for leaf in leaves]
+    for i in range(leaves[0].shape[0]):
+        logbook.record(**pytree.tree_unflatten([l[i] for l in leaves], spec))
+    return logbook

@@ -1,8 +1,9 @@
-"""Statistics — per-generation reductions on the device.
+"""Statistics / MultiStatistics — per-generation reductions on the device.
 
 Port of :mod:`deap_tpu.support.stats`. ``Statistics(key)`` extracts a
 tensor from the whole :class:`Population` (default: the raw fitness) and
-registered reducers run over the population axis.
+registered reducers run over the population axis; ``MultiStatistics``
+holds named chapters of them.
 
 The mean is the sum times the float32 reciprocal of ``n``, as the JAX
 package's compiled loops compute it, so on integer-valued fitness (exact
@@ -54,6 +55,26 @@ class Statistics:
     def compile(self, pop) -> Dict[str, torch.Tensor]:
         data = self.key(pop)
         return {name: fn(data) for name, fn in self.functions.items()}
+
+
+class MultiStatistics(dict):
+    """Named chapters of :class:`Statistics`: ``compile`` returns one dict
+    a chapter, which :class:`~deap_tpu_torch.support.logbook.Logbook`
+    records as chapters."""
+
+    def __init__(self, **chapters: Statistics):
+        super().__init__(chapters)
+
+    @property
+    def fields(self):
+        return sorted(self.keys())
+
+    def register(self, name: str, function: Callable, *args, **kwargs) -> None:
+        for stats in self.values():
+            stats.register(name, function, *args, **kwargs)
+
+    def compile(self, pop) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {chapter: stats.compile(pop) for chapter, stats in self.items()}
 
 
 def fitness_stats() -> Statistics:

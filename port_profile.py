@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 port_profile.py [--out DIR] [--nsga2] [--fused] [--evolve]
                             [--rastrigin] [--gp] [--cmaes]
                             [--eigh lapack|jacobi ...] [--mu-lambda]
-                            [--hw] [--sass]
+                            [--cartpole] [--hw] [--sass]
                             [--k7-variants] [--j2-variants]
                             [--package-root DIR]
     python3 port_profile.py --kernel-times [--only PREFIX ...]
@@ -58,7 +58,11 @@ run):
   (``bench.py``'s operators; μ = λ = 100,000 and μ 20,000, λ 100,000; L
   100; fitness statistics, hall of fame 1; ``var_or`` through K1), 10
   generations after 3 of warm-up each, with K1's device time a
-  generation.
+  generation;
+- ``--cartpole``: ``bench_suite.py``'s cartpole_neuro_pop10k (pop 10k
+  ``mlp_policy((4, 16, 2))`` genomes, 3 episodes of up to 500 steps
+  through J5, blend and Gaussian variation, tournaments of 3), 10
+  generations after 3 of warm-up, with J5's device time a generation.
 
 ``--hw`` profiles the chosen loops that have a ``prng`` mode (``--fused``,
 ``--evolve``, ``--rastrigin``) with the kernels' bits made by Philox
@@ -1542,10 +1546,24 @@ def k5_hw_phases(pk, fit, key, flush, reps=10):
     return out
 
 
+def profile_cartpole(dev, out_dir, facts):
+    from chip_smoke import cartpole_generation, cartpole_start
+
+    g, _, tb, pop = cartpole_start(dev, 11)
+    state = {"pop": pop}
+
+    def run(steps):
+        for _ in range(steps):
+            state["pop"] = cartpole_generation(g, state["pop"], tb)
+
+    profile("cartpole_neuro_pop10k", run, 3, 10, out_dir, facts,
+            kernels=("cartpole_rollout_kernel",))
+
+
 PROFILES = {"nsga2": profile_nsga2, "fused": profile_fused,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin,
             "gp": profile_gp, "cmaes": profile_cmaes,
-            "mu_lambda": profile_mu_lambda}
+            "mu_lambda": profile_mu_lambda, "cartpole": profile_cartpole}
 #: the loops with a prng mode, which --hw runs in both modes
 HW_LOOPS = {"fused": profile_fused, "packed": profile_packed,
             "evolve": profile_evolve, "rastrigin": profile_rastrigin}
@@ -1575,6 +1593,9 @@ def main():
     parser.add_argument("--mu-lambda", action="store_true",
                         help="profile the (mu + lambda) and (mu, lambda) "
                              "OneMax loops (var_or through K1)")
+    parser.add_argument("--cartpole", action="store_true",
+                        help="bench_suite.py's cartpole_neuro_pop10k, 10 "
+                             "generations after 3 (J5)")
     parser.add_argument("--hw", action="store_true",
                         help="profile the chosen loops (alone: the OneMax "
                              "loops) with prng='hw' beside prng='input'")

@@ -300,3 +300,64 @@ def test_rest_of_strategies_and_nsga3_stand_alone(no_card):
                                     mp.MovingPeaksConfig(dim=2))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_cartpole_mesh_and_rest_of_the_operators_stand_alone(no_card):
+    """The cart-pole (its rollouts and J5's wrapper), the one-device mesh,
+    the rest of the operators (A3, A7), the constraint decorators,
+    MultiStatistics and logbook_from_records run without jax or the JAX
+    package, and the cart-pole configuration's entry points raise without
+    a card unless asked for the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from deap_tpu_torch import FitnessSpec, ops, parallel
+        from deap_tpu_torch.benchmarks import cartpole
+        from deap_tpu_torch.core.population import init_population
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.support import (MultiStatistics, Statistics,
+                                            logbook_from_records)
+        import chip_smoke
+        gen = make_generator(0, "cpu")
+        g, starts, tb, pop = chip_smoke.cartpole_start("cpu", 0, 16)
+        pop = chip_smoke.cartpole_generation(g, pop, tb)
+        assert pop.fitness.shape == (16, 1) and bool(pop.valid.all())
+        assert parallel.population_mesh(device="cpu").device.type == "cpu"
+        perm = torch.stack([torch.randperm(9, generator=gen)
+                            for _ in range(4)])
+        w = torch.rand(4, 1, generator=gen) + 0.1
+        for out in (ops.cx_uniform(gen, perm, perm, 0.5),
+                    ops.cx_partialy_matched(gen, perm, perm.flip(1)),
+                    ops.cx_uniform_partialy_matched(gen, perm, perm, 0.3),
+                    ops.cx_ordered(gen, perm, perm.flip(1)),
+                    ops.cx_simulated_binary(gen, w, w, 2.0)):
+            assert out[0].shape == out[1].shape
+        ops.mut_uniform_int(gen, perm, 0, 8, 0.3)
+        ops.mut_shuffle_indexes(gen, perm, 0.3)
+        ops.mut_two_opt(gen, perm, torch.rand(9, 9, generator=gen), 2)
+        ops.sel_roulette(gen, w, 3)
+        ops.sel_stochastic_universal_sampling(gen, w, 3)
+        ops.sel_double_tournament(gen, w, torch.arange(4), 3, 2, 1.4, True)
+        ops.sel_lexicase(gen, torch.rand(4, 5, generator=gen), [1.0] * 5, 3)
+        pen = ops.delta_penalty(lambda x: x[:, 0] > 0.5, 9.0)(
+            lambda x: x.sum(-1))
+        assert pen(w).shape == (4, 1)
+        ms = MultiStatistics(fit=Statistics())
+        assert ms.fields == ["fit"]
+        assert len(logbook_from_records({"gen": torch.arange(3)})) == 3
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    import chip_smoke
+    from deap_tpu_torch import parallel
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chip_smoke.cartpole_start(None, 0, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.population_mesh()
