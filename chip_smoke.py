@@ -419,6 +419,13 @@ CP_CXPB, CP_MUTPB = 0.5, 0.5
 J5_POPS, J5_EPISODES, J5_STEPS = (1, 3, 33, 1001, 10_000), (1, 3, 5), (
     10, 200, 500)
 J5_BALANCE = (0.5, 1.0, 10.0, 2.0)
+# J5's population whose every episode reaches the cap: the balancing genome
+# perturbed by N(0, J5_CAPPED_SIGMA^2) across J5_CAPPED_POP policies, where
+# the launch is set by the issue of the warps at the cap, not by one chain
+J5_CAPPED_POP, J5_CAPPED_SIGMA = 10_000, 0.05
+# J5's widths held beside the configuration's 16 (P 257, E 3, 200 steps):
+# two widths of the runtime-H instance
+J5_WIDTHS = (7, 64)
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -3447,11 +3454,134 @@ def balancing_genome(torch, dev, H=16):
     return g
 
 
-def j5_check(torch, genomes, starts, max_steps, what):
+def j5_capped_population(torch, dev, g):
+    """``J5_CAPPED_POP`` perturbations of :func:`balancing_genome`, every
+    episode of which reaches the 500-step cap from the Gym starts."""
+    bal = balancing_genome(torch, dev)
+    return bal + J5_CAPPED_SIGMA * torch.randn(
+        (J5_CAPPED_POP, bal.numel()), generator=g, device=dev)
+
+
+def j5_warp_steps(r):
+    """The steps of each warp of a J5 launch whose returns are ``r [P,
+    E]``: a warp is 32 consecutive episodes and runs as long as its
+    longest."""
+    import torch
+    flat = r.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 32)])
+    return flat.reshape(-1, 32).amax(1)
+
+
+def j5_issue_floor_ms(r, instructions, sms, clock):
+    """The least time J5's warps can take to issue their steps on returns
+    ``r``: the sum of every warp's steps x ``instructions`` a step over
+    the card's 4 schedulers an SM, each issuing one instruction a clock."""
+    return float(j5_warp_steps(r).double().sum()) * instructions / (
+        4 * sms * clock) * 1e3
+
+
+def sass_listing(library, kernel):
+    """``(listing, [(address, opcode, branch target or None, predicated),
+    ...])`` of the first function of ``cuobjdump -sass library`` whose
+    mangled name contains ``kernel``."""
+    import re
+    import subprocess
+    from deap_tpu_torch import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs[1:] if kernel in f.split("\n")[0])
+    code = []
+    for line in body.splitlines():
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_.]+)[^;]*?(0x[0-9a-f]+)?\s*;", line)
+        if ins:
+            code.append((int(ins.group(1), 16), ins.group(3),
+                         int(ins.group(4), 16) if ins.group(4) else None,
+                         ins.group(2) is not None))
+    return body, code
+
+
+def j5_step_instructions(library=None, H=16, out=None):
+    """``(hot, whole, opcodes)``: the instructions of one step of J5's
+    width-``H`` instance in ``cuobjdump -sass`` of ``library`` (by default
+    this build's). The step loop is the narrowest backward branch's range
+    that holds every ``tanhf``'s ``MUFU.EX2`` (``whole`` instructions);
+    ``hot`` leaves out its slow paths, the ranges a conditional forward
+    branch skips that hold a call (an IEEE division's out-of-range case), a
+    loop or local memory (``sinf``'s and ``cosf``'s reduction of |x| >=
+    105,615): what a step issues on ordinary inputs. ``opcodes`` counts the hot ones; the function's
+    listing goes to ``out`` where given."""
+    from deap_tpu_torch import _build
+    body, code = sass_listing(library or _build._target("cartpole_rollout"),
+                              f"cartpole_rollout_kernelILi{H}E")
+    if out:
+        with open(out, "w") as f:
+            f.write(body)
+    tanh = [a for a, op, _, _ in code if op == "MUFU.EX2"]
+    _, start, end = min(
+        (at - target, target, at) for at, op, target, _ in code
+        if op.startswith("BRA") and target is not None and target < at
+        and all(target <= a <= at for a in tanh))
+    step = [c for c in code if start <= c[0] <= end]
+    cold = set()
+    for at, op, target, predicated in step:
+        if not (op.startswith("BRA") and predicated and target > at):
+            continue
+        skipped = [c for c in step if at < c[0] < target]
+        if any(o.startswith(("CALL", "LDL", "STL"))
+               or (o.startswith("BRA") and t is not None and t < a)
+               for a, o, t, _ in skipped):
+            cold.update(c[0] for c in skipped)
+    hot = [op for a, op, _, _ in step if a not in cold]
+    return len(hot), len(step), {op: hot.count(op) for op in sorted(set(hot))}
+
+
+def j5_division_check(torch, dev, chunk=1 << 28):
+    """J5's division (``cartpole.cartpole_div``) against torch's division of
+    two float32 tensors, bitwise (any NaN for a NaN): every float32 over
+    1.1f (the total mass every step divides by), then ``chunk`` pairs of
+    random bit patterns and ``chunk`` pairs of random numerators over
+    divisors in [0.6, 0.7] (the pole's denominator). The pairs checked;
+    fails on the first difference."""
+    from deap_tpu_torch.benchmarks import cartpole
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def check(a, b, what):
+        q, want = cartpole.cartpole_div(a, b), a / b
+        same = (q.view(torch.int32) == want.view(torch.int32)) | (
+            torch.isnan(q) & torch.isnan(want))
+        if not bool(same.all()):
+            i = int((~same).nonzero()[0, 0])
+            fail(f"J5's division differs from torch's on {what}: "
+                 f"{float(a[i])!r} / {float(b[i])!r} = {float(q[i])!r}, "
+                 f"torch {float(want[i])!r}")
+        return a.numel()
+
+    pairs = 0
+    for lo in range(-2 ** 31, 2 ** 31, chunk):
+        a = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev).to(
+            torch.int32).view(torch.float32)
+        total_mass = cartpole.J5_CONSTANTS[2]
+        pairs += check(a, torch.full_like(a, total_mass), "every float over "
+                       "the total mass")
+    bits = torch.randint(-2 ** 31, 2 ** 31, (2, chunk), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    pairs += check(bits[0].view(torch.float32), bits[1].view(torch.float32),
+                   "random bit patterns")
+    a = torch.randn(chunk, generator=g, device=dev) * torch.pow(
+        10.0, torch.rand(chunk, generator=g, device=dev) * 83 - 45)
+    b = 0.6 + 0.1 * torch.rand(chunk, generator=g, device=dev)
+    return pairs + check(a, b, "divisors in [0.6, 0.7]")
+
+
+def j5_check(torch, genomes, starts, max_steps, what, sizes=CP_SIZES):
     """J5 against its plain version on the card, bitwise; its returns."""
     from deap_tpu_torch.benchmarks import cartpole
-    got = cartpole.cartpole_rollout(genomes, starts, max_steps)
-    want = cartpole.cartpole_rollout_plain(genomes, starts, max_steps)
+    got = cartpole.cartpole_rollout(genomes, starts, max_steps, sizes)
+    want = cartpole.cartpole_rollout_plain(genomes, starts, max_steps, sizes)
     torch.cuda.synchronize()
     if not bitwise_equal(got, want):
         bad = int((got != want).sum())
@@ -3463,12 +3593,18 @@ def j5_check(torch, genomes, starts, max_steps, what):
 def cartpole_phases(torch, dev, tag, report, record):
     """Phase 18: bench_suite.py's cartpole_neuro_pop10k through J5
     (``csrc/cartpole_rollout.cu``). J5's sin, cos and tanh against torch's
-    on the card; J5 bitwise against its plain version on a balancing
-    genome, NaN and infinite genes and ``j5_shapes``; the configuration as
-    bench_suite.py calls it (pop 10k, 3 episodes of up to 500 steps, 20
-    generations: J5 21 launches, K1 none), J5 bitwise on its gen-0 and
-    last populations and timed on both beside its bound, its chain floor
-    and its plain version; then K1's set kind through ``var_and`` with
+    and its division against torch's on the card
+    (``j5_division_check``); J5 bitwise against its plain version on a
+    balancing genome, NaN and infinite genes, ``j5_shapes``,
+    ``J5_WIDTHS`` and the all-at-the-cap population
+    (``j5_capped_population``); the configuration as bench_suite.py calls
+    it (pop 10k, 3 episodes of up to
+    500 steps, 20 generations: J5 21 launches, K1 none), J5 bitwise on its
+    gen-0 and last populations and timed on both and on the all-at-the-cap
+    one beside its bound, its chain floor (the longest episode x one lone
+    thread's clocks a step), its issue floor (``j5_issue_floor_ms`` with
+    the width-16 instance's step from ``cuobjdump -sass``) and its plain
+    version; then K1's set kind through ``var_and`` with
     ``mut_uniform_int``."""
     from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, ops
     from deap_tpu_torch.benchmarks import cartpole
@@ -3495,6 +3631,10 @@ def cartpole_phases(torch, dev, tag, report, record):
     print(f"{tag} J5's sinf, cosf and saturated tanhf == torch.sin, "
           f"torch.cos, tanh_sat bitwise on {x.numel()} floats (normal at 5 "
           f"scales, every bit pattern, edges)")
+    pairs = j5_division_check(torch, dev)
+    print(f"{tag} J5's division == torch's bitwise on {pairs} pairs (every "
+          f"float32 over the total mass, random bit patterns, divisors in "
+          f"[0.6, 0.7])")
 
     # ----------------------------------------------------- J5 checks --
     _, n = cartpole.mlp_policy(CP_SIZES)
@@ -3519,10 +3659,24 @@ def cartpole_phases(torch, dev, tag, report, record):
         j5_check(torch, gen_, cartpole.initial_state(g, E), S,
                  f"P {P}, E {E}, max_steps {S}")
         cases += 1
+    for H_ in J5_WIDTHS:
+        j5_check(torch, torch.randn((257, 7 * H_ + 2), generator=g,
+                                    device=dev),
+                 cartpole.initial_state(g, 3), 200, f"H {H_}", (4, H_, 2))
+    capped_genomes, capped_starts = (j5_capped_population(torch, dev, g),
+                                     starts5[:CP_EPISODES])
+    capped_r = j5_check(torch, capped_genomes, capped_starts, CP_STEPS,
+                        "the all-at-the-cap population")
+    if not bool((capped_r == CP_STEPS).all()):
+        fail(f"the all-at-the-cap population fell: "
+             f"{int((capped_r < CP_STEPS).sum())} episodes short of the cap")
     print(f"{tag} J5 == plain bitwise on the balancing genome (every "
-          f"episode {CP_STEPS} steps), NaN and infinite genes and {cases} "
+          f"episode {CP_STEPS} steps), NaN and infinite genes, {cases} "
           f"shapes (P {J5_POPS} x E {J5_EPISODES} x max_steps {J5_STEPS}, "
-          f"sigma {CP_SIGMA} and 3)")
+          f"sigma {CP_SIGMA} and 3), H {J5_WIDTHS} (unrolled instance "
+          f"{cartpole.J5_UNROLLED_HIDDEN}, the rest at run time) and "
+          f"{J5_CAPPED_POP} perturbed balancing genomes x 3 starts, every "
+          f"episode at the cap")
     print_ptxas("cartpole_rollout", "cartpole_rollout_kernel")
 
     # ------------------------- cartpole_neuro_pop10k at full width --
@@ -3600,20 +3754,42 @@ def cartpole_phases(torch, dev, tag, report, record):
     clock = max_sm_clock_hz()
     H = CP_SIZES[1]
     times = {}
-    for label, p, r in (("gen0", pop0, r0), ("evolved", pop, rn)):
-        genomes = p.genomes.contiguous()
-        ms = time_ms(lambda: cartpole.cartpole_rollout(genomes, starts,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    instructions, whole, opcodes = j5_step_instructions(H=H)
+    print(f"{tag} J5 width-{H} instance: {instructions} instructions a step "
+          f"({whole} in its step loop with the slow paths; cuobjdump -sass): "
+          + ", ".join(f"{k} {v}" for k, v in opcodes.items()))
+    for label, genomes, st, r in (
+            ("gen0", pop0.genomes, starts, r0),
+            ("evolved", pop.genomes, starts, rn),
+            ("capped", capped_genomes, capped_starts, capped_r)):
+        genomes = genomes.contiguous()
+        ms = time_ms(lambda: cartpole.cartpole_rollout(genomes, st,
                                                        CP_STEPS), flush)
         plain_ms = time_ms(lambda: cartpole.cartpole_rollout_plain(
-            genomes, starts, CP_STEPS), flush, reps=1)
+            genomes, st, CP_STEPS), flush, reps=1)
         floor_ms = float(r.max()) * step_clocks / clock * 1e3
+        issue_ms = j5_issue_floor_ms(r, instructions, sms, clock)
+        warp_steps = j5_warp_steps(r)
+        at_cap = int((warp_steps == CP_STEPS).sum())
+        # the clocks each scheduler spent a warp-step, had the launch been
+        # set by issue alone
+        per_warp_step = ms * 1e-3 * clock * 4 * sms / float(
+            warp_steps.double().sum())
         times[label] = dict(ms=ms, plain_ms=plain_ms, floor_ms=floor_ms,
+                            issue_floor_ms=issue_ms, warps_at_cap=at_cap,
+                            clocks_per_warp_step=per_warp_step,
                             alive=int(r.sum()), longest=int(r.max()))
         print(f"{tag} J5 on the {label} population: {ms * 1e3:.2f} us a "
               f"launch; plain {plain_ms * 1e3:.2f} us; the longest episode "
               f"{int(r.max())} steps x {step_clocks:.1f} clocks a step (one "
               f"thread alone, max SM clock {clock / 1e6:.0f} MHz) = chain "
-              f"floor {floor_ms * 1e3:.2f} us; {int(r.sum())} alive steps")
+              f"floor {floor_ms * 1e3:.2f} us; issue floor "
+              f"{issue_ms * 1e3:.2f} us ({int(warp_steps.sum())} warp-steps "
+              f"x {instructions} instructions over {4 * sms} schedulers; "
+              f"{at_cap} of {warp_steps.numel()} warps at the cap, "
+              f"{at_cap / sms:.2f} an SM); {per_warp_step:.1f} scheduler "
+              f"clocks a warp-step; {int(r.sum())} alive steps")
     # what J5 must move: the genomes and starts in once, the returns out
     nbytes = CP_POP * n * 4 + CP_EPISODES * 16 + CP_POP * CP_EPISODES * 4
     record("j5", "cartpole_rollout",
@@ -3630,6 +3806,12 @@ def cartpole_phases(torch, dev, tag, report, record):
         chain_floor_ms_evolved=ev["floor_ms"],
         longest_steps_evolved=ev["longest"], alive_steps_evolved=ev["alive"],
         policies_at_cap=[capped[0], capped[-1]], generation_parts_ms=parts,
+        issue_floor_ms=times["gen0"]["issue_floor_ms"],
+        issue_floor_ms_evolved=ev["issue_floor_ms"],
+        step_instructions=instructions,
+        ms_capped=times["capped"]["ms"],
+        issue_floor_ms_capped=times["capped"]["issue_floor_ms"],
+        chain_floor_ms_capped=times["capped"]["floor_ms"],
         bound_ms_evolved=max(
             nbytes / memory_rate(torch.cuda.get_device_name(0)),
             ev["alive"] * j5_step_ops(H) / compare_rate(dev)) * 1e3)

@@ -28,7 +28,10 @@ saturates where XLA's float32 ``tanh`` does.
 
 :func:`rollout_population` with an :func:`mlp_policy` runs J5
 (:func:`cartpole_rollout`, ``csrc/cartpole_rollout.cu``) on a CUDA
-tensor: one thread an episode, until it fails or reaches ``max_steps``.
+tensor: one thread an episode, until it fails or reaches ``max_steps``;
+at the width of :data:`J5_UNROLLED_HIDDEN` the hidden units unrolled and
+the policy in registers, and the physics that does not depend on the
+action computed beside the policy.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ from deap_tpu_torch.ops.linalg import div_rn, fma_rn
 
 __all__ = ["cartpole_step", "initial_state", "rollout", "rollout_population",
            "mlp_policy", "tanh_sat", "argmax_first", "cartpole_rollout",
-           "cartpole_rollout_plain", "cartpole_math", "TANH_ONE",
-           "J5_MAX_HIDDEN", "J5_CONSTANTS", "TANH_ULPS", "STEP_ULPS",
-           "LOGIT_ULPS"]
+           "cartpole_rollout_plain", "cartpole_math", "cartpole_div",
+           "TANH_ONE",
+           "J5_MAX_HIDDEN", "J5_UNROLLED_HIDDEN", "J5_CONSTANTS",
+           "TANH_ULPS", "STEP_ULPS", "LOGIT_ULPS"]
 
 # the JAX module's constants, as Python doubles; every operation takes
 # their float32 rounding
@@ -72,6 +76,12 @@ TANH_ONE = 7.99881172180175781250
 #: policies its 64 episodes touch in shared memory, ``7·H + 2`` floats
 #: each: up to 115 KB at H 64 and one episode a policy)
 J5_MAX_HIDDEN = 64
+#: the hidden widths J5 has an instance of, unrolled at compile time with
+#: the policy's ``7·H + 2`` parameters in registers (the switch of
+#: ``csrc/cartpole_rollout.cu``'s launcher): the cart-pole configuration's
+#: 16; every other width up to ``J5_MAX_HIDDEN`` runs its instance for a
+#: width known at run time
+J5_UNROLLED_HIDDEN = (16,)
 
 
 #: the stated bounds of the port against the JAX package on the CPU
@@ -242,12 +252,13 @@ def rollout_population(policy: Callable, genomes: torch.Tensor,
     :func:`rollout` of each pair.
 
     With an :func:`mlp_policy` this is J5 (:func:`cartpole_rollout`): on a
-    CUDA tensor one launch, a thread an episode; on the CPU its plain
-    version. With any other callable it is the torch path on the
-    genomes' device (steps of ``chunk`` on the alive episodes, compacted
-    into smaller buffers down to ``min_size``), a different function, not
-    a fallback. ``max_steps % chunk`` must be 0 (a ``ValueError``, as in
-    the JAX package, whose loop advances whole chunks)."""
+    CUDA tensor one launch, a thread an episode (its width's instance);
+    on the CPU its plain version. With any other callable it is the torch
+    path on the genomes' device (steps of ``chunk`` on the alive episodes,
+    compacted into smaller buffers down to ``min_size``), a different
+    function, not a fallback. ``max_steps % chunk`` must be 0 (a
+    ``ValueError``, as in the JAX package, whose loop advances whole
+    chunks)."""
     if max_steps % chunk:
         raise ValueError(f"max_steps ({max_steps}) must be a multiple "
                          f"of chunk ({chunk})")
@@ -313,13 +324,18 @@ def cartpole_rollout(genomes: torch.Tensor, starts: torch.Tensor,
     ``[P, n]`` from the starts ``[E, 4]`` (J5).
 
     On a CUDA tensor one launch runs every episode, a thread an episode
-    (``csrc/cartpole_rollout.cu``); on a CPU tensor
-    :func:`cartpole_rollout_plain` runs. Both round each operation alone
-    in the same order, with the same ``sin``/``cos``/``tanh``, so on the
-    card they agree bit for bit. The card takes ``sizes = (4, H, 2)``, H
-    up to ``J5_MAX_HIDDEN``, and raises on any other. The wrapper's
-    ``launches`` counts the launches. ``clocks`` (card only, ``int64[P ·
-    E]``) takes each thread's clocks from its first step to its last."""
+    (``csrc/cartpole_rollout.cu``): the launcher picks the instance by H,
+    one unrolled at compile time with the policy in registers for the
+    width of ``J5_UNROLLED_HIDDEN``, else the one for a width known at
+    run time; in both the physics that does not depend on the action
+    issues beside the policy, for both forces, and the action selects.
+    On a CPU tensor :func:`cartpole_rollout_plain` runs. Both round each
+    operation alone in the same order, with the same
+    ``sin``/``cos``/``tanh``, so on the card they agree bit for bit. The
+    card takes ``sizes = (4, H, 2)``, H up to ``J5_MAX_HIDDEN``, and
+    raises on any other. The wrapper's ``launches`` counts the launches.
+    ``clocks`` (card only, ``int64[P · E]``) takes each thread's clocks
+    from its first step to its last."""
     if genomes.device.type == "cpu":
         if clocks is not None:
             raise ValueError("clocks are counted only on the card")
@@ -371,3 +387,25 @@ def cartpole_math(x: torch.Tensor):
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("cartpole_rollout", err, "cartpole_math")
     return tuple(outs)
+
+
+def cartpole_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """J5's division of float32 CUDA vectors, ``a / b`` as each step of J5
+    divides (``__fdiv_rn``'s fast path where both operands lie in [2^-60,
+    2^60], else ``__fdiv_rn``): to hold against torch's division on the
+    card. Not counted in ``launches``."""
+    if not (a.device.type == b.device.type == "cuda" and a.dtype == b.dtype
+            == torch.float32 and a.ndim == 1 and a.shape == b.shape):
+        raise ValueError("cartpole_div takes two float32 vectors of one "
+                         "shape on the card")
+    a, b = a.contiguous(), b.contiguous()
+    q = torch.empty_like(a)
+    if a.numel() == 0:
+        return q
+    PT = _build.PTR
+    fn = _build.function("cartpole_rollout", "cartpole_div",
+                         [PT, PT, ctypes.c_longlong, PT, PT])
+    err = fn(a.data_ptr(), b.data_ptr(), a.numel(), q.data_ptr(),
+             torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check("cartpole_rollout", err, "cartpole_div")
+    return q

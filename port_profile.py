@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
                             [--eigh lapack|jacobi ...] [--mu-lambda]
                             [--cartpole] [--hw] [--sass]
                             [--k7-variants] [--j2-variants]
-                            [--package-root DIR]
+                            [--j5-variants] [--package-root DIR]
     python3 port_profile.py --kernel-times [--only PREFIX ...]
                             [--package-root DIR]
 
@@ -88,7 +88,12 @@ sort and gathers alone;
 ``--j2-variants`` times J2 at pop 4096, width 80, 543 moves on
 ``chip_smoke.py``'s trees and on the evolved population in this build
 and in one with ``-DDTT_J2_STACK_ONLY``, where every ant takes the stack
-walk.
+walk; ``--j5-variants`` times J5 (500 steps) on ``chip_smoke.py``'s gen-0
+and evolved cart-pole populations and on its all-at-the-cap one in the
+builds of ``J5_VARIANTS`` (the default build, and the physics after the
+action, each division through ``__fdiv_rn``), with each build's
+lone-thread clocks a step and the instructions of its width-16 step (the
+listings go to ``DIR``).
 
 ``--kernel-times`` does nothing else: it times K5-hw and K5 (a call of 50
 generations) and K2-hw, K2, K3-hw, K3, K4-hw and K4 (one generation) at pop 100k
@@ -126,7 +131,9 @@ pop 4096, width 80, 543 moves on ``chip_smoke.py``'s trees and on the
 population after the ant program's 10 generations, with the launches of
 a call, each set's iterations and steps where the package traces its
 walk, and, for this checkout's package, one dependent shared-memory
-load's clocks).
+load's clocks; ``--only j5``: J5 on the cart-pole's gen-0, evolved and
+all-at-the-cap populations, with one lone thread's clocks a step, each
+set's warp-steps and the instructions of the width-16 step).
 Two versions
 compare on one card by runs in turns: that one, this one, this one, that
 one.
@@ -831,10 +838,12 @@ def kernel_times(dev, facts, root, reps=25, only=None):
         calls.update(j1_calls(dev, reps))
     if wanted("j3", "j4"):
         calls.update(j3_j4_calls(dev))
-    j2_counts = {}
-    if wanted("j2"):
-        j2, j2_counts = j2_calls(dev, reps, own=root == ROOT)
-        calls.update(j2)
+    counts = {}  # what J2's and J5's entries count beside their times
+    for prefix, entries in (("j2", j2_calls), ("j5", j5_calls)):
+        if wanted(prefix):
+            more, more_counts = entries(dev, reps, own=root == ROOT)
+            calls.update(more)
+            counts.update(more_counts)
     # K9 also without the flush (its name ending in _warm): a GP loop
     # evaluates a schedule it has just uploaded, into a buffer it has just
     # filled, so it finds them in L2
@@ -858,7 +867,7 @@ def kernel_times(dev, facts, root, reps=25, only=None):
                 fitness.double().sum())
         times[f"{name}_ms"] = time_ms(call, (cold or [flush])[0],
                                       reps=n_reps)
-    times.update(j2_counts)
+    times.update(counts)
     if not only:
         times.update(k8_dc_times(dev, flush))
         times.update(run_checksums(dev))
@@ -1177,6 +1186,133 @@ def j2_calls(dev, reps, own):
     if own:
         counts["j2_shared_load_clocks"] = shared_load_clocks(torch, dev)
     return calls, counts
+
+
+def j5_sets(dev):
+    """J5's inputs by name, each ``(genomes, starts)``: ``chip_smoke.py``'s
+    ``cartpole_neuro_pop10k`` population at gen 0 (``j5``) and after its
+    20 generations (``j5_evolved``), with the run's 3 starts, and
+    ``chip_smoke.j5_capped_population`` (``j5_capped``: every episode at
+    the cap) with 3 starts of its own."""
+    from chip_smoke import (CP_EPISODES, CP_NGEN, cartpole_generation,
+                            cartpole_start, j5_capped_population)
+    import torch
+    from deap_tpu_torch.benchmarks import cartpole
+    from deap_tpu_torch.device import make_generator
+    g, starts, tb, pop = cartpole_start(dev, 11)
+    gen0 = pop.genomes.contiguous()
+    for _ in range(CP_NGEN):
+        pop = cartpole_generation(g, pop, tb)
+    g = make_generator(67, dev)
+    capped = j5_capped_population(torch, dev, g)
+    return {"j5": (gen0, starts),
+            "j5_evolved": (pop.genomes.contiguous(), starts),
+            "j5_capped": (capped, cartpole.initial_state(g, CP_EPISODES))}
+
+
+def j5_step_clocks(torch, dev):
+    """J5's clocks a step of one thread alone: the balancing genome's one
+    episode of ``chip_smoke.CP_STEPS`` steps."""
+    from chip_smoke import CP_STEPS, balancing_genome
+    from deap_tpu_torch.benchmarks import cartpole
+    from deap_tpu_torch.device import make_generator
+    starts = cartpole.initial_state(make_generator(1, dev), 1)
+    clocks = torch.zeros(1, dtype=torch.int64, device=dev)
+    cartpole.cartpole_rollout(balancing_genome(torch, dev)[None], starts,
+                              CP_STEPS, clocks=clocks)
+    return int(clocks.item()) / CP_STEPS
+
+
+def j5_calls(dev, reps, own):
+    """``kernel_times``' entries for J5 on :func:`j5_sets` (500 steps),
+    each returning its returns for the checksum; beside them the launches
+    of one call, one lone thread's clocks a step, each set's warp-steps
+    (a warp as long as its longest episode) and, for this checkout's
+    package (``own``), the instructions of the width-16 step
+    (``cuobjdump -sass``)."""
+    import torch
+    from chip_smoke import CP_STEPS, j5_step_instructions, j5_warp_steps
+    from deap_tpu_torch.benchmarks import cartpole
+    calls, counts = {}, {}
+    zero = torch.zeros(1, device=dev)
+    for name, (genomes, starts) in j5_sets(dev).items():
+        calls[name] = (lambda genomes=genomes, starts=starts: (
+            cartpole.cartpole_rollout(genomes, starts, CP_STEPS), zero),
+            reps)
+        before = cartpole.cartpole_rollout.launches
+        r = cartpole.cartpole_rollout(genomes, starts, CP_STEPS)
+        counts[f"{name}_launches_a_call"] = (cartpole.cartpole_rollout
+                                             .launches - before)
+        counts[f"{name}_warp_steps"] = int(j5_warp_steps(r).sum())
+        counts[f"{name}_longest"] = int(r.max())
+    counts["j5_step_clocks"] = j5_step_clocks(torch, dev)
+    if own:  # another build's kernel may have no width-16 instance
+        counts["j5_step_instructions"], counts[
+            "j5_step_loop_instructions"], _ = j5_step_instructions()
+    return calls, counts
+
+
+#: J5's builds in ``--j5-variants`` (name: ``-D`` flags of
+#: ``csrc/cartpole_rollout.cu``): its yardstick, the physics computed after
+#: the action for the chosen force alone (the first design's order), and
+#: the default build
+J5_VARIANTS = {
+    "physics after the action": ["-DDTT_J5_PHYSICS_AFTER_ACTION"],
+    "default: physics beside, one range check": []}
+
+
+def j5_variants(dev, facts, out_dir, reps=25):
+    """J5 on :func:`j5_sets` in each build of ``J5_VARIANTS``, each bitwise
+    against the default build, timed in turns (forward, then backward) as
+    ``chip_smoke.time_ms`` times; each build's lone-thread clocks a step
+    and its width-16 step's instructions (the listings go to
+    ``out_dir``)."""
+    import torch
+    from chip_smoke import (CP_STEPS, bitwise_equal, j5_step_instructions,
+                            time_ms)
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.benchmarks import cartpole
+
+    libs = build_variants("cartpole_rollout", J5_VARIANTS,
+                          "cartpole_rollout_kernel")
+    default_lib = _build.library("cartpole_rollout")
+    sets = j5_sets(dev)
+    flush = torch.empty(2**27, dtype=torch.int32, device=dev)  # 512 MB
+
+    def variant(name, fn, *args):
+        def call():
+            _build._LIBS["cartpole_rollout"] = libs[name]
+            try:
+                return fn(*args)
+            finally:
+                _build._LIBS["cartpole_rollout"] = default_lib
+        return call
+
+    for i, name in enumerate(libs):
+        steps = variant(name, j5_step_clocks, torch, dev)()
+        count, whole, ops = j5_step_instructions(
+            _build.BUILD_DIR / f"libcartpole_rollout-variant{i}.so",
+            out=os.path.join(out_dir, f"j5_variant{i}.sass"))
+        print(f"[{facts}] J5 {name}: {steps:.1f} clocks a step of one "
+              f"thread alone; {count} instructions a width-16 step ({whole} "
+              f"with the slow paths): "
+              + ", ".join(f"{k} {v}" for k, v in ops.items()))
+    for set_name, (genomes, starts) in sets.items():
+        args = (genomes, starts, CP_STEPS)
+        want = cartpole.cartpole_rollout(*args)
+        calls = {name: variant(name, cartpole.cartpole_rollout, *args)
+                 for name in libs}
+        for name, fn in calls.items():
+            if not bitwise_equal(fn(), want):
+                raise RuntimeError(f"J5 {name} differs from the default "
+                                   f"build on {set_name}")
+        times = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            times[name].append(time_ms(calls[name], flush, reps=reps))
+        for name, ms in times.items():
+            print(f"[{facts}] J5 {set_name} {name}: "
+                  + ", ".join(f"{t * 1e3:.2f}" for t in ms) + " us "
+                  f"(longest episode {int(want.max())} steps)")
 
 
 #: J1's shapes in ``--kernel-times``: CMA-ES's C at dim 100, the two
@@ -1609,6 +1745,9 @@ def main():
     parser.add_argument("--j2-variants", action="store_true",
                         help="time J2 with every ant on the stack walk "
                              "beside the default build")
+    parser.add_argument("--j5-variants", action="store_true",
+                        help="time J5's yardstick build (the physics "
+                             "after the action) beside the default build")
     parser.add_argument("--kernel-times", action="store_true",
                         help="time K5-hw, K5, K2-hw, K2, K3-hw, K3, K4-hw, "
                              "K4 and K1 at pop 100k, L 100, K8 and K7 at the "
@@ -1619,8 +1758,8 @@ def main():
     parser.add_argument("--only", metavar="PREFIX", nargs="+",
                         help="with --kernel-times: only the entries whose "
                              "names start with one of the PREFIXes (e.g. "
-                             "j1, j2, or j3 j4), without the checksum runs "
-                             "and the other phase clocks")
+                             "j1, j2, j5, or j3 j4), without the checksum "
+                             "runs and the other phase clocks")
     parser.add_argument("--package-root", default=ROOT,
                         help="the checkout whose deap_tpu_torch is built, "
                              "profiled and timed (e.g. an "
@@ -1658,9 +1797,12 @@ def main():
         k7_variants(dev, facts)
     if args.j2_variants:
         j2_variants(dev, facts)
+    if args.j5_variants:
+        j5_variants(dev, facts, args.out)
     if args.hw and not any(name in HW_LOOPS for name in chosen):
         chosen += ["fused", "packed", "evolve"]
-    if chosen or args.sass or args.k7_variants or args.j2_variants:
+    if (chosen or args.sass or args.k7_variants or args.j2_variants
+            or args.j5_variants):
         for name in chosen:
             if args.hw and name in HW_LOOPS:
                 for prng in ("input", "hw"):

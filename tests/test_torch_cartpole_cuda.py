@@ -2,13 +2,21 @@
 set kind on the card.
 
 - J5's ``sinf``, ``cosf`` and saturated ``tanhf`` equal ``torch.sin``,
-  ``torch.cos`` and ``cartpole.tanh_sat`` on the card bit for bit.
+  ``torch.cos`` and ``cartpole.tanh_sat`` on the card bit for bit, and its
+  division (``__fdiv_rn``'s fast path where its range check lets it)
+  equals torch's division: every float32 over the total mass, random
+  pairs (``chip_smoke.j5_division_check``).
 - J5 equals its plain version run on the card, bit for bit, at P 1, 3,
   33, 1001 and 10,000 by E 1, 3 and 5 by ``max_steps`` 10, 200 and 500
-  (genomes at sigma 0.5 and 3), at hidden widths 1-64, on a balancing
-  genome whose every episode reaches the cap, and on NaN and infinite
-  genes; it raises on the shapes it cannot take; ``launches`` counts one
-  a call; its clocks are counted only where asked for.
+  (genomes at sigma 0.5 and 3), at hidden widths 1-64 (P 257 at six of
+  them; P 33, E 3, 200 steps at every one: the unrolled instance,
+  ``cartpole.J5_UNROLLED_HIDDEN``, and the runtime-width one), on a
+  balancing genome whose every episode reaches the cap, on 10,000
+  perturbations of it whose every episode reaches the cap (the launch
+  set by issue, not by one episode's chain), and on NaN and infinite
+  genes and on NaN, infinite, huge, tiny and zero starts; it raises on
+  the shapes it cannot take; ``launches`` counts one a call; its clocks
+  are counted only where asked for.
 - One generation of ``bench_suite.py``'s ``cartpole_neuro_pop10k`` (pop
   10k) through J5 equals the same generation evaluated by J5's plain
   version on the card; the one-device mesh holds the card.
@@ -40,6 +48,13 @@ from deap_tpu_torch.support.stats import mean0
 pytestmark = pytest.mark.cuda
 
 _, NPARAM = cartpole.mlp_policy((4, 16, 2))
+# NaN, infinite, huge, tiny and zero starts
+ODD_STARTS = [[0.0, 0.0, 0.0, 0.0], [-0.0, -0.0, -0.0, -0.0],
+              [0.01, 0.0, 0.0, 1e20], [0.0, 1e-40, 1e-30, 0.0],
+              [math.nan, 0.0, 0.01, 0.0], [0.0, 0.0, math.nan, 0.0],
+              [0.0, math.inf, 0.0, 0.0], [0.0, 0.0, 0.0, -math.inf],
+              [3e38, 0.0, 0.0, 0.0], [0.0, 0.0, 0.2, 3e38],
+              [0.01, -0.02, 0.03, 1e-38], [1e-45, 0.0, -1e-45, 1e18]]
 
 
 @pytest.fixture
@@ -74,6 +89,10 @@ def test_j5_transcendentals_equal_torch(card):
     assert _same(t, cartpole.tanh_sat(x))
 
 
+def test_j5_division_equals_torch(card):
+    assert chip_smoke.j5_division_check(torch, card) == 2 ** 32 + 2 ** 29
+
+
 @pytest.mark.parametrize("max_steps", [10, 200, 500])
 @pytest.mark.parametrize("E", [1, 3, 5])
 @pytest.mark.parametrize("P", [1, 3, 33, 1001, 10_000])
@@ -96,11 +115,42 @@ def test_j5_hidden_widths(card, H):
     assert _same(got, want)
 
 
+@pytest.mark.parametrize("H", range(1, cartpole.J5_MAX_HIDDEN + 1))
+def test_j5_every_hidden_width(card, H):
+    g = make_generator(1000 + H, card)
+    for sigma in (0.5, 3.0):
+        genomes = torch.randn((33, 7 * H + 2), generator=g,
+                              device=card) * sigma
+        starts = cartpole.initial_state(g, 3)
+        got, want = _j5_and_plain(genomes, starts, 200, (4, H, 2))
+        assert _same(got, want), sigma
+
+
+def test_j5_population_all_at_the_cap(card):
+    g = make_generator(8, card)
+    genomes = chip_smoke.j5_capped_population(torch, card, g)
+    starts = cartpole.initial_state(g, 3)
+    got, want = _j5_and_plain(genomes, starts, 500)
+    assert _same(got, want) and bool((got == 500).all())
+
+
 def test_j5_balancing_genome_reaches_the_cap(card):
     bal = chip_smoke.balancing_genome(torch, card)
     starts = cartpole.initial_state(make_generator(1, card), 64)
     got, want = _j5_and_plain(bal[None].repeat(5, 1), starts, 500)
     assert _same(got, want) and bool((got == 500).all())
+
+
+@pytest.mark.parametrize("H", cartpole.J5_UNROLLED_HIDDEN + (7,))
+def test_j5_odd_starts(card, H):
+    # NaN, infinite, huge, tiny and zero states: the physics leaves the
+    # fast division's range and J5 divides through __fdiv_rn
+    starts = torch.tensor(ODD_STARTS, device=card)
+    genomes = torch.randn((5, 7 * H + 2), generator=make_generator(H, card),
+                          device=card)
+    for max_steps in (1, 3, 200):
+        got, want = _j5_and_plain(genomes, starts, max_steps, (4, H, 2))
+        assert _same(got, want), max_steps
 
 
 def test_j5_nan_and_infinite_genes(card):
