@@ -243,6 +243,24 @@ Phases (any failure ends the script with a non-zero exit code):
     (the longest episode's steps times one thread's clocks a step); then
     ``var_and(fused='auto')`` with ``mut_uniform_int`` through K1's set
     kind, bitwise against the unfused composition.
+19. resilience (``deap_tpu_torch.resilience``): phase 3's OneMax
+    ``ea_simple`` (pop 100k, L 100) for 20 generations, then the same run
+    through ``ResilientRun`` in segments of 5, synchronous and
+    double-buffered, each bitwise equal to it (population, fitness,
+    logbook, hall of fame) with K1 launched 20 times; the checkpoint's
+    bytes, save (synchronous, double-buffered) and restore seconds and the
+    segmented runs' ms/gen beside the uninterrupted run's, also over 60
+    generations in segments of 20; a child process
+    on the same run (``--resilience-child``) SIGKILLed once its journal
+    shows generation 10 checkpointed, its newest file corrupted with
+    ``corrupt_file``, and a second child that falls back one file to
+    generation 5, launches K1 15 times, and writes its result, which must
+    equal the uninterrupted run bitwise (the time from its start to its
+    first resumed segment printed); GP symbreg (pop 4096, K9) preempted by
+    a real SIGTERM at generation 10 of 20 and resumed, bitwise against the
+    uninterrupted run, K9 launched once an evaluation of the generations
+    left; CMA-ES (dim 100, lambda 4096, ``eigh_impl='jacobi'``) for 12
+    generations in segments of 4, bitwise, J1 launched 12 times.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -426,6 +444,15 @@ J5_CAPPED_POP, J5_CAPPED_SIGMA = 10_000, 0.05
 # J5's widths held beside the configuration's 16 (P 257, E 3, 200 steps):
 # two widths of the runtime-H instance
 J5_WIDTHS = (7, 64)
+# phase 19, resilience: the OneMax ea_simple run of phase 3 for 20
+# generations in segments of 5, a child process killed once generation 10
+# is checkpointed; GP symbreg preempted at 10 of 20; CMA-ES with J1 for 12
+# generations in segments of 4
+RS_NGEN, RS_SEG, RS_KILL_AT = 20, 5, 10
+# the same run for 60 generations in segments of 20, each as long as a
+# checkpoint's write: the tax of a longer segment
+RS_LONG_NGEN, RS_LONG_SEG = 60, 20
+RS_GP_NGEN, RS_GP_PREEMPT, RS_CMA_NGEN, RS_CMA_SEG = 20, 10, 12, 4
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -894,6 +921,7 @@ def main():
     strategy_phases(torch, dev, tag, report)
     swarm_nsga3_phases(torch, dev, tag, report)
     cartpole_phases(torch, dev, tag, report, record)
+    resilience_phases(torch, dev, tag, onemax_run)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -5554,6 +5582,330 @@ def kursawe_toolbox():
     return tb
 
 
+def same_tree(torch, a, b):
+    """Bitwise equality of two result trees: tensors by their bytes,
+    generators by their states, a logbook by its rows, anything else by
+    ``==``."""
+    from deap_tpu_torch.support.checkpoint import tree_flatten
+    la, sa = tree_flatten(a)
+    lb, sb = tree_flatten(b)
+    if sa != sb or len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape):
+                return False
+            bx = x.contiguous().reshape(-1).view(torch.uint8)
+            by = y.to(x.device).contiguous().reshape(-1).view(torch.uint8)
+            if not torch.equal(bx, by):
+                return False
+        elif isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                return False
+        elif isinstance(x, list):  # a Logbook: rows of host scalars
+            if list(x) != list(y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def onemax_resilient(dev, seed, n, ngen, res):
+    """Phase 3's ``onemax_run`` (``fused='auto'``) through the
+    ResilientRun ``res``: ``((pop, logbook, hof), generator)``."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.support.stats import fitness_stats
+    g = make_generator(seed, dev)
+    pop = init_population(g, n, ops.bernoulli_genome(L), FitnessSpec((1.0,)),
+                          device=dev)
+    out = res.ea_simple(g, pop, _onemax_toolbox(Toolbox, ops), CXPB, MUTPB,
+                        ngen, stats=fitness_stats(), halloffame_size=1,
+                        device=dev)
+    return out, g
+
+
+def resilience_child(argv):
+    """``chip_smoke.py --resilience-child DIR MODE SPAWN_WALL``: phase 19's
+    child process. It journals to ``DIR/MODE.jsonl`` (every row fsync'd)
+    and runs ``onemax_resilient`` at pop 100k in segments of 5 over
+    ``DIR/ck``. ``kill``: synchronous saves, and the process waits at the
+    ``saved`` event of generation 10 for the parent's SIGKILL. ``resume``:
+    the default double-buffered run, which resumes from the newest valid
+    file; its result, its K1 launches and the seconds from ``SPAWN_WALL``
+    (the parent's clock when it started this process) to its first
+    resumed segment go to ``DIR/result.pkl``."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.resilience import Fault, FaultPlan, ResilientRun
+    from deap_tpu_torch.support import save_state
+    from deap_tpu_torch.telemetry import RunJournal, read_journal
+    d, mode, spawn = argv[0], argv[1], float(argv[2])
+    journal = RunJournal(os.path.join(d, f"{mode}.jsonl"), fsync_every=1)
+    journal.header(init_backend=False, mode=mode)
+
+    class HoldForKill(Fault):
+        def fire(self, event, **ctx):
+            if event == "saved" and ctx["hi"] >= RS_KILL_AT:
+                time.sleep(600)
+
+    plan = FaultPlan([HoldForKill()]) if mode == "kill" else None
+    res = ResilientRun(os.path.join(d, "ck"), segment_len=RS_SEG,
+                       fault_plan=plan)
+    reset_counts()
+    (pop, logbook, hof), g = onemax_resilient(torch.device("cuda"), 0, N,
+                                              RS_NGEN, res)
+    torch.cuda.synchronize()
+    launches = kernels.fused_variation.launches
+    journal.close()
+    rows = read_journal(journal.path)
+    at = {r["kind"]: r["t"] for r in reversed(rows)}
+    save_state(os.path.join(d, "result.pkl"), {
+        "pop": pop, "logbook": list(logbook), "hof": hof, "generator": g,
+        "launches": launches,
+        "to_resumed_s": journal.wall_start + at["resumed"] - spawn,
+        "to_first_segment_s": journal.wall_start + at["segment"] - spawn})
+    return 0
+
+
+def resilience_phases(torch, dev, tag, onemax_run):
+    """Phase 19: segmented, killed, corrupted and preempted runs through
+    ``ResilientRun``, each bitwise against the uninterrupted run, with the
+    card's first resilience figures. ``onemax_run(seed, n, ngen, fused)``
+    is phase 3's."""
+    import shutil
+    import signal
+    import subprocess
+    from deap_tpu_torch import Toolbox, algorithms, benchmarks
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, linalg
+    from deap_tpu_torch.resilience import (FaultPlan, PreemptAt, Preempted,
+                                           ResilientRun, corrupt_file)
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support import (AsyncCheckpointWriter, Checkpointer,
+                                        restore_state)
+    from deap_tpu_torch.support.stats import fitness_stats
+    from deap_tpu_torch.telemetry import read_journal
+
+    root = os.path.join(ROOT, "build", "resilience_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (1)-(2) the uninterrupted run, then in segments of 5, synchronous
+    # and double-buffered
+    reset_counts()
+    ref, ref_s = timed(lambda: onemax_run(0, N, RS_NGEN, "auto"))
+    if kernels.fused_variation.launches != RS_NGEN:
+        fail(f"uninterrupted ea_simple launched K1 "
+             f"{kernels.fused_variation.launches} times in {RS_NGEN} gens")
+    walls, gens = {}, {}
+    for db in (False, True):
+        res = ResilientRun(os.path.join(root, "db" if db else "sync"),
+                           segment_len=RS_SEG, double_buffer=db)
+        reset_counts()
+        (got, g), walls[db] = timed(
+            lambda: onemax_resilient(dev, 0, N, RS_NGEN, res))
+        gens[db] = g.get_state()
+        k1 = kernels.fused_variation.launches
+        if not (same_tree(torch, ref, got) and k1 == RS_NGEN):
+            fail(f"ResilientRun(double_buffer={db}) ea_simple differs from "
+                 f"the uninterrupted run or launched K1 {k1} times")
+    if not torch.equal(gens[False], gens[True]):
+        fail("the two segmented runs left their generators in other states")
+    print(f"{tag} ResilientRun ea_simple n={N} L={L}, {RS_NGEN} gens in "
+          f"segments of {RS_SEG}, synchronous and double-buffered == "
+          f"uninterrupted bitwise (population, fitness, logbook, hall of "
+          f"fame); K1 launches {RS_NGEN} each")
+
+    ck = Checkpointer(os.path.join(root, "sync"))
+    nbytes = os.path.getsize(ck.path_for(RS_NGEN))
+    (step, state), restore_s = timed(lambda: ck.restore_latest(device=dev))
+    if not (step == RS_NGEN and same_tree(torch, state["carry"],
+                                          (got[0], got[2]))):
+        fail("the restored boundary state differs from the run's")
+    timing = Checkpointer(os.path.join(root, "timing"), keep=1)
+    sync_s, submit_s, write_s = [], [], []
+    for i in range(3):
+        sync_s.append(timed(lambda: timing.save(2 * i, state))[1])
+        writer = AsyncCheckpointWriter()
+        submit_s.append(timed(
+            lambda: writer.submit(timing, 2 * i + 1, state))[1])
+        write_s.append(timed(writer.wait)[1] + submit_s[-1])
+    ms = {k: v / RS_NGEN * 1e3 for k, v in
+          (("plain", ref_s), ("sync", walls[False]), ("db", walls[True]))}
+    print(f"{tag} resilience figures at n={N}, L={L}: checkpoint {nbytes} "
+          f"bytes; save synchronous {', '.join(f'{x:.4f}' for x in sync_s)} "
+          f"s; double-buffered submit "
+          f"{', '.join(f'{x:.4f}' for x in submit_s)} s (written by "
+          f"{', '.join(f'{x:.4f}' for x in write_s)} s); restore "
+          f"{restore_s:.4f} s; ms/gen uninterrupted {ms['plain']:.3f}, "
+          f"segments of {RS_SEG} synchronous {ms['sync']:.3f} (tax "
+          f"{ms['sync'] / ms['plain'] - 1:+.1%}), double-buffered "
+          f"{ms['db']:.3f} (tax {ms['db'] / ms['plain'] - 1:+.1%})")
+
+    long_ms = {}
+    for mode in ("plain", "sync", "db"):
+        if mode == "plain":
+            run = lambda: onemax_run(0, N, RS_LONG_NGEN, "auto")
+        else:
+            res = ResilientRun(os.path.join(root, "long_" + mode),
+                               segment_len=RS_LONG_SEG,
+                               double_buffer=mode == "db")
+            run = lambda: onemax_resilient(dev, 0, N, RS_LONG_NGEN, res)[0]
+        out_, wall = timed(run)
+        long_ms[mode] = wall / RS_LONG_NGEN * 1e3
+        if mode == "plain":
+            long_ref = out_
+        elif not same_tree(torch, long_ref, out_):
+            fail(f"ResilientRun ({mode}) over {RS_LONG_NGEN} gens differs")
+    print(f"{tag} ms/gen over {RS_LONG_NGEN} gens, uninterrupted "
+          f"{long_ms['plain']:.3f}, segments of {RS_LONG_SEG} synchronous "
+          f"{long_ms['sync']:.3f} (tax "
+          f"{long_ms['sync'] / long_ms['plain'] - 1:+.1%}), double-buffered "
+          f"{long_ms['db']:.3f} (tax "
+          f"{long_ms['db'] / long_ms['plain'] - 1:+.1%})")
+
+    # (3) a child SIGKILLed at generation 10, its newest file corrupted, a
+    # second child resuming from the file before it
+    d = os.path.join(root, "kill")
+    os.makedirs(d)
+    me = os.path.abspath(__file__)
+    with open(os.path.join(d, "kill.out"), "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, me, "--resilience-child", d, "kill",
+             repr(time.time())], stdout=out, stderr=subprocess.STDOUT,
+            cwd=ROOT)
+    jpath = os.path.join(d, "kill.jsonl")
+    deadline = time.time() + 300
+    while True:
+        if child.poll() is not None:
+            with open(os.path.join(d, "kill.out")) as f:
+                fail(f"the first child exited ({child.returncode}) before "
+                     f"generation {RS_KILL_AT}: {f.read()[-3000:]}")
+        rows = read_journal(jpath) if os.path.exists(jpath) else []
+        if any(r["kind"] == "segment" and r["hi"] == RS_KILL_AT
+               for r in rows):
+            break
+        if time.time() > deadline:
+            child.kill()
+            child.wait()
+            fail(f"the first child did not reach generation {RS_KILL_AT}")
+        time.sleep(0.05)
+    child.send_signal(signal.SIGKILL)
+    child.wait()
+    kill_ck = Checkpointer(os.path.join(d, "ck"))
+    if child.returncode != -signal.SIGKILL or \
+            kill_ck.steps() != [RS_SEG, RS_KILL_AT]:
+        fail(f"the first child ended {child.returncode} with checkpoints "
+             f"{kill_ck.steps()}")
+    corrupt_file(kill_ck.path_for(RS_KILL_AT))
+    spawn = time.time()
+    out = subprocess.run([sys.executable, me, "--resilience-child", d,
+                          "resume", repr(spawn)], capture_output=True,
+                         text=True, cwd=ROOT, timeout=600)
+    child_s = time.time() - spawn
+    if out.returncode != 0:
+        fail(f"the resuming child failed ({out.returncode}): "
+             f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+    result = restore_state(os.path.join(d, "result.pkl"), device=dev)
+    walk = [(r["kind"], r.get("step")) for r in read_journal(
+        os.path.join(d, "resume.jsonl")) if r["kind"] in (
+        "checkpoint_corrupt", "checkpoint_fallback", "resumed")]
+    if walk != [("checkpoint_corrupt", None), ("checkpoint_fallback", RS_SEG),
+                ("resumed", RS_SEG)]:
+        fail(f"the resuming child's restore walk: {walk}")
+    if not (result["launches"] == RS_NGEN - RS_SEG
+            and same_tree(torch, (ref[0], ref[2]),
+                          (result["pop"], result["hof"]))
+            and list(ref[1]) == result["logbook"]
+            and torch.equal(result["generator"].get_state(), gens[False])):
+        fail(f"the resumed child's result differs from the uninterrupted "
+             f"run (K1 launches {result['launches']})")
+    print(f"{tag} SIGKILL at generation {RS_KILL_AT} (a child process), "
+          f"its newest file corrupted: a fresh process fell back to "
+          f"generation {RS_SEG}, launched K1 {result['launches']} times and "
+          f"equals the uninterrupted run bitwise (generator state too); "
+          f"from its start to its restore {result['to_resumed_s']:.3f} s, "
+          f"to its first resumed segment {result['to_first_segment_s']:.3f} "
+          f"s, the whole process {child_s:.3f} s")
+
+    # (4) GP symbreg preempted by a real SIGTERM at generation 10 of 20
+    g, start, run = symbreg_start(dev, 5, GP_POP)
+    reset_counts()
+    want, _ = timed(lambda: run(g, start, RS_GP_NGEN))
+    k9_want = kernels.gp_grouped_dispatch.launches
+    d = os.path.join(root, "gp")
+    g2, start2, run2 = symbreg_start(dev, 5, GP_POP)
+    try:
+        ResilientRun(d, segment_len=RS_SEG,
+                     fault_plan=FaultPlan([PreemptAt(RS_GP_PREEMPT)])
+                     ).gp_loop(run2, g2, start2, RS_GP_NGEN, device=dev)
+        fail("the GP run was not preempted")
+    except Preempted as e:
+        if e.step != RS_GP_PREEMPT:
+            fail(f"the GP run was preempted at {e.step}")
+    g3, start3, run3 = symbreg_start(dev, 5, GP_POP)
+    reset_counts()
+    got_gp, _ = timed(lambda: ResilientRun(d, segment_len=RS_SEG).gp_loop(
+        run3, g3, start3, RS_GP_NGEN, device=dev))
+    k9 = kernels.gp_grouped_dispatch.launches
+    evals = sum(1 for ne in got_gp["nevals"][RS_GP_PREEMPT + 1:] if ne)
+    if not (same_tree(torch, want, got_gp) and k9 == evals
+            and k9_want == 1 + sum(1 for ne in want["nevals"][1:] if ne)
+            and torch.equal(g.get_state(), g3.get_state())):
+        fail(f"the resumed GP run differs from the uninterrupted one (K9 "
+             f"launches {k9}, evaluations left {evals})")
+    print(f"{tag} GP symbreg pop={GP_POP}: SIGTERM at generation "
+          f"{RS_GP_PREEMPT} of {RS_GP_NGEN}, resumed == uninterrupted "
+          f"bitwise; K9 launches {k9} = evaluations of the generations "
+          f"left ({k9_want} uninterrupted)")
+
+    # (5) CMA-ES with J1, 12 generations in segments of 4
+    strat = cma.Strategy(torch.full((CMA_DIM,), CMA_START), sigma=CMA_SIGMA,
+                         lambda_=CMA_LAMBDA, eigh_impl="jacobi", device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.sphere)
+    tb.register("generate", strat.generate)
+    tb.register("update", strat.update)
+    kw = dict(stats=fitness_stats(), halloffame_size=1, device=dev)
+    st0 = strat.initial_state()
+    reset_counts()
+    want = algorithms.ea_generate_update(make_generator(29, dev), st0, tb,
+                                         RS_CMA_NGEN, strat.spec, **kw)
+    torch.cuda.synchronize()
+    j1_want = linalg.eigh_jacobi.launches
+    st1 = strat.initial_state()
+    reset_counts()
+    g = make_generator(29, dev)
+    got_cma = ResilientRun(os.path.join(root, "cma"),
+                           segment_len=RS_CMA_SEG).ea_generate_update(
+        g, st1, tb, RS_CMA_NGEN, strat.spec, **kw)
+    torch.cuda.synchronize()
+    j1 = linalg.eigh_jacobi.launches
+    if not (same_tree(torch, (want[0], want[2]), (got_cma[0], got_cma[2]))
+            and list(want[1]) == list(got_cma[1])
+            and j1 == j1_want == RS_CMA_NGEN):
+        fail(f"segmented CMA-ES differs from the uninterrupted run (J1 "
+             f"launches {j1}, {j1_want} uninterrupted)")
+    print(f"{tag} CMA-ES dim={CMA_DIM} lambda={CMA_LAMBDA} 'jacobi', "
+          f"{RS_CMA_NGEN} gens in segments of {RS_CMA_SEG} == uninterrupted "
+          f"bitwise; J1 launches {j1}")
+    print(f"{tag} phase 19 (resilience): {time.perf_counter() - t_phase:.1f} "
+          f"s wall")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def _onemax_toolbox(Toolbox, ops):
     import torch
     tb = Toolbox()
@@ -5565,4 +5917,6 @@ def _onemax_toolbox(Toolbox, ops):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resilience-child"]:
+        sys.exit(resilience_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,3 +1,22 @@
+from deap_tpu_torch.support.checkpoint import (
+    AsyncCheckpointWriter,
+    CheckpointCorruptError,
+    CheckpointFormatError,
+    Checkpointer,
+    allow_compat_restore,
+    checkpoint_meta,
+    restore_state,
+    save_state,
+    set_compat_restore,
+    verify_checkpoint,
+)
+from deap_tpu_torch.support.history import (
+    History,
+    Lineage,
+    lineage_init,
+    lineage_step,
+    pair_parents,
+)
 from deap_tpu_torch.support.hof import HallOfFame, hof_best, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook, logbook_from_records
 from deap_tpu_torch.support.pareto import (
@@ -12,4 +31,9 @@ from deap_tpu_torch.support.stats import (MultiStatistics, Statistics,
 __all__ = ["HallOfFame", "hof_best", "hof_init", "hof_update", "Logbook",
            "logbook_from_records", "MultiStatistics",
            "ParetoArchive", "nondominated_mask", "pareto_init",
-           "pareto_update", "Statistics", "fitness_stats"]
+           "pareto_update", "Statistics", "fitness_stats",
+           "History", "Lineage", "lineage_init", "lineage_step",
+           "pair_parents", "AsyncCheckpointWriter", "CheckpointCorruptError",
+           "CheckpointFormatError", "Checkpointer", "allow_compat_restore",
+           "checkpoint_meta", "restore_state", "save_state",
+           "set_compat_restore", "verify_checkpoint"]

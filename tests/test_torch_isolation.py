@@ -361,3 +361,74 @@ def test_cartpole_mesh_and_rest_of_the_operators_stand_alone(no_card):
         chip_smoke.cartpole_start(None, 0, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parallel.population_mesh()
+
+
+def test_resilience_checkpoints_and_journal_stand_alone(no_card, tmp_path):
+    """The resilient engine, the checkpoint container, the genealogy
+    helpers, the fault harness and the run journal run without jax or the
+    JAX package: a killed ``ea_simple`` resumes bit for bit, and the
+    engine raises without a card unless asked for the CPU."""
+    script = textwrap.dedent(f"""
+        import sys
+        import torch
+        from deap_tpu_torch import Toolbox, FitnessSpec, ops, algorithms
+        from deap_tpu_torch.core.population import init_population
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.resilience import (
+            FaultPlan, InjectedCrash, KillAt, ResilientRun, RetryPolicy,
+            DrainSignal, quarantine_non_finite, nan_inject_evaluate)
+        from deap_tpu_torch.support import (
+            Checkpointer, History, lineage_init, lineage_step, pair_parents,
+            restore_state, save_state)
+        from deap_tpu_torch.telemetry import RunJournal, read_journal
+        tb = Toolbox()
+        tb.register("evaluate", quarantine_non_finite(
+            lambda g: g.sum(-1).to(torch.float32)))
+        tb.register("mate", ops.cx_two_point)
+        tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+        tb.register("select", ops.sel_tournament, tournsize=3)
+        pop = lambda: init_population(make_generator(0, "cpu"), 40,
+                                      ops.bernoulli_genome(12),
+                                      FitnessSpec((1.0,)), device="cpu")
+        want = algorithms.ea_simple(make_generator(1, "cpu"), pop(), tb, 0.5,
+                                    0.2, 5, device="cpu")
+        d = {str(tmp_path / "ck")!r}
+        with RunJournal({str(tmp_path / "j.jsonl")!r}):
+            try:
+                ResilientRun(d, segment_len=2,
+                             fault_plan=FaultPlan([KillAt(3)])).ea_simple(
+                    make_generator(1, "cpu"), pop(), tb, 0.5, 0.2, 5,
+                    device="cpu")
+            except InjectedCrash:
+                pass
+            got = ResilientRun(d, segment_len=2).ea_simple(
+                make_generator(1, "cpu"), pop(), tb, 0.5, 0.2, 5,
+                device="cpu")
+        assert torch.equal(want[0].genomes, got[0].genomes)
+        kinds = [r["kind"] for r in read_journal({str(tmp_path / "j.jsonl")!r})]
+        assert "resumed" in kinds and "segment" in kinds, kinds
+        lin, ids = lineage_step(lineage_init(4, "cpu"), pair_parents(
+            torch.tensor([0, 1, 2, 3]), torch.tensor([True, False])))
+        History().record(ids)
+        assert RetryPolicy(jitter=0.5).delay(1) > 0
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    from deap_tpu_torch.resilience import ResilientRun
+    from deap_tpu_torch.support import restore_state, save_state
+    gen = tdevice.make_generator(0, "cpu")
+    pop = init_population(gen, 4, tops.bernoulli_genome(8),
+                          FitnessSpec((1.0,)), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResilientRun(str(tmp_path / "c2")).ea_simple(gen, pop, None, 0.5,
+                                                     0.2, 1)
+    save_state(str(tmp_path / "s.pkl"), {"x": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_state(str(tmp_path / "s.pkl"))
