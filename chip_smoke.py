@@ -261,6 +261,25 @@ Phases (any failure ends the script with a non-zero exit code):
     uninterrupted run, K9 launched once an evaluation of the generations
     left; CMA-ES (dim 100, lambda 4096, ``eigh_impl='jacobi'``) for 12
     generations in segments of 4, bitwise, J1 launched 12 times.
+20. telemetry (``deap_tpu_torch.telemetry``): phase 3's OneMax
+    ``ea_simple`` (pop 100k, L 100, K1) for 20 generations bare and with
+    ``RunTelemetry`` (``DiversityProbe``, ``FitnessProbe``,
+    ``SelectionProbe``, a ``HealthMonitor``), bitwise equal (population,
+    logbook, hall of fame, generator), a ``meter`` row a generation and
+    gen 0's, ms/gen of both and the tax; the bare and telemetered
+    generation steps under ``torch.cuda.set_sync_debug_mode("error")``
+    (where the bare one synchronises, the call is printed and the meter's
+    host copies counted: one); GP symbreg (pop 4096, K9) under
+    ``TreeDiversityProbe``, ``'jacobi'`` CMA-ES (dim 100, lambda 4096,
+    J1) under ``strategy_probe`` for 10 generations each, and a
+    ``sel_nsga2`` (mu + lambda) run on 3-objective DTLZ2 (mu 50k, K7)
+    under ``FrontProbe`` for 3, each bitwise equal to its bare run with a
+    journal that ``read_journal(strict=True)`` parses; ``ResilientRun``
+    with ``telemetry=``, ``metrics=`` and ``trace_every=2`` on the OneMax
+    run (segments of 5) inside a ``ProgramObservatory``: bitwise equal to
+    the bare run, its ``flight_trace`` files on disk, one
+    ``program_profile`` for its label with K1's device microseconds, and
+    a second segment length (a second signature) with no drift alarm.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -453,6 +472,18 @@ RS_NGEN, RS_SEG, RS_KILL_AT = 20, 5, 10
 # checkpoint's write: the tax of a longer segment
 RS_LONG_NGEN, RS_LONG_SEG = 60, 20
 RS_GP_NGEN, RS_GP_PREEMPT, RS_CMA_NGEN, RS_CMA_SEG = 20, 10, 12, 4
+# phase 20, telemetry: phase 3's OneMax run for 20 generations, GP and
+# CMA-ES for 10, a (mu + lambda) NSGA-II on DTLZ2 at mu 50k for 3; the
+# resilient OneMax run in segments of 5 with every 2nd one traced, then
+# in segments of 4 (a second signature for the observatory)
+TL_NGEN, TL_GP_NGEN, TL_CMA_NGEN, TL_MO_NGEN = 20, 10, 10, 3
+TL_SEG, TL_TRACE_EVERY, TL_SEG2, TL_SYNC_GENS = 5, 2, 4, 3
+# bare and telemetered runs alternate (after one untimed telemetered
+# warm-up) this many times each; the least wall of each is reported
+TL_REPS, TL_OTHER_REPS = 3, 2
+TL_MO_REF = (-4.0, -4.0, -4.0)
+# the kernels' function names as the profiler lists them
+K1_KERNEL = "fused_variation_kernel"
 # clocks the card spins before each timed call (about 1 ms): the host
 # enqueues the call meanwhile, so its events time device work only
 SPIN_CYCLES = 2_000_000
@@ -922,6 +953,7 @@ def main():
     swarm_nsga3_phases(torch, dev, tag, report)
     cartpole_phases(torch, dev, tag, report, record)
     resilience_phases(torch, dev, tag, onemax_run)
+    telemetry_phases(torch, dev, tag, onemax_run)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -5902,6 +5934,412 @@ def resilience_phases(torch, dev, tag, onemax_run):
           f"{RS_CMA_NGEN} gens in segments of {RS_CMA_SEG} == uninterrupted "
           f"bitwise; J1 launches {j1}")
     print(f"{tag} phase 19 (resilience): {time.perf_counter() - t_phase:.1f} "
+          f"s wall")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def dtlz2_mu_plus_lambda_toolbox():
+    """A (mu + lambda) NSGA-II toolbox on 3-objective DTLZ2 (MO_DIM genes
+    in [0, 1]): bounded SBX and polynomial mutation (eta 20), and
+    ``sel_nsga2`` through K7 (``nd='tiled'``)."""
+    from deap_tpu_torch import Toolbox, mo, ops
+    from deap_tpu_torch import benchmarks as bm
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: bm.dtlz2(g, MO_NOBJ))
+    tb.register("mate", ops.cx_simulated_binary_bounded, eta=ZDT1_ETA,
+                low=0.0, up=1.0)
+    tb.register("mutate", ops.mut_polynomial_bounded, eta=ZDT1_ETA, low=0.0,
+                up=1.0, indpb=1.0 / MO_DIM)
+    tb.register("select", mo.sel_nsga2, nd="tiled")
+    return tb
+
+
+def sync_debug_error(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``; None
+    when nothing synchronised, else the error and the innermost frame of
+    this repository that called the synchronising operation."""
+    import traceback
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if f.filename.startswith(ROOT)]
+        where = (f"{os.path.relpath(frames[-1].filename, ROOT)}:"
+                 f"{frames[-1].lineno} ({frames[-1].line})" if frames
+                 else "?")
+        return f"{str(e).splitlines()[0]} at {where}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
+def telemetry_phases(torch, dev, tag, onemax_run):
+    """Phase 20: every ported loop bare and with telemetry, bitwise equal,
+    on the card; the sync check, the tax, the flight recorder and the
+    program observatory. ``onemax_run(seed, n, ngen, fused)`` is phase
+    3's."""
+    import shutil
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, benchmarks
+    from deap_tpu_torch import gp, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import kernels, linalg
+    from deap_tpu_torch.resilience import ResilientRun
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support.stats import fitness_stats
+    from deap_tpu_torch.telemetry import (
+        DiversityProbe, FitnessProbe, FrontProbe, HealthMonitor,
+        MetricsRegistry, ProgramObservatory, RunTelemetry, SelectionProbe,
+        TreeDiversityProbe, metrics_text, read_journal, strategy_probe)
+
+    root = os.path.join(ROOT, "build", "telemetry_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    tb = _onemax_toolbox(Toolbox, ops)
+    spec = FitnessSpec((1.0,))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def journal_kinds(path):
+        rows = read_journal(path, strict=True)
+        return rows, [r["kind"] for r in rows]
+
+    def alternate(bare_fn, tel_fn, reps, check):
+        """An untimed telemetered warm-up, then ``reps`` bare runs and
+        ``reps`` telemetered runs in turns (counts set to 0 just before
+        each telemetered run), each pair checked by ``check(bare, tel)``;
+        returns the last pair and each kind's walls."""
+        tel_fn("warm")
+        walls = {"bare": [], "tel": []}
+        for i in range(reps):
+            want, s = timed(bare_fn)
+            walls["bare"].append(s)
+            reset_counts()
+            got, s = timed(lambda: tel_fn(i))
+            walls["tel"].append(s)
+            check(want, got)
+        return want, got, walls
+
+    def ms_gen(walls, ngen):
+        return {k: min(v) / ngen * 1e3 for k, v in walls.items()}
+
+    def spread(walls):
+        return "; walls " + ", ".join(
+            f"{k} {' '.join(f'{x:.4f}' for x in v)} s"
+            for k, v in walls.items())
+
+    # (1) OneMax: bare, then with telemetry, probes and a HealthMonitor
+    def onemax_tel(path):
+        g = make_generator(0, dev)
+        pop = init_population(g, N, ops.bernoulli_genome(L), spec,
+                              device=dev)
+        with RunTelemetry(path, health=HealthMonitor()) as tel:
+            out = algorithms.ea_simple(
+                g, pop, tb, CXPB, MUTPB, TL_NGEN, stats=fitness_stats(),
+                halloffame_size=1, telemetry=tel,
+                probes=(DiversityProbe(), FitnessProbe(),
+                        SelectionProbe(n=N)), device=dev)
+        return out, g, tel
+
+    def onemax_bare():
+        g = make_generator(0, dev)
+        pop = init_population(g, N, ops.bernoulli_genome(L), spec,
+                              device=dev)
+        return algorithms.ea_simple(g, pop, tb, CXPB, MUTPB, TL_NGEN,
+                                    stats=fitness_stats(), halloffame_size=1,
+                                    device=dev), g
+
+    def onemax_check(want, got):
+        (bare, g_bare), (res, g_tel, _) = want, got
+        k1 = kernels.fused_variation.launches
+        if not (same_tree(torch, bare, res) and k1 == TL_NGEN and
+                torch.equal(g_bare.get_state(), g_tel.get_state())):
+            fail(f"telemetered ea_simple differs from the bare run (K1 "
+                 f"launches {k1})")
+
+    (bare, g_bare), (_, _, tel), walls = alternate(
+        onemax_bare, lambda i: onemax_tel(os.path.join(
+            root, f"onemax{i}.jsonl")), TL_REPS, onemax_check)
+    k1 = kernels.fused_variation.launches
+    rows, kinds = journal_kinds(os.path.join(root,
+                                             f"onemax{TL_REPS - 1}.jsonl"))
+    gens = [r["gen"] for r in rows if r["kind"] == "meter"]
+    if gens != list(range(TL_NGEN + 1)) or tel.meter.host_copies != 1:
+        fail(f"telemetered ea_simple journaled meter rows {gens} in "
+             f"{tel.meter.host_copies} host copies")
+    last = [r for r in rows if r["kind"] == "meter"][-1]
+    ms = ms_gen(walls, TL_NGEN)
+    print(f"{tag} ea_simple n={N} L={L}, {TL_NGEN} gens with RunTelemetry, "
+          f"DiversityProbe, FitnessProbe, SelectionProbe and a HealthMonitor "
+          f"== bare bitwise (population, logbook, hall of fame, generator); "
+          f"K1 launches {k1}; {len(gens)} meter rows in 1 host copy; "
+          f"ms/gen bare {ms['bare']:.3f}, telemetered {ms['tel']:.3f} (tax "
+          f"{ms['tel'] / ms['bare'] - 1:+.1%}{spread(walls)}); last row "
+          f"best {last['best']}, div_unique_frac "
+          f"{last['div_unique_frac']:.4f}, sel_eff_parents "
+          f"{last['sel_eff_parents']:.1f}")
+
+    # the generation steps under the sync check
+    def steps(with_tel):
+        from deap_tpu_torch.algorithms import (_pop_loop_init, _tel_declare,
+                                               _tel_measure)
+        g = make_generator(3, dev)
+        pop = init_population(g, N, ops.bernoulli_genome(L), spec,
+                              device=dev)
+        pop, hof, _ = _pop_loop_init(pop, tb, 1, fitness_stats())
+        tel = mstate = None
+        if with_tel:
+            tel = RunTelemetry(os.path.join(root, "sync.jsonl"),
+                               health=HealthMonitor())
+            tel.begin_run("ea_simple", tb, declare=_tel_declare,
+                          probes=(DiversityProbe(), FitnessProbe(),
+                                  SelectionProbe(n=N)))
+            mstate = _tel_measure(tel, tel.meter.init(device=dev),
+                                  pop.size, pop, 0)
+        step = algorithms.make_ea_simple_step(tb, CXPB, MUTPB,
+                                              fitness_stats(), tel)
+        torch.cuda.synchronize()
+
+        def run():
+            nonlocal pop, hof, mstate
+            for gen in range(1, TL_SYNC_GENS + 1):
+                if tel is None:
+                    pop, hof, _ = step(g, pop, hof)
+                else:
+                    pop, hof, _, mstate = step(g, pop, hof, mstate, gen)
+        err = sync_debug_error(torch, run)
+        if tel is not None:
+            tel.journal.close()
+        return err
+
+    bare_err = steps(False)
+    if bare_err is None:
+        tel_err = steps(True)
+        if tel_err is not None:
+            fail(f"the bare generation step runs without a synchronise, the "
+                 f"telemetered one synchronises: {tel_err}")
+        print(f"{tag} sync check: {TL_SYNC_GENS} bare and {TL_SYNC_GENS} "
+              f"telemetered ea_simple generation steps ran under "
+              f"set_sync_debug_mode('error') without a synchronise")
+    else:
+        print(f"{tag} sync check: the bare ea_simple generation step "
+              f"synchronises ({bare_err}); the telemetered run's meter made "
+              f"{tel.meter.host_copies} host copy for {len(gens)} rows")
+
+    # (2) GP symbreg under TreeDiversityProbe
+    pset = gp.math_set(1)
+    X, y = symbreg_data(dev)
+
+    def gp_run(path):
+        g = make_generator(5, dev)
+        start = gp.gen_half_and_half(pset, GP_ML, 1, 2)(g, GP_POP)
+        if path is None:
+            run = gp.make_symbreg_loop(pset, GP_ML, X, y, cxpb=GP_CXPB,
+                                       mutpb=GP_MUTPB, device=dev)
+            return run(g, start, TL_GP_NGEN), g
+        with RunTelemetry(path, health=HealthMonitor()) as tel:
+            run = gp.make_symbreg_loop(
+                pset, GP_ML, X, y, cxpb=GP_CXPB, mutpb=GP_MUTPB, device=dev,
+                telemetry=tel, probes=(TreeDiversityProbe(pset),))
+            return run(g, start, TL_GP_NGEN), g
+
+    gp_path = os.path.join(root, "gp.jsonl")
+
+    def gp_check(want, got):
+        (want, g_want), (got, g_got) = want, got
+        k9 = kernels.gp_grouped_dispatch.launches
+        evals = 1 + sum(1 for ne in got["nevals"][1:] if ne)
+        kinds = journal_kinds(gp_path)[1]
+        if not (same_tree(torch, want, got) and torch.equal(
+                g_want.get_state(), g_got.get_state()) and k9 == evals
+                and kinds.count("meter") == TL_GP_NGEN + 1
+                and "gp_dispatch" in kinds):
+            fail(f"telemetered GP symbreg differs from the bare run (K9 "
+                 f"launches {k9}, evaluations {evals}, meter rows "
+                 f"{kinds.count('meter')})")
+
+    _, _, walls = alternate(lambda: gp_run(None), lambda i: gp_run(gp_path),
+                            TL_OTHER_REPS, gp_check)
+    k9 = kernels.gp_grouped_dispatch.launches
+    rows, kinds = journal_kinds(gp_path)
+    last = [r for r in rows if r["kind"] == "meter"][-1]
+    ms = ms_gen(walls, TL_GP_NGEN)
+    print(f"{tag} GP symbreg pop={GP_POP}, {TL_GP_NGEN} gens with "
+          f"TreeDiversityProbe == bare bitwise; K9 launches {k9} = "
+          f"evaluations; {kinds.count('meter')} meter rows, "
+          f"{kinds.count('gp_dispatch')} gp_dispatch rows; ms/gen bare "
+          f"{ms['bare']:.3f}, telemetered {ms['tel']:.3f} (tax "
+          f"{ms['tel'] / ms['bare'] - 1:+.1%}{spread(walls)}); last row "
+          f"gp_clone_rate {last['gp_clone_rate']:.4f}, gp_opcode_entropy "
+          f"{last['gp_opcode_entropy']:.4f}")
+
+    # (3) 'jacobi' CMA-ES under strategy_probe (the initial state's
+    # eigendecomposition made before the counts are set to 0)
+    strat = cma.Strategy(torch.full((CMA_DIM,), CMA_START), sigma=CMA_SIGMA,
+                         lambda_=CMA_LAMBDA, eigh_impl="jacobi", device=dev)
+    ctb = Toolbox()
+    ctb.register("evaluate", benchmarks.sphere)
+    ctb.register("generate", strat.generate)
+    ctb.register("update", strat.update)
+    kw = dict(stats=fitness_stats(), halloffame_size=1, device=dev)
+
+    def cma_run(state0, path):
+        g = make_generator(29, dev)
+        if path is None:
+            return algorithms.ea_generate_update(
+                g, state0, ctb, TL_CMA_NGEN, strat.spec, **kw), g
+        with RunTelemetry(path, probe=strategy_probe(strat),
+                          health=HealthMonitor()) as tel:
+            return algorithms.ea_generate_update(
+                g, state0, ctb, TL_CMA_NGEN, strat.spec, telemetry=tel,
+                **kw), g
+
+    cma_path = os.path.join(root, "cma.jsonl")
+    # the initial states (one eigendecomposition each) are made before
+    # the counts are set to 0
+    states = {i: strat.initial_state() for i in ("warm", *range(TL_OTHER_REPS))}
+
+    def cma_check(want, got):
+        (want, g_want), (got, g_got) = want, got
+        j1 = linalg.eigh_jacobi.launches
+        meters = [r for r in journal_kinds(cma_path)[0]
+                  if r["kind"] == "meter"]
+        if not (same_tree(torch, want, got) and torch.equal(
+                g_want.get_state(), g_got.get_state()) and j1 == TL_CMA_NGEN
+                and [r["gen"] for r in meters] == list(range(TL_CMA_NGEN))
+                and all(math.isfinite(r["sigma"]) for r in meters)):
+            fail(f"telemetered CMA-ES differs from the bare run (J1 "
+                 f"launches {j1}, meter rows {len(meters)})")
+
+    _, _, walls = alternate(lambda: cma_run(strat.initial_state(), None),
+                            lambda i: cma_run(states[i], cma_path),
+                            TL_OTHER_REPS, cma_check)
+    j1 = linalg.eigh_jacobi.launches
+    meters = [r for r in journal_kinds(cma_path)[0] if r["kind"] == "meter"]
+    ms = ms_gen(walls, TL_CMA_NGEN)
+    print(f"{tag} CMA-ES dim={CMA_DIM} lambda={CMA_LAMBDA} 'jacobi', "
+          f"{TL_CMA_NGEN} gens under strategy_probe == bare bitwise; J1 "
+          f"launches {j1}; ms/gen bare {ms['bare']:.3f}, telemetered "
+          f"{ms['tel']:.3f} (tax {ms['tel'] / ms['bare'] - 1:+.1%}"
+          f"{spread(walls)}); sigma {meters[0]['sigma']:.4f} -> "
+          f"{meters[-1]['sigma']:.4f}, cond {meters[-1]['cond']:.4f}")
+
+    # (4) (mu + lambda) NSGA-II on DTLZ2 under FrontProbe
+    mtb = dtlz2_mu_plus_lambda_toolbox()
+    mspec = FitnessSpec((-1.0,) * MO_NOBJ)
+
+    def mo_run(path):
+        g = make_generator(31, dev)
+        pop = init_population(g, MO_POP, ops.uniform_genome(MO_DIM, 0.0,
+                                                             1.0),
+                              mspec, device=dev)
+        args = (g, pop, mtb, MO_POP, MO_POP, 0.9, 0.1, TL_MO_NGEN)
+        if path is None:
+            return algorithms.ea_mu_plus_lambda(*args, device=dev), g
+        with RunTelemetry(path, health=HealthMonitor()) as tel:
+            return algorithms.ea_mu_plus_lambda(
+                *args, telemetry=tel, probes=(FrontProbe(TL_MO_REF),),
+                device=dev), g
+
+    mo_path = os.path.join(root, "nsga2.jsonl")
+
+    def mo_check(want, got):
+        (want, g_want), (got, g_got) = want, got
+        k7 = kernels.dominated_weight_sums.launches
+        meters = [r for r in journal_kinds(mo_path)[0]
+                  if r["kind"] == "meter"]
+        if not (same_tree(torch, want, got) and torch.equal(
+                g_want.get_state(), g_got.get_state()) and k7 > 0
+                and len(meters) == TL_MO_NGEN + 1
+                and all(r["hv_proxy"] > 0 for r in meters)):
+            fail(f"telemetered NSGA-II differs from the bare run (K7 "
+                 f"launches {k7}, meter rows {len(meters)})")
+
+    _, _, walls = alternate(lambda: mo_run(None), lambda i: mo_run(mo_path),
+                            TL_OTHER_REPS, mo_check)
+    k7 = kernels.dominated_weight_sums.launches
+    meters = [r for r in journal_kinds(mo_path)[0] if r["kind"] == "meter"]
+    ms = ms_gen(walls, TL_MO_NGEN)
+    print(f"{tag} (mu + lambda) sel_nsga2 on DTLZ2 mu={MO_POP} m={MO_NOBJ}, "
+          f"{TL_MO_NGEN} gens under FrontProbe == bare bitwise; K7 launches "
+          f"{k7}; ms/gen bare {ms['bare']:.3f}, telemetered {ms['tel']:.3f} "
+          f"(tax {ms['tel'] / ms['bare'] - 1:+.1%}{spread(walls)}); hv_proxy "
+          f"{meters[0]['hv_proxy']:.4f} -> {meters[-1]['hv_proxy']:.4f}, "
+          f"front_frac {meters[-1]['front_frac']:.4f}")
+
+    # (5)-(6) ResilientRun with telemetry, metrics and the flight recorder,
+    # inside a ProgramObservatory
+    reg = MetricsRegistry()
+    rs_path = os.path.join(root, "resilient.jsonl")
+    with RunTelemetry(rs_path, health=HealthMonitor()) as tel, \
+            ProgramObservatory(journal=tel.journal,
+                               health=tel.health) as obs:
+        res = ResilientRun(os.path.join(root, "ck"), segment_len=TL_SEG,
+                           telemetry=tel, metrics=reg,
+                           trace_every=TL_TRACE_EVERY)
+        reset_counts()
+        (got, g_got), rs_s = timed(
+            lambda: onemax_resilient(dev, 0, N, TL_NGEN, res))
+        k1 = kernels.fused_variation.launches
+        n_profiles = len(obs.profiles)
+        res2 = ResilientRun(os.path.join(root, "ck2"), segment_len=TL_SEG2,
+                            telemetry=tel)
+        (got2, _), _ = timed(
+            lambda: onemax_resilient(dev, 0, N, TL_NGEN, res2))
+    if not (same_tree(torch, bare, got) and same_tree(torch, bare, got2)
+            and torch.equal(g_bare.get_state(), g_got.get_state())
+            and k1 == TL_NGEN):
+        fail(f"the telemetered ResilientRun differs from the bare run (K1 "
+             f"launches {k1})")
+    rows, kinds = journal_kinds(rs_path)
+    traces = [r for r in rows if r["kind"] == "flight_trace"]
+    want_traces = len(range(0, TL_NGEN // TL_SEG, TL_TRACE_EVERY))
+    if len(traces) != want_traces or not all(os.path.exists(os.path.join(
+            r["dir"], "trace.json")) for r in traces):
+        fail(f"flight recorder: {len(traces)} flight_trace rows, "
+             f"{want_traces} wanted, or their trace files are missing")
+    profiles = [r for r in rows if r["kind"] == "program_profile"]
+    k1_us = [p["kernel_us"].get(k) for p in profiles
+             for k in p["kernel_us"] if K1_KERNEL in k]
+    if not (n_profiles == 1 and len(profiles) == 2 and k1_us
+            and all(u and u > 0 for u in k1_us) and not obs.drifts
+            and len({p["label"] for p in profiles}) == 1):
+        fail(f"observatory: {n_profiles} profiles of the first run, "
+             f"{len(profiles)} journaled, K1 us {k1_us}, drifts "
+             f"{obs.drifts}")
+    # each segment's seconds from the journal: boundary to boundary
+    marks = [r for r in rows if r["kind"] in ("segments_begin", "segment")]
+    seg_s = {}
+    for prev, row in zip(marks, marks[1:]):
+        if row["kind"] == "segment" and prev.get("algorithm") and \
+                row.get("path", "").startswith(os.path.join(root, "ck" + os.sep)):
+            seg_s[row["lo"]] = row["t"] - prev["t"]
+    traced = [seg_s[r["lo"]] for r in traces if r["lo"] in seg_s]
+    plain = [v for lo, v in seg_s.items()
+             if lo not in {r["lo"] for r in traces}]
+    p0 = profiles[0]
+    print(f"{tag} ResilientRun ea_simple n={N}, {TL_NGEN} gens in segments "
+          f"of {TL_SEG} with telemetry=, metrics= and trace_every="
+          f"{TL_TRACE_EVERY}, and in segments of {TL_SEG2} == bare bitwise; "
+          f"K1 launches {k1}; {len(traces)} flight traces; seconds a "
+          f"segment traced {', '.join(f'{x:.3f}' for x in traced)}, "
+          f"untraced {', '.join(f'{x:.3f}' for x in plain)}; wall "
+          f"{rs_s:.3f} s; observatory: {len(profiles)} program_profile rows "
+          f"for {p0['label']} (two signatures, no drift alarm), the first "
+          f"{p0['n_launches']} launches of {len(p0['kernels'])} kernels, "
+          f"{p0['device_us']:.1f} us on the card, K1 "
+          f"{', '.join(f'{u:.1f}' for u in k1_us)} us; "
+          f"{metrics_text(reg).count('deap_resilience_segment_seconds_count')}"
+          f" segment-seconds series in the metrics registry")
+    print(f"{tag} phase 20 (telemetry): {time.perf_counter() - t_phase:.1f} "
           f"s wall")
     shutil.rmtree(root, ignore_errors=True)
 

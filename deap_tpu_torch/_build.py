@@ -7,8 +7,11 @@ sources and the flags, so an edited kernel is rebuilt and a stale one is
 never loaded. Builds happen at first use (or all at once, in parallel,
 through :func:`build`); nothing is compiled when a module is imported.
 ``nvcc``'s register and spill report is kept beside each library as
-``.log``. The host libraries of :mod:`deap_tpu_torch.native` are built
-the same way by the host's ``g++`` (:func:`host_library`).
+``.log``. Each ``nvcc`` build that runs is reported to the open run
+journals as a ``compile`` row (:func:`deap_tpu_torch.telemetry.journal.
+compile_observed`) and counted in :data:`COMPILE_SECONDS`. The host
+libraries of :mod:`deap_tpu_torch.native` are built the same way by the
+host's ``g++`` (:func:`host_library`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ FLOAT = ctypes.c_float
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: seconds of ``nvcc`` builds this process ran, summed (a one-element list
+#: so readers see the updates)
+COMPILE_SECONDS = [0.0]
 
 
 def _nvcc() -> str:
@@ -48,11 +54,24 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _target(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """The hash of ``csrc/<name>.cu``, the shared headers and the flags
+    that names its build."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         digest.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
+
+
+def loaded_hashes() -> Dict[str, str]:
+    """``{library: source_hash}`` of every kernel library loaded so far."""
+    with _LOCK:
+        names = sorted(_LIBS)
+    return {name: source_hash(name) for name in names}
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -82,6 +101,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             failures.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, target)
+        COMPILE_SECONDS[0] += seconds[name]
+        from deap_tpu_torch.telemetry.journal import compile_observed
+        compile_observed(name, seconds[name])
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return seconds

@@ -24,12 +24,18 @@ that the JAX package's ``bench.py`` races (``make_run_selgather``,
 :func:`ea_generate_update` is the ask-tell loop of the strategies
 (:mod:`deap_tpu_torch.strategies`): ``toolbox.generate(generator, state)
 -> genomes``, ``toolbox.update(state, genomes, values) -> state``.
+
+Every loop takes ``telemetry=`` (a :class:`~deap_tpu_torch.telemetry.
+RunTelemetry`) and ``probes=``: a Meter state joins each generation,
+stays on the device, and is journaled, one ``meter`` row a generation,
+when the loop ends; results are bit-identical with or without it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -51,6 +57,8 @@ from deap_tpu_torch.ops.selection import (
 from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
 from deap_tpu_torch.support.stats import Statistics
+from deap_tpu_torch.telemetry.journal import broadcast
+from deap_tpu_torch.telemetry.meter import mean_f32
 
 
 def _check_cx_mut(cxpb: float, mutpb: float) -> None:
@@ -89,13 +97,22 @@ def evaluate_invalid(pop: Population, evaluate: Callable) -> Population:
 # give the children of the unfused composition for the same generator
 # state.
 
-def _resolve_fused(fused, toolbox, genomes) -> Tuple[Optional[str], object]:
+def _resolve_fused(fused, toolbox, genomes, op: str = "var_and",
+                   journal: bool = True) -> Tuple[Optional[str], object]:
     """``fused=`` → ``(mode, plan)``, mode ``None`` (unfused), ``'plain'``
     or ``'kernel'``. ``'auto'`` takes the kernel for CUDA bool/float32
     genomes, the plain apply otherwise, and the unfused composition when
     the configuration is not fused-capable; an explicit ``'plain'`` or
-    ``'kernel'`` raises instead of computing something else."""
+    ``'kernel'`` raises instead of computing something else. With
+    ``journal`` the decision goes to the open journals as a
+    ``variation_dispatch`` event (the loops journal their first
+    generation's, as the JAX package journals its scan's one trace)."""
+    def note(**payload):
+        if journal:
+            broadcast("variation_dispatch", op=op, **payload)
+
     if fused in (False, None, "off"):
+        note(path="unfused", reason="disabled")
         return None, None
     if fused is True:
         fused = "auto"
@@ -111,14 +128,21 @@ def _resolve_fused(fused, toolbox, genomes) -> Tuple[Optional[str], object]:
     if reason is not None:
         if fused != "auto":
             raise ValueError(f"fused={fused!r} requested but {reason}")
+        note(path="unfused", reason=reason)
         return None, None
+    mode, reason = fused, "requested"
     if fused == "auto":
         on_card = leaf.device.type == "cuda" and leaf.dtype in KERNEL_DTYPES
-        return ("kernel" if on_card else "plain"), plan
-    if fused == "kernel" and leaf.dtype not in KERNEL_DTYPES:
+        mode = "kernel" if on_card else "plain"
+        reason = (f"{leaf.device.type} device, {leaf.dtype}"
+                  + ("" if on_card or leaf.device.type != "cuda"
+                     else " outside the kernel's set"))
+    elif fused == "kernel" and leaf.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused='kernel' requested but genome dtype "
                          f"{leaf.dtype} is outside the kernel's set")
-    return fused, plan
+    note(path=f"fused_{mode}", reason=reason, mate=plan.mate_name,
+         mutate=plan.mut_name, mut_kind=plan.mut_kind)
+    return mode, plan
 
 
 def _rebuild_genomes(template, children):
@@ -161,7 +185,8 @@ def var_and_apply(pop: Population, masks, mut_kind: str, mode: str,
 
 def var_and(generator: torch.Generator, pop: Population, toolbox,
             cxpb: float, mutpb: float, fused="auto",
-            sel_idx: Optional[torch.Tensor] = None) -> Population:
+            sel_idx: Optional[torch.Tensor] = None,
+            _journal: bool = True) -> Population:
     """Crossover AND mutation variation (the reference's varAnd).
 
     Adjacent pairs (0,1), (2,3), ... mate with probability ``cxpb``; each
@@ -170,9 +195,11 @@ def var_and(generator: torch.Generator, pop: Population, toolbox,
     the execution (see :func:`_resolve_fused`); every mode gives the same
     children for the same generator state. ``sel_idx`` composes a
     selection gather into the plane: ``var_and(g, pop, tb, ...,
-    sel_idx=idx)`` == ``var_and(g, gather(pop, idx), tb, ...)``.
+    sel_idx=idx)`` == ``var_and(g, gather(pop, idx), tb, ...)``. The
+    execution picked is journaled (``variation_dispatch``).
     """
-    mode, plan = _resolve_fused(fused, toolbox, pop.genomes)
+    mode, plan = _resolve_fused(fused, toolbox, pop.genomes, "var_and",
+                                _journal)
     if mode is None:
         if sel_idx is not None:
             pop = gather(pop, sel_idx)
@@ -240,7 +267,7 @@ def var_or_apply(pop: Population, masks, mut_kind: str,
 
 def var_or(generator: torch.Generator, pop: Population, toolbox,
            lambda_: int, cxpb: float, mutpb: float,
-           fused="auto") -> Population:
+           fused="auto", _journal: bool = True) -> Population:
     """Crossover OR mutation OR reproduction (the reference's varOr).
 
     Each of the ``lambda_`` children independently: with probability
@@ -250,9 +277,10 @@ def var_or(generator: torch.Generator, pop: Population, toolbox,
     ``fused`` picks the execution (see :func:`_resolve_fused`): the fused
     plane reads the λ children's parents from the N rows directly (K1 on
     the card). Every mode gives the same children for the same generator
-    state."""
+    state. The execution picked is journaled (``variation_dispatch``)."""
     _check_cx_mut(cxpb, mutpb)
-    mode, plan = _resolve_fused(fused, toolbox, pop.genomes)
+    mode, plan = _resolve_fused(fused, toolbox, pop.genomes, "var_or",
+                                _journal)
     if mode is None:
         return _var_or_unfused(generator, pop, toolbox, lambda_, cxpb, mutpb)
     g = _variation.single_genome_leaf(pop.genomes)
@@ -287,6 +315,57 @@ def _maybe_stats(stats: Optional[Statistics], pop: Population):
     return stats.compile(pop) if stats is not None else {}
 
 
+# ------------------------------------------------------------- telemetry ----
+#
+# Every loop takes an optional ``telemetry`` (a RunTelemetry): a Meter
+# state dict is updated each generation by tensor operations that read
+# nothing back, each generation's state is kept on the device, and the
+# journal receives header/run_start, one meter row per generation (one
+# host transfer when the loop ends) and run_end. The meter draws nothing
+# and feeds nothing back, so the results and the generator's state are
+# bit-identical with and without it.
+
+def _tel_declare(meter) -> None:
+    """The built-in metric set every population loop maintains."""
+    meter.counter("nevals")
+    meter.gauge("best")
+    meter.gauge("mean")
+    meter.gauge("evaluated_frac")
+
+
+def _frac(count, n: int, like: torch.Tensor) -> torch.Tensor:
+    """``count / n`` in float32 as the JAX loops compute it: their scan is
+    compiled, and XLA multiplies by the constant's float32 reciprocal (a
+    float32 Python number, which a kernel multiplies by exactly)."""
+    if not isinstance(count, torch.Tensor):
+        count = torch.full((), count, dtype=torch.float32, device=like.device)
+    return count.to(torch.float32) * float(np.float32(1) / np.float32(n))
+
+
+def _tel_measure(tel, mstate, nevals, pop: Population, gen: int,
+                 sel_idx=None, sel_pool=None, parent_idx=None):
+    """A generation's built-in instrumentation, then the probes and the
+    live stream. ``sel_idx``/``sel_pool``/``parent_idx`` hand the probes
+    the selection indices the loop already holds."""
+    m = tel.meter
+    w0 = pop.wvalues[:, 0]
+    mstate = m.inc(mstate, "nevals", nevals)
+    mstate = m.set(mstate, "best", w0.max())
+    mstate = m.set(mstate, "mean", mean_f32(w0))
+    mstate = m.set(mstate, "evaluated_frac", _frac(nevals, pop.size, w0))
+    mstate = tel.apply_probe(mstate, pop=pop, gen=gen, sel_idx=sel_idx,
+                             sel_pool=sel_pool, parent_idx=parent_idx)
+    tel.live(mstate, gen)
+    return mstate
+
+
+def _check_probes(probes, telemetry):
+    if probes and telemetry is None:
+        raise ValueError(
+            "probes= requires telemetry= (a RunTelemetry): probe state "
+            "rides the telemetry Meter")
+
+
 def _pop_loop_init(pop: Population, toolbox, halloffame_size: int,
                    stats: Optional[Statistics]):
     """Gen 0: evaluate the invalid founders, seed the hall of fame, build
@@ -301,35 +380,62 @@ def _pop_loop_init(pop: Population, toolbox, halloffame_size: int,
 
 def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
                         stats: Optional[Statistics] = None,
-                        fused="auto") -> Callable:
+                        telemetry=None, fused="auto") -> Callable:
     """The eaSimple generation step ``(generator, pop, hof) -> (pop, hof,
-    record)``: select n → var_and → evaluate invalid → replace."""
+    record)``: select n → var_and → evaluate invalid → replace. With
+    ``telemetry`` the step is ``(generator, pop, hof, mstate, gen) ->
+    (pop, hof, record, mstate)``."""
+    tel = telemetry
+    first = [True]  # the dispatch is journaled once, at the first call
 
-    def step(generator, pop, hof):
+    def step(generator, pop, hof, mstate=None, gen=None):
         idx = toolbox.select(generator, pop.wvalues, pop.size)
         off = var_and(generator, pop, toolbox, cxpb, mutpb, fused=fused,
-                      sel_idx=idx)
+                      sel_idx=idx, _journal=first[0])
+        first[0] = False
         nevals = (~off.valid).sum()
         off = evaluate_invalid(off, toolbox.evaluate)
         if hof is not None:
             hof = hof_update(hof, off)
-        return off, hof, {"nevals": nevals, **_maybe_stats(stats, off)}
+        rec = {"nevals": nevals, **_maybe_stats(stats, off)}
+        if tel is None:
+            return off, hof, rec
+        # the selection doubles as parentage: child i descends from
+        # pop[idx[i]]
+        mstate = _tel_measure(tel, mstate, nevals, off, gen, sel_idx=idx,
+                              sel_pool=pop.size, parent_idx=idx)
+        return off, hof, rec, mstate
 
     return step
 
 
-def _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
-                  halloffame_size, verbose, device):
+def _run_pop_loop(algorithm, generator, pop, toolbox, step, ngen, stats,
+                  halloffame_size, verbose, device, tel=None, probes=(),
+                  **params):
     """Gen 0, then ``ngen`` calls of ``step`` on ``device``; the records
-    stay on the device until the logbook is built at the end."""
+    (and the meter's states) stay on the device until the loop ends."""
+    _check_probes(probes, tel)
     dev = resolve_device(device)
     check_generator(generator, dev)
     pop, hof, record0 = _pop_loop_init(pop.to(dev), toolbox,
                                        halloffame_size, stats)
     records = []
-    for _ in range(ngen):
-        pop, hof, rec = step(generator, pop, hof)
-        records.append(rec)
+    if tel is None:
+        for _ in range(ngen):
+            pop, hof, rec = step(generator, pop, hof)
+            records.append(rec)
+    else:
+        tel.begin_run(algorithm, toolbox, declare=_tel_declare,
+                      probes=probes, ngen=ngen, **params)
+        mstate0 = mstate = _tel_measure(tel, tel.meter.init(device=dev),
+                                        record0["nevals"], pop, 0)
+        mstates = []
+        for gen in range(1, ngen + 1):
+            pop, hof, rec, mstate = step(generator, pop, hof, mstate, gen)
+            records.append(rec)
+            mstates.append(mstate)
+        tel.end_run(algorithm, stacked_meter=tel.meter.stack(mstates),
+                    initial=mstate0, ngen=ngen)
     logbook = _build_logbook(record0, records, stats)
     if verbose:
         print(logbook.stream)
@@ -339,31 +445,47 @@ def _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
 def ea_simple(generator: torch.Generator, pop: Population, toolbox,
               cxpb: float, mutpb: float, ngen: int,
               stats: Optional[Statistics] = None, halloffame_size: int = 0,
-              verbose: bool = False, fused="auto", device: DeviceLike = None,
+              verbose: bool = False, telemetry=None, probes=(),
+              fused="auto", device: DeviceLike = None,
               ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """The canonical generational GA: select n → varAnd → evaluate
     invalid → replace, for ``ngen`` generations, on ``device`` (the card
     unless ``device="cpu"``; ``generator`` must live there too).
-    ``fused`` as in :func:`var_and`."""
-    step = make_ea_simple_step(toolbox, cxpb, mutpb, stats, fused=fused)
-    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
-                         halloffame_size, verbose, device)
+    ``telemetry`` (a :class:`deap_tpu_torch.telemetry.RunTelemetry`)
+    meters and journals the run, ``probes`` add population probes
+    (:mod:`deap_tpu_torch.telemetry.probes`) to its meter; results are
+    unchanged either way. ``fused`` as in :func:`var_and`."""
+    step = make_ea_simple_step(toolbox, cxpb, mutpb, stats, telemetry,
+                               fused=fused)
+    return _run_pop_loop("ea_simple", generator, pop, toolbox, step, ngen,
+                         stats, halloffame_size, verbose, device, telemetry,
+                         probes, n=pop.size, cxpb=cxpb, mutpb=mutpb)
 
 
 def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
                          mutpb: float, stats: Optional[Statistics],
-                         fused, plus: bool) -> Callable:
-    def step(generator, pop, hof):
+                         tel, fused, plus: bool) -> Callable:
+    first = [True]  # the dispatch is journaled once, at the first call
+
+    def step(generator, pop, hof, mstate=None, gen=None):
         off = var_or(generator, pop, toolbox, lambda_, cxpb, mutpb,
-                     fused=fused)
+                     fused=fused, _journal=first[0])
+        first[0] = False
         nevals = (~off.valid).sum()
         off = evaluate_invalid(off, toolbox.evaluate)
         pool = concat([pop, off]) if plus else off
-        new_pop = gather(pool, toolbox.select(generator, pool.wvalues, mu))
+        idx = toolbox.select(generator, pool.wvalues, mu)
+        new_pop = gather(pool, idx)
         if hof is not None:
             hof = hof_update(hof, off)
-        return new_pop, hof, {"nevals": nevals,
-                              **_maybe_stats(stats, new_pop)}
+        rec = {"nevals": nevals, **_maybe_stats(stats, new_pop)}
+        if tel is None:
+            return new_pop, hof, rec
+        # environmental selection over the pool: probes see which rows
+        # survived, not parentage (var_or's parents are internal draws)
+        mstate = _tel_measure(tel, mstate, nevals, new_pop, gen,
+                              sel_idx=idx, sel_pool=pool.size)
+        return new_pop, hof, rec, mstate
 
     return step
 
@@ -371,57 +493,65 @@ def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
 def make_ea_mu_plus_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
                                 mutpb: float,
                                 stats: Optional[Statistics] = None,
-                                fused="auto") -> Callable:
+                                telemetry=None, fused="auto") -> Callable:
     """The (μ + λ) generation step ``(generator, pop, hof) -> (pop, hof,
     record)``: var_or λ children → evaluate invalid → select μ from the
     parents and children together. The hall of fame sees the children;
-    the record is taken on the new population."""
+    the record is taken on the new population. With ``telemetry`` the
+    step carries the meter state as :func:`make_ea_simple_step`'s."""
     return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
-                                fused, plus=True)
+                                telemetry, fused, plus=True)
 
 
 def make_ea_mu_comma_lambda_step(toolbox, mu: int, lambda_: int,
                                  cxpb: float, mutpb: float,
                                  stats: Optional[Statistics] = None,
-                                 fused="auto") -> Callable:
+                                 telemetry=None, fused="auto") -> Callable:
     """The (μ, λ) generation step: as :func:`make_ea_mu_plus_lambda_step`,
     with μ selected from the children alone."""
     return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
-                                fused, plus=False)
+                                telemetry, fused, plus=False)
 
 
 def ea_mu_plus_lambda(generator: torch.Generator, pop: Population, toolbox,
                       mu: int, lambda_: int, cxpb: float, mutpb: float,
                       ngen: int, stats: Optional[Statistics] = None,
                       halloffame_size: int = 0, verbose: bool = False,
-                      fused="auto", device: DeviceLike = None,
+                      telemetry=None, probes=(), fused="auto",
+                      device: DeviceLike = None,
                       ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """(μ + λ) evolution (the reference's eaMuPlusLambda): the parents
-    compete with their children for the μ places. ``device`` and
-    ``fused`` as in :func:`ea_simple` (``fused`` as in :func:`var_or`)."""
+    compete with their children for the μ places. ``device``,
+    ``telemetry``, ``probes`` and ``fused`` as in :func:`ea_simple`
+    (``fused`` as in :func:`var_or`)."""
     _check_cx_mut(cxpb, mutpb)
     step = make_ea_mu_plus_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
-                                       stats, fused=fused)
-    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
-                         halloffame_size, verbose, device)
+                                       stats, telemetry, fused=fused)
+    return _run_pop_loop("ea_mu_plus_lambda", generator, pop, toolbox, step,
+                         ngen, stats, halloffame_size, verbose, device,
+                         telemetry, probes, mu=mu, lambda_=lambda_,
+                         cxpb=cxpb, mutpb=mutpb)
 
 
 def ea_mu_comma_lambda(generator: torch.Generator, pop: Population, toolbox,
                        mu: int, lambda_: int, cxpb: float, mutpb: float,
                        ngen: int, stats: Optional[Statistics] = None,
                        halloffame_size: int = 0, verbose: bool = False,
-                       fused="auto", device: DeviceLike = None,
+                       telemetry=None, probes=(), fused="auto",
+                       device: DeviceLike = None,
                        ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """(μ, λ) evolution (the reference's eaMuCommaLambda): only the
-    children survive, so ``lambda_ >= mu``. ``device`` and ``fused`` as in
-    :func:`ea_mu_plus_lambda`."""
+    children survive, so ``lambda_ >= mu``. ``device``, ``telemetry``,
+    ``probes`` and ``fused`` as in :func:`ea_mu_plus_lambda`."""
     if lambda_ < mu:
         raise ValueError("lambda must be greater or equal to mu.")
     _check_cx_mut(cxpb, mutpb)
     step = make_ea_mu_comma_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
-                                        stats, fused=fused)
-    return _run_pop_loop(generator, pop, toolbox, step, ngen, stats,
-                         halloffame_size, verbose, device)
+                                        stats, telemetry, fused=fused)
+    return _run_pop_loop("ea_mu_comma_lambda", generator, pop, toolbox,
+                         step, ngen, stats, halloffame_size, verbose, device,
+                         telemetry, probes, mu=mu, lambda_=lambda_,
+                         cxpb=cxpb, mutpb=mutpb)
 
 
 def _host(record):
@@ -523,25 +653,40 @@ def _generate_update_init(genomes, values: torch.Tensor, spec: FitnessSpec,
 
 
 def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
-                                 stats: Optional[Statistics] = None
-                                 ) -> Callable:
+                                 stats: Optional[Statistics] = None,
+                                 telemetry=None) -> Callable:
     """The ask-tell generation step ``(generator, state, hof) -> (state,
     hof, record)``: generate → evaluate → update. ``step.tell(state, hof,
     genomes, values)`` is its second half, for genomes already generated
-    and evaluated."""
+    and evaluated. With ``telemetry`` both take ``mstate, gen`` after
+    their arguments and return the meter state after the record."""
+    tel = telemetry
 
-    def tell(state, hof, genomes, values):
+    def tell(state, hof, genomes, values, mstate=None, gen=None):
         pop = Population(genomes=genomes, fitness=values.to(torch.float32),
                          valid=torch.ones(lam, dtype=torch.bool,
                                           device=values.device), spec=spec)
         new_state = toolbox.update(state, genomes, values)
         if hof is not None:
             hof = hof_update(hof, pop)
-        return new_state, hof, {"nevals": lam, **_maybe_stats(stats, pop)}
+        rec = {"nevals": lam, **_maybe_stats(stats, pop)}
+        if tel is None:
+            return new_state, hof, rec
+        m = tel.meter
+        w0 = pop.wvalues[:, 0]
+        mstate = m.inc(mstate, "nevals", lam)
+        mstate = m.set(mstate, "best", w0.max())
+        mstate = m.set(mstate, "mean", mean_f32(w0))
+        mstate = m.set(mstate, "evaluated_frac", 1.0)
+        mstate = tel.apply_probe(mstate, pop=pop, state=new_state, gen=gen)
+        tel.live(mstate, gen)
+        return new_state, hof, rec, mstate
 
-    def step(generator, state, hof):
+    def step(generator, state, hof, mstate=None, gen=None):
         genomes = toolbox.generate(generator, state)
-        return tell(state, hof, genomes, _as2d(toolbox.evaluate(genomes)))
+        args = (mstate, gen) if tel is not None else ()
+        return tell(state, hof, genomes, _as2d(toolbox.evaluate(genomes)),
+                    *args)
 
     step.tell = tell
     return step
@@ -576,32 +721,54 @@ def ea_generate_update(generator: torch.Generator, state: Any, toolbox,
     Each generation is generate → evaluate → update, then the hall of
     fame and the statistics. The records stay on the device until the
     loop ends, so the loop itself never waits for the card (a strategy's
-    update may: CMA-ES's ``torch.linalg.eigh`` does). ``fused`` is
-    accepted, as in the JAX package, and inert: this loop's variation is
-    the strategy's ``generate``. ``telemetry=``, ``probes=`` and
-    ``plan=`` are not ported and raise.
+    update may: CMA-ES's ``torch.linalg.eigh`` does). ``telemetry`` and
+    ``probes`` as in :func:`ea_simple` (meter rows from gen 0, no
+    founder row; λ, which the run journals, is known after the first
+    ``generate``). ``fused`` is accepted, as in the JAX package, and
+    inert: this loop's variation is the strategy's ``generate``.
+    ``plan=`` is not ported and raises.
     """
     del fused  # no variation plane in the ask-tell loop
-    if telemetry is not None or probes:
-        raise NotImplementedError(
-            "telemetry= and probes= are not ported yet (ROADMAP A11)")
     if plan is not None:
         raise NotImplementedError(
             "plan= (sharding) is not ported yet (ROADMAP A12)")
+    tel = telemetry
+    _check_probes(probes, tel)
     dev = resolve_device(device)
     check_generator(generator, dev)
-    step, hof, records = None, None, []
-    for _ in range(ngen):
+    step, hof, records, mstates, lam = None, None, [], [], None
+    for gen in range(ngen):
         if step is None:
             genomes = toolbox.generate(generator, state)
             values = _as2d(toolbox.evaluate(genomes))
             lam, hof = _generate_update_init(genomes, values, spec,
                                              halloffame_size)
-            step = make_ea_generate_update_step(toolbox, spec, lam, stats)
-            state, hof, rec = step.tell(state, hof, genomes, values)
-        else:
+            step = make_ea_generate_update_step(toolbox, spec, lam, stats,
+                                                tel)
+            if tel is None:
+                state, hof, rec = step.tell(state, hof, genomes, values)
+            else:
+                tel.begin_run("ea_generate_update", toolbox,
+                              declare=_tel_declare, probes=probes, ngen=ngen,
+                              lambda_=lam)
+                state, hof, rec, mstate = step.tell(
+                    state, hof, genomes, values,
+                    tel.meter.init(device=dev), gen)
+                mstates.append(mstate)
+        elif tel is None:
             state, hof, rec = step(generator, state, hof)
+        else:
+            state, hof, rec, mstate = step(generator, state, hof, mstate, gen)
+            mstates.append(mstate)
         records.append(rec)
+    if tel is not None:
+        if step is None:  # ngen 0: no generation told λ
+            tel.begin_run("ea_generate_update", toolbox,
+                          declare=_tel_declare, probes=probes, ngen=ngen,
+                          lambda_=lam)
+        tel.end_run("ea_generate_update",
+                    stacked_meter=tel.meter.stack(mstates), gen0=0,
+                    ngen=ngen)
     logbook = _build_gu_logbook(records, stats)
     if verbose:
         print(logbook.stream)

@@ -24,6 +24,7 @@ import torch
 from deap_tpu_torch.gp.interpreter import _used_ops, run_data_pass
 from deap_tpu_torch.gp.pset import PrimitiveSet
 from deap_tpu_torch.gp.tree import make_generator
+from deap_tpu_torch.telemetry.journal import broadcast
 
 Branches = Sequence[Tuple[PrimitiveSet, int]]   # [(pset, max_len), ...]
 
@@ -142,13 +143,14 @@ def make_adf_batch_interpreter(branches: Branches,
     opcodes its population uses (ADF calls included, so a call no live
     tree makes skips the whole callee), a monotone union over calls, read
     from the host; ``'none'`` keeps every branch's whole vocabulary.
-    Both give bitwise the same values. Unlike the JAX package, ``'auto'``
-    journals no ``gp_dispatch`` event: the telemetry journal is not
-    ported (ROADMAP A11)."""
+    Both give bitwise the same values. ``'auto'`` journals a
+    ``gp_dispatch`` event (``mode='adf'``, each branch's live opcode
+    names) to the open journals whenever the masks grow, as the JAX
+    package does."""
     _validate_branches(branches)
     if specialize not in ("auto", "none"):
         raise ValueError(f"unknown specialize policy {specialize!r}")
-    state = {"masks": tuple(() for _ in branches)}
+    state = {"masks": tuple(() for _ in branches), "seen": set()}
 
     def interpret(genomes, X):
         X = X.to(torch.float32)
@@ -160,6 +162,11 @@ def make_adf_batch_interpreter(branches: Branches,
                                  g["length"].cpu().numpy())
                 masks.append(tuple(sorted(set(prev) | set(used))))
             state["masks"] = masks = tuple(masks)
+            if masks not in state["seen"]:
+                state["seen"].add(masks)
+                broadcast("gp_dispatch", mode="adf", mask=[
+                    [branches[i][0].primitives[j].name for j in m]
+                    for i, m in enumerate(masks)])
         return _link_branches(branches, _spans(branches, genomes),
                               masks)(genomes, X)
 

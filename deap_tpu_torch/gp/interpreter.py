@@ -38,6 +38,7 @@ from torch.profiler import record_function
 from deap_tpu_torch.gp.pset import IDENTITY, PrimitiveSet
 from deap_tpu_torch.gp.tree import prefix_depths, subtree_ends_all
 from deap_tpu_torch.ops import kernels
+from deap_tpu_torch.telemetry.journal import broadcast
 
 #: instruction-block size of ``mode='grouped'``: every chunk is
 #: single-opcode
@@ -397,6 +398,18 @@ class BatchInterpreter:
         self.mask: Tuple[int, ...] = ()
         self.levels_run = 0
         self.grouped_dispatch = kernels.gp_grouped_dispatch
+        self._journaled = None
+
+    def _journal(self, extra: dict) -> None:
+        """A ``gp_dispatch`` event to the open journals whenever the live
+        mask or the dispatch's shape changes (as the JAX package's
+        dispatcher journals; ``n_lanes`` 1: one population)."""
+        tag = (self.mask,) + tuple(sorted(extra.items()))
+        if self._journaled != tag:
+            self._journaled = tag
+            broadcast("gp_dispatch", mode=self.mode,
+                      mask=[self.pset.primitives[i].name for i in self.mask],
+                      mask_popcount=len(self.mask), n_lanes=1, **extra)
 
     def __call__(self, genomes, X) -> torch.Tensor:
         preds, inv = self.unique(genomes, X)
@@ -490,12 +503,17 @@ class BatchInterpreter:
         X = X.to(torch.float32)
         if self.specialize == "none":
             return self._traced(genomes, X, None), None
+        pop = genomes["length"].shape[0]
         if self.mode == "grouped":
             sched, inv = self.schedule(genomes)
+            self._journal({"nchunks": sched["nchunks"],
+                           "n_unique": len(sched["root_idx"])})
             preds = self._grouped(sched, X)
         else:
             with record_function("gp/host_read"):
                 _, _, _, first, inv = self._read(genomes)
+            self._journal({"n_unique": len(first) if first is not None
+                           else pop})
             if first is not None:
                 sel = torch.from_numpy(first).to(genomes["nodes"].device)
                 genomes = {k: v[sel] for k, v in genomes.items()}
@@ -528,7 +546,7 @@ def make_batch_interpreter(pset: PrimitiveSet, max_len: int,
     if mode == "auto":
         raise NotImplementedError(
             "mode='auto' resolves through the dispatch tuner, which is not "
-            "ported yet (ROADMAP A11); pick 'scan', 'sweep' or 'grouped'")
+            "ported yet (ROADMAP A11b); pick 'scan', 'sweep' or 'grouped'")
     if mode not in MODES:
         raise ValueError(f"unknown interpreter mode {mode!r}")
     if specialize not in ("auto", "none"):

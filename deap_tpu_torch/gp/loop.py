@@ -25,6 +25,13 @@ Randomness: one ``torch.Generator`` drives the run. Each generation's
 draws go through a :class:`GpDraws` (aspirants, flags, cut points per
 pair id, mutation points and donors per row id); the tests hand
 ``advance`` the JAX package's draws in one instead.
+
+Telemetry (``telemetry=``, ``probes=``): the loop has a host in it, so
+one decoded ``meter`` row a generation lands in the journal as it
+happens, probes get the selection indices and the interpreter's exact
+dedup count (``host_clone_rate``), and a
+:class:`~deap_tpu_torch.telemetry.probes.HealthMonitor` with
+``early_stop`` stops the run (``result["stopped_at"]``).
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from deap_tpu_torch.core.fitness import FitnessSpec
+from deap_tpu_torch.core.population import Population
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
-from deap_tpu_torch.gp.interpreter import (DEFAULT_CHUNK, _round_size,
-                                           compact_indices,
+from deap_tpu_torch.gp.interpreter import (DEFAULT_CHUNK, _dedup_rows,
+                                           _round_size, compact_indices,
                                            make_batch_interpreter)
 from deap_tpu_torch.gp.pset import PrimitiveSet
 from deap_tpu_torch.gp.tree import (_f32, _splice, draw_cut_points,
@@ -45,6 +54,9 @@ from deap_tpu_torch.gp.tree import (_f32, _splice, draw_cut_points,
                                     randint_below, subtree_end, tree_where)
 from deap_tpu_torch.ops.selection import (_tournament_winners,
                                           tournament_aspirants)
+from deap_tpu_torch.support.profiling import span
+from deap_tpu_torch.telemetry.journal import broadcast
+from deap_tpu_torch.telemetry.meter import mean_f32
 
 
 def _rows(d: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -305,10 +317,7 @@ class GpDraws:
 
 # ------------------------------------------------------------------ loop ----
 
-def _check_not_ported(telemetry, probes, plan) -> None:
-    if telemetry is not None or probes:
-        raise NotImplementedError(
-            "telemetry= and probes= are not ported yet (ROADMAP A11)")
+def _check_not_ported(plan) -> None:
     if plan is not None:
         raise NotImplementedError(
             "plan= (sharding) is not ported yet (ROADMAP A12)")
@@ -336,8 +345,16 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     draws=None)`` and ``run.finalize(state, ngen)`` drive it a
     generation at a time; ``draws`` replaces the generator's draws of
     that generation (a :class:`GpDraws`-shaped object).
+
+    ``telemetry``/``probes`` (module docstring): a ``meter`` row each
+    generation as it happens; telemetry changes no computed result and
+    draws nothing.
     """
-    _check_not_ported(telemetry, probes, plan)
+    _check_not_ported(plan)
+    tel = telemetry
+    if probes and tel is None:
+        raise ValueError("probes= requires telemetry= (a RunTelemetry):"
+                         " probe state rides the telemetry Meter")
     dev = resolve_device(device)
     parts = make_gp_step_parts(
         pset, max_len, tournsize=tournsize, height_limit=height_limit,
@@ -378,7 +395,9 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     def vary_host(draws, genomes, depths, n):
         """Host-compacted var_and: the flags cross to the host, which runs
         ``np.nonzero``/``np.resize`` and sends the padded indices back."""
-        do_cx, do_mut = (f.cpu().numpy() for f in draws.flags(n))
+        do_cx, do_mut = draws.flags(n)
+        with span("gp_loop/host_compaction_fetch"):
+            do_cx, do_mut = do_cx.cpu().numpy(), do_mut.cpu().numpy()
         pidx, midx = np.nonzero(do_cx)[0], np.nonzero(do_mut)[0]
         if len(pidx):
             pp = np.resize(pidx, min(_round_size(len(pidx)),
@@ -398,7 +417,8 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
         """Device-compacted var_and: the flags are compacted where they
         were drawn and the host reads back the three counts."""
         cx_idx, mut_idx, t_idx, counts = compact_flags(*draws.flags(n), n)
-        n_cx, n_mut, n_t = counts.tolist()
+        with span("gp_loop/compaction_count_fetch"):
+            n_cx, n_mut, n_t = counts.tolist()
         if n_cx:
             cx_apply(draws, genomes, depths,
                      cx_idx[:min(_round_size(n_cx), max(n // 2, 1))])
@@ -409,21 +429,72 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
 
     vary = vary_device if compaction == "device" else vary_host
 
+    if tel is not None:
+        from deap_tpu_torch.telemetry.probes import TreeDiversityProbe
+        # the exact interpreter-style dedup costs an O(nL) host pass:
+        # only pay it for a probe that publishes it
+        host_dedup = any(isinstance(p, TreeDiversityProbe)
+                         for p in tuple(probes) + (tel.probe,)
+                         if p is not None)
+
+    def _measure(mstate, ne, genomes, fit, gen, sel_idx=None):
+        """One generation's instrumentation, journaled at once: the
+        built-ins, then the probes with the exact dedup count."""
+        n = fit.shape[0]
+        m = tel.meter
+        mstate = m.inc(mstate, "nevals", ne)
+        mstate = m.set(mstate, "best", fit.max())
+        mstate = m.set(mstate, "mean", mean_f32(fit))
+        mstate = m.set(mstate, "evaluated_frac", ne / n)
+        clone = None
+        if host_dedup:
+            first, _ = _dedup_rows(genomes["nodes"].cpu().numpy(),
+                                   genomes["consts"].cpu().numpy(),
+                                   genomes["length"].cpu().numpy())
+            clone = 1.0 - len(first) / n
+        pv = Population(genomes=genomes, fitness=fit[:, None],
+                        valid=torch.ones(n, dtype=torch.bool,
+                                         device=fit.device),
+                        spec=FitnessSpec((1.0,)))
+        mstate = tel.apply_probe(
+            mstate, pop=pv, gen=gen, sel_idx=sel_idx, sel_pool=n,
+            parent_idx=sel_idx, host_clone_rate=clone)
+        tel.record_row(mstate, gen)
+        return mstate
+
+    def begin_telemetry(ngen: int, n: int) -> None:
+        """Declare this loop's telemetry (the built-ins and the probes)
+        and journal the run start. ``init_state`` calls it; a resumed
+        run, whose gen 0 ran in an earlier process, calls it directly so
+        the fresh Meter knows the metrics of the checkpointed state."""
+        from deap_tpu_torch.algorithms import _tel_declare
+        tel.begin_run("gp_loop", None, declare=_tel_declare, probes=probes,
+                      ngen=ngen, n=n, cxpb=cxpb, mutpb=mutpb)
+
     def init_state(genomes, ngen: int) -> dict:
-        del ngen
         for k, v in genomes.items():
             if v.device.type != dev.type:
                 raise ValueError(f"genomes[{k!r}] lives on {v.device}, the "
                                  f"run on {dev}")
         n = genomes["length"].shape[0]
+        # what the variation plane reads back a generation: three counts
+        # (device) or both flag arrays (host, a byte a flag)
+        broadcast("variation_dispatch", op="gp_loop", path=compaction, n=n,
+                  host_fetch_bytes_per_gen=(
+                      12 if compaction == "device" else n // 2 + n))
         depths = parts.depths(genomes)
         with record_function("gp/evaluate"):
             fit = evaluate(genomes)
         best_i = _best_index(fit)
-        return {"gen": 0, "genomes": genomes, "depths": depths, "fit": fit,
-                "nevals": [n], "stopped_at": None,
-                "best_genome": _take(genomes, best_i),
-                "best_fitness": float(fit[best_i])}
+        state = {"gen": 0, "genomes": genomes, "depths": depths, "fit": fit,
+                 "nevals": [n], "stopped_at": None, "mstate": None,
+                 "best_genome": _take(genomes, best_i),
+                 "best_fitness": float(fit[best_i])}
+        if tel is not None:
+            begin_telemetry(ngen, n)
+            state["mstate"] = _measure(tel.meter.init(device=dev), n,
+                                       genomes, fit, 0)
+        return state
 
     def advance(generator: Optional[torch.Generator], state: dict,
                 draws=None) -> dict:
@@ -433,8 +504,8 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
             draws = GpDraws(generator, parts, cxpb, mutpb)
         n = state["fit"].shape[0]
         with record_function("gp/select"):
-            genomes, depths, fit, _ = select(draws, state["genomes"],
-                                             state["depths"], state["fit"])
+            genomes, depths, fit, sel_idx = select(
+                draws, state["genomes"], state["depths"], state["fit"])
         with record_function("gp/vary"):
             t_idx, ne = vary(draws, genomes, depths, n)
         state["nevals"].append(ne)
@@ -453,12 +524,20 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
         if float(fit[best_i]) > state["best_fitness"]:
             state["best_genome"] = _take(genomes, best_i)
             state["best_fitness"] = float(fit[best_i])
-        state.update(gen=state["gen"] + 1, genomes=genomes, depths=depths,
-                     fit=fit)
+        gen = state["gen"] + 1
+        state.update(gen=gen, genomes=genomes, depths=depths, fit=fit)
+        if tel is not None:
+            state["mstate"] = _measure(state["mstate"], ne, genomes, fit,
+                                       gen, sel_idx)
+            # the host is in the loop, so a tripwire can stop the run
+            if tel.health is not None and tel.health.stop_requested:
+                state["stopped_at"] = gen
         return state
 
     def finalize(state: dict, ngen: int) -> dict:
-        del ngen
+        if tel is not None:
+            tel.end_run("gp_loop", ngen=ngen,
+                        stopped_at=state["stopped_at"])
         return {"genomes": state["genomes"], "depths": state["depths"],
                 "fitness": state["fit"],
                 "best_genome": state["best_genome"],
@@ -469,11 +548,13 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     def run(generator: torch.Generator, genomes, ngen: int):
         check_generator(generator, dev)
         state = init_state(genomes, ngen)
-        while state["gen"] < ngen:
+        while state["gen"] < ngen and state["stopped_at"] is None:
             advance(generator, state)
         return finalize(state, ngen)
 
     run.compaction = compaction
+    run.begin_telemetry = begin_telemetry if tel is not None else None
+    run.telemetry = tel
     run.init_state = init_state
     run.advance = advance
     run.finalize = finalize

@@ -160,7 +160,7 @@ class Strategy:
         if eigh_impl == "auto":
             raise NotImplementedError(
                 "eigh_impl='auto': the tuner that picks between solvers is "
-                "not ported yet (ROADMAP.md A11); use eigh_impl='lapack' or "
+                "not ported yet (ROADMAP.md A11b); use eigh_impl='lapack' or "
                 "'jacobi'")
         if eigh_impl not in _EIGH:
             raise ValueError(f"unknown eigh_impl {eigh_impl!r} "

@@ -25,6 +25,17 @@ from deap_tpu_torch.support.pareto import (
     pareto_init,
     pareto_update,
 )
+from deap_tpu_torch.support.profiling import (
+    SpanRecorder,
+    annotate,
+    get_span_recorder,
+    set_span_recorder,
+    span,
+    sync,
+    timed_generations,
+    timed_phases,
+    trace,
+)
 from deap_tpu_torch.support.stats import (MultiStatistics, Statistics,
                                           fitness_stats)
 
@@ -33,7 +44,9 @@ __all__ = ["HallOfFame", "hof_best", "hof_init", "hof_update", "Logbook",
            "ParetoArchive", "nondominated_mask", "pareto_init",
            "pareto_update", "Statistics", "fitness_stats",
            "History", "Lineage", "lineage_init", "lineage_step",
-           "pair_parents", "AsyncCheckpointWriter", "CheckpointCorruptError",
+           "pair_parents", "trace", "annotate", "span", "sync",
+           "SpanRecorder", "set_span_recorder", "get_span_recorder",
+           "timed_generations", "timed_phases", "AsyncCheckpointWriter", "CheckpointCorruptError",
            "CheckpointFormatError", "Checkpointer", "allow_compat_restore",
            "checkpoint_meta", "restore_state", "save_state",
            "set_compat_restore", "verify_checkpoint"]

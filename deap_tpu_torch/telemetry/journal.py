@@ -1,22 +1,31 @@
 """Run journal — structured JSONL host events for a whole run.
 
-Port of the journal half of :mod:`deap_tpu.telemetry.journal`: one
-append-only JSONL file per run, each line ``{"t": <secs since open>,
-"kind": ..., ...}``, with the same row kinds, so a reader of the JAX
-package's journals reads the port's. ``t`` deltas come from the
-monotonic clock; the wall-clock epoch of the open is the header's
-``wall_start``. Kinds written here:
+Port of :mod:`deap_tpu.telemetry.journal`: one append-only JSONL file
+per run, each line ``{"t": <secs since open>, "kind": ..., ...}``, with
+the same row kinds, so a reader of the JAX package's journals reads the
+port's. ``t`` deltas come from the monotonic clock; the wall-clock
+epoch of the open is the header's ``wall_start``. Kinds written here:
 
 - ``header`` — torch / CUDA version, device name and count, plus an
   optional toolbox fingerprint.
+- ``compile`` / ``retrace`` — every ``nvcc`` build of a kernel library
+  that ran while the journal was open (:func:`deap_tpu_torch._build.
+  build` reports each, never a library already built): ``dur_s``,
+  ``seq`` and the library's name. Builds after :meth:`RunJournal.
+  mark_steady` are journaled as ``retrace`` rows, with ``after``.
+- ``meter`` — per-generation metric rows decoded from a
+  :class:`~deap_tpu_torch.telemetry.meter.Meter`'s stacked states.
+- ``span`` — per-name wall-time aggregates from a
+  :class:`~deap_tpu_torch.support.profiling.SpanRecorder`.
 - event kinds from subsystems (checkpoints, the resilient engine, the
-  quarantine wrapper) through :meth:`RunJournal.event` or the
-  module-level :func:`broadcast`, which reaches every open journal.
-- ``summary`` — a final roll-up.
+  quarantine wrapper, the GP dispatchers) through
+  :meth:`RunJournal.event` or the module-level :func:`broadcast`, which
+  reaches every open journal.
+- ``summary`` — a final roll-up, with ``n_compiles`` and
+  ``n_retraces``.
 
-The JAX package also journals every XLA compile through
-``jax.monitoring``; the port's compile listener, meter rows and span
-rows are telemetry (ROADMAP A11) and not here.
+This module imports only the standard library (``torch`` inside
+:func:`environment_fingerprint`), so the report loads it by path.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from typing import Any, Dict, List, Optional
 
 __all__ = ["RunJournal", "JournalRows", "read_journal", "broadcast",
            "toolbox_fingerprint", "environment_fingerprint",
-           "journal_generations", "listening"]
+           "journal_generations", "listening", "compile_observed"]
 
 _LOCK = threading.Lock()
 _ACTIVE: List["RunJournal"] = []
@@ -41,6 +50,16 @@ def listening() -> bool:
     synchronise) to report an event asks this first."""
     with _LOCK:
         return bool(_ACTIVE)
+
+
+def compile_observed(library: str, seconds: float) -> None:
+    """Report one finished kernel build (``nvcc`` of ``library``, taking
+    ``seconds``) to every open journal: the port's counterpart of the
+    JAX package's ``jax.monitoring`` compile listener."""
+    with _LOCK:
+        journals = list(_ACTIVE)
+    for j in journals:
+        j._compile_observed(seconds, library)
 
 
 def broadcast(kind: str, **payload: Any) -> None:
@@ -134,6 +153,9 @@ class RunJournal:
         except OSError:
             pass
         self._fh = open(self.path, "w")
+        self._steady: Optional[str] = None
+        self.n_compiles = 0
+        self.n_retraces = 0
         self._closed = False
         with _LOCK:
             _ACTIVE.append(self)
@@ -160,7 +182,7 @@ class RunJournal:
             "run_id": self.run_id,
             "wall_start": round(self.wall_start, 6),
             "env": environment_fingerprint(init_backend),
-            "monitoring": False,
+            "monitoring": True,
         }
         if toolbox is not None:
             payload["toolbox"] = toolbox_fingerprint(toolbox)
@@ -170,7 +192,49 @@ class RunJournal:
     def event(self, kind: str, **payload: Any) -> None:
         self._write(kind, payload)
 
+    def _compile_observed(self, duration: float, library: str) -> None:
+        with self._write_lock:
+            self.n_compiles += 1
+            seq = self.n_compiles
+            steady = self._steady
+            if steady is not None:
+                self.n_retraces += 1
+        row = {"dur_s": round(duration, 6), "seq": seq, "library": library}
+        if steady is None:
+            self._write("compile", row)
+        else:
+            self._write("retrace", {**row, "after": steady})
+
+    def mark_steady(self, label: str = "") -> None:
+        """Declare the run's builds finished: every kernel build observed
+        after this point is journaled as a ``retrace``. The instrumented
+        loops call this when their first run completes."""
+        if self._steady is None:
+            self._steady = label or "steady"
+            self._write("steady", {"label": self._steady,
+                                   "n_compiles": self.n_compiles})
+
+    def meter_rows(self, meter: Any, stacked: Any, gen0: int = 1,
+                   initial: Any = None) -> None:
+        """Write per-generation ``meter`` rows from a loop's stacked meter
+        states (one host copy, :meth:`Meter.rows`); ``initial`` (the
+        state before the first generation) becomes the ``gen0 - 1``
+        row."""
+        first = gen0 - 1 if initial is not None else gen0
+        for i, row in enumerate(meter.rows(stacked, initial=initial)):
+            self._write("meter", {"gen": first + i, **row})
+
+    def spans(self, recorder: Any) -> None:
+        """Write one ``span`` aggregate row per span name recorded by a
+        :class:`~deap_tpu_torch.support.profiling.SpanRecorder`."""
+        for name, agg in sorted(recorder.aggregates().items()):
+            self._write("span", {"name": name, **{
+                k: (round(v, 9) if isinstance(v, float) else v)
+                for k, v in agg.items()}})
+
     def summary(self, **payload: Any) -> None:
+        payload.setdefault("n_compiles", self.n_compiles)
+        payload.setdefault("n_retraces", self.n_retraces)
         self._write("summary", payload)
 
     def close(self) -> None:

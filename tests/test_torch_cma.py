@@ -354,15 +354,18 @@ def test_generate_update_spends_no_draw_to_learn_lambda():
 
 
 def test_generate_update_refuses_what_is_not_ported():
+    """``plan=`` (A12) raises; ``telemetry=`` and ``probes=`` are ported
+    (A11): probes without telemetry is the JAX package's ValueError."""
     js, ts = _pair(3, 6)
     _, ttb = _toolboxes(js, ts)
     gen = make_generator(0, "cpu")
-    for kw, item in ((dict(telemetry=object()), "A11"),
-                     (dict(probes=(object(),)), "A11"),
-                     (dict(plan=object()), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            algorithms.ea_generate_update(gen, ts.initial_state(), ttb, 1,
-                                          ts.spec, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        algorithms.ea_generate_update(gen, ts.initial_state(), ttb, 1,
+                                      ts.spec, device="cpu", plan=object())
+    with pytest.raises(ValueError, match="requires telemetry"):
+        algorithms.ea_generate_update(gen, ts.initial_state(), ttb, 1,
+                                      ts.spec, device="cpu",
+                                      probes=(object(),))
 
 
 SEEDS, NGEN = 6, 60

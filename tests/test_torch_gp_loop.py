@@ -282,12 +282,15 @@ def test_flag_compaction_equals_the_jax_compactor(jax_run):
 
 
 def test_not_ported_options_raise():
+    """``plan=`` (A12) raises; ``telemetry=`` is ported (A11), and
+    ``probes=`` without it is the JAX loop's ValueError."""
     tps = tgp.math_set(1)
     X, y = _data()
-    for kw, what in ((dict(telemetry=object()), "telemetry"),
-                     (dict(plan=object()), "plan")):
-        with pytest.raises(NotImplementedError, match=what):
-            tgp.make_symbreg_loop(tps, ML, X, y, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="plan"):
+        tgp.make_symbreg_loop(tps, ML, X, y, device="cpu", plan=object())
+    with pytest.raises(ValueError, match="requires telemetry"):
+        tgp.make_symbreg_loop(tps, ML, X, y, device="cpu",
+                              probes=(object(),))
     with pytest.raises(ValueError, match="lives on"):
         run = tgp.make_symbreg_loop(tps, ML, X, y, device="cpu")
         run.init_state({"nodes": torch.zeros((2, ML), dtype=torch.int32,

@@ -432,3 +432,62 @@ def test_resilience_checkpoints_and_journal_stand_alone(no_card, tmp_path):
     save_state(str(tmp_path / "s.pkl"), {"x": torch.zeros(2)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         restore_state(str(tmp_path / "s.pkl"))
+
+
+def test_telemetry_stands_alone(no_card, tmp_path):
+    """Run telemetry (the meter, the probes, the journal's rows, spans,
+    the observatory, the flight recorder and the copied standard-library
+    modules, whose sibling loads are the port's own files) runs without
+    jax or the JAX package, and the meter raises without a card unless
+    asked for the CPU."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import torch
+        from deap_tpu_torch import Toolbox, FitnessSpec, ops, algorithms
+        from deap_tpu_torch.core.population import init_population
+        from deap_tpu_torch.device import make_generator
+        from deap_tpu_torch.resilience import ResilientRun
+        from deap_tpu_torch.support import SpanRecorder, span, trace
+        from deap_tpu_torch.telemetry import (
+            DiversityProbe, FitnessProbe, HealthMonitor, MetricsRegistry,
+            ProgramObservatory, RunTelemetry, SelectionProbe, read_journal)
+        from deap_tpu_torch.telemetry import (alerts, federation, metrics,
+                                              report, slo, tracing)
+        here = os.path.dirname(report.__file__)
+        assert os.path.dirname(report._journal().__file__) == here
+        assert os.path.dirname(federation._slo().__file__) == here
+        tb = Toolbox()
+        tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+        tb.register("mate", ops.cx_two_point)
+        tb.register("mutate", ops.mut_flip_bit, indpb=0.05)
+        tb.register("select", ops.sel_tournament, tournsize=3)
+        g = make_generator(0, "cpu")
+        pop = init_population(g, 30, ops.bernoulli_genome(12),
+                              FitnessSpec((1.0,)), device="cpu")
+        path = {str(tmp_path / "t.jsonl")!r}
+        with RunTelemetry(path, health=HealthMonitor()) as tel, \\
+                ProgramObservatory(journal=tel.journal):
+            algorithms.ea_simple(g, pop, tb, 0.5, 0.2, 3, telemetry=tel,
+                                 probes=(DiversityProbe(), FitnessProbe(),
+                                         SelectionProbe(n=30)), device="cpu")
+            ResilientRun({str(tmp_path / "ck")!r}, segment_len=2,
+                         telemetry=tel, metrics=MetricsRegistry(),
+                         trace_every=2).ea_simple(
+                make_generator(0, "cpu"), pop, tb, 0.5, 0.2, 3, device="cpu")
+        kinds = [r["kind"] for r in read_journal(path, strict=True)]
+        assert "meter" in kinds and "flight_trace" in kinds, kinds
+        assert "program_profile" in kinds, kinds
+        assert "Run" in report.render_report(path) or kinds
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    from deap_tpu_torch.telemetry import Meter
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Meter().init()

@@ -527,7 +527,30 @@ def test_tenant_id_round_trip_and_filter(tmp_path):
     ("segment_len", "A11"), ("probes", "A11"), ("plan", "A12"),
     ("island_run", "A12"), ("multirun", "A13")])
 def test_not_ported_raises_naming_its_item(tmp_path, what, item):
+    """What is not ported raises naming its ROADMAP item (the tuner's
+    ``segment_len="auto"`` is A11b). ``telemetry=``, ``metrics=``,
+    ``trace_every=`` and ``probes=`` are ported (A11): accepted, and
+    probes without telemetry is the JAX engine's ValueError."""
     d = str(tmp_path / "ck")
+    if what in ("telemetry", "metrics", "trace_every"):
+        from deap_tpu_torch.telemetry import MetricsRegistry, RunTelemetry
+        value = {"telemetry": RunTelemetry(str(tmp_path / "t.jsonl")),
+                 "metrics": MetricsRegistry(), "trace_every": 2}[what]
+        res = ResilientRun(d, **{what: value})
+        got = {"telemetry": res.telemetry, "trace_every": res.trace_every,
+               "metrics": res._metrics}[what]
+        assert got is value or got == value
+        if what == "telemetry":
+            value.journal.close()
+        return
+    if what == "probes":
+        with pytest.raises(ValueError, match="requires telemetry"):
+            ResilientRun(d).ea_simple(make_generator(0, CPU), _pop(),
+                                      _toolbox(), 0.5, 0.2, 1,
+                                      probes=(object(),), device=CPU)
+        return
+    if what == "segment_len":
+        item = "A11b"
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "island_run":
             ResilientRun(d).island_run(None, None, None, 1)
