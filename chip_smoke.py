@@ -280,6 +280,35 @@ Phases (any failure ends the script with a non-zero exit code):
     the bare run, its ``flight_trace`` files on disk, one
     ``program_profile`` for its label with K1's device microseconds, and
     a second segment length (a second signature) with no drift alarm.
+21. dispatch tuning (``deap_tpu_torch.tuning``), the kernel build cache
+    and the artifact store: a tuner with ``strict_identity=True`` on a
+    fresh cache directory probes, at the main path's widths, ``fused``
+    (OneMax ``ea_simple``, pop 100k, L 100: unfused against K1),
+    ``eigh_impl`` (CMA-ES dim 100, lambda 4096: ``torch.linalg.eigh``
+    against J1), ``gp_mode`` (GP symbreg, pop 4096: scan, sweep and
+    grouped through K9; ``compaction='auto'`` takes its static
+    ``'device'``, as it is never probed, and whole generations are timed
+    with each compaction mode) and ``nd_impl`` (``nd_rank`` on
+    100k-row DTLZ2 and ZDT1 unions: tiled through K7, staircase through
+    J3, sweep through J4, dc through K8; the matrix is offered on the
+    card only below the tiled threshold, where the static rule takes it),
+    printing each knob's winner, every candidate's best time
+    and the probe's seconds; each tuned run (20, 10 and 10 generations)
+    bitwise equal to the run with the winner forced, generator included,
+    and the tuned ranks equal to every forced engine's; ``segment_len``
+    ``"auto"`` is 10; a second tuner on the directory decides every key
+    from the cache with no probe, and ``note_hlo_drift`` evicts a label's
+    entries. Then child processes (``--tuning-child``): one builds K1's
+    library into an empty build cache (its ``nvcc`` seconds) and puts it
+    in an empty artifact store, one loads it from the cache with no
+    build, one with an empty build directory takes it from the store
+    (``artifact_hit``, no ``nvcc``), and one after the stored blob is
+    corrupted misses (``artifact_miss``), rebuilds and heals the store;
+    each launches K1 on the same seeded inputs bitwise equal to this
+    process's, its seconds from its spawn to that result printed. Last,
+    the lexicase selections on the card on values holding NaN and inf:
+    every pick whose candidates all fell is row 0, and the picks equal
+    the CPU's on the same draws.
 
 Every launch counter is set to 0 just before a main-path run and read
 just after it. The last lines are one JSON object with each kernel's
@@ -482,6 +511,12 @@ TL_SEG, TL_TRACE_EVERY, TL_SEG2, TL_SYNC_GENS = 5, 2, 4, 3
 # warm-up) this many times each; the least wall of each is reported
 TL_REPS, TL_OTHER_REPS = 3, 2
 TL_MO_REF = (-4.0, -4.0, -4.0)
+# phase 21, tuning: OneMax ea_simple for 20 generations, CMA-ES and GP
+# symbreg for 10, nd_rank on unions of 100k rows (NSGA-II's at mu 50k), the
+# tuner's best of 2 timed calls after a warm one; the lexicase check's
+# shape (values [n, cases], picks)
+TU_NGEN, TU_CMA_NGEN, TU_GP_NGEN, TU_ND_N, TU_REPS = 20, 10, 10, 100_000, 2
+TU_LEX_N, TU_LEX_CASES, TU_LEX_K = 1000, 8, 4096
 # the kernels' function names as the profiler lists them
 K1_KERNEL = "fused_variation_kernel"
 # clocks the card spins before each timed call (about 1 ms): the host
@@ -954,6 +989,7 @@ def main():
     cartpole_phases(torch, dev, tag, report, record)
     resilience_phases(torch, dev, tag, onemax_run)
     telemetry_phases(torch, dev, tag, onemax_run)
+    tuning_phases(torch, dev, tag)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -6344,6 +6380,461 @@ def telemetry_phases(torch, dev, tag, onemax_run):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def k1_main_inputs(torch, dev, seed=1):
+    """Phase 2's K1 inputs at the main path's shape, from ``seed``: bool
+    genomes [N, L], parent and partner rows, ``var_and_masks``' draws."""
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import variation
+    gen = make_generator(seed, dev)
+    plan = variation.resolve_plan(_onemax_toolbox(Toolbox, ops))
+    src = torch.randint(0, N, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    partner = src[variation.pair_partner_positions(N, dev).long()]
+    g = torch.rand((N, L), generator=gen, device=dev) < 0.5
+    cx_row, lo, hi, do_mut, mask, _ = variation.var_and_masks(
+        gen, N, L, CXPB, MUTPB, plan, torch.bool)
+    return g, src, partner, cx_row, lo, hi, do_mut, mask, None
+
+
+def tuning_child(argv):
+    """``chip_smoke.py --tuning-child DIR MODE BUILD_DIR STORE SPAWN_WALL``:
+    phase 21's child process. It points the kernel build cache at
+    ``BUILD_DIR``, enables the artifact store at ``STORE`` (``-``: none),
+    journals to ``DIR/MODE.jsonl`` and launches K1 once on
+    ``k1_main_inputs``; its output, the ``nvcc`` seconds it ran and the
+    seconds from ``SPAWN_WALL`` (the parent's wall clock when it started
+    this process) to K1's synchronised result go to ``DIR/MODE.pt``."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from deap_tpu_torch import _build
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.support import artifacts, compilecache
+    from deap_tpu_torch.telemetry import RunJournal
+    d, mode, build_dir, store, spawn = argv
+    journal = RunJournal(os.path.join(d, f"{mode}.jsonl"), fsync_every=1)
+    journal.header(init_backend=False, mode=mode)
+    compilecache.enable(build_dir)
+    if store != "-":
+        artifacts.enable_artifact_store(store)
+    dev = torch.device("cuda")
+    args = k1_main_inputs(torch, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = kernels.fused_variation(*args, mut_kind="flip")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    from_spawn_s = time.time() - float(spawn)
+    journal.close()
+    torch.save({"out": out.cpu(), "compile_s": _build.COMPILE_SECONDS[0],
+                "first_k1_s": first_s, "from_spawn_s": from_spawn_s,
+                "launches": kernels.fused_variation.launches},
+               os.path.join(d, f"{mode}.pt"))
+    return 0
+
+
+def tuning_phases(torch, dev, tag):
+    """Phase 21: the dispatch tuner's knobs probed at the main path's
+    widths, each tuned run against the run with its winner forced; the
+    cache replayed by a second tuner and evicted by a drift; the kernel
+    build cache and the artifact store in child processes; the lexicase
+    selections' emptied picks on the card."""
+    import shutil
+    from deap_tpu_torch import tuning
+    from deap_tpu_torch.telemetry import RunJournal, read_journal
+
+    root = os.path.join(ROOT, "build", "tuning_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    jpath = os.path.join(root, "tuning.jsonl")
+    tuner = tuning.enable(os.path.join(root, "cache"), reps=TU_REPS,
+                          strict_identity=True)
+    try:
+        with RunJournal(jpath):
+            decided = tuning_knob_phase(torch, dev, tag, root)
+        rows = [r for r in read_journal(jpath)
+                if r["kind"] == "tuning_decision"]
+        tuning_replay_phase(torch, dev, tag, tuner, rows, decided)
+    finally:
+        tuning.disable()
+    tuning_cache_phase(torch, dev, tag, root)
+    lexicase_phase(torch, dev, tag)
+    print(f"{tag} phase 21 (tuning): {time.perf_counter() - t_phase:.1f} "
+          f"s wall")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _probe_row(jpath, knob, bucket=None):
+    """The one ``tuning_decision`` row of a probe of ``knob``; fails unless
+    every candidate has a time and the candidates agreed."""
+    from deap_tpu_torch.telemetry import read_journal
+    rows = [r for r in read_journal(jpath)
+            if r["kind"] == "tuning_decision" and r["knob"] == knob
+            and (bucket is None or r["bucket"] == bucket)]
+    if len(rows) != 1 or rows[0]["source"] != "probe":
+        fail(f"tuning {knob} {bucket}: {len(rows)} decision rows "
+             f"{[r.get('source') for r in rows]}, one probe wanted")
+    row = rows[0]
+    if (row.get("errors") or len(row["timings"]) < 2
+            or any(t is None for t in row["timings"].values())
+            or row["identity"] not in ("bitwise", "tolerance")):
+        fail(f"tuning {knob} {bucket}: a candidate failed or disagreed: "
+             f"timings {row['timings']}, identity {row['identity']}, "
+             f"errors {row.get('errors')}")
+    return row
+
+
+def _show_probe(tag, what, row):
+    """Print a probe's winner, each candidate's best time and its cost."""
+    times = ", ".join(f"{k} {v * 1e3:.3f} ms"
+                      for k, v in sorted(row["timings"].items(),
+                                         key=lambda kv: kv[1]))
+    than = "differs from" if row["winner"] != row["default"] else "equals"
+    print(f"{tag} tuning {row['knob']} [{row['bucket']}] ({what}): winner "
+          f"{row['winner']} ({than} the static default {row['default']}); "
+          f"best of {TU_REPS} after a warm call: {times}; probe "
+          f"{row['probe_s']:.3f} s, identity {row['identity']}")
+
+
+def tuning_knob_phase(torch, dev, tag, root):
+    """Each knob probed where its decision point runs, at the main path's
+    widths; each tuned run against the run with the winner forced.
+    Returns the decision points' arguments for the replay."""
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import tuning
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.mo import emo, ndsort
+    from deap_tpu_torch.ops import kernels, linalg
+    from deap_tpu_torch.resilience import ResilientRun
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support.stats import fitness_stats
+    from deap_tpu_torch.telemetry import read_journal
+    jpath = os.path.join(root, "tuning.jsonl")
+
+    # ------------------------------------------ fused: OneMax ea_simple --
+    tb = _onemax_toolbox(Toolbox, ops)
+
+    def onemax(fused):
+        g = make_generator(0, dev)
+        pop = init_population(g, N, ops.bernoulli_genome(L),
+                              FitnessSpec((1.0,)), device=dev)
+        out = algorithms.ea_simple(g, pop, tb, CXPB, MUTPB, TU_NGEN,
+                                   stats=fitness_stats(), halloffame_size=1,
+                                   fused=fused, device=dev)
+        return out, g
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tuned = onemax("auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = kernels.fused_variation.launches
+    row = _probe_row(jpath, "fused")
+    # never the kernel's plain version on the card
+    fused = "fused_kernel" if dev.type == "cuda" else "fused_plain"
+    if set(row["timings"]) != {"unfused", fused}:
+        fail(f"tuning fused: candidates {sorted(row['timings'])}")
+    _show_probe(tag, f"OneMax ea_simple, pop {N}, L {L}", row)
+    reset_counts()
+    forced = onemax({"unfused": False, "fused_kernel": "kernel",
+                     "fused_plain": "plain"}[row["winner"]])
+    if not same_tree(torch, tuned, forced):
+        fail("tuned OneMax ea_simple differs from the run with the winner "
+             "forced")
+    print(f"{tag} tuned OneMax ea_simple: {TU_NGEN} generations == the run "
+          f"with {row['winner']} forced bitwise (generator included); "
+          f"{wall:.3f} s with the probe; K1 launches {k1} (the probe's "
+          f"{1 + TU_REPS} and the run's), forced "
+          f"{kernels.fused_variation.launches}")
+
+    # ------------------------------------- eigh_impl: CMA-ES dim 100 --
+    def cma_run(strat):
+        tbc = Toolbox()
+        tbc.register("evaluate", bm.sphere)
+        tbc.register("generate", strat.generate)
+        tbc.register("update", strat.update)
+        return algorithms.ea_generate_update(
+            make_generator(83, dev), strat.initial_state(), tbc, TU_CMA_NGEN,
+            strat.spec, stats=fitness_stats(), halloffame_size=1,
+            device=dev)
+
+    cma_args = ((torch.full((CMA_DIM,), CMA_START),),
+                dict(sigma=CMA_SIGMA, lambda_=CMA_LAMBDA, device=dev))
+    reset_counts()
+    strat = cma.Strategy(*cma_args[0], **cma_args[1], eigh_impl="auto")
+    j1_probe = linalg.eigh_jacobi.launches
+    row = _probe_row(jpath, "eigh_impl")
+    _show_probe(tag, f"CMA-ES dim {CMA_DIM}, lambda {CMA_LAMBDA}", row)
+    tuned = cma_run(strat)
+    forced = cma_run(cma.Strategy(*cma_args[0], **cma_args[1],
+                                  eigh_impl=strat.eigh_impl))
+    if row["identity"] != "tolerance" or not same_tree(torch, tuned, forced):
+        fail(f"tuned CMA-ES differs from the run with {strat.eigh_impl} "
+             f"forced (identity {row['identity']})")
+    print(f"{tag} tuned CMA-ES: {TU_CMA_NGEN} generations == the run with "
+          f"{strat.eigh_impl} forced bitwise; J1 launches in the probe "
+          f"{j1_probe}; both bases reconstruct C within 1e-3")
+
+    # ------------------------------------- gp_mode: GP symbreg 4096 --
+    pset = gp.math_set(1)
+    X, y = symbreg_data(dev)
+    reset_counts()
+    run = gp.make_symbreg_loop(pset, GP_ML, X, y, cxpb=GP_CXPB,
+                               mutpb=GP_MUTPB, mode="auto",
+                               compaction="auto", device=dev)
+    k9_probe = kernels.gp_grouped_dispatch.launches
+    mode_row = _probe_row(jpath, "gp_mode")
+    comp_rows = [(r["source"], r["winner"]) for r in read_journal(jpath)
+                 if r["kind"] == "tuning_decision"
+                 and r["knob"] == "compaction"]
+    _show_probe(tag, f"GP symbreg, {GP_P} points, width {GP_ML}, probe pop "
+                f"64", mode_row)
+    static = "device" if dev.type == "cuda" else "host"
+    if (run.interpreter.mode != mode_row["winner"]
+            or comp_rows != [("static", static)]
+            or run.compaction != static):
+        fail(f"the tuned GP loop took mode {run.interpreter.mode} and "
+             f"compaction {run.compaction} ({comp_rows})")
+    print(f"{tag} tuning compaction: 'auto' takes the static "
+          f"{run.compaction} (env/cache only, never probed)")
+    forced_run = gp.make_symbreg_loop(
+        pset, GP_ML, X, y, cxpb=GP_CXPB, mutpb=GP_MUTPB,
+        mode=mode_row["winner"], compaction=static, device=dev)
+    start = gp.gen_half_and_half(pset, GP_ML, 1, 2)(make_generator(5, dev),
+                                                   GP_POP)
+    got = [(r(make_generator(6, dev), start, TU_GP_NGEN))
+           for r in (run, forced_run)]
+    if not same_tree(torch, got[0], got[1]):
+        fail("the tuned GP symbreg run differs from the run with the "
+             "winners forced")
+    print(f"{tag} tuned GP symbreg (pop {GP_POP}): {TU_GP_NGEN} generations "
+          f"== the run with mode {mode_row['winner']} and compaction "
+          f"{static} forced bitwise; K9 launches in the probe "
+          f"{k9_probe}")
+    # the compaction knob's two paths on the loop's own traffic: whole
+    # generations, each mode twice in turn, from a synchronised card
+    loops = {c: gp.make_symbreg_loop(pset, GP_ML, X, y, cxpb=GP_CXPB,
+                                     mutpb=GP_MUTPB, mode=mode_row["winner"],
+                                     compaction=c, device=dev)
+             for c in ("device", "host")}
+    per_gen = {c: [] for c in loops}
+    for c in ("device", "host", "host", "device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loops[c](make_generator(6, dev), start, TU_GP_NGEN)
+        torch.cuda.synchronize()
+        per_gen[c].append((time.perf_counter() - t0) * 1e3 / TU_GP_NGEN)
+        if not same_tree(torch, out, got[1]):
+            fail(f"the GP symbreg run with compaction {c} differs")
+    print(f"{tag} tuning compaction on GP symbreg (pop {GP_POP}, "
+          f"{TU_GP_NGEN} generations a run, runs device, host, host, "
+          f"device): bitwise equal; ms/gen device "
+          f"{', '.join(f'{t:.3f}' for t in per_gen['device'])}, host "
+          f"{', '.join(f'{t:.3f}' for t in per_gen['host'])}")
+
+    # --------------------------------- nd_impl: 100k-row unions --
+    gen = make_generator(97, dev)
+    unions = {
+        "DTLZ2": -bm.dtlz2(torch.rand((TU_ND_N, MO_DIM), generator=gen,
+                                      device=dev), MO_NOBJ),
+        "ZDT1": -bm.zdt1(torch.rand((TU_ND_N, ZDT1_DIM), generator=gen,
+                                    device=dev))}
+    counters = (("K7", kernels.dominated_weight_sums),
+                ("K8", kernels.dominated_weight_maxes),
+                ("J3", emo.nd_rank_staircase), ("J4", ndsort.nd_rank_sweep3))
+    for name, w in unions.items():
+        n, m = w.shape
+        reset_counts()
+        tuned = emo.nd_rank(w)
+        launches = {k: fn.launches for k, fn in counters if fn.launches}
+        row = _probe_row(jpath, "nd_impl",
+                         f"{m}/{tuning.shape_bucket(n)}")
+        _show_probe(tag, f"nd_rank on a {n}-row {name} union", row)
+        for impl in row["timings"]:
+            if not bitwise_equal(tuned, emo.nd_rank(w, impl=impl)):
+                fail(f"tuned nd_rank on {name} differs from impl={impl}")
+        print(f"{tag} tuned nd_rank on {name} ({m} objectives, {n} rows, "
+              f"{int(tuned.max()) + 1} fronts) == every forced engine's "
+              f"({', '.join(row['timings'])}) bitwise; the probe's launches "
+              f"{launches}")
+
+    # ------------------------------------------------ segment_len --
+    seg = ResilientRun(os.path.join(root, "ck"),
+                       segment_len="auto").segment_len
+    if seg != 10:
+        fail(f'ResilientRun(segment_len="auto").segment_len is {seg}')
+    print(f'{tag} tuning segment_len: ResilientRun(segment_len="auto") '
+          f'takes {seg} (no cached winner, no override)')
+    return dict(pop=init_population(make_generator(0, dev), N,
+                                    ops.bernoulli_genome(L),
+                                    FitnessSpec((1.0,)), device=dev),
+                tb=tb, cma_args=cma_args, pset=pset, X=X, unions=unions)
+
+
+def tuning_replay_phase(torch, dev, tag, tuner, rows, decided):
+    """A second tuner on the same directory decides every key from the
+    cache with no probe; a drift of ``nd_rank`` evicts its entries."""
+    from deap_tpu_torch import algorithms, tuning
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.gp.loop import resolve_gp_mode
+    from deap_tpu_torch.mo import emo
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.telemetry import RunJournal, read_journal
+    probed = {(r["knob"], r["bucket"]): r["winner"] for r in rows
+              if r["source"] == "probe"}
+    second = tuning.enable(tuner.cache.dir, reps=TU_REPS,
+                           strict_identity=True)
+
+    def no_probe(*a):
+        fail("the second tuner probed a key the first one cached")
+
+    second._probe = no_probe
+    jpath = os.path.join(tuner.cache.dir, "replay.jsonl")
+    with RunJournal(jpath):
+        algorithms.var_and(make_generator(1, dev), decided["pop"],
+                           decided["tb"], CXPB, MUTPB)
+        cma.Strategy(*decided["cma_args"][0], **decided["cma_args"][1],
+                     eigh_impl="auto")
+        resolve_gp_mode(decided["pset"], GP_ML, decided["X"])
+        for w in decided["unions"].values():
+            emo.nd_rank(w)
+    replay = {(r["knob"], r["bucket"]): r for r in read_journal(jpath)
+              if r["kind"] == "tuning_decision"}
+    if (set(replay) != set(probed)
+            or any(r["source"] != "cache" or r["winner"] != probed[k]
+                   for k, r in replay.items())):
+        fail(f"the second tuner's decisions {replay} are not the cached "
+             f"winners {probed}")
+    keys = list(second.cache.entries())
+    evicted = tuning.note_hlo_drift("nd_rank")
+    left = list(second.cache.entries())
+    if evicted != 2 or any("/nd_impl/" in k for k in left) \
+            or len(left) != len(keys) - 2:
+        fail(f"note_hlo_drift('nd_rank') evicted {evicted} of {keys}")
+    print(f"{tag} tuning: a second tuner decided all {len(replay)} probed "
+          f"keys from the cache with no probe ("
+          f"{', '.join(f'{k[0]} {k[1]}' for k in sorted(replay))}); "
+          f"note_hlo_drift('nd_rank') evicted its {evicted} entries, "
+          f"{len(left)} left")
+
+
+def tuning_cache_phase(torch, dev, tag, root):
+    """The kernel build cache and the artifact store across processes:
+    K1's library built cold, loaded from the cache, taken from the store,
+    and rebuilt after its stored blob is corrupted, each child's K1
+    bitwise equal to this process's."""
+    import subprocess
+    import zlib
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.resilience import corrupt_file
+    from deap_tpu_torch.support import artifacts
+    from deap_tpu_torch.telemetry import read_journal
+    want = kernels.fused_variation(*k1_main_inputs(torch, dev),
+                                   mut_kind="flip").cpu()
+    me = os.path.abspath(__file__)
+    store = os.path.join(root, "store")
+    results = {}
+
+    def child(mode, build_dir, with_store):
+        spawn = time.time()
+        out = subprocess.run(
+            [sys.executable, me, "--tuning-child", root, mode,
+             os.path.join(root, build_dir), store if with_store else "-",
+             repr(spawn)], capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            fail(f"tuning child {mode} exited {out.returncode}:\n"
+                 f"{out.stderr[-3000:]}")
+        res = torch.load(os.path.join(root, f"{mode}.pt"))
+        rows = read_journal(os.path.join(root, f"{mode}.jsonl"))
+        res["kinds"] = [r["kind"] for r in rows]
+        res["misses"] = [r["reason"] for r in rows
+                         if r["kind"] == "artifact_miss"]
+        if not (bitwise_equal(res["out"], want) and res["launches"] == 1):
+            fail(f"tuning child {mode}: K1 differs from this process's")
+        results[mode] = res
+        return res
+
+    cold = child("cold", "cc", True)
+    warm = child("warm", "cc", False)
+    hit = child("store", "b2", True)
+    entry = next(iter(artifacts.ExecutableArtifactStore(
+        store)._read_manifest().values()))
+    corrupt_file(os.path.join(store, entry["file"]))
+    bad = child("corrupt", "b3", True)
+    checks = {
+        "cold: nvcc ran, a miss (absent), put": (
+            cold["compile_s"] > 0 and cold["misses"] == ["absent"]
+            and "compile" in cold["kinds"]),
+        "warm: loaded from the build cache, no nvcc": (
+            warm["compile_s"] == 0 and "compile" not in warm["kinds"]),
+        "store: artifact_hit, no nvcc": (
+            hit["compile_s"] == 0 and "artifact_hit" in hit["kinds"]
+            and "compile" not in hit["kinds"] and not hit["misses"]),
+        "corrupt: a miss (crc_mismatch), rebuilt": (
+            bad["misses"] == ["crc_mismatch"] and bad["compile_s"] > 0),
+    }
+    healed = next(iter(artifacts.ExecutableArtifactStore(
+        store)._read_manifest().values()))
+    checks["the rebuild healed the store"] = healed["crc"] == zlib.crc32(
+        open(os.path.join(store, healed["file"]), "rb").read())
+    seen = {m: (r["compile_s"], r["kinds"]) for m, r in results.items()}
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"kernel build cache / artifact store: {what} does not "
+                 f"hold ({seen})")
+    print(f"{tag} kernel build cache and artifact store (K1's library, "
+          f"{entry['bytes']} bytes): " + "; ".join(checks) + "; K1 == this "
+          f"process's bitwise in every child")
+    for mode, r in results.items():
+        print(f"{tag}   child {mode}: nvcc {r['compile_s']:.3f} s, spawn to "
+              f"K1's synchronised result {r['from_spawn_s']:.3f} s, first "
+              f"K1 call (build or load included) {r['first_k1_s']:.3f} s")
+
+
+def lexicase_phase(torch, dev, tag):
+    """The lexicase family on the card on values holding NaN and inf: a
+    pick whose candidates all fell is row 0, and every pick equals the
+    CPU's on the same draws."""
+    from deap_tpu_torch import ops
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.ops import selection as sel
+    g = make_generator(26, dev)
+    values = torch.randint(0, 4, (TU_LEX_N, TU_LEX_CASES), generator=g,
+                           device=dev).float()
+    # a few NaN and inf cells: a pick empties where its survivors meet one
+    cells = torch.randperm(TU_LEX_N * TU_LEX_CASES, generator=g,
+                           device=dev)[:5]
+    values.view(-1)[cells[:2]] = float("nan")
+    values.view(-1)[cells[2:]] = float("inf")
+    weights = [1.0 if c % 2 else -1.0 for c in range(TU_LEX_CASES)]
+    survive = {"lexicase": sel._survive_exact,
+               "epsilon_lexicase": sel._survive_epsilon(0.5),
+               "automatic_epsilon_lexicase": sel._survive_automatic}
+    emptied = {}
+    for name, fn in survive.items():
+        orders, u = sel.lexicase_draws(g, TU_LEX_K, TU_LEX_CASES)
+        got = sel._lexicase(values, weights, orders, u, fn)
+        want = sel._lexicase(values.cpu(), weights, orders.cpu(), u.cpu(),
+                             fn)
+        if not (torch.equal(got.cpu(), want) and int(got.max()) < TU_LEX_N):
+            fail(f"{name} on the card differs from the CPU or picks out of "
+                 f"range (max {int(got.max())})")
+        emptied[name] = int((got == 0).sum())
+        small = torch.tensor([[float("inf") if "automatic" in name
+                               else float("nan")], [0.0]], device=dev)
+        extra = (0.5,) if name == "epsilon_lexicase" else ()
+        picks = getattr(ops, f"sel_{name}")(g, small, [-1.0], 4, *extra)
+        if picks.tolist() != [0, 0, 0, 0]:
+            fail(f"{name} on [[nan/inf], [0]] picked {picks.tolist()}")
+    print(f"{tag} lexicase on the card ({TU_LEX_N} rows, {TU_LEX_CASES} "
+          f"cases, NaN and inf cells, {TU_LEX_K} picks) == the CPU's on the "
+          f"same draws; picks of row 0 {emptied}; [[nan], [0]] (inf under "
+          f"automatic epsilon) picks [0, 0, 0, 0] in all three")
+
+
 def _onemax_toolbox(Toolbox, ops):
     import torch
     tb = Toolbox()
@@ -6357,4 +6848,6 @@ def _onemax_toolbox(Toolbox, ops):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resilience-child"]:
         sys.exit(resilience_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tuning-child"]:
+        sys.exit(tuning_child(sys.argv[2:]))
     sys.exit(main())

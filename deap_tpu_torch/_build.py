@@ -12,11 +12,21 @@ journals as a ``compile`` row (:func:`deap_tpu_torch.telemetry.journal.
 compile_observed`) and counted in :data:`COMPILE_SECONDS`. The host
 libraries of :mod:`deap_tpu_torch.native` are built the same way by the
 host's ``g++`` (:func:`host_library`).
+
+:func:`deap_tpu_torch.support.compilecache.enable` points
+:data:`BUILD_DIR` elsewhere (a build cache shared between processes).
+Where an artifact store is active
+(:func:`deap_tpu_torch.support.artifacts.enable_artifact_store`), a
+library missing from the build directory is copied in from the store
+when the store holds it for this card, toolkit, torch and source hash
+(journaled ``artifact_hit``), and built by ``nvcc`` otherwise
+(``artifact_miss``), then put into the store.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -54,6 +64,19 @@ def _nvcc() -> str:
     return nvcc
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit's build), or
+    ``'none'`` where there is no ``nvcc``: part of an artifact's stamp."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        return "none"
+    lines = [line.strip() for line in out.splitlines() if line.strip()]
+    return lines[-1] if lines else "none"
+
+
 def source_hash(name: str) -> str:
     """The hash of ``csrc/<name>.cu``, the shared headers and the flags
     that names its build."""
@@ -77,16 +100,20 @@ def loaded_hashes() -> Dict[str, str]:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
     source, all started together. Returns each build's seconds (0 for a
-    library already built); raises with the compiler's output if any
-    build fails."""
+    library already built or copied in from the active artifact store);
+    raises with the compiler's output if any build fails."""
+    from deap_tpu_torch.support.artifacts import active_store
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    store = active_store()
     started, seconds = {}, {}
     for name in names:
         target = _target(name)
-        if target.exists():
+        if target.exists() or (store is not None and store.copy_in(
+                name, source_hash(name), str(target))):
             seconds[name] = 0.0
             continue
+        nvcc = _nvcc()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -104,6 +131,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         COMPILE_SECONDS[0] += seconds[name]
         from deap_tpu_torch.telemetry.journal import compile_observed
         compile_observed(name, seconds[name])
+        if store is not None:
+            store.put(name, source_hash(name), str(target))
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return seconds

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from deap_tpu_torch import tuning
 from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population, concat, gather
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
@@ -57,6 +58,7 @@ from deap_tpu_torch.ops.selection import (
 from deap_tpu_torch.support.hof import HallOfFame, hof_init, hof_update
 from deap_tpu_torch.support.logbook import Logbook
 from deap_tpu_torch.support.stats import Statistics
+from deap_tpu_torch.telemetry import costs
 from deap_tpu_torch.telemetry.journal import broadcast
 from deap_tpu_torch.telemetry.meter import mean_f32
 
@@ -98,7 +100,9 @@ def evaluate_invalid(pop: Population, evaluate: Callable) -> Population:
 # state.
 
 def _resolve_fused(fused, toolbox, genomes, op: str = "var_and",
-                   journal: bool = True) -> Tuple[Optional[str], object]:
+                   journal: bool = True,
+                   probe_fns: Optional[Callable] = None
+                   ) -> Tuple[Optional[str], object]:
     """``fused=`` → ``(mode, plan)``, mode ``None`` (unfused), ``'plain'``
     or ``'kernel'``. ``'auto'`` takes the kernel for CUDA bool/float32
     genomes, the plain apply otherwise, and the unfused composition when
@@ -106,7 +110,16 @@ def _resolve_fused(fused, toolbox, genomes, op: str = "var_and",
     ``'kernel'`` raises instead of computing something else. With
     ``journal`` the decision goes to the open journals as a
     ``variation_dispatch`` event (the loops journal their first
-    generation's, as the JAX package journals its scan's one trace)."""
+    generation's, as the JAX package journals its scan's one trace).
+
+    ``'auto'`` also routes through the dispatch tuner
+    (:func:`deap_tpu_torch.tuning.resolve`, knob ``fused``): its
+    candidates are ``unfused`` and the static pick (``fused_kernel`` on
+    the card, ``fused_plain`` elsewhere — never the kernel's plain
+    version on the card). ``probe_fns`` — a zero-arg builder of
+    candidate probe closures, supplied by var_and/var_or — lets the
+    tuner race the real variation pass and persist the winner; without
+    a tuner the static pick is unchanged."""
     def note(**payload):
         if journal:
             broadcast("variation_dispatch", op=op, **payload)
@@ -137,12 +150,51 @@ def _resolve_fused(fused, toolbox, genomes, op: str = "var_and",
         reason = (f"{leaf.device.type} device, {leaf.dtype}"
                   + ("" if on_card or leaf.device.type != "cuda"
                      else " outside the kernel's set"))
+        names = ("unfused", f"fused_{mode}")
+        built = probe_fns() if probe_fns is not None else {}
+        n, L = leaf.shape
+        choice = tuning.resolve(
+            "fused",
+            bucket=(op, tuning.shape_bucket(n), tuning.shape_bucket(L),
+                    str(leaf.dtype).replace("torch.", "")),
+            default=f"fused_{mode}",
+            candidates={name: built.get(name) for name in names},
+            check="bitwise", program=op, device=leaf.device)
+        if choice == "unfused":
+            note(path="unfused", reason="tuned")
+            return None, None
     elif fused == "kernel" and leaf.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused='kernel' requested but genome dtype "
                          f"{leaf.dtype} is outside the kernel's set")
     note(path=f"fused_{mode}", reason=reason, mate=plan.mate_name,
          mutate=plan.mut_name, mut_kind=plan.mut_kind)
     return mode, plan
+
+
+def _variation_probe_fns(fused, generator: torch.Generator, pop, run):
+    """Candidate probe-closure builder for the tuner's ``fused`` knob:
+    each candidate re-runs the whole variation pass with that path
+    forced (``run(g, f)`` calls var_and/var_or with an explicit
+    ``fused=f``, which bypasses the tuner) on a copy of ``generator``,
+    so the probe draws nothing from the caller's. A candidate's result
+    is the offspring's tensors and its copy's final state. None when
+    probing is impossible: explicit ``fused=``, no tuner, or a CUDA graph
+    being captured."""
+    if fused not in ("auto", True) or tuning.active_tuner() is None \
+            or not tuning.is_concrete(pop):
+        return None
+
+    def path(f):
+        def fn():
+            g = torch.Generator(device=generator.device)
+            g.set_state(generator.get_state())
+            off = run(g, f)
+            return (pytree.tree_leaves(off.genomes), off.fitness, off.valid,
+                    pytree.tree_leaves(off.extras), g.get_state())
+        return fn
+
+    return lambda: {"unfused": path(False), "fused_plain": path("plain"),
+                    "fused_kernel": path("kernel")}
 
 
 def _rebuild_genomes(template, children):
@@ -198,8 +250,12 @@ def var_and(generator: torch.Generator, pop: Population, toolbox,
     sel_idx=idx)`` == ``var_and(g, gather(pop, idx), tb, ...)``. The
     execution picked is journaled (``variation_dispatch``).
     """
+    probe = _variation_probe_fns(
+        fused, generator, pop,
+        lambda g, f: var_and(g, pop, toolbox, cxpb, mutpb, fused=f,
+                             sel_idx=sel_idx, _journal=False))
     mode, plan = _resolve_fused(fused, toolbox, pop.genomes, "var_and",
-                                _journal)
+                                _journal, probe)
     if mode is None:
         if sel_idx is not None:
             pop = gather(pop, sel_idx)
@@ -209,6 +265,11 @@ def var_and(generator: torch.Generator, pop: Population, toolbox,
     masks = _variation.var_and_masks(generator, n, g.shape[1], cxpb, mutpb,
                                      plan, g.dtype)
     return var_and_apply(pop, masks, plan.mut_kind, mode, sel_idx)
+
+
+# the observatory profiles each under its tuner knob's program label, so a
+# drift of what it launches evicts the knob's measured winner
+var_and = costs.instrument(var_and, "var_and")
 
 
 def _var_and_unfused(generator: torch.Generator, pop: Population, toolbox,
@@ -279,14 +340,21 @@ def var_or(generator: torch.Generator, pop: Population, toolbox,
     the card). Every mode gives the same children for the same generator
     state. The execution picked is journaled (``variation_dispatch``)."""
     _check_cx_mut(cxpb, mutpb)
+    probe = _variation_probe_fns(
+        fused, generator, pop,
+        lambda g, f: var_or(g, pop, toolbox, lambda_, cxpb, mutpb, fused=f,
+                            _journal=False))
     mode, plan = _resolve_fused(fused, toolbox, pop.genomes, "var_or",
-                                _journal)
+                                _journal, probe)
     if mode is None:
         return _var_or_unfused(generator, pop, toolbox, lambda_, cxpb, mutpb)
     g = _variation.single_genome_leaf(pop.genomes)
     masks = _variation.var_or_masks(generator, pop.size, lambda_, g.shape[1],
                                     cxpb, mutpb, plan, g.dtype)
     return var_or_apply(pop, masks, plan.mut_kind, mode)
+
+
+var_or = costs.instrument(var_or, "var_or")
 
 
 def _var_or_unfused(generator: torch.Generator, pop: Population, toolbox,

@@ -37,7 +37,9 @@ from torch.profiler import record_function
 
 from deap_tpu_torch.gp.pset import IDENTITY, PrimitiveSet
 from deap_tpu_torch.gp.tree import prefix_depths, subtree_ends_all
+from deap_tpu_torch import tuning
 from deap_tpu_torch.ops import kernels
+from deap_tpu_torch.telemetry import costs
 from deap_tpu_torch.telemetry.journal import broadcast
 
 #: instruction-block size of ``mode='grouped'``: every chunk is
@@ -399,6 +401,9 @@ class BatchInterpreter:
         self.levels_run = 0
         self.grouped_dispatch = kernels.gp_grouped_dispatch
         self._journaled = None
+        # the program observatory profiles evaluations under the gp_mode
+        # knob's program label
+        self.unique = costs.instrument(self._unique, "gp_interpreter")
 
     def _journal(self, extra: dict) -> None:
         """A ``gp_dispatch`` event to the open journals whenever the live
@@ -499,7 +504,7 @@ class BatchInterpreter:
             preds.append(torch.where(root_isc, root_const, buf[root_idx]))
         return torch.cat(preds, 1)
 
-    def unique(self, genomes, X):
+    def _unique(self, genomes, X):
         X = X.to(torch.float32)
         if self.specialize == "none":
             return self._traced(genomes, X, None), None
@@ -533,7 +538,11 @@ def make_batch_interpreter(pset: PrimitiveSet, max_len: int,
     population (every mode and knob bit-identical).
 
     :param mode: ``'scan'``, ``'sweep'`` or ``'grouped'`` (module
-        docstring). ``'auto'`` needs the dispatch tuner, not ported.
+        docstring). ``'auto'`` asks the dispatch tuner
+        (:func:`deap_tpu_torch.tuning.resolve`:
+        ``DEAP_TPU_TORCH_TUNE_GP_MODE`` → a cached probe winner →
+        ``'scan'``); the probe itself runs where a training set is in
+        hand, :func:`deap_tpu_torch.gp.loop.resolve_gp_mode`.
     :param specialize: ``'auto'`` — the live opcode subset (a monotone
         union over calls), the host reads the genomes every call;
         ``'none'`` — the whole vocabulary on the device, no host read (and
@@ -544,9 +553,10 @@ def make_batch_interpreter(pset: PrimitiveSet, max_len: int,
     :param chunk: the grouped schedule's instruction block.
     """
     if mode == "auto":
-        raise NotImplementedError(
-            "mode='auto' resolves through the dispatch tuner, which is not "
-            "ported yet (ROADMAP A11b); pick 'scan', 'sweep' or 'grouped'")
+        mode = tuning.resolve(
+            "gp_mode", bucket=(tuning.shape_bucket(max_len),),
+            default="scan", candidates=dict.fromkeys(MODES), check=None,
+            program="gp_interpreter")
     if mode not in MODES:
         raise ValueError(f"unknown interpreter mode {mode!r}")
     if specialize not in ("auto", "none"):

@@ -42,10 +42,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from deap_tpu_torch import tuning
 from deap_tpu_torch.core.fitness import FitnessSpec
 from deap_tpu_torch.core.population import Population
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
-from deap_tpu_torch.gp.interpreter import (DEFAULT_CHUNK, _dedup_rows,
+from deap_tpu_torch.gp.interpreter import (DEFAULT_CHUNK, MODES, _dedup_rows,
                                            _round_size, compact_indices,
                                            make_batch_interpreter)
 from deap_tpu_torch.gp.pset import PrimitiveSet
@@ -55,6 +56,7 @@ from deap_tpu_torch.gp.tree import (_f32, _splice, draw_cut_points,
 from deap_tpu_torch.ops.selection import (_tournament_winners,
                                           tournament_aspirants)
 from deap_tpu_torch.support.profiling import span
+from deap_tpu_torch.telemetry import costs
 from deap_tpu_torch.telemetry.journal import broadcast
 from deap_tpu_torch.telemetry.meter import mean_f32
 
@@ -189,9 +191,21 @@ def make_compaction_pipelines(cxpb: float, mutpb: float):
 def resolve_compaction(mode: str, device: torch.device) -> str:
     """``'auto'`` → ``'host'`` on the CPU (there the flags are already on
     the host), ``'device'`` on the card (the flags stay there and three
-    counts cross). Both give the same results."""
+    counts cross). Both give the same results.
+
+    The static split is the default rung of the dispatch tuner's ladder
+    (:func:`deap_tpu_torch.tuning.resolve`), which is read from the env
+    (``DEAP_TPU_TORCH_TUNE_COMPACTION=host|device``) and the cache alone:
+    no probe stands in for a generation's variation, so a winner is
+    recorded out of band (:meth:`~deap_tpu_torch.tuning.DispatchTuner.
+    record`) from generations timed both ways."""
     if mode == "auto":
-        return "host" if device.type == "cpu" else "device"
+        device = torch.device(device)
+        static = "host" if device.type == "cpu" else "device"
+        return tuning.resolve("compaction", bucket=(), default=static,
+                              candidates={"host": None, "device": None},
+                              check="bitwise", program="gp_loop",
+                              device=device)
     if mode not in ("device", "host"):
         raise ValueError(f"unknown compaction mode {mode!r}")
     return mode
@@ -336,8 +350,9 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     ``evaluate(genomes) -> f32[n]`` is the maximisation fitness, called
     with the touched sub-population each generation (pair it with a
     :func:`make_batch_interpreter` evaluator). ``compaction``: ``'auto'``
-    (``'host'`` on the CPU, ``'device'`` on the card), ``'device'`` or
-    ``'host'`` (module docstring). The result dict holds the final
+    (``'host'`` on the CPU, ``'device'`` on the card, or the dispatch
+    tuner's pick, :func:`resolve_compaction`), ``'device'`` or ``'host'``
+    (module docstring). The result dict holds the final
     population and depth arrays, fitness, the best individual ever seen
     and ``nevals`` per generation.
 
@@ -427,7 +442,12 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                       mut_idx[:min(_round_size(n_mut), n)])
         return t_idx, n_t
 
-    vary = vary_device if compaction == "device" else vary_host
+    # the program observatory profiles it under the compaction knob's
+    # program label
+    vary = costs.instrument(
+        vary_device if compaction == "device" else vary_host, "gp_loop",
+        signature=lambda draws, genomes, depths, n: (
+            costs.signature_of(genomes), n))
 
     if tel is not None:
         from deap_tpu_torch.telemetry.probes import TreeDiversityProbe
@@ -561,6 +581,43 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     return run
 
 
+def _gp_mode_probe_fns(pset: PrimitiveSet, max_len: int, X: torch.Tensor,
+                       probe_pop: int):
+    """Race the three batch-interpreter modes on a small seeded
+    population over the actual training points ``X``. All modes are
+    bit-identical, so the probe compares the prediction matrices bitwise
+    before trusting a timing."""
+    g = torch.Generator(device=X.device).manual_seed(0)
+    genomes = make_generator(pset, max_len, 1, 2, "half_and_half")(
+        g, probe_pop)
+
+    def make(m):
+        def fn():
+            return make_batch_interpreter(pset, max_len, mode=m)(genomes, X)
+        return fn
+
+    return {m: make(m) for m in MODES}
+
+
+def resolve_gp_mode(pset: PrimitiveSet, max_len: int, X, *,
+                    default: str = "grouped",
+                    probe_pop: int = 64) -> str:
+    """``mode='auto'`` for the GP batch interpreter, resolved through the
+    dispatch tuner's env / cache / probe / static ladder
+    (:func:`deap_tpu_torch.tuning.resolve`) on ``X``'s device. This is
+    the call site with a training set in hand, so it is where the probe
+    runs; :func:`make_batch_interpreter` resolves the same knob
+    cache-only."""
+    X = torch.as_tensor(X, dtype=torch.float32)
+    candidates = dict.fromkeys(MODES)
+    if tuning.active_tuner() is not None and tuning.is_concrete(X):
+        candidates = _gp_mode_probe_fns(pset, max_len, X, probe_pop)
+    return tuning.resolve(
+        "gp_mode", bucket=(tuning.shape_bucket(max_len),),
+        default=default, candidates=candidates, check="bitwise",
+        program="gp_interpreter", device=X.device)
+
+
 def make_symbreg_loop(pset: PrimitiveSet, max_len: int, X, y, *,
                       cxpb: float = 0.5, mutpb: float = 0.1,
                       mode: str = "grouped", chunk: int = DEFAULT_CHUNK,
@@ -570,13 +627,17 @@ def make_symbreg_loop(pset: PrimitiveSet, max_len: int, X, y, *,
     """The canonical symbolic-regression configuration of
     :func:`make_gp_loop`: negative-MSE fitness of ``X f32[points,
     n_args]`` against ``y f32[points]`` through the batch interpreter
-    (``mode='grouped'`` with dedup by default, K9 on the card).
+    (``mode='grouped'`` with dedup by default, K9 on the card;
+    ``mode='auto'`` probes scan/sweep/grouped through the dispatch tuner,
+    :func:`resolve_gp_mode`, and keeps ``'grouped'`` with no tuner).
     ``run.interpreter`` is that interpreter."""
     dev = resolve_device(device)
-    interp = make_batch_interpreter(pset, max_len, mode=mode, chunk=chunk,
-                                    dedup=dedup, points_tile=points_tile)
     X = torch.as_tensor(X, dtype=torch.float32).to(dev)
     y = torch.as_tensor(y, dtype=torch.float32).to(dev)
+    if mode == "auto":
+        mode = resolve_gp_mode(pset, max_len, X, default="grouped")
+    interp = make_batch_interpreter(pset, max_len, mode=mode, chunk=chunk,
+                                    dedup=dedup, points_tile=points_tile)
 
     def evaluate(genomes):
         # fitness reduces on the unique rows; only the scalars expand

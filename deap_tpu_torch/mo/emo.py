@@ -13,7 +13,8 @@ the dominance-matrix peel, its streaming twin through K7
 peeling-free engines ``staircase`` (M = 2), ``sweep`` (M = 3) and ``dc``
 (any M, its cross step through K8). ``impl='auto'`` picks by (n, M, the
 tensor's device) with the JAX package's static rule, ``'cuda'`` in the
-place that rule gives the TPU.
+place that rule gives the TPU, or — with the dispatch tuner on — races
+the engines on the actual rows (:func:`_resolve_nd_impl`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from deap_tpu_torch import _build
+from deap_tpu_torch import _build, tuning
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
 from deap_tpu_torch.mo.ndsort import _finish, nd_rank_prefix, nd_rank_sweep3
 from deap_tpu_torch.ops.linalg import norm_rn
@@ -34,6 +35,7 @@ from deap_tpu_torch.ops.kernels import (
     peel_fronts,
     strengths_tiled,
 )
+from deap_tpu_torch.telemetry import costs
 
 __all__ = [
     "dominance_matrix", "nd_rank", "nd_rank_staircase", "staircase_rows",
@@ -71,18 +73,62 @@ _ND_IMPLS = ("matrix", "tiled") + _ND_EXACT_IMPLS
 
 
 def _nd_static_auto(n: int, nobj: int, device_type: str) -> str:
-    """The JAX package's static rule, thresholds unchanged, with
-    ``'cuda'`` where it has ``'tpu'`` (the streaming kernel is real
-    there). On the CPU it picks what the JAX package picks on its CPU."""
-    if nobj == 2 and (n >= ND_TILED_THRESHOLD
+    """The JAX package's static rule, thresholds unchanged (each
+    overridable through ``DEAP_TPU_TORCH_TUNE_ND_{PREFIX,SWEEP,TILED}_
+    THRESHOLD``), with ``'cuda'`` where it has ``'tpu'`` (the streaming
+    kernel is real there). On the CPU it picks what the JAX package picks
+    on its CPU."""
+    prefix_thr = tuning.int_env("ND_PREFIX_THRESHOLD", ND_PREFIX_THRESHOLD)
+    sweep_thr = tuning.int_env("ND_SWEEP_THRESHOLD", ND_SWEEP_THRESHOLD)
+    tiled_thr = tuning.int_env("ND_TILED_THRESHOLD", ND_TILED_THRESHOLD)
+    if nobj == 2 and (n >= tiled_thr
                       or (device_type == "cpu" and n >= 64)):
         return "staircase"
-    if nobj == 3 and device_type == "cpu" and n >= ND_SWEEP_THRESHOLD:
+    if nobj == 3 and device_type == "cpu" and n >= sweep_thr:
         return "sweep"
-    if nobj >= 3 and device_type == "cpu" and n >= ND_PREFIX_THRESHOLD:
+    if nobj >= 3 and device_type == "cpu" and n >= prefix_thr:
         return "dc"
-    return ("tiled" if device_type == "cuda" and n >= ND_TILED_THRESHOLD
+    return ("tiled" if device_type == "cuda" and n >= tiled_thr
             else "matrix")
+
+
+def _nd_candidates(n: int, nobj: int, device_type: str):
+    """The engines worth racing at this shape: the exact engines for this
+    M, and on the card the one peel the static rule takes there — the
+    ``[n, n]`` matrix below the tiled threshold, K7's streaming peel from
+    it (so no ``'auto'`` leaves K7 for its plain version) — and on the CPU
+    the matrix baseline. All return bit-identical full ranks."""
+    names = []
+    if device_type == "cuda":
+        names.append("tiled" if n >= tuning.int_env(
+            "ND_TILED_THRESHOLD", ND_TILED_THRESHOLD) else "matrix")
+    else:
+        names.append("matrix")
+    if nobj == 2:
+        names.append("staircase")
+    if nobj == 3:
+        names.append("sweep")
+    if nobj >= 3:
+        names.append("dc")
+    return names
+
+
+def _resolve_nd_impl(w: torch.Tensor) -> str:
+    """``impl='auto'`` through the dispatch tuner's env / cache / probe /
+    static ladder. Probes race full exact ranks on the actual ``w``
+    (bit-identity asserted)."""
+    n, nobj = int(w.shape[0]), int(w.shape[1])
+    static = _nd_static_auto(n, nobj, w.device.type)
+    names = _nd_candidates(n, nobj, w.device.type)
+    candidates = dict.fromkeys(names)
+    if (len(names) > 1 and tuning.active_tuner() is not None
+            and tuning.is_concrete(w)):
+        candidates = {name: (lambda name=name: nd_rank(w, impl=name))
+                      for name in names}
+    return tuning.resolve(
+        "nd_impl", bucket=(nobj, tuning.shape_bucket(n)),
+        default=static, candidates=candidates, check="bitwise",
+        program="nd_rank", device=w.device)
 
 
 def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
@@ -95,7 +141,8 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
     matrix; ``'tiled'`` peels with K7 and no matrix
     (:func:`deap_tpu_torch.ops.kernels.nd_rank_tiled`); ``'staircase'``
     (M = 2), ``'sweep'`` (M = 3) and ``'dc'`` (any M) are exact
-    peeling-free engines; ``'auto'`` picks by n, M and ``w``'s device.
+    peeling-free engines; ``'auto'`` picks by n, M and ``w``'s device,
+    or is the dispatch tuner's pick (:func:`_resolve_nd_impl`).
 
     ``max_rank`` stops after that many fronts (unpeeled rows keep rank
     ``n``); ``cover_k`` stops peeling once ``cover_k`` rows are ranked
@@ -108,7 +155,7 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
     if fallback not in ("none", "count"):
         raise ValueError(f"unknown nd_rank fallback {fallback!r}")
     if impl == "auto":
-        impl = _nd_static_auto(n, int(w.shape[1]), w.device.type)
+        impl = _resolve_nd_impl(w)
     if impl in _ND_EXACT_IMPLS:
         fn = {"staircase": nd_rank_staircase, "sweep": nd_rank_sweep3,
               "dc": nd_rank_prefix}[impl]
@@ -128,6 +175,10 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
         lambda rem: (dom & rem[None, :]).sum(1, dtype=torch.int32), n,
         w.device, max_rank, cover_k, fallback)
     return (ranks, peels) if return_peels else ranks
+
+
+# the program observatory profiles it under the nd_impl knob's program label
+nd_rank = costs.instrument(nd_rank, "nd_rank")
 
 
 #: front maxima J3 keeps in shared memory at most (227 KB a block on the

@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deap_tpu_torch import _build
+from deap_tpu_torch import _build, tuning
 from deap_tpu_torch.core.fitness import dominates, lex_sort_desc, lexsort
 from deap_tpu_torch.ops.kernels import dominated_weight_maxes
 
@@ -313,7 +313,8 @@ def _chain_in_block(blk: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
 
 
 def nd_rank_prefix(w: torch.Tensor, max_rank: Optional[int] = None,
-                   return_peels: bool = False, *, block: int = 512):
+                   return_peels: bool = False, *, block: int = 512,
+                   cross: str = "auto"):
     """Exact any-M non-domination ranks in one front-count-free pass.
 
     Rows sorted lexicographically descending are consumed in blocks of
@@ -324,7 +325,20 @@ def nd_rank_prefix(w: torch.Tensor, max_rank: Optional[int] = None,
     longest-chain DP. Rows at or after the block's start carry weight 0
     in the JAX package's cross step and are left out here, which gives
     the same maxima.
+
+    ``cross``: ``'kernel'`` (K8, the card) or ``'plain'`` (its plain
+    version, the CPU). There is one engine a device, so ``'auto'`` is the
+    device's engine and the dispatch tuner is not asked; the JAX
+    package's ``DEAP_TPU_TUNE_ND_CROSS`` escape hatch survives as
+    ``DEAP_TPU_TORCH_TUNE_ND_CROSS``, which may only name that engine.
+    Any other value raises ``ValueError``.
     """
+    static = "kernel" if w.device.type == "cuda" else "plain"
+    if cross == "auto":
+        cross = tuning.env_override("nd_cross") or static
+    if cross != static:
+        raise ValueError(f"nd_rank_prefix cross {cross!r}: on {w.device} "
+                         f"the cross step is {static!r}")
     n, _ = w.shape
     if n == 0:
         return _empty(w, return_peels)

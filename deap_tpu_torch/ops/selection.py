@@ -341,7 +341,9 @@ def _lexicase(values, weights, orders, u, survive):
     """Lexicase picks on given draws: for each pick, the candidates that
     survive each case in its order, then ``jax.random.choice(p=...)``'s
     formula on the uniform: the first row whose cumulative share reaches
-    ``total · (1 - u)``."""
+    ``total · (1 - u)``. A pick whose candidates all fell (a NaN best on
+    a case keeps no row) takes row 0, as the JAX package's search of an
+    all-NaN cumulative does."""
     n = values.shape[0]
     k, ncases = orders.shape
     weights = torch.as_tensor(weights, dtype=values.dtype,
@@ -359,7 +361,7 @@ def _lexicase(values, weights, orders, u, survive):
     p = mask.to(values.dtype) / mask.sum(1, keepdim=True).to(values.dtype)
     cs = torch.cumsum(p, 1)
     r = cs[:, -1:] * (1 - u[:, None])
-    return torch.searchsorted(cs, r)[:, 0]
+    return torch.where(mask.any(1), torch.searchsorted(cs, r)[:, 0], 0)
 
 
 def _survive_exact(v, mask, best, maximize):

@@ -45,10 +45,13 @@ generation, as the port's loop does.
   An active :class:`~deap_tpu_torch.telemetry.ProgramObservatory`
   profiles the first segment of each shape (``program_profile``).
 
+``segment_len="auto"`` asks the dispatch tuner (env
+``DEAP_TPU_TORCH_TUNE_SEGMENT_LEN`` → a cached winner → 10).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``segment_len="auto"`` (A11b); ``plan=`` and
-:meth:`ResilientRun.island_run` (A12); :meth:`ResilientRun.multirun`
-(A13). Journal events go to the telemetry's journal, or to every open
+ROADMAP item: ``plan=`` and :meth:`ResilientRun.island_run` (A12);
+:meth:`ResilientRun.multirun` (A13). Journal events go to the
+telemetry's journal, or to every open
 :class:`~deap_tpu_torch.telemetry.RunJournal`.
 """
 
@@ -63,6 +66,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from deap_tpu_torch import algorithms as algos
+from deap_tpu_torch import tuning
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
 from deap_tpu_torch.resilience.retry import RetryPolicy
 from deap_tpu_torch.support import profiling
@@ -495,7 +499,8 @@ class ResilientRun:
     :param checkpoints: a directory path or a pre-built
         :class:`~deap_tpu_torch.support.checkpoint.Checkpointer`.
     :param segment_len: generations per segment — the preemption and
-        checkpoint granularity.
+        checkpoint granularity; ``"auto"`` is the dispatch tuner's (10
+        with no tuner, no override and no cached winner).
     :param retry: a :class:`RetryPolicy` (default: 2 retries, 50 ms
         doubling backoff) for transient segment failures.
     :param degrade_cb: ``degrade_cb(kind, exc) -> description`` called
@@ -547,7 +552,11 @@ class ResilientRun:
                  plan=None, trace_every: Optional[int] = None,
                  trace_dir: Optional[str] = None, metrics=None):
         if segment_len == "auto":
-            raise _not_ported('segment_len="auto" (the tuner)', "A11b")
+            # the dispatch tuner's ladder (env → cached winner → 10); the
+            # winner is probed and recorded out of band, since an inline
+            # probe would need a whole segmented run in hand
+            segment_len = tuning.resolve_int("segment_len", default=10,
+                                             program="resilient_scan")
         if plan is not None:
             raise _not_ported("plan= (sharding)", "A12")
         if isinstance(checkpoints, Checkpointer):

@@ -52,10 +52,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deap_tpu_torch import tuning
 from deap_tpu_torch.core.fitness import FitnessSpec, lex_ge, lex_sort_desc
 from deap_tpu_torch.device import DeviceLike, check_generator, resolve_device
 from deap_tpu_torch.mo.emo import nd_rank
 from deap_tpu_torch.ops.linalg import eigh_jacobi
+from deap_tpu_torch.telemetry import costs
 
 __all__ = ["CMAState", "Strategy", "OnePlusLambdaState",
            "StrategyOnePlusLambda", "MOState", "StrategyMultiObjective",
@@ -110,6 +112,37 @@ def _eigh(C: torch.Tensor):
 _EIGH = {"lapack": _eigh, "jacobi": eigh_jacobi}
 
 
+def _resolve_eigh_impl(dim: int, device: torch.device) -> str:
+    """``eigh_impl='auto'`` through the dispatch tuner: race
+    ``torch.linalg.eigh`` against J1 on a seeded SPD matrix of this
+    dimension on ``device``. The two solvers are *not* bit-identical, so
+    — unlike every other knob — the probe cross-checks by reconstruction
+    residual (``‖B·diag(d)·Bᵀ − C‖ ≤ 1e-3·‖C‖``, both bases must
+    reconstruct C) instead of bitwise equality. With no tuner the
+    default is ``'lapack'``."""
+    candidates = {"lapack": None, "jacobi": None}
+    check: object = None
+    if tuning.active_tuner() is not None and tuning.is_concrete():
+        g = torch.Generator(device=device).manual_seed(0)
+        A = torch.randn((dim, dim), generator=g, device=device)
+        C = A @ A.T / dim + torch.eye(dim, device=device)
+        candidates = {name: (lambda fn=fn: fn(C))
+                      for name, fn in _EIGH.items()}
+
+        def check(results):
+            norm = float(torch.linalg.norm(C))
+            for d, B in results.values():
+                resid = B @ torch.diag(d) @ B.T - C
+                if float(torch.linalg.norm(resid)) > 1e-3 * norm:
+                    return False
+            return True
+
+    return tuning.resolve(
+        "eigh_impl", bucket=(tuning.shape_bucket(dim),),
+        default="lapack", candidates=candidates, check=check,
+        program="cma_eigh", device=device)
+
+
 class Strategy:
     """Hansen CMA-ES. Defaults follow the reference: ``lambda_ = 4 + 3 ln
     N``, ``mu = λ/2``, superlinear recombination weights, and the standard
@@ -125,10 +158,11 @@ class Strategy:
     ``eigen_gap`` is the lazy eigenupdate: the basis is recomputed every
     ``eigen_gap`` updates and the stale one samples in between (1, the
     default, recomputes every generation). ``eigh_impl`` is ``'lapack'``
-    (``torch.linalg.eigh``) or ``'jacobi'``
+    (``torch.linalg.eigh``), ``'jacobi'``
     (:func:`deap_tpu_torch.ops.linalg.eigh_jacobi`: J1 on the card, one
-    launch an eigendecomposition); the JAX package's ``'auto'`` (its
-    tuner) is not ported.
+    launch an eigendecomposition) or ``'auto'``: the dispatch tuner's
+    pick (:func:`_resolve_eigh_impl`), ``'lapack'`` with no tuner. The
+    program observatory profiles the solver as ``cma_eigh``.
     """
 
     #: gauges of the adaptation's health (:meth:`metrics`)
@@ -158,15 +192,12 @@ class Strategy:
                 f"eigen_gap must be an integer >= 1, got {eigen_gap!r}")
         self.eigen_gap = int(eigen_gap)
         if eigh_impl == "auto":
-            raise NotImplementedError(
-                "eigh_impl='auto': the tuner that picks between solvers is "
-                "not ported yet (ROADMAP.md A11b); use eigh_impl='lapack' or "
-                "'jacobi'")
+            eigh_impl = _resolve_eigh_impl(self.dim, self.device)
         if eigh_impl not in _EIGH:
             raise ValueError(f"unknown eigh_impl {eigh_impl!r} "
                              "(expected 'lapack', 'jacobi' or 'auto')")
         self.eigh_impl = eigh_impl
-        self._eigh = _EIGH[eigh_impl]
+        self._eigh = costs.instrument(_EIGH[eigh_impl], "cma_eigh")
         self._compute_params(mu, weights, params)
 
     def _compute_params(self, mu, rweights, params):

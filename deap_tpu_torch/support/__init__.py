@@ -10,6 +10,7 @@ from deap_tpu_torch.support.checkpoint import (
     set_compat_restore,
     verify_checkpoint,
 )
+from deap_tpu_torch.support import compilecache
 from deap_tpu_torch.support.history import (
     History,
     Lineage,
@@ -48,5 +49,5 @@ __all__ = ["HallOfFame", "hof_best", "hof_init", "hof_update", "Logbook",
            "SpanRecorder", "set_span_recorder", "get_span_recorder",
            "timed_generations", "timed_phases", "AsyncCheckpointWriter", "CheckpointCorruptError",
            "CheckpointFormatError", "Checkpointer", "allow_compat_restore",
-           "checkpoint_meta", "restore_state", "save_state",
+           "checkpoint_meta", "compilecache", "restore_state", "save_state",
            "set_compat_restore", "verify_checkpoint"]

@@ -23,8 +23,12 @@ copied from the JAX package: :mod:`.metrics` (a Prometheus registry),
 
 Telemetry is opt-in everywhere and changes no computed result when
 enabled. The tuning half of the JAX package's telemetry and support
-(``tuning``, ``compilecache``, ``artifacts``) is not ported yet
-(ROADMAP A11b); no name of this package's ``__all__`` belongs to it.
+lives beside it: :mod:`deap_tpu_torch.tuning` (the dispatch tuner, whose
+``tuning_decision`` rows the report's tuning ledger renders, and whose
+winners the observatory's drift alarm evicts),
+:mod:`deap_tpu_torch.support.compilecache` (the kernel build cache) and
+:mod:`deap_tpu_torch.support.artifacts` (the kernel-library store, whose
+``artifact_hit``/``artifact_miss`` rows the startup ledger tallies).
 """
 
 from deap_tpu_torch.telemetry.alerts import (

@@ -24,7 +24,10 @@ Each record is journaled as a ``program_profile`` event. When the same
 ``(label, signature)`` is profiled again and launches a different
 fingerprint, the observatory raises the ``hlo_drift`` alarm (the JAX
 package's name) through the
-:class:`~deap_tpu_torch.telemetry.probes.HealthMonitor` and journals it.
+:class:`~deap_tpu_torch.telemetry.probes.HealthMonitor`, journals it,
+and evicts the dispatch tuner's winners recorded against that label and
+against the labels of the instrumented programs it called
+(:func:`deap_tpu_torch.tuning.note_hlo_drift`).
 
 Keys of the JAX profile that only XLA can fill are absent, never
 invented: ``hlo_hash`` (there is no HLO), ``flops``,
@@ -51,6 +54,7 @@ Usage::
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -173,6 +177,9 @@ class ProgramObservatory:
         self.drifts: List[Dict[str, Any]] = []
         #: (label, signature) -> kernel_hash
         self._fingerprints: Dict[Tuple, str] = {}
+        #: label -> the labels of the instrumented programs it called
+        #: (run as they are, their kernels in its profile)
+        self._nested: Dict[str, set] = {}
         self._prev: Optional[ProgramObservatory] = None
 
     def __enter__(self) -> "ProgramObservatory":
@@ -227,6 +234,14 @@ class ProgramObservatory:
             alarm = {"alarm": "hlo_drift", "gen": None, **detail}
         self.drifts.append(alarm)
         self._journal("alarm", **alarm)
+        # a drifted program invalidates its measured dispatch winners
+        # and those of the programs it called, whose kernels its profile
+        # holds: the tuning cache's timings belonged to the old kernels
+        # (journaled per eviction as ``tuning_invalidation``)
+        from deap_tpu_torch import tuning
+        label = profile_["label"]
+        for program in [label] + sorted(self._nested.get(label, ())):
+            tuning.note_hlo_drift(program)
 
 
 def profile_compiled(label: str, fn: Callable, *args,
@@ -241,16 +256,27 @@ def profile_compiled(label: str, fn: Callable, *args,
     return out, obs.record(label, fields, signature=signature)
 
 
+#: the label of the instrumented program running under an active
+#: observatory, else None: the programs it calls run as they are (its
+#: profile holds their kernels) and are noted as nested in it, so its
+#: drift evicts their tuning winners too
+_RUNNING: list = [None]
+
+
 class _InstrumentedFunction:
     """The wrapper :func:`instrument` returns: with no active observatory
     a tail call; with one, the first call per input signature runs under
     the profiler and is recorded, later calls of that signature run as
     they are. A call made while another profiler runs (the resilient
     engine's flight recorder) runs as it is and leaves its signature to
-    the next call: profilers do not nest."""
+    the next call: profilers do not nest. Nor do programs: one called
+    inside another instrumented program (``nd_rank`` inside a resilient
+    segment) runs as it is, and the observatory notes it as nested in
+    the outer label, whose drift then evicts its tuning winners."""
 
     def __init__(self, fn: Callable, label: str,
                  signature: Optional[Callable] = None):
+        functools.update_wrapper(self, fn)
         self._fn = fn
         self.label = str(label)
         self._signature = signature
@@ -258,14 +284,23 @@ class _InstrumentedFunction:
 
     def __call__(self, *args, **kwargs):
         obs = _ACTIVE[0]
-        if obs is None or torch.autograd._profiler_enabled():
+        outer = _RUNNING[0]
+        if obs is None or outer is not None:
+            if obs is not None and outer != self.label:
+                obs._nested.setdefault(outer, set()).add(self.label)
             return self._fn(*args, **kwargs)
-        sig = (self._signature(*args, **kwargs) if self._signature
-               else signature_of((args, kwargs)))
-        if sig in self._seen:
+        if torch.autograd._profiler_enabled():
             return self._fn(*args, **kwargs)
-        self._seen.add(sig)
-        out, fields = _profile_call(self._fn, args, kwargs)
+        _RUNNING[0] = self.label
+        try:
+            sig = (self._signature(*args, **kwargs) if self._signature
+                   else signature_of((args, kwargs)))
+            if sig in self._seen:
+                return self._fn(*args, **kwargs)
+            self._seen.add(sig)
+            out, fields = _profile_call(self._fn, args, kwargs)
+        finally:
+            _RUNNING[0] = None
         obs.record(self.label, fields, signature=sig)
         return out
 

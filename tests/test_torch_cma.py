@@ -247,12 +247,12 @@ def test_eigen_gap_keeps_the_stale_basis_between_refreshes():
 
 @pytest.mark.parametrize("impl", ["jacobi", "auto"])
 def test_unported_eigensolvers_raise(impl):
-    if impl == "jacobi":  # ported: the Jacobi kernel's strategy builds
-        assert cma.Strategy(torch.zeros(4), 1.0, eigh_impl=impl,
-                            device="cpu").eigh_impl == impl
-    else:  # the tuner that picks a solver is not ported
-        with pytest.raises(NotImplementedError, match="A11"):
-            cma.Strategy(torch.zeros(4), 1.0, eigh_impl=impl, device="cpu")
+    # both are ported: 'jacobi' is the Jacobi kernel's strategy, 'auto' the
+    # dispatch tuner's pick, which is 'lapack' with no tuner (as in the
+    # JAX package)
+    want = {"jacobi": "jacobi", "auto": "lapack"}[impl]
+    assert cma.Strategy(torch.zeros(4), 1.0, eigh_impl=impl,
+                        device="cpu").eigh_impl == want
     with pytest.raises(ValueError, match="unknown eigh_impl"):
         cma.Strategy(torch.zeros(4), 1.0, eigh_impl="qr", device="cpu")
 

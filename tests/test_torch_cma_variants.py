@@ -94,8 +94,10 @@ def test_jacobi_and_auto_choices():
     st = s.initial_state()
     assert torch.equal(st.B, torch.eye(4)) and torch.equal(st.diagD,
                                                            torch.ones(4))
-    with pytest.raises(NotImplementedError, match="'auto'"):
-        cma.Strategy(torch.zeros(4), 1.0, eigh_impl="auto", device="cpu")
+    # 'auto' is the dispatch tuner's pick: 'lapack' with no tuner
+    auto = cma.Strategy(torch.zeros(4), 1.0, eigh_impl="auto", device="cpu")
+    assert auto.eigh_impl == "lapack"
+    assert torch.equal(auto.initial_state().B, torch.eye(4))
 
 
 # ------------------------------------------------ StrategyOnePlusLambda ----

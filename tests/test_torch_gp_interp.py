@@ -323,8 +323,8 @@ def test_compact_indices_equals_the_jax_compaction():
 
 def test_auto_mode_and_unknown_modes_raise():
     tps = tgp.math_set(1)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        tgp.make_batch_interpreter(tps, 16, mode="auto")
+    # 'auto' is the dispatch tuner's cache-only pick: 'scan' with no tuner
+    assert tgp.make_batch_interpreter(tps, 16, mode="auto").mode == "scan"
     with pytest.raises(ValueError, match="mode"):
         tgp.make_batch_interpreter(tps, 16, mode="nope")
     with pytest.raises(ValueError, match="device op"):

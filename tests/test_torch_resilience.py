@@ -527,10 +527,11 @@ def test_tenant_id_round_trip_and_filter(tmp_path):
     ("segment_len", "A11"), ("probes", "A11"), ("plan", "A12"),
     ("island_run", "A12"), ("multirun", "A13")])
 def test_not_ported_raises_naming_its_item(tmp_path, what, item):
-    """What is not ported raises naming its ROADMAP item (the tuner's
-    ``segment_len="auto"`` is A11b). ``telemetry=``, ``metrics=``,
-    ``trace_every=`` and ``probes=`` are ported (A11): accepted, and
-    probes without telemetry is the JAX engine's ValueError."""
+    """What is not ported raises naming its ROADMAP item. ``telemetry=``,
+    ``metrics=``, ``trace_every=`` and ``probes=`` are ported (A11):
+    accepted, and probes without telemetry is the JAX engine's
+    ValueError; the tuner's ``segment_len="auto"`` is ported (A11b): 10
+    with no tuner."""
     d = str(tmp_path / "ck")
     if what in ("telemetry", "metrics", "trace_every"):
         from deap_tpu_torch.telemetry import MetricsRegistry, RunTelemetry
@@ -550,7 +551,8 @@ def test_not_ported_raises_naming_its_item(tmp_path, what, item):
                                       probes=(object(),), device=CPU)
         return
     if what == "segment_len":
-        item = "A11b"
+        assert ResilientRun(d, segment_len="auto").segment_len == 10
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "island_run":
             ResilientRun(d).island_run(None, None, None, 1)

@@ -605,15 +605,21 @@ def test_no_telemetry_option_raises_naming_a11(tmp_path):
 
 @pytest.mark.parametrize("what", ["segment_len", "gp_mode", "eigh_impl"])
 def test_a11b_items_raise_naming_a11b(tmp_path, what):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        if what == "segment_len":
-            ResilientRun(str(tmp_path / "ck"), segment_len="auto")
-        elif what == "gp_mode":
-            from deap_tpu_torch import gp
-            gp.make_batch_interpreter(gp.math_set(1), 16, mode="auto")
-        else:
-            from deap_tpu_torch.strategies import Strategy
-            Strategy(torch.zeros(3), 1.0, eigh_impl="auto", device=CPU)
+    """A11b is ported: each 'auto' resolves to the JAX package's static
+    default with no tuner (segment_len 10, gp_mode 'scan', eigh_impl
+    'lapack')."""
+    if what == "segment_len":
+        got = ResilientRun(str(tmp_path / "ck"),
+                           segment_len="auto").segment_len
+        assert got == 10
+    elif what == "gp_mode":
+        from deap_tpu_torch import gp
+        got = gp.make_batch_interpreter(gp.math_set(1), 16, mode="auto")
+        assert got.mode == "scan"
+    else:
+        from deap_tpu_torch.strategies import Strategy
+        got = Strategy(torch.zeros(3), 1.0, eigh_impl="auto", device=CPU)
+        assert got.eigh_impl == "lapack"
 
 
 # --------------------------------------------------------- observatory --
