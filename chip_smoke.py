@@ -517,6 +517,11 @@ TL_MO_REF = (-4.0, -4.0, -4.0)
 # shape (values [n, cases], picks)
 TU_NGEN, TU_CMA_NGEN, TU_GP_NGEN, TU_ND_N, TU_REPS = 20, 10, 10, 100_000, 2
 TU_LEX_N, TU_LEX_CASES, TU_LEX_K = 1000, 8, 4096
+# phase 22: bench.py --mesh's island model (OneMax pop 100k as 8 islands x
+# 12,500, migration every 2 generations, 8 emigrants a deme) and plan=
+# on each loop at the main path's widths
+PA_ISLANDS, PA_DEME, PA_FREQ, PA_MIG_K, PA_EPOCHS = 8, 12_500, 2, 8, 3
+PA_MU_NGEN, PA_CMA_NGEN, PA_GP_NGEN = 5, 10, 10
 # the kernels' function names as the profiler lists them
 K1_KERNEL = "fused_variation_kernel"
 # clocks the card spins before each timed call (about 1 ms): the host
@@ -990,6 +995,7 @@ def main():
     resilience_phases(torch, dev, tag, onemax_run)
     telemetry_phases(torch, dev, tag, onemax_run)
     tuning_phases(torch, dev, tag)
+    parallel_phases(torch, dev, tag)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -6833,6 +6839,324 @@ def lexicase_phase(torch, dev, tag):
           f"cases, NaN and inf cells, {TU_LEX_K} picks) == the CPU's on the "
           f"same draws; picks of row 0 {emptied}; [[nan], [0]] (inf under "
           f"automatic epsilon) picks [0, 0, 0, 0] in all three")
+
+
+def parallel_phases(torch, dev, tag):
+    """Phase 22: the parallel slice on one card. The island model at
+    ``bench.py --mesh``'s width with no mesh, with a plan and with
+    telemetry, equal, and its batched generation through K1 equal to its
+    plain apply; ``ResilientRun(plan=).island_run`` killed after a
+    save and resumed, equal; ``plan=`` on ea_simple (K1), (mu + lambda),
+    CMA-ES, GP symbreg (K9) and ``nd_rank`` through ``tiled`` (K7), each
+    equal to the run with no plan; a rank's ``rows=`` block of the
+    ``var_and`` and ``var_or`` planes through K1, equal to the whole
+    plane; then a world-size-1 NCCL group: the
+    genome-sharded evaluator and the one-rank collective ring, each equal
+    to its unsharded counterpart. The group is destroyed before the phase
+    ends."""
+    import shutil
+    import socket
+    import torch.distributed as dist
+    from deap_tpu_torch import FitnessSpec, Toolbox, algorithms, gp, ops
+    from deap_tpu_torch import benchmarks as bm
+    from deap_tpu_torch import parallel
+    from deap_tpu_torch.core.population import concat, init_population
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.mo import emo
+    from deap_tpu_torch.ops import kernels, variation
+    from deap_tpu_torch.parallel import island
+    from deap_tpu_torch.resilience import ResilientRun
+    from deap_tpu_torch.resilience.faultinject import (FaultPlan,
+                                                       InjectedCrash, KillAt)
+    from deap_tpu_torch.strategies import cma
+    from deap_tpu_torch.support.stats import fitness_stats
+    from deap_tpu_torch.telemetry import RunTelemetry
+
+    root = os.path.join(ROOT, "build", "parallel_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    tb = _onemax_toolbox(Toolbox, ops)
+    spec = FitnessSpec((1.0,))
+    plan = parallel.ShardingPlan.for_population(device=dev)
+    iplan = parallel.ShardingPlan.for_islands(device=dev)
+    if plan.n_shards != 1 or iplan.n_shards != 1:
+        fail(f"a plan with no process group spans {plan.n_shards} devices")
+
+    def demes():
+        pops = parallel.island_init(make_generator(100, dev), PA_ISLANDS,
+                                    PA_DEME, ops.bernoulli_genome(L), spec,
+                                    device=dev)
+        return pops.replace(fitness=pops.genomes.sum(-1, keepdim=True).to(
+            torch.float32), valid=torch.ones_like(pops.valid))
+
+    # (1) the island model, three ways
+    width = f"{PA_ISLANDS} islands x {PA_DEME}, L {L}"
+    runs = {}
+    with RunTelemetry(os.path.join(root, "island.jsonl")) as tel:
+        builds = {
+            "no mesh": parallel.make_island_step(tb, CXPB, MUTPB, PA_FREQ,
+                                                 PA_MIG_K),
+            "plan": parallel.make_island_step(tb, CXPB, MUTPB, PA_FREQ,
+                                              PA_MIG_K, plan=iplan),
+            "telemetry": parallel.make_island_step(tb, CXPB, MUTPB, PA_FREQ,
+                                                   PA_MIG_K, telemetry=tel)}
+        for name, step in builds.items():
+            g, pops = make_generator(101, dev), demes()
+            mstate = tel.meter.init(device=dev) if name == "telemetry" \
+                else None
+            if mstate is None:
+                pops = step(g, pops)  # the warm epoch
+            else:
+                pops, mstate = step(g, pops, mstate)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(PA_EPOCHS):
+                if mstate is None:
+                    pops = step(g, pops)
+                else:
+                    pops, mstate = step(g, pops, mstate)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PA_EPOCHS * 1e3
+            k1 = kernels.fused_variation.launches
+            if k1 != PA_FREQ * PA_EPOCHS:
+                fail(f"island step ({name}) launched K1 {k1} times in "
+                     f"{PA_EPOCHS} epochs of {PA_FREQ} generations")
+            if not (bool(pops.valid.all()) and torch.equal(
+                    pops.fitness[..., 0],
+                    pops.genomes.sum(-1).to(torch.float32))):
+                fail(f"island step ({name}): demes or fitness wrong")
+            runs[name] = (pops, g, ms, k1)
+            extra = ""
+            if mstate is not None:
+                row = tel.meter.row(mstate)
+                epochs = PA_EPOCHS + 1
+                if (row["epochs"] != epochs
+                        or row["migrants"] != PA_MIG_K * PA_ISLANDS * epochs
+                        or row["best"] != float(pops.fitness.max())):
+                    fail(f"island meter row wrong: {row}")
+                extra = (f"; meter: migrants {row['migrants'] // epochs}/"
+                         f"epoch, best {row['best']}, mean {row['mean']}")
+            print(f"{tag} island step ({name}) {width}: {ms:.3f} ms/epoch "
+                  f"({PA_FREQ} generations + migration), K1 "
+                  f"{k1 / PA_EPOCHS:g} launches/epoch, migrants "
+                  f"{PA_MIG_K * PA_ISLANDS}/epoch{extra}")
+    base_pops, base_g = runs["no mesh"][:2]
+    for name in ("plan", "telemetry"):
+        if not same_tree(torch, (runs[name][0], runs[name][1]),
+                         (base_pops, base_g)):
+            fail(f"island step ({name}) differs from the step with no mesh")
+    print(f"{tag} island step: no mesh == plan == telemetry bitwise "
+          f"(demes and generator), {PA_EPOCHS + 1} epochs")
+
+    # (1b) the batched island generation through K1 (deme-offset
+    # partners) against its plain apply, on the same draws
+    vplan = variation.resolve_plan(tb)
+    pops = demes()
+    asp, masks = island.island_draws(make_generator(102, dev), PA_ISLANDS,
+                                     PA_DEME, L, TOURNSIZE, CXPB, MUTPB,
+                                     vplan, pops.genomes.dtype)
+    before = kernels.fused_variation.launches
+    got = island.island_generation(pops, asp, masks, tb, vplan.mut_kind,
+                                   "kernel")
+    k1 = kernels.fused_variation.launches - before
+    want = island.island_generation(pops, asp, masks, tb, vplan.mut_kind,
+                                    "plain")
+    if k1 != 1 or not same_tree(torch, got, want):
+        fail(f"island_generation through K1 ({k1} launches) differs from "
+             f"its plain apply")
+    print(f"{tag} island_generation {width}: K1 (1 launch, deme-offset "
+          f"partners) == plain apply bitwise on the same draws")
+
+    # (2) ResilientRun(plan=).island_run, killed after the save at epoch 2
+    step = parallel.make_island_step(tb, CXPB, MUTPB, PA_FREQ, PA_MIG_K,
+                                     plan=iplan)
+
+    def island_run(faults=None):
+        g = make_generator(101, dev)
+        res = ResilientRun(os.path.join(root, "island_ck"), segment_len=1,
+                           fault_plan=faults, plan=iplan)
+        return res.island_run(step, g, demes(), PA_EPOCHS + 1,
+                              device=dev), g
+
+    try:
+        island_run(FaultPlan([KillAt(2, "after_save")]))
+        fail("island_run was not killed at epoch 2")
+    except InjectedCrash:
+        pass
+    resumed = island_run()
+    if not same_tree(torch, resumed, (base_pops, base_g)):
+        fail("island_run killed at epoch 2 and resumed differs from the "
+             "uninterrupted run")
+    print(f"{tag} ResilientRun(plan).island_run killed after the save at "
+          f"epoch 2 and resumed == uninterrupted bitwise")
+
+    # (3) plan= on each loop, equal to no plan
+    def onemax(p, n=N, ngen=EA_NGEN):
+        g = make_generator(0, dev)
+        pop = init_population(g, n, ops.bernoulli_genome(L), spec,
+                              device=dev)
+        return algorithms.ea_simple(g, pop, tb, CXPB, MUTPB, ngen,
+                                    stats=fitness_stats(), halloffame_size=1,
+                                    plan=p, device=dev), g
+
+    def mu_plus(p):
+        g = make_generator(2, dev)
+        pop = init_population(g, N, ops.bernoulli_genome(L), spec,
+                              device=dev)
+        return algorithms.ea_mu_plus_lambda(
+            g, pop, tb, N, N, CXPB, MUTPB, PA_MU_NGEN, stats=fitness_stats(),
+            halloffame_size=1, plan=p, device=dev), g
+
+    def cma_es(p):
+        strat = cma.Strategy(torch.full((CMA_DIM,), CMA_START),
+                             sigma=CMA_SIGMA, lambda_=CMA_LAMBDA, device=dev)
+        tbc = Toolbox()
+        tbc.register("evaluate", bm.sphere)
+        tbc.register("generate", strat.generate)
+        tbc.register("update", strat.update)
+        g = make_generator(83, dev)
+        return algorithms.ea_generate_update(
+            g, strat.initial_state(), tbc, PA_CMA_NGEN, strat.spec,
+            stats=fitness_stats(), halloffame_size=1, plan=p,
+            device=dev), g
+
+    def symbreg(p):
+        pset = gp.math_set(1)
+        X, y = symbreg_data(dev)
+        g = make_generator(9, dev)
+        start = gp.gen_half_and_half(pset, GP_ML, 1, 2)(g, GP_POP)
+        run = gp.make_symbreg_loop(pset, GP_ML, X, y, cxpb=GP_CXPB,
+                                   mutpb=GP_MUTPB, device=dev, plan=p)
+        return run(g, start, PA_GP_NGEN), g
+
+    gen = make_generator(97, dev)
+    union = -bm.dtlz2(torch.rand((TU_ND_N, MO_DIM), generator=gen,
+                                 device=dev), MO_NOBJ)
+    loops = (("ea_simple", f"OneMax pop {N}, {EA_NGEN} generations", onemax,
+              (("K1", kernels.fused_variation),)),
+             ("ea_mu_plus_lambda", f"lambda {N}, {PA_MU_NGEN} generations",
+              mu_plus, (("K1", kernels.fused_variation),)),
+             ("ea_generate_update", f"CMA-ES dim {CMA_DIM}, lambda "
+              f"{CMA_LAMBDA}, {PA_CMA_NGEN} generations", cma_es, ()),
+             ("gp symbreg", f"pop {GP_POP}, width {GP_ML}, {PA_GP_NGEN} "
+              f"generations", symbreg, (("K9", kernels.gp_grouped_dispatch),)),
+             ("nd_rank tiled", f"{TU_ND_N}-row DTLZ2 union",
+              lambda p: emo.nd_rank(union, impl="tiled", plan=p),
+              (("K7", kernels.dominated_weight_sums),)))
+    for name, what, fn, counted in loops:
+        # in turns (no plan, plan, plan, no plan): the first run pays
+        # the kernels' builds
+        outs, walls, counts = [], {"plan": [], "none": []}, []
+        for p in (None, plan, plan, None):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            outs.append(fn(p))
+            torch.cuda.synchronize()
+            walls["none" if p is None else "plan"].append(
+                time.perf_counter() - t0)
+            counts.append({k: c.launches for k, c in counted})
+        if not all(same_tree(torch, out, outs[0]) for out in outs[1:]):
+            fail(f"{name} with plan= differs from the run with no plan")
+        for k, c in counted:
+            if not counts[0][k] or any(x[k] != counts[0][k]
+                                       for x in counts):
+                fail(f"{name}: {k} launches {[x[k] for x in counts]} in "
+                     f"the runs without, with, with and without the plan")
+        if name == "ea_simple" and counts[1]["K1"] != EA_NGEN:
+            fail(f"ea_simple(plan=) launched K1 {counts[1]['K1']} times in "
+                 f"{EA_NGEN} generations")
+        print(f"{tag} {name}(plan=) {what} == no plan bitwise; launches "
+              f"{counts[1]} each run; walls with the plan "
+              f"{', '.join(f'{w:.4f}' for w in walls['plan'])} s, without "
+              f"{', '.join(f'{w:.4f}' for w in walls['none'])} s (the "
+              f"first without pays any build)")
+
+    # (3b) a rank's block of the variation plane: the rows= halves
+    # through K1, concatenated, against the whole plane through K1 and
+    # through the plain apply
+    pop = algorithms.evaluate_invalid(
+        init_population(make_generator(103, dev), N, ops.bernoulli_genome(L),
+                        spec, device=dev), tb.evaluate)
+    idx = torch.randint(0, N, (N,), generator=gen, device=dev)
+    half = N // 2
+    planes = (
+        ("var_and", lambda f, rows: algorithms.var_and(
+            make_generator(104, dev), pop, tb, CXPB, MUTPB, fused=f,
+            sel_idx=idx, rows=rows)),
+        ("var_or", lambda f, rows: algorithms.var_or(
+            make_generator(105, dev), pop, tb, N, CXPB, MUTPB, fused=f,
+            rows=rows)))
+    for op, plane in planes:
+        want = plane("plain", None)
+        before = kernels.fused_variation.launches
+        whole = plane("kernel", None)
+        halves = concat([plane("kernel", (0, half)),
+                         plane("kernel", (half, N))])
+        k1 = kernels.fused_variation.launches - before
+        if (k1 != 3 or not same_tree(torch, whole, want)
+                or not same_tree(torch, halves, want)):
+            fail(f"{op}(rows=) halves through K1 ({k1} launches) differ "
+                 f"from the whole plane")
+        print(f"{tag} {op} pop {N}: rows (0, {half}) + ({half}, {N}) "
+              f"through K1 == whole plane through K1 == plain apply "
+              f"bitwise ({k1} K1 launches)")
+
+    # (4) a world-size-1 NCCL group: the genome-sharded evaluator and the
+    # one-rank collective ring
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    parallel.initialize(f"127.0.0.1:{port}", 1, 0, device=dev,
+                        timeout_s=120)
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != backend or parallel.process_count() != 1:
+            fail(f"the one-rank group runs {dist.get_backend()} over "
+                 f"{parallel.process_count()} ranks")
+        init_s = time.perf_counter() - t0
+        gmesh = parallel.genome_mesh(1, 1, device=dev)
+        if gmesh.device_mesh is None:
+            fail("the genome mesh of the NCCL group has no DeviceMesh")
+        genomes = (torch.rand((N, L), generator=gen, device=dev)
+                   < 0.5).to(torch.float32)
+        for combine, fn in (("sum", lambda a: a.sum(-1)),
+                            ("mean", lambda a: a.mean(-1)),
+                            ("max", lambda a: a.max(-1).values)):
+            ev = parallel.make_sharded_evaluator(fn, gmesh, combine)
+            got = ev(parallel.shard_genomes(genomes, gmesh))
+            torch.cuda.synchronize()
+            if not bitwise_equal(got, fn(genomes)):
+                fail(f"the genome-sharded evaluator ({combine}) differs from "
+                     f"the unsharded evaluation")
+        imesh = parallel.population_mesh(axis_names=("island",), device=dev)
+        one = base_pops.replace(genomes=base_pops.genomes[:1],
+                                fitness=base_pops.fitness[:1],
+                                valid=base_pops.valid[:1])
+        deme = one.replace(genomes=one.genomes[0], fitness=one.fitness[0],
+                           valid=one.valid[0])
+        got = parallel.mig_ring_collective(None, deme, PA_MIG_K, "island",
+                                           mesh=imesh)
+        want = parallel.mig_ring(None, one, PA_MIG_K)
+        if not all(bitwise_equal(getattr(got, k), getattr(want, k)[0])
+                   for k in ("genomes", "fitness", "valid")):
+            fail("mig_ring_collective on the one-rank ring differs from "
+                 "mig_ring")
+        print(f"{tag} NCCL group of 1 (TCP store on 127.0.0.1, formed in "
+              f"{init_s:.2f} s): make_sharded_evaluator on a 1 x 1 "
+              f"genome_mesh over [{N}, {L}] float32 OneMax genomes == the "
+              f"unsharded evaluation bitwise for sum, mean and max; "
+              f"mig_ring_collective on the one-rank ring (a local roll: "
+              f"one rank issues no NCCL operation) == mig_ring")
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("the NCCL group outlived phase 22")
+    print(f"{tag} phase 22 (parallel): {time.perf_counter() - t_phase:.1f} "
+          f"s; NCCL across cards not measured (one card)")
 
 
 def _onemax_toolbox(Toolbox, ops):

@@ -29,6 +29,14 @@ Every loop takes ``telemetry=`` (a :class:`~deap_tpu_torch.telemetry.
 RunTelemetry`) and ``probes=``: a Meter state joins each generation,
 stays on the device, and is journaled, one ``meter`` row a generation,
 when the loop ends; results are bit-identical with or without it.
+
+Every loop and step factory takes ``plan=`` (a
+:class:`~deap_tpu_torch.parallel.ShardingPlan`): the loop places its
+state on the plan, each rank varies and evaluates its block of rows
+(the draws made whole on every rank and sliced) and the rows are
+gathered back, so selection, statistics, the hall of fame and a
+strategy's update read the whole population on every rank. The results
+are the same bits on any number of ranks.
 """
 
 from __future__ import annotations
@@ -202,35 +210,43 @@ def _rebuild_genomes(template, children):
     return pytree.tree_unflatten([children], spec)
 
 
+def _rows_of(masks, rows):
+    return tuple(None if m is None else m[rows[0]:rows[1]] for m in masks)
+
+
 def var_and_apply(pop: Population, masks, mut_kind: str, mode: str,
-                  sel_idx: Optional[torch.Tensor] = None) -> Population:
+                  sel_idx: Optional[torch.Tensor] = None,
+                  rows: Optional[Tuple[int, int]] = None,
+                  partner: Optional[torch.Tensor] = None) -> Population:
     """The apply half of the fused :func:`var_and`: children of
     ``gather(pop, sel_idx)`` (``pop`` when ``None``) under ``masks`` from
     :func:`ops.variation.var_and_masks`, through the kernel
-    (``mode='kernel'``) or the plain apply (``'plain'``)."""
-    cx_row, lo, hi, do_mut, mask, arg = masks
+    (``mode='kernel'``) or the plain apply (``'plain'``). Each child reads
+    its partner row of ``pop`` by explicit index: ``partner`` (default
+    the adjacent-pair mate's source row; the island pass gives mates
+    within each deme). ``rows=(lo, hi)`` computes only those children (a
+    rank's block under a plan)."""
+    n = masks[0].shape[0]
+    lo, hi = rows if rows is not None else (0, n)
     g = _variation.single_genome_leaf(pop.genomes)
-    n = cx_row.shape[0]
-    if sel_idx is None:
-        src, base = None, pop
-    else:
-        # fitness/valid/extras row-select only: the genome gather happens
-        # inside the apply
-        src, base = sel_idx, gather(pop.replace(genomes=()), sel_idx)
+    src = (torch.arange(n, device=g.device) if sel_idx is None
+           else sel_idx.long())
+    if partner is None:
+        partner = src[_variation.pair_partner_positions(n, g.device).long()]
+    src, partner = src[lo:hi], partner[lo:hi]
+    cx_row, cx_lo, cx_hi, do_mut, mask, arg = _rows_of(masks, (lo, hi))
     if mode == "kernel":
-        # the kernel reads partner rows by explicit index; the plain apply
-        # derives the adjacent-pair partner view by reshape
-        partner = _variation.pair_partner_positions(n, g.device)
-        if src is None:
-            src = torch.arange(n, dtype=torch.int32, device=g.device)
-        else:
-            src = src.to(torch.int32)
-            partner = src[partner.long()]
-        children = fused_variation(g, src, partner, cx_row, lo, hi, do_mut,
-                                   mask, arg, mut_kind=mut_kind)
+        children = fused_variation(g, src.to(torch.int32),
+                                   partner.to(torch.int32), cx_row, cx_lo,
+                                   cx_hi, do_mut, mask, arg,
+                                   mut_kind=mut_kind)
     else:
-        children = _variation.apply_variation(g, src, None, cx_row, lo, hi,
-                                              do_mut, mask, arg, mut_kind)
+        children = _variation.apply_variation(g, src, partner, cx_row, cx_lo,
+                                              cx_hi, do_mut, mask, arg,
+                                              mut_kind)
+    # fitness/valid/extras row-select only: the genome gather happens
+    # inside the apply
+    base = gather(pop.replace(genomes=()), src)
     genomes = _rebuild_genomes(pop.genomes, children)
     return base.replace(genomes=genomes).invalidate(cx_row | do_mut)
 
@@ -238,6 +254,7 @@ def var_and_apply(pop: Population, masks, mut_kind: str, mode: str,
 def var_and(generator: torch.Generator, pop: Population, toolbox,
             cxpb: float, mutpb: float, fused="auto",
             sel_idx: Optional[torch.Tensor] = None,
+            rows: Optional[Tuple[int, int]] = None,
             _journal: bool = True) -> Population:
     """Crossover AND mutation variation (the reference's varAnd).
 
@@ -248,7 +265,10 @@ def var_and(generator: torch.Generator, pop: Population, toolbox,
     children for the same generator state. ``sel_idx`` composes a
     selection gather into the plane: ``var_and(g, pop, tb, ...,
     sel_idx=idx)`` == ``var_and(g, gather(pop, idx), tb, ...)``. The
-    execution picked is journaled (``variation_dispatch``).
+    execution picked is journaled (``variation_dispatch``). ``rows=(lo,
+    hi)`` returns only those children, for the same draws (a rank's block
+    under a plan; the unfused composition computes them all and keeps
+    those, journaled ``sharding_fallback``).
     """
     probe = _variation_probe_fns(
         fused, generator, pop,
@@ -259,12 +279,23 @@ def var_and(generator: torch.Generator, pop: Population, toolbox,
     if mode is None:
         if sel_idx is not None:
             pop = gather(pop, sel_idx)
-        return _var_and_unfused(generator, pop, toolbox, cxpb, mutpb)
+        off = _var_and_unfused(generator, pop, toolbox, cxpb, mutpb)
+        return off if rows is None else _replicated_rows(off, rows,
+                                                         "var_and")
     g = _variation.single_genome_leaf(pop.genomes)
     n = int(sel_idx.shape[0]) if sel_idx is not None else pop.size
     masks = _variation.var_and_masks(generator, n, g.shape[1], cxpb, mutpb,
                                      plan, g.dtype)
-    return var_and_apply(pop, masks, plan.mut_kind, mode, sel_idx)
+    return var_and_apply(pop, masks, plan.mut_kind, mode, sel_idx, rows)
+
+
+def _replicated_rows(off: Population, rows: Tuple[int, int],
+                     where: str) -> Population:
+    """Rows ``[lo, hi)`` of children an unfused composition computed
+    whole: that work ran replicated on every rank, which is journaled."""
+    from deap_tpu_torch.parallel.mesh import sharding_fallback
+    sharding_fallback(where, "unfused variation runs whole on every rank")
+    return gather(off, torch.arange(rows[0], rows[1], device=off.device))
 
 
 # the observatory profiles each under its tuner knob's program label, so a
@@ -303,13 +334,16 @@ def _var_and_unfused(generator: torch.Generator, pop: Population, toolbox,
     return pop.replace(genomes=genomes).invalidate(cx_touched | do_mut)
 
 
-def var_or_apply(pop: Population, masks, mut_kind: str,
-                 mode: str) -> Population:
+def var_or_apply(pop: Population, masks, mut_kind: str, mode: str,
+                 rows: Optional[Tuple[int, int]] = None) -> Population:
     """The apply half of the fused :func:`var_or`: λ children of the
     N-row ``pop`` under ``masks`` from :func:`ops.variation.var_or_masks`,
     through the kernel (``mode='kernel'``) or the plain apply
     (``'plain'``). Each child carries its base row's fitness, ``valid``
-    and extras; only mated and mutated children are invalidated."""
+    and extras; only mated and mutated children are invalidated.
+    ``rows=(lo, hi)`` computes only those children."""
+    if rows is not None:
+        masks = _rows_of(masks, rows)
     base_idx, partner_idx, choice_cx, lo, hi, choice_mut, mask, arg = masks
     g = _variation.single_genome_leaf(pop.genomes)
     if mode == "kernel":
@@ -328,7 +362,8 @@ def var_or_apply(pop: Population, masks, mut_kind: str,
 
 def var_or(generator: torch.Generator, pop: Population, toolbox,
            lambda_: int, cxpb: float, mutpb: float,
-           fused="auto", _journal: bool = True) -> Population:
+           fused="auto", rows: Optional[Tuple[int, int]] = None,
+           _journal: bool = True) -> Population:
     """Crossover OR mutation OR reproduction (the reference's varOr).
 
     Each of the ``lambda_`` children independently: with probability
@@ -338,7 +373,8 @@ def var_or(generator: torch.Generator, pop: Population, toolbox,
     ``fused`` picks the execution (see :func:`_resolve_fused`): the fused
     plane reads the λ children's parents from the N rows directly (K1 on
     the card). Every mode gives the same children for the same generator
-    state. The execution picked is journaled (``variation_dispatch``)."""
+    state. The execution picked is journaled (``variation_dispatch``).
+    ``rows`` as in :func:`var_and`."""
     _check_cx_mut(cxpb, mutpb)
     probe = _variation_probe_fns(
         fused, generator, pop,
@@ -347,11 +383,12 @@ def var_or(generator: torch.Generator, pop: Population, toolbox,
     mode, plan = _resolve_fused(fused, toolbox, pop.genomes, "var_or",
                                 _journal, probe)
     if mode is None:
-        return _var_or_unfused(generator, pop, toolbox, lambda_, cxpb, mutpb)
+        off = _var_or_unfused(generator, pop, toolbox, lambda_, cxpb, mutpb)
+        return off if rows is None else _replicated_rows(off, rows, "var_or")
     g = _variation.single_genome_leaf(pop.genomes)
     masks = _variation.var_or_masks(generator, pop.size, lambda_, g.shape[1],
                                     cxpb, mutpb, plan, g.dtype)
-    return var_or_apply(pop, masks, plan.mut_kind, mode)
+    return var_or_apply(pop, masks, plan.mut_kind, mode, rows)
 
 
 var_or = costs.instrument(var_or, "var_or")
@@ -434,12 +471,43 @@ def _check_probes(probes, telemetry):
             "rides the telemetry Meter")
 
 
+# ------------------------------------------------------------ the plan ----
+
+def _plan_rows(plan, n: int) -> Optional[Tuple[int, int]]:
+    """This rank's block of ``n`` rows under ``plan``, or None when the
+    rows are not split (no plan, one rank, or ``n`` not dividing)."""
+    if plan is None or not plan.is_split(n):
+        return None
+    return plan.rows(n)
+
+
+def _evaluate_planned(pop: Population, evaluate: Callable,
+                      plan) -> Population:
+    """:func:`evaluate_invalid`, each rank evaluating its block of rows
+    under ``plan``, the rows gathered back."""
+    if plan is None:
+        return evaluate_invalid(pop, evaluate)
+    return plan.map_rows(lambda p: evaluate_invalid(p, evaluate), pop,
+                         pop.size)
+
+
+def _evaluate_children(off: Population, evaluate: Callable, plan,
+                       rows: Optional[Tuple[int, int]], n: int):
+    """``(children evaluated, nevals)``; with ``rows`` the children are
+    this rank's block of ``n``, gathered after evaluation."""
+    invalid = ~off.valid
+    off = evaluate_invalid(off, evaluate)
+    if rows is not None:
+        off, invalid = plan.gather_rows((off, invalid), n)
+    return off, invalid.sum()
+
+
 def _pop_loop_init(pop: Population, toolbox, halloffame_size: int,
-                   stats: Optional[Statistics]):
+                   stats: Optional[Statistics], plan=None):
     """Gen 0: evaluate the invalid founders, seed the hall of fame, build
     the gen-0 record."""
     nevals0 = (~pop.valid).sum()
-    pop = evaluate_invalid(pop, toolbox.evaluate)
+    pop = _evaluate_planned(pop, toolbox.evaluate, plan)
     hof = hof_init(halloffame_size, pop) if halloffame_size else None
     if hof is not None:
         hof = hof_update(hof, pop)
@@ -448,21 +516,25 @@ def _pop_loop_init(pop: Population, toolbox, halloffame_size: int,
 
 def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
                         stats: Optional[Statistics] = None,
-                        telemetry=None, fused="auto") -> Callable:
+                        telemetry=None, fused="auto", plan=None) -> Callable:
     """The eaSimple generation step ``(generator, pop, hof) -> (pop, hof,
     record)``: select n → var_and → evaluate invalid → replace. With
     ``telemetry`` the step is ``(generator, pop, hof, mstate, gen) ->
-    (pop, hof, record, mstate)``."""
+    (pop, hof, record, mstate)``. With ``plan`` each rank varies and
+    evaluates its block of the children."""
     tel = telemetry
     first = [True]  # the dispatch is journaled once, at the first call
 
     def step(generator, pop, hof, mstate=None, gen=None):
         idx = toolbox.select(generator, pop.wvalues, pop.size)
+        rows = _plan_rows(plan, pop.size)
         off = var_and(generator, pop, toolbox, cxpb, mutpb, fused=fused,
-                      sel_idx=idx, _journal=first[0])
+                      sel_idx=idx, rows=rows, _journal=first[0])
         first[0] = False
-        nevals = (~off.valid).sum()
-        off = evaluate_invalid(off, toolbox.evaluate)
+        off, nevals = _evaluate_children(off, toolbox.evaluate, plan, rows,
+                                         pop.size)
+        if plan is not None:
+            off = plan.constrain(off)
         if hof is not None:
             hof = hof_update(hof, off)
         rec = {"nevals": nevals, **_maybe_stats(stats, off)}
@@ -479,14 +551,15 @@ def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
 
 def _run_pop_loop(algorithm, generator, pop, toolbox, step, ngen, stats,
                   halloffame_size, verbose, device, tel=None, probes=(),
-                  **params):
+                  plan=None, **params):
     """Gen 0, then ``ngen`` calls of ``step`` on ``device``; the records
     (and the meter's states) stay on the device until the loop ends."""
     _check_probes(probes, tel)
     dev = resolve_device(device)
     check_generator(generator, dev)
-    pop, hof, record0 = _pop_loop_init(pop.to(dev), toolbox,
-                                       halloffame_size, stats)
+    pop = pop.to(dev) if plan is None else plan.place(pop)
+    pop, hof, record0 = _pop_loop_init(pop, toolbox, halloffame_size, stats,
+                                       plan)
     records = []
     if tel is None:
         for _ in range(ngen):
@@ -514,7 +587,7 @@ def ea_simple(generator: torch.Generator, pop: Population, toolbox,
               cxpb: float, mutpb: float, ngen: int,
               stats: Optional[Statistics] = None, halloffame_size: int = 0,
               verbose: bool = False, telemetry=None, probes=(),
-              fused="auto", device: DeviceLike = None,
+              fused="auto", plan=None, device: DeviceLike = None,
               ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """The canonical generational GA: select n → varAnd → evaluate
     invalid → replace, for ``ngen`` generations, on ``device`` (the card
@@ -522,28 +595,34 @@ def ea_simple(generator: torch.Generator, pop: Population, toolbox,
     ``telemetry`` (a :class:`deap_tpu_torch.telemetry.RunTelemetry`)
     meters and journals the run, ``probes`` add population probes
     (:mod:`deap_tpu_torch.telemetry.probes`) to its meter; results are
-    unchanged either way. ``fused`` as in :func:`var_and`."""
+    unchanged either way. ``fused`` as in :func:`var_and`. ``plan`` (a
+    :class:`deap_tpu_torch.parallel.ShardingPlan`) places the population
+    on the plan and splits the generations' per-row work over its ranks;
+    the same bits on any rank count, the whole result on every rank."""
     step = make_ea_simple_step(toolbox, cxpb, mutpb, stats, telemetry,
-                               fused=fused)
+                               fused=fused, plan=plan)
     return _run_pop_loop("ea_simple", generator, pop, toolbox, step, ngen,
                          stats, halloffame_size, verbose, device, telemetry,
-                         probes, n=pop.size, cxpb=cxpb, mutpb=mutpb)
+                         probes, plan, n=pop.size, cxpb=cxpb, mutpb=mutpb)
 
 
 def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
                          mutpb: float, stats: Optional[Statistics],
-                         tel, fused, plus: bool) -> Callable:
+                         tel, fused, plus: bool, plan=None) -> Callable:
     first = [True]  # the dispatch is journaled once, at the first call
 
     def step(generator, pop, hof, mstate=None, gen=None):
+        rows = _plan_rows(plan, lambda_)
         off = var_or(generator, pop, toolbox, lambda_, cxpb, mutpb,
-                     fused=fused, _journal=first[0])
+                     fused=fused, rows=rows, _journal=first[0])
         first[0] = False
-        nevals = (~off.valid).sum()
-        off = evaluate_invalid(off, toolbox.evaluate)
+        off, nevals = _evaluate_children(off, toolbox.evaluate, plan, rows,
+                                         lambda_)
         pool = concat([pop, off]) if plus else off
         idx = toolbox.select(generator, pool.wvalues, mu)
         new_pop = gather(pool, idx)
+        if plan is not None:
+            new_pop = plan.constrain(new_pop)
         if hof is not None:
             hof = hof_update(hof, off)
         rec = {"nevals": nevals, **_maybe_stats(stats, new_pop)}
@@ -561,43 +640,47 @@ def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
 def make_ea_mu_plus_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
                                 mutpb: float,
                                 stats: Optional[Statistics] = None,
-                                telemetry=None, fused="auto") -> Callable:
+                                telemetry=None, fused="auto",
+                                plan=None) -> Callable:
     """The (μ + λ) generation step ``(generator, pop, hof) -> (pop, hof,
     record)``: var_or λ children → evaluate invalid → select μ from the
     parents and children together. The hall of fame sees the children;
     the record is taken on the new population. With ``telemetry`` the
-    step carries the meter state as :func:`make_ea_simple_step`'s."""
+    step carries the meter state as :func:`make_ea_simple_step`'s; with
+    ``plan`` each rank varies and evaluates its block of the children."""
     return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
-                                telemetry, fused, plus=True)
+                                telemetry, fused, plus=True, plan=plan)
 
 
 def make_ea_mu_comma_lambda_step(toolbox, mu: int, lambda_: int,
                                  cxpb: float, mutpb: float,
                                  stats: Optional[Statistics] = None,
-                                 telemetry=None, fused="auto") -> Callable:
+                                 telemetry=None, fused="auto",
+                                 plan=None) -> Callable:
     """The (μ, λ) generation step: as :func:`make_ea_mu_plus_lambda_step`,
     with μ selected from the children alone."""
     return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
-                                telemetry, fused, plus=False)
+                                telemetry, fused, plus=False, plan=plan)
 
 
 def ea_mu_plus_lambda(generator: torch.Generator, pop: Population, toolbox,
                       mu: int, lambda_: int, cxpb: float, mutpb: float,
                       ngen: int, stats: Optional[Statistics] = None,
                       halloffame_size: int = 0, verbose: bool = False,
-                      telemetry=None, probes=(), fused="auto",
+                      telemetry=None, probes=(), fused="auto", plan=None,
                       device: DeviceLike = None,
                       ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """(μ + λ) evolution (the reference's eaMuPlusLambda): the parents
     compete with their children for the μ places. ``device``,
-    ``telemetry``, ``probes`` and ``fused`` as in :func:`ea_simple`
-    (``fused`` as in :func:`var_or`)."""
+    ``telemetry``, ``probes``, ``fused`` and ``plan`` as in
+    :func:`ea_simple` (``fused`` as in :func:`var_or`)."""
     _check_cx_mut(cxpb, mutpb)
     step = make_ea_mu_plus_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
-                                       stats, telemetry, fused=fused)
+                                       stats, telemetry, fused=fused,
+                                       plan=plan)
     return _run_pop_loop("ea_mu_plus_lambda", generator, pop, toolbox, step,
                          ngen, stats, halloffame_size, verbose, device,
-                         telemetry, probes, mu=mu, lambda_=lambda_,
+                         telemetry, probes, plan, mu=mu, lambda_=lambda_,
                          cxpb=cxpb, mutpb=mutpb)
 
 
@@ -605,20 +688,21 @@ def ea_mu_comma_lambda(generator: torch.Generator, pop: Population, toolbox,
                        mu: int, lambda_: int, cxpb: float, mutpb: float,
                        ngen: int, stats: Optional[Statistics] = None,
                        halloffame_size: int = 0, verbose: bool = False,
-                       telemetry=None, probes=(), fused="auto",
+                       telemetry=None, probes=(), fused="auto", plan=None,
                        device: DeviceLike = None,
                        ) -> Tuple[Population, Logbook, Optional[HallOfFame]]:
     """(μ, λ) evolution (the reference's eaMuCommaLambda): only the
     children survive, so ``lambda_ >= mu``. ``device``, ``telemetry``,
-    ``probes`` and ``fused`` as in :func:`ea_mu_plus_lambda`."""
+    ``probes``, ``fused`` and ``plan`` as in :func:`ea_mu_plus_lambda`."""
     if lambda_ < mu:
         raise ValueError("lambda must be greater or equal to mu.")
     _check_cx_mut(cxpb, mutpb)
     step = make_ea_mu_comma_lambda_step(toolbox, mu, lambda_, cxpb, mutpb,
-                                        stats, telemetry, fused=fused)
+                                        stats, telemetry, fused=fused,
+                                        plan=plan)
     return _run_pop_loop("ea_mu_comma_lambda", generator, pop, toolbox,
                          step, ngen, stats, halloffame_size, verbose, device,
-                         telemetry, probes, mu=mu, lambda_=lambda_,
+                         telemetry, probes, plan, mu=mu, lambda_=lambda_,
                          cxpb=cxpb, mutpb=mutpb)
 
 
@@ -720,14 +804,25 @@ def _generate_update_init(genomes, values: torch.Tensor, spec: FitnessSpec,
     return lam, hof
 
 
+def _evaluate_genomes(evaluate: Callable, genomes, plan) -> torch.Tensor:
+    """``evaluate(genomes)`` as ``[n, nobj]``, each rank evaluating its
+    block of the rows under ``plan``."""
+    if plan is None:
+        return _as2d(evaluate(genomes))
+    return plan.map_rows(lambda g: _as2d(evaluate(g)), genomes,
+                         pytree.tree_leaves(genomes)[0].shape[0])
+
+
 def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
                                  stats: Optional[Statistics] = None,
-                                 telemetry=None) -> Callable:
+                                 telemetry=None, plan=None) -> Callable:
     """The ask-tell generation step ``(generator, state, hof) -> (state,
     hof, record)``: generate → evaluate → update. ``step.tell(state, hof,
     genomes, values)`` is its second half, for genomes already generated
     and evaluated. With ``telemetry`` both take ``mstate, gen`` after
-    their arguments and return the meter state after the record."""
+    their arguments and return the meter state after the record. With
+    ``plan`` each rank evaluates its block of the λ genomes; the update
+    reads them all."""
     tel = telemetry
 
     def tell(state, hof, genomes, values, mstate=None, gen=None):
@@ -735,6 +830,8 @@ def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
                          valid=torch.ones(lam, dtype=torch.bool,
                                           device=values.device), spec=spec)
         new_state = toolbox.update(state, genomes, values)
+        if plan is not None:
+            new_state = plan.constrain(new_state)
         if hof is not None:
             hof = hof_update(hof, pop)
         rec = {"nevals": lam, **_maybe_stats(stats, pop)}
@@ -753,7 +850,8 @@ def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
     def step(generator, state, hof, mstate=None, gen=None):
         genomes = toolbox.generate(generator, state)
         args = (mstate, gen) if tel is not None else ()
-        return tell(state, hof, genomes, _as2d(toolbox.evaluate(genomes)),
+        return tell(state, hof, genomes,
+                    _evaluate_genomes(toolbox.evaluate, genomes, plan),
                     *args)
 
     step.tell = tell
@@ -794,25 +892,25 @@ def ea_generate_update(generator: torch.Generator, state: Any, toolbox,
     founder row; λ, which the run journals, is known after the first
     ``generate``). ``fused`` is accepted, as in the JAX package, and
     inert: this loop's variation is the strategy's ``generate``.
-    ``plan=`` is not ported and raises.
+    ``plan`` places the strategy state on the plan and splits each
+    generation's evaluation over its ranks, as in :func:`ea_simple`.
     """
     del fused  # no variation plane in the ask-tell loop
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= (sharding) is not ported yet (ROADMAP A12)")
     tel = telemetry
     _check_probes(probes, tel)
     dev = resolve_device(device)
     check_generator(generator, dev)
+    if plan is not None:
+        state = plan.place(state)
     step, hof, records, mstates, lam = None, None, [], [], None
     for gen in range(ngen):
         if step is None:
             genomes = toolbox.generate(generator, state)
-            values = _as2d(toolbox.evaluate(genomes))
+            values = _evaluate_genomes(toolbox.evaluate, genomes, plan)
             lam, hof = _generate_update_init(genomes, values, spec,
                                              halloffame_size)
             step = make_ea_generate_update_step(toolbox, spec, lam, stats,
-                                                tel)
+                                                tel, plan=plan)
             if tel is None:
                 state, hof, rec = step.tell(state, hof, genomes, values)
             else:

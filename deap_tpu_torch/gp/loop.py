@@ -331,12 +331,6 @@ class GpDraws:
 
 # ------------------------------------------------------------------ loop ----
 
-def _check_not_ported(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= (sharding) is not ported yet (ROADMAP A12)")
-
-
 def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                  cxpb: float, mutpb: float, tournsize: int = 3,
                  height_limit: int = 17, mut_min: int = 0, mut_max: int = 2,
@@ -364,8 +358,13 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     ``telemetry``/``probes`` (module docstring): a ``meter`` row each
     generation as it happens; telemetry changes no computed result and
     draws nothing.
+
+    ``plan`` (a :class:`deap_tpu_torch.parallel.ShardingPlan`): the run's
+    genomes are placed on the plan and each rank evaluates its block of
+    the evaluated rows, gathered back; selection and variation run whole
+    on every rank (journaled ``sharding_fallback`` under several ranks).
+    The same bits on any rank count.
     """
-    _check_not_ported(plan)
     tel = telemetry
     if probes and tel is None:
         raise ValueError("probes= requires telemetry= (a RunTelemetry):"
@@ -375,6 +374,13 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
         pset, max_len, tournsize=tournsize, height_limit=height_limit,
         mut_min=mut_min, mut_max=mut_max, mut_width=mut_width)
     compaction = resolve_compaction(compaction, dev)
+
+    def evaluate_rows(genomes, n: int):
+        """``evaluate``, each rank taking its block of the ``n`` rows
+        under the plan."""
+        if plan is None:
+            return evaluate(genomes)
+        return plan.map_rows(evaluate, genomes, n)
 
     def select(draws, genomes, depths, fit):
         idx = parts.select_idx(fit, draws.aspirants(fit.shape[0]))
@@ -492,6 +498,12 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                       ngen=ngen, n=n, cxpb=cxpb, mutpb=mutpb)
 
     def init_state(genomes, ngen: int) -> dict:
+        if plan is not None:
+            genomes = plan.place(genomes)
+            if plan.n_shards > 1:
+                from deap_tpu_torch.parallel.mesh import sharding_fallback
+                sharding_fallback("gp_loop", "selection and variation run "
+                                  "whole on every rank")
         for k, v in genomes.items():
             if v.device.type != dev.type:
                 raise ValueError(f"genomes[{k!r}] lives on {v.device}, the "
@@ -504,7 +516,7 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                       12 if compaction == "device" else n // 2 + n))
         depths = parts.depths(genomes)
         with record_function("gp/evaluate"):
-            fit = evaluate(genomes)
+            fit = evaluate_rows(genomes, n)
         best_i = _best_index(fit)
         state = {"gen": 0, "genomes": genomes, "depths": depths, "fit": fit,
                  "nevals": [n], "stopped_at": None, "mstate": None,
@@ -535,7 +547,7 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                       else torch.from_numpy(np.resize(t_idx, P)).to(dev))
             padded = padded.to(torch.int64)
             with record_function("gp/evaluate"):
-                w = evaluate(_take(genomes, padded))
+                w = evaluate_rows(_take(genomes, padded), P)
             # cycled duplicates carry the same value
             fit[padded] = w
         # a NaN never compares greater: a NaN best is kept, never replaced,

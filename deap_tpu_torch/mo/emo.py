@@ -113,15 +113,17 @@ def _nd_candidates(n: int, nobj: int, device_type: str):
     return names
 
 
-def _resolve_nd_impl(w: torch.Tensor) -> str:
+def _resolve_nd_impl(w: torch.Tensor, plan=None) -> str:
     """``impl='auto'`` through the dispatch tuner's env / cache / probe /
     static ladder. Probes race full exact ranks on the actual ``w``
-    (bit-identity asserted)."""
+    (bit-identity asserted); with a sharding plan the ladder stops at the
+    cache."""
     n, nobj = int(w.shape[0]), int(w.shape[1])
     static = _nd_static_auto(n, nobj, w.device.type)
     names = _nd_candidates(n, nobj, w.device.type)
     candidates = dict.fromkeys(names)
-    if (len(names) > 1 and tuning.active_tuner() is not None
+    if (len(names) > 1 and plan is None
+            and tuning.active_tuner() is not None
             and tuning.is_concrete(w)):
         candidates = {name: (lambda name=name: nd_rank(w, impl=name))
                       for name in names}
@@ -133,7 +135,7 @@ def _resolve_nd_impl(w: torch.Tensor) -> str:
 
 def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
             impl: str = "auto", cover_k: Optional[int] = None,
-            fallback: str = "none", return_peels: bool = False):
+            fallback: str = "none", return_peels: bool = False, plan=None):
     """Non-domination rank per row (0 = first front); equal rows share a
     rank.
 
@@ -150,12 +152,24 @@ def nd_rank(w: torch.Tensor, max_rank: Optional[int] = None,
     a ``max_rank`` stop by ``max_rank + #dominators among them``, and for
     the exact engines returns their exact ranks. ``return_peels`` also
     returns the fronts peeled, as an int.
+
+    ``plan`` (a :class:`deap_tpu_torch.parallel.ShardingPlan`): ``w`` is
+    placed on the plan and ``'auto'`` asks the tuner's cache, never a
+    probe. Every engine ranks the whole ``w`` on every rank (journaled
+    ``sharding_fallback`` under several ranks): the same ranks on any
+    rank count.
     """
     n = w.shape[0]
     if fallback not in ("none", "count"):
         raise ValueError(f"unknown nd_rank fallback {fallback!r}")
+    if plan is not None:
+        w = plan.constrain(plan.place(w, fresh=False))
     if impl == "auto":
-        impl = _resolve_nd_impl(w)
+        impl = _resolve_nd_impl(w, plan)
+    if plan is not None and plan.n_shards > 1:
+        from deap_tpu_torch.parallel.mesh import sharding_fallback
+        sharding_fallback("nd_rank", f"the {impl} engine ranks the whole "
+                          "population on every rank")
     if impl in _ND_EXACT_IMPLS:
         fn = {"staircase": nd_rank_staircase, "sweep": nd_rank_sweep3,
               "dc": nd_rank_prefix}[impl]

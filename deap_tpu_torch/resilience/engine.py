@@ -48,11 +48,20 @@ generation, as the port's loop does.
 ``segment_len="auto"`` asks the dispatch tuner (env
 ``DEAP_TPU_TORCH_TUNE_SEGMENT_LEN`` → a cached winner → 10).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``plan=`` and :meth:`ResilientRun.island_run` (A12);
-:meth:`ResilientRun.multirun` (A13). Journal events go to the
-telemetry's journal, or to every open
-:class:`~deap_tpu_torch.telemetry.RunJournal`.
+- **Plans.** With ``plan=`` (a :class:`~deap_tpu_torch.parallel.
+  ShardingPlan`) the loops run under the plan, checkpoints store their
+  row-sharded leaves per shard (format 3) stamped with the plan's mesh,
+  and a resume re-places the restored state on this process's plan:
+  a run checkpointed on W ranks resumes on any other count bit for bit,
+  journaled as ``elastic_resume``. Every rank restores; only rank 0
+  writes checkpoints and journals the engine's events.
+- **Islands.** :meth:`ResilientRun.island_run` drives a
+  :func:`~deap_tpu_torch.parallel.make_island_step` epoch function in
+  segments of epochs.
+
+Not ported yet: :meth:`ResilientRun.multirun` (ROADMAP A13) raises
+``NotImplementedError``. Journal events go to the telemetry's journal,
+or to every open :class:`~deap_tpu_torch.telemetry.RunJournal`.
 """
 
 from __future__ import annotations
@@ -245,10 +254,11 @@ class _PopLoopSpec(_LoopSpec):
 
     def __init__(self, algorithm: str, step, generator, pop, toolbox,
                  stats, halloffame_size: int, device: torch.device,
-                 tel=None, ngen: int = 0):
+                 tel=None, ngen: int = 0, plan=None):
         self.algorithm = algorithm
         super().__init__(generator)
         self.step = step
+        self.plan = plan
         self.pop = pop
         self.toolbox = toolbox
         self.stats = stats
@@ -259,9 +269,10 @@ class _PopLoopSpec(_LoopSpec):
         self._instrument()
 
     def init(self):
+        pop = (self.pop.to(self.device) if self.plan is None
+               else self.plan.place(self.pop))
         pop, hof, record0 = algos._pop_loop_init(
-            self.pop.to(self.device), self.toolbox, self.halloffame_size,
-            self.stats)
+            pop, self.toolbox, self.halloffame_size, self.stats, self.plan)
         state = {"gen": 0, "generator": self.generator, "carry": (pop, hof),
                  "records": [], "record0": record0}
         if self.tel is not None:
@@ -276,8 +287,11 @@ class _PopLoopSpec(_LoopSpec):
         states adapted to this run: a checkpoint written with telemetry
         resumed without it drops them, one written without it resumed
         with it starts a fresh meter state (the metric history starts at
-        the resume; the evolutionary state is untouched either way)."""
+        the resume; the evolutionary state is untouched either way). Under
+        a plan the carry is re-placed on it."""
         super().on_resume(state)
+        if self.plan is not None:
+            state["carry"] = self.plan.place(state["carry"], fresh=False)
         if self.tel is None:
             for k in ("mstate", "mstate0", "mrows"):
                 state.pop(k, None)
@@ -336,9 +350,10 @@ class _AskTellSpec(_LoopSpec):
 
     def __init__(self, generator, state, toolbox, spec, stats,
                  halloffame_size: int, device: torch.device, tel=None,
-                 probes=(), ngen: int = 0):
+                 probes=(), ngen: int = 0, plan=None):
         super().__init__(generator)
-        self.state0 = state
+        self.plan = plan
+        self.state0 = state if plan is None else plan.place(state)
         self.toolbox = toolbox
         self.spec = spec
         self.stats = stats
@@ -354,7 +369,8 @@ class _AskTellSpec(_LoopSpec):
     def _step(self, lam: int):
         if self._made is None:  # λ is the run's, fixed at gen 0
             self._made = algos.make_ea_generate_update_step(
-                self.toolbox, self.spec, lam, self.stats, self.tel)
+                self.toolbox, self.spec, lam, self.stats, self.tel,
+                plan=self.plan)
         return self._made
 
     def _begin(self, lam) -> None:
@@ -374,6 +390,8 @@ class _AskTellSpec(_LoopSpec):
 
     def on_resume(self, state):
         super().on_resume(state)
+        if self.plan is not None:
+            state["carry"] = self.plan.place(state["carry"], fresh=False)
         if self.tel is None:
             state.update(mstate=None, mrows=[])
             return
@@ -390,7 +408,8 @@ class _AskTellSpec(_LoopSpec):
         for gen in range(lo, hi):
             if lam is None:
                 genomes = self.toolbox.generate(self.generator, st)
-                values = algos._as2d(self.toolbox.evaluate(genomes))
+                values = algos._evaluate_genomes(self.toolbox.evaluate,
+                                                 genomes, self.plan)
                 lam, hof = algos._generate_update_init(
                     genomes, values, self.spec, self.halloffame_size)
                 tell = self._step(lam).tell
@@ -433,13 +452,14 @@ class _GPLoopSpec(_LoopSpec):
 
     algorithm = "gp_loop"
 
-    def __init__(self, loop_run, generator, genomes, ngen: int):
+    def __init__(self, loop_run, generator, genomes, ngen: int, plan=None):
         if getattr(loop_run, "init_state", None) is None:
             raise TypeError("gp_loop needs a run built by make_gp_loop")
         super().__init__(generator)
         self.run = loop_run
         self.genomes = genomes
         self.ngen = int(ngen)
+        self.plan = plan
 
     def init(self):
         gp = self.run.init_state(self.genomes, self.ngen)
@@ -447,6 +467,8 @@ class _GPLoopSpec(_LoopSpec):
 
     def on_resume(self, state):
         super().on_resume(state)
+        if self.plan is not None:
+            state["gp"] = self.plan.place(state["gp"], fresh=False)
         if self.run.begin_telemetry is not None:
             self.run.begin_telemetry(self.ngen,
                                      int(state["gp"]["fit"].shape[0]))
@@ -472,6 +494,55 @@ class _GPLoopSpec(_LoopSpec):
 
     def stop_requested(self, state):
         return state["gp"]["stopped_at"] is not None
+
+
+class _IslandSpec(_LoopSpec):
+    """Epoch-driven island evolution: ``step`` from
+    :func:`deap_tpu_torch.parallel.make_island_step`, drawing from the
+    checkpointed generator epoch after epoch. ``reshard`` re-applies the
+    placement to restored demes."""
+
+    algorithm = "island"
+
+    def __init__(self, step, generator, pops, n_epochs: int, telemetry=None,
+                 reshard: Optional[Callable] = None,
+                 record_rows: bool = True, device=None):
+        super().__init__(generator)
+        self.step = step
+        self.pops = pops
+        self.ngen = int(n_epochs)
+        self.tel = telemetry
+        self.reshard = reshard
+        self.record_rows = record_rows
+        self.device = device
+
+    def init(self):
+        mstate = (self.tel.meter.init(device=self.device)
+                  if self.tel is not None else None)
+        return {"gen": 0, "generator": self.generator, "pops": self.pops,
+                "mstate": mstate}
+
+    def on_resume(self, state):
+        super().on_resume(state)
+        if self.reshard is not None:
+            state["pops"] = self.reshard(state["pops"])
+
+    def segment(self, state, lo, hi):
+        pops, mstate = state["pops"], state["mstate"]
+        for epoch in range(lo, hi):
+            if self.tel is None:
+                pops = self.step(self.generator, pops)
+            else:
+                pops, mstate = self.step(self.generator, pops, mstate)
+                if self.record_rows:
+                    self.tel.record_row(mstate, epoch)
+        state.update(pops=pops, mstate=mstate, gen=hi)
+        return state
+
+    def finalize(self, state):
+        if self.tel is None:
+            return state["pops"]
+        return state["pops"], state["mstate"]
 
 
 def _not_ported(what: str, item: str):
@@ -539,6 +610,11 @@ class ResilientRun:
         MetricsRegistry` (or ``True`` for the process registry): segment
         and checkpoint seconds, retries and preemptions are recorded as
         ``deap_resilience_*`` instruments.
+    :param plan: a :class:`~deap_tpu_torch.parallel.ShardingPlan`: the
+        loops run under it, checkpoints are per shard (format 3) and
+        stamped with its mesh, and a resume onto another mesh is elastic
+        (module docstring). Build the GP loop and the island step with
+        the same plan.
     """
 
     def __init__(self, checkpoints, *, segment_len: int = 10,
@@ -557,8 +633,7 @@ class ResilientRun:
             # probe would need a whole segmented run in hand
             segment_len = tuning.resolve_int("segment_len", default=10,
                                              program="resilient_scan")
-        if plan is not None:
-            raise _not_ported("plan= (sharding)", "A12")
+        self.plan = plan
         if isinstance(checkpoints, Checkpointer):
             self.ckpt = checkpoints
         else:
@@ -599,7 +674,7 @@ class ResilientRun:
         tel = self._begin_pop("ea_simple", probes, ngen=ngen, n=pop.size,
                               cxpb=cxpb, mutpb=mutpb)
         step = algos.make_ea_simple_step(toolbox, cxpb, mutpb, stats, tel,
-                                         fused=fused)
+                                         fused=fused, plan=self.plan)
         return self._drive_pop("ea_simple", step, generator, pop, toolbox,
                                ngen, stats, halloffame_size, device, tel)
 
@@ -613,7 +688,8 @@ class ResilientRun:
         tel = self._begin_pop("ea_mu_plus_lambda", probes, ngen=ngen, mu=mu,
                               lambda_=lambda_, cxpb=cxpb, mutpb=mutpb)
         step = algos.make_ea_mu_plus_lambda_step(
-            toolbox, mu, lambda_, cxpb, mutpb, stats, tel, fused=fused)
+            toolbox, mu, lambda_, cxpb, mutpb, stats, tel, fused=fused,
+            plan=self.plan)
         return self._drive_pop("ea_mu_plus_lambda", step, generator, pop,
                                toolbox, ngen, stats, halloffame_size, device,
                                tel)
@@ -630,7 +706,8 @@ class ResilientRun:
         tel = self._begin_pop("ea_mu_comma_lambda", probes, ngen=ngen,
                               mu=mu, lambda_=lambda_, cxpb=cxpb, mutpb=mutpb)
         step = algos.make_ea_mu_comma_lambda_step(
-            toolbox, mu, lambda_, cxpb, mutpb, stats, tel, fused=fused)
+            toolbox, mu, lambda_, cxpb, mutpb, stats, tel, fused=fused,
+            plan=self.plan)
         return self._drive_pop("ea_mu_comma_lambda", step, generator, pop,
                                toolbox, ngen, stats, halloffame_size, device,
                                tel)
@@ -646,7 +723,8 @@ class ResilientRun:
         check_generator(generator, dev)
         return self._drive(_AskTellSpec(generator, state, toolbox, spec,
                                         stats, halloffame_size, dev,
-                                        self.telemetry, probes, ngen),
+                                        self.telemetry, probes, ngen,
+                                        plan=self.plan),
                            ngen, dev)
 
     def gp_loop(self, loop_run, generator, genomes, ngen, *,
@@ -655,11 +733,33 @@ class ResilientRun:
         on ``device``) in segments; returns its usual result dict."""
         dev = resolve_device(device)
         check_generator(generator, dev)
-        return self._drive(_GPLoopSpec(loop_run, generator, genomes, ngen),
-                           ngen, dev)
+        return self._drive(_GPLoopSpec(loop_run, generator, genomes, ngen,
+                                       plan=self.plan), ngen, dev)
 
-    def island_run(self, *args, **kwargs):
-        raise _not_ported("island_run", "A12")
+    def island_run(self, step, generator, pops, n_epochs, *,
+                   reshard: Optional[Callable] = None,
+                   record_rows: bool = True, device: DeviceLike = None):
+        """Drive a :func:`deap_tpu_torch.parallel.make_island_step` epoch
+        function ``n_epochs`` times in segments of epochs (the generator
+        checkpointed with the demes). Returns ``pops``, or ``(pops,
+        mstate)`` with telemetry (one ``meter`` row an epoch when
+        ``record_rows``). ``reshard`` re-places restored demes (a mesh
+        run's :func:`~deap_tpu_torch.parallel.shard_population`); with a
+        plan it defaults to the plan's placement, which makes the restore
+        elastic — the step must be built with the same plan. On the mesh
+        path each rank holds its own demes, so each rank gives its own
+        checkpoint directory."""
+        dev = resolve_device(device)
+        check_generator(generator, dev)
+        if self.plan is not None:
+            if reshard is None:
+                reshard = lambda p: self.plan.place(p, fresh=False)
+            pops = self.plan.place(pops)
+        return self._drive(
+            _IslandSpec(step, generator, pops, n_epochs,
+                        telemetry=self.telemetry, reshard=reshard,
+                        record_rows=record_rows, device=dev),
+            n_epochs, dev)
 
     def multirun(self, *args, **kwargs):
         raise _not_ported("multirun", "A13")
@@ -679,10 +779,18 @@ class ResilientRun:
         dev = resolve_device(device)
         check_generator(generator, dev)
         spec = _PopLoopSpec(algorithm, step, generator, pop, toolbox, stats,
-                            halloffame_size, dev, tel, ngen)
+                            halloffame_size, dev, tel, ngen, plan=self.plan)
         return self._drive(spec, ngen, dev)
 
+    @property
+    def _writer_rank(self) -> bool:
+        """Whether this process writes checkpoints and journals: rank 0
+        of the plan, or the only process."""
+        return self.plan is None or self.plan.rank == 0
+
     def _journal_event(self, kind: str, **payload) -> None:
+        if not self._writer_rank:
+            return
         payload.setdefault("run_id", self.run_id)
         if self.telemetry is not None:
             self.telemetry.journal.event(kind, **payload)
@@ -699,6 +807,7 @@ class ResilientRun:
         total = int(total)
         resumed = self.ckpt.restore_latest(tenant_id=self.tenant_id,
                                            device=device)
+        cur_mesh = self.plan.describe() if self.plan is not None else None
         if resumed is not None:
             step0, state = resumed
             meta = state.get("_resilience", {})
@@ -708,9 +817,16 @@ class ResilientRun:
                     f"{meta.get('algorithm')!r} run; refusing to resume "
                     f"it as {spec.algorithm!r}")
             self.resumed_from = meta.get("run_id")
+            saved_mesh = meta.get("mesh")
             spec.on_resume(state)
             self._journal_event("resumed", algorithm=spec.algorithm,
                                 step=step0, resumed_from=self.resumed_from)
+            if saved_mesh != cur_mesh and (saved_mesh or cur_mesh):
+                # written on another mesh than this process runs: the
+                # re-placement in on_resume makes the resume elastic
+                self._journal_event(
+                    "elastic_resume", algorithm=spec.algorithm, step=step0,
+                    from_mesh=saved_mesh, to_mesh=cur_mesh)
         else:
             state = spec.init()
             state["_resilience"] = {"algorithm": spec.algorithm,
@@ -718,8 +834,11 @@ class ResilientRun:
             self._journal_event("segments_begin", algorithm=spec.algorithm,
                                 ngen=total, segment_len=self.segment_len)
         state["_resilience"]["run_id"] = self.run_id
+        state["_resilience"]["mesh"] = cur_mesh
 
-        writer = AsyncCheckpointWriter() if self.double_buffer else None
+        writes = self._writer_rank
+        writer = (AsyncCheckpointWriter() if self.double_buffer and writes
+                  else None)
         try:
             with self._signals():
                 gen = int(state["gen"])
@@ -747,12 +866,16 @@ class ResilientRun:
                     if self.tenant_id is not None:
                         meta["tenant_id"] = self.tenant_id
                     t_ck = time.perf_counter()
-                    if writer is not None:
+                    if not writes:
+                        path = self.ckpt.path_for(hi)
+                    elif writer is not None:
                         # submit() first drains the previous boundary's
                         # write, which ran beside this segment
-                        path = writer.submit(self.ckpt, hi, state, meta=meta)
+                        path = writer.submit(self.ckpt, hi, state, meta=meta,
+                                             plan=self.plan)
                     else:
-                        path = self.ckpt.save(hi, state, meta=meta)
+                        path = self.ckpt.save(hi, state, meta=meta,
+                                              plan=self.plan)
                     ck_s = time.perf_counter() - t_ck
                     if self._minst is not None:
                         self._minst.checkpoint_s.observe(

@@ -28,8 +28,16 @@ strings, so reading it imports nothing; a file that the JAX package
 wrote (its structure is a pickled jax object) is refused with
 :class:`CheckpointFormatError` without importing jax. Files stamped by
 another version of the port, or with a newer format, are refused by name
-too (the compat gate opens the first). Per-shard (format 3) leaves are
-ROADMAP A12.
+too (the compat gate opens the first).
+
+Format 3: a state saved under a
+:class:`~deap_tpu_torch.parallel.ShardingPlan` of several ranks stores
+each row-sharded leaf (by the plan's leaf rule) per shard — one (bounds,
+bytes) entry for each distinct shard — in one file, stamped with the
+plan's ``describe()`` under ``meta["mesh"]``. A restore reassembles the
+leaf whole (an incomplete shard set is corrupt) and leaves placement to
+the resuming plan, so a file written on W ranks restores on any count.
+Format-2 files restore as they did.
 
 :class:`Checkpointer` keeps a step-indexed directory: ``restore_latest``
 falls back past corrupt files to the newest valid one (each journaled),
@@ -69,12 +77,13 @@ __all__ = ["AsyncCheckpointWriter", "CheckpointCorruptError",
 _RESTORE_SECONDS = [0.0]
 
 _TENSOR = "__tensor__"
+_SHARDED = "__sharded__"
 _GENERATOR = "__generator__"
 
 #: the container layout :func:`save_state` writes: per-leaf blobs and
-#: CRC32s, a CRC'd structure blob, ``meta``. Format 3 (per-shard leaves)
-#: is ROADMAP A12.
-FORMAT_VERSION = 2
+#: CRC32s, a CRC'd structure blob, ``meta``; since format 3 a leaf may be
+#: stored per shard. Restores read every older format.
+FORMAT_VERSION = 3
 
 #: module roots whose objects only the JAX package can rebuild
 _JAX_ROOTS = ("jax", "jaxlib", "flax", "deap_tpu")
@@ -287,18 +296,94 @@ def _tensor_blob(host: torch.Tensor) -> Dict[str, Any]:
                                else host.permute(order))}
 
 
-def _pack_leaf(leaf: Any) -> Any:
+def _shard_parts(plan, leaf: Any) -> Optional[Tuple[int, int]]:
+    """``(row blocks, column blocks)`` of a tensor leaf under ``plan``'s
+    leaf rule, or None when it is stored whole (replicated, or no plan of
+    several ranks)."""
+    if plan is None or not isinstance(leaf, torch.Tensor):
+        return None
+    spec = plan.leaf_sharding(leaf)
+    if not spec:
+        return None
+    parts = (plan.n_shards, plan.n_shards2 if len(spec) == 2 else 1)
+    return None if parts == (1, 1) else parts
+
+
+def _sharded_blob(host: torch.Tensor, parts: Tuple[int, int]
+                  ) -> Dict[str, Any]:
+    """``host`` stored per shard: the plan's ``rows x cols`` blocks, each
+    its bounds on every dim and its row-major bytes."""
+    shape = tuple(host.shape)
+    r, c = parts
+    shards = []
+    for i in range(r):
+        for j in range(c):
+            bounds = [(i * shape[0] // r, (i + 1) * shape[0] // r)]
+            if len(shape) > 1:
+                bounds.append((j * shape[1] // c, (j + 1) * shape[1] // c))
+            bounds += [(0, d) for d in shape[2:]]
+            block = host[tuple(slice(a, b) for a, b in bounds)]
+            shards.append((tuple(bounds), _raw_bytes(block)))
+    return {_SHARDED: str(host.dtype).replace("torch.", ""), "shape": shape,
+            "order": _memory_order(host), "shards": shards}
+
+
+def _pack_leaf(leaf: Any, parts: Optional[Tuple[int, int]] = None) -> Any:
     if isinstance(leaf, torch.Tensor):
         if leaf.layout != torch.strided:
             raise TypeError(f"a {leaf.layout} tensor cannot be checkpointed")
-        return _tensor_blob(leaf.detach().cpu())
+        host = leaf.detach().cpu()
+        return (_tensor_blob(host) if parts is None
+                else _sharded_blob(host, parts))
     if isinstance(leaf, torch.Generator):
         return {_GENERATOR: leaf.device.type,
                 "state": leaf.get_state().numpy().tobytes()}
     return leaf
 
 
+def _leaf_dtype(name: str, path: str) -> torch.dtype:
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise CheckpointCorruptError(path, f"unknown dtype {name!r}")
+    return dtype
+
+
+def _unpack_sharded(leaf: Dict[str, Any], device: torch.device,
+                    path: str) -> torch.Tensor:
+    """Reassemble a per-shard leaf whole; a shard set that does not cover
+    it is corrupt."""
+    dtype = _leaf_dtype(leaf[_SHARDED], path)
+    shape = tuple(leaf["shape"])
+    host = torch.empty(shape, dtype=dtype)
+    covered = 0
+    for bounds, data in leaf["shards"]:
+        extent = [max(b - a, 0) for a, b in bounds]
+        count = 1
+        for e in extent:
+            count *= e
+        if len(data) != count * dtype.itemsize:
+            raise CheckpointCorruptError(
+                path, f"a shard {bounds} of a {dtype} leaf has "
+                      f"{len(data)} bytes")
+        if count:
+            block = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+            host[tuple(slice(a, b) for a, b in bounds)] = block.view(
+                dtype).reshape(extent)
+        covered += count
+    if covered != host.numel():
+        raise CheckpointCorruptError(
+            path, f"sharded leaf covers {covered} of {host.numel()} "
+                  "elements — shard set incomplete")
+    order = leaf.get("order")
+    if order is not None:  # the writer's strides back
+        inverse = sorted(range(len(order)), key=order.__getitem__)
+        host = host.permute(order).contiguous().permute(inverse)
+    return host.to(device)
+
+
 def _unpack_leaf(leaf: Any, device: torch.device, path: str) -> Any:
+    if isinstance(leaf, dict) and _SHARDED in leaf:
+        return _unpack_sharded(leaf, device, path)
     if isinstance(leaf, dict) and _TENSOR in leaf:
         dtype = getattr(torch, leaf[_TENSOR], None)
         if not isinstance(dtype, torch.dtype):
@@ -366,17 +451,20 @@ class _Snapshot:
     kernel that writes into it; an event recorded after the copies is
     what :meth:`blobs` waits for before it reads the buffers."""
 
-    def __init__(self, state: Any):
+    def __init__(self, state: Any, plan=None):
         leaves, self.structure = tree_flatten(state)
         self._leaves: List[Any] = []
+        self._parts: List[Optional[Tuple[int, int]]] = []
         self._event = None
         for leaf in leaves:
+            parts = _shard_parts(plan, leaf)
+            self._parts.append(parts)
             if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
                 host = torch.empty_like(leaf, device="cpu", pin_memory=True)
                 host.copy_(leaf.detach(), non_blocking=True)
                 self._leaves.append(host)
             else:
-                self._leaves.append(_dumps(_pack_leaf(leaf)))
+                self._leaves.append(_dumps(_pack_leaf(leaf, parts)))
         if any(isinstance(x, torch.Tensor) for x in self._leaves):
             self._event = torch.cuda.Event()
             self._event.record()
@@ -384,12 +472,12 @@ class _Snapshot:
     def blobs(self) -> List[bytes]:
         if self._event is not None:
             self._event.synchronize()
-        return [_dumps(_tensor_blob(x)) if isinstance(x, torch.Tensor)
-                else x for x in self._leaves]
+        return [_dumps(_pack_leaf(x, p)) if isinstance(x, torch.Tensor)
+                else x for x, p in zip(self._leaves, self._parts)]
 
 
 def save_state(path: str, state: Any, meta: Optional[Dict[str, Any]] = None,
-               fsync: bool = True) -> int:
+               fsync: bool = True, plan=None) -> int:
     """Serialize a state tree to ``path``.
 
     Crash-consistent: the payload (per-leaf blobs + CRC32s + format
@@ -398,7 +486,10 @@ def save_state(path: str, state: Any, meta: Optional[Dict[str, Any]] = None,
     round-trips through :func:`checkpoint_meta` without restoring the
     state. ``fsync=False`` keeps the atomic rename but skips both
     fsyncs (a host power cut may then lose the newest file; a killed
-    process does not).
+    process does not). With ``plan`` (a
+    :class:`~deap_tpu_torch.parallel.ShardingPlan`) its row-sharded
+    leaves are stored per shard and ``meta["mesh"]`` is its
+    ``describe()`` (format 3).
 
     Returns the CRC32 of the exact container bytes written, which a
     read-back compares against."""
@@ -406,9 +497,12 @@ def save_state(path: str, state: Any, meta: Optional[Dict[str, Any]] = None,
         structure, blobs = state.structure, state.blobs()
     else:
         leaves, structure = tree_flatten(state)
-        blobs = [_dumps(_pack_leaf(leaf)) for leaf in leaves]
+        blobs = [_dumps(_pack_leaf(leaf, _shard_parts(plan, leaf)))
+                 for leaf in leaves]
     structure_blob = _dumps(structure)
     stamped = dict(meta or {})
+    if plan is not None:
+        stamped.setdefault("mesh", plan.describe())
     stamped.setdefault("deap_tpu_torch_version", _code_version())
     stamped.setdefault("checkpoint_format", FORMAT_VERSION)
     payload = {
@@ -612,10 +706,13 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any,
-             meta: Optional[Dict[str, Any]] = None) -> str:
+             meta: Optional[Dict[str, Any]] = None, plan=None) -> str:
+        """Write ``state`` as ``step`` (per shard under ``plan``, see
+        :func:`save_state`), read it back, rotate."""
         path = self._path(step)
         os.makedirs(self.directory, exist_ok=True)
-        want_crc = save_state(path, state, meta=meta, fsync=self.fsync)
+        want_crc = save_state(path, state, meta=meta, fsync=self.fsync,
+                              plan=plan)
         try:
             # read-back: the file's bytes must CRC-match the container
             # just serialized (any flipped or torn byte changes it)
@@ -753,12 +850,15 @@ class AsyncCheckpointWriter:
         self._exc: Optional[BaseException] = None
 
     def submit(self, ckpt: Checkpointer, step: int, state: Any,
-               meta: Optional[Dict[str, Any]] = None) -> str:
-        """Queue ``ckpt.save(step, state, meta)``; returns the path the
-        checkpoint will land at. Blocks only until the previous submit
+               meta: Optional[Dict[str, Any]] = None, plan=None) -> str:
+        """Queue ``ckpt.save(step, state, meta, plan)``; returns the path
+        the checkpoint will land at. Blocks only until the previous submit
         finished."""
         self.wait()
-        snap = _Snapshot(state)
+        snap = _Snapshot(state, plan)
+        if plan is not None:
+            meta = dict(meta or {})
+            meta.setdefault("mesh", plan.describe())
 
         def work():
             try:

@@ -701,7 +701,8 @@ def render_report(path: str, lines: Optional[List[str]] = None) -> str:
     corrupt = [e for e in events
                if e.get("kind") == "checkpoint_corrupt"]
     quarantine = [e for e in events if e.get("kind") == "quarantine"]
-    if segs or resumed or preempted or degraded or corrupt:
+    elastic = [e for e in events if e.get("kind") == "elastic_resume"]
+    if segs or resumed or preempted or degraded or corrupt or elastic:
         out.append("")
         out.append("## Resilience (segments / recoveries)")
         out.append("")
@@ -720,6 +721,11 @@ def render_report(path: str, lines: Optional[List[str]] = None) -> str:
             hi = max(e.get("hi", 0) for e in segs)
             out.append(f"- {len(segs)} segment(s) covering gens "
                        f"[{lo}, {hi}]")
+        for e in elastic:
+            devices = [(m or {}).get("n_devices", 1)
+                       for m in (e.get("from_mesh"), e.get("to_mesh"))]
+            out.append(f"- **elastic resume** at gen {e.get('step')}: "
+                       f"{devices[0]} → {devices[1]} device(s)")
         for e in preempted:
             out.append(f"- ▲ **preempted** at gen {e.get('step')} "
                        f"(signal {e.get('signum')}) — checkpoint saved, "
@@ -737,6 +743,15 @@ def render_report(path: str, lines: Optional[List[str]] = None) -> str:
             total = sum(e.get("n", 0) for e in quarantine)
             out.append(f"- {total} non-finite evaluation(s) quarantined "
                        f"across {len(quarantine)} event(s)")
+
+    fallbacks = [e for e in events if e.get("kind") == "sharding_fallback"]
+    if fallbacks:
+        out.append("")
+        out.append("## Sharding fallbacks")
+        out.append("")
+        for e in fallbacks:
+            out.append(f"- ▲ {e.get('where')}: {e.get('reason')} "
+                       f"(mode {e.get('mode')})")
 
     hv = [e for e in events if e.get("kind") == "hv_exact"]
     if hv:

@@ -125,8 +125,10 @@ class RunTelemetry:
         self.journal.event("run_start", algorithm=algorithm, **params)
 
     def add_probes(self, probes) -> None:
-        """Register (and declare) extra probes for later runs; idempotent
-        per probe instance; must precede ``meter.init()``."""
+        """Register (and declare) extra probes for later runs —
+        ``begin_run`` calls this with the loop's ``probes=`` argument;
+        ``make_island_step`` calls it directly (no begin_run there).
+        Idempotent per probe instance; must precede ``meter.init()``."""
         for p in tuple(probes or ()):
             if any(p is q for q in self._run_probes):
                 continue
@@ -164,8 +166,9 @@ class RunTelemetry:
             self.journal.event("alarm", **alarm)
 
     def record_row(self, mstate, gen) -> None:
-        """Host-driven loops (the GP loop): journal one decoded ``meter``
-        row now and run the health tripwires on it."""
+        """Host-driven loops (the GP loop, island epoch drivers): journal
+        one decoded ``meter`` row now and run the health tripwires on
+        it."""
         row = self.meter.row(mstate)
         self.journal.event("meter", gen=gen, **row)
         self._check_health(row, gen)

@@ -608,17 +608,22 @@ def test_one_device_mesh_places_the_population():
     m2 = parallel.population_mesh(axis_names=("island", "genome"),
                                   device="cpu")
     assert m2.shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="initialize"):
         parallel.population_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         parallel.population_mesh(shape=(2,), device="cpu")
 
 
 def test_mesh_of_several_cards_raises(monkeypatch):
+    """Four visible cards and no process group give the one-card mesh (a
+    mesh of several cards is a process group's, one rank a card)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        parallel.population_mesh()
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = parallel.population_mesh()
+    assert mesh.devices == (torch.device("cuda", 0),) and mesh.shape == (1,)
+    with pytest.raises(ValueError, match="initialize"):
+        parallel.population_mesh(4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parallel.population_mesh()

@@ -228,9 +228,8 @@ def test_one_configuration_generation_equals_plain_evaluation(card):
 
 def test_one_device_mesh_on_the_card(card):
     if torch.cuda.device_count() > 1:
-        with pytest.raises(NotImplementedError, match="A12"):
-            parallel.population_mesh()
-        return
+        with pytest.raises(ValueError, match="initialize"):
+            parallel.population_mesh(torch.cuda.device_count())
     mesh = parallel.population_mesh()
     assert mesh.device.type == "cuda"
     pop = init_population(make_generator(0, "cpu"), 8, ops.normal_genome(4),

@@ -354,14 +354,19 @@ def test_generate_update_spends_no_draw_to_learn_lambda():
 
 
 def test_generate_update_refuses_what_is_not_ported():
-    """``plan=`` (A12) raises; ``telemetry=`` and ``probes=`` are ported
-    (A11): probes without telemetry is the JAX package's ValueError."""
+    """``plan=`` is ported (A12): a plan of one rank gives the run without
+    one; ``telemetry=`` and ``probes=`` are ported (A11): probes without
+    telemetry is the JAX package's ValueError."""
+    from deap_tpu_torch.parallel import ShardingPlan
     js, ts = _pair(3, 6)
     _, ttb = _toolboxes(js, ts)
     gen = make_generator(0, "cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        algorithms.ea_generate_update(gen, ts.initial_state(), ttb, 1,
-                                      ts.spec, device="cpu", plan=object())
+    runs = [algorithms.ea_generate_update(
+        make_generator(0, "cpu"), ts.initial_state(), ttb, 3, ts.spec,
+        device="cpu", plan=plan)[0]
+        for plan in (None, ShardingPlan.for_population(device="cpu"))]
+    for f in FIELDS:
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
     with pytest.raises(ValueError, match="requires telemetry"):
         algorithms.ea_generate_update(gen, ts.initial_state(), ttb, 1,
                                       ts.spec, device="cpu",

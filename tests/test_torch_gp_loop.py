@@ -282,12 +282,21 @@ def test_flag_compaction_equals_the_jax_compactor(jax_run):
 
 
 def test_not_ported_options_raise():
-    """``plan=`` (A12) raises; ``telemetry=`` is ported (A11), and
-    ``probes=`` without it is the JAX loop's ValueError."""
+    """``plan=`` is ported (A12): a plan of one rank gives the run without
+    one; ``telemetry=`` is ported (A11), and ``probes=`` without it is the
+    JAX loop's ValueError."""
+    from deap_tpu_torch.parallel import ShardingPlan
     tps = tgp.math_set(1)
     X, y = _data()
-    with pytest.raises(NotImplementedError, match="plan"):
-        tgp.make_symbreg_loop(tps, ML, X, y, device="cpu", plan=object())
+    runs = []
+    for plan in (None, ShardingPlan.for_population(device="cpu")):
+        run = tgp.make_symbreg_loop(tps, ML, X, y, device="cpu", plan=plan)
+        g = make_generator(3, "cpu")
+        genomes = tgp.make_generator(tps, ML, 1, 2, "half_and_half")(g, 16)
+        runs.append(run(g, genomes, 2))
+    for k in ("fitness", "nevals", "best_fitness"):
+        a, b = runs[0][k], runs[1][k]
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     with pytest.raises(ValueError, match="requires telemetry"):
         tgp.make_symbreg_loop(tps, ML, X, y, device="cpu",
                               probes=(object(),))

@@ -531,8 +531,24 @@ def test_not_ported_raises_naming_its_item(tmp_path, what, item):
     ``metrics=``, ``trace_every=`` and ``probes=`` are ported (A11):
     accepted, and probes without telemetry is the JAX engine's
     ValueError; the tuner's ``segment_len="auto"`` is ported (A11b): 10
-    with no tuner."""
+    with no tuner; ``plan=`` and ``island_run`` are ported (A12): a plan
+    is taken, and an island run returns its demes."""
     d = str(tmp_path / "ck")
+    if what in ("plan", "island_run"):
+        from deap_tpu_torch import parallel
+        plan = parallel.ShardingPlan.for_islands(device=CPU)
+        res = ResilientRun(d, plan=plan, segment_len=2)
+        assert res.plan is plan
+        if what == "island_run":
+            step = parallel.make_island_step(_toolbox(), 0.5, 0.2, 1, 1,
+                                             plan=plan)
+            pops = parallel.island_init(make_generator(0, CPU), 4, 6,
+                                        ops.bernoulli_genome(8),
+                                        FitnessSpec((1.0,)), device=CPU)
+            out = res.island_run(step, make_generator(1, CPU), pops, 3,
+                                 device=CPU)
+            assert out.genomes.shape == (4, 6, 8) and bool(out.valid.all())
+        return
     if what in ("telemetry", "metrics", "trace_every"):
         from deap_tpu_torch.telemetry import MetricsRegistry, RunTelemetry
         value = {"telemetry": RunTelemetry(str(tmp_path / "t.jsonl")),
