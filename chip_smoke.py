@@ -522,6 +522,26 @@ TU_LEX_N, TU_LEX_CASES, TU_LEX_K = 1000, 8, 4096
 # on each loop at the main path's widths
 PA_ISLANDS, PA_DEME, PA_FREQ, PA_MIG_K, PA_EPOCHS = 8, 12_500, 2, 8, 3
 PA_MU_NGEN, PA_CMA_NGEN, PA_GP_NGEN = 5, 10, 10
+# phase 23, serving: bench.py's serving buckets (1000 tenants in a
+# 1024-lane batch; OneMax pop 16, L 32; CMA-ES dim 8, lambda 8, centroid
+# 3.0, sigma 0.5; 10 generations), BENCH_GP_SERVING.json's GP bucket (64
+# tenants, pop 64, max_len 32, 64 points, 16 generations) and island
+# bucket (16 tenants, 4 islands x 16, L 12, 2 migrants every 2
+# generations, 8 epochs); lanes differ in ngen and hyperparameters
+SV_TENANTS, SV_LANES, SV_POP, SV_L, SV_NGEN = 1000, 1024, 16, 32, 10
+SV_CMA_DIM, SV_CMA_LAMBDA, SV_CMA_CENTROID, SV_CMA_SIGMA = 8, 8, 3.0, 0.5
+SV_GP_TENANTS, SV_GP_POP, SV_GP_ML, SV_GP_P, SV_GP_NGEN = 64, 64, 32, 64, 16
+SV_IS_TENANTS, SV_IS_ISLANDS, SV_IS_SIZE, SV_IS_L = 16, 4, 16, 12
+SV_IS_FREQ, SV_IS_MIG, SV_IS_NGEN = 2, 2, 8
+# the float32 buckets: the OneMax bucket's widths (1000 tenants, pop 16,
+# L 32, 10 generations) on Rastrigin through K1's float plane (two-point
+# crossover, Gaussian mutation), for ea_simple and for (mu, lambda) and
+# (mu + lambda) with mu 16, lambda 32
+SV_RA_SIGMA, SV_MU, SV_LAMBDA = 0.3, 16, 32
+# lanes checked against their solo runs, solo runs timed for the
+# sequential rate
+SV_SAMPLES, SV_CMA_SAMPLES, SV_SOLO_TIMED = 32, 8, 50
+SV_GP_SOLO_TIMED = 8
 # the kernels' function names as the profiler lists them
 K1_KERNEL = "fused_variation_kernel"
 # clocks the card spins before each timed call (about 1 ms): the host
@@ -996,6 +1016,7 @@ def main():
     telemetry_phases(torch, dev, tag, onemax_run)
     tuning_phases(torch, dev, tag)
     parallel_phases(torch, dev, tag)
+    serving_phases(torch, dev, tag, report)
 
     print(json.dumps({"kernels": [report[k] for k in
                                   ("k1", "k2", "k3", "k4", "k5", "k6", "k7",
@@ -7157,6 +7178,738 @@ def parallel_phases(torch, dev, tag):
         fail("the NCCL group outlived phase 22")
     print(f"{tag} phase 22 (parallel): {time.perf_counter() - t_phase:.1f} "
           f"s; NCCL across cards not measured (one card)")
+
+
+def sv_ngen(r, ngen):
+    """Lane ``r``'s generation budget: the bucket's, less 0-3."""
+    return ngen - (r % 4)
+
+
+def sv_hyper(r):
+    """Lane ``r``'s variation rates: cxpb 0.4, 0.5 or 0.6, mutpb 0.2 or
+    0.3."""
+    return {"cxpb": 0.4 + 0.1 * (r % 3), "mutpb": 0.2 + 0.1 * (r % 2)}
+
+
+def sv_samples(n, k):
+    """``k`` lanes of ``n`` to hold against their solo runs: the first,
+    the last and evenly between."""
+    return sorted({0, n - 1} | {int(i * (n - 1) / (k - 1))
+                                for i in range(k)})
+
+
+def sv_onemax(dev, n=None):
+    """The OneMax bucket's tenants: ``(generators, founders, ngens,
+    hypers)``; tenant ``r`` draws its founders from seed ``r`` and runs
+    from a generator seeded ``10_000 + r``."""
+    n = SV_TENANTS if n is None else n
+    from deap_tpu_torch import FitnessSpec, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    pops = [init_population(make_generator(r, dev), SV_POP,
+                            ops.bernoulli_genome(SV_L), FitnessSpec((1.0,)),
+                            device=dev) for r in range(n)]
+    return ([make_generator(10_000 + r, dev) for r in range(n)], pops,
+            [sv_ngen(r, SV_NGEN) for r in range(n)],
+            [sv_hyper(r) for r in range(n)])
+
+
+def sv_real(dev, n=None):
+    """The float32 buckets' tenants: ``(toolbox, generators, founders,
+    ngens, hypers)``; Rastrigin (minimised) on genomes uniform in
+    [-5.12, 5.12], founders from seed ``70_000 + r``, runs from a
+    generator seeded ``80_000 + r``."""
+    n = SV_TENANTS if n is None else n
+    from deap_tpu_torch import FitnessSpec, Toolbox, benchmarks, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.device import make_generator
+    tb = Toolbox()
+    tb.register("evaluate", benchmarks.rastrigin)
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_gaussian, mu=0.0, sigma=SV_RA_SIGMA,
+                indpb=INDPB)
+    tb.register("select", ops.sel_tournament, tournsize=TOURNSIZE)
+    pops = [init_population(make_generator(70_000 + r, dev), SV_POP,
+                            ops.uniform_genome(SV_L, -5.12, 5.12),
+                            FitnessSpec((-1.0,)), device=dev)
+            for r in range(n)]
+    return (tb, [make_generator(80_000 + r, dev) for r in range(n)], pops,
+            [sv_ngen(r, SV_NGEN) for r in range(n)],
+            [sv_hyper(r) for r in range(n)])
+
+
+def sv_cma(dev, impl, n=None):
+    """The CMA-ES bucket: ``(strategy, toolbox, states, ngens)``; tenant
+    ``r``'s sigma is ``SV_CMA_SIGMA · (1 + 0.1 (r mod 5))``."""
+    n = SV_TENANTS if n is None else n
+    import dataclasses
+    import torch
+    from deap_tpu_torch import Toolbox
+    from deap_tpu_torch.strategies import cma
+    strat = cma.Strategy(centroid=[SV_CMA_CENTROID] * SV_CMA_DIM,
+                         sigma=SV_CMA_SIGMA, lambda_=SV_CMA_LAMBDA,
+                         eigh_impl=impl, device=dev)
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: (g ** 2).sum(-1))
+    tb.register("generate", strat.generate)
+    tb.register("update", strat.update)
+    st0 = strat.initial_state()
+    states = [dataclasses.replace(st0, sigma=torch.tensor(
+        SV_CMA_SIGMA * (1 + 0.1 * (r % 5)), dtype=torch.float32,
+        device=dev)) for r in range(n)]
+    return strat, tb, states, [SV_NGEN - (r % 3) for r in range(n)]
+
+
+def sv_gp(dev, n=None):
+    """The GP bucket: ``(spec, generators, founders, ngens, hypers)``:
+    symbolic regression of x^3 + x^2 + x on 64 points in [-1, 1)."""
+    n = SV_GP_TENANTS if n is None else n
+    import torch
+    from deap_tpu_torch import gp
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.serving import GpJobSpec
+    pset = gp.math_set(n_args=1)
+    X = (torch.arange(SV_GP_P, dtype=torch.float32, device=dev)
+         * (2.0 / SV_GP_P) - 1.0)[:, None]
+    y = X[:, 0] ** 3 + X[:, 0] ** 2 + X[:, 0]
+    spec = GpJobSpec(pset=pset, max_len=SV_GP_ML, X=X, y=y)
+    tree_gen = gp.make_generator(pset, SV_GP_ML, 1, 3, "full")
+    founders = [tree_gen(make_generator(20_000 + r, dev), SV_GP_POP)
+                for r in range(n)]
+    return (spec, [make_generator(30_000 + r, dev) for r in range(n)],
+            founders, [sv_ngen(r, SV_GP_NGEN) for r in range(n)],
+            [sv_hyper(r) for r in range(n)])
+
+
+def sv_island(dev, n=None):
+    """The island bucket: ``(toolbox, spec, generators, inits, ngens,
+    hypers)`` (OneMax, flip-bit indpb 0.1, tournaments of 3)."""
+    n = SV_IS_TENANTS if n is None else n
+    import torch
+    from deap_tpu_torch import FitnessSpec, Toolbox, ops, parallel
+    from deap_tpu_torch.device import make_generator
+    from deap_tpu_torch.serving import IslandJobSpec
+    tb = Toolbox()
+    tb.register("evaluate", lambda g: g.sum(-1).to(torch.float32))
+    tb.register("mate", ops.cx_two_point)
+    tb.register("mutate", ops.mut_flip_bit, indpb=0.1)
+    tb.register("select", ops.sel_tournament, tournsize=3)
+    spec = IslandJobSpec(SV_IS_ISLANDS, SV_IS_SIZE, SV_IS_FREQ, SV_IS_MIG)
+    inits = [parallel.island_init(make_generator(40_000 + r, dev),
+                                  SV_IS_ISLANDS, SV_IS_SIZE,
+                                  ops.bernoulli_genome(SV_IS_L),
+                                  FitnessSpec((1.0,)), device=dev)
+             for r in range(n)]
+    return (tb, spec, [make_generator(50_000 + r, dev) for r in range(n)],
+            inits, [sv_ngen(r, SV_IS_NGEN) for r in range(n)],
+            [sv_hyper(r) for r in range(n)])
+
+
+def sv_island_solo(tb, spec, generator, pops, ngen, hyper):
+    """The solo epoch driver: ``make_island_step`` ``ngen`` times."""
+    from deap_tpu_torch import parallel
+    step = parallel.make_island_step(tb, hyper["cxpb"], hyper["mutpb"],
+                                     spec.freq, spec.mig_k)
+    for _ in range(ngen):
+        pops = step(generator, pops)
+    return pops
+
+
+def sv_run(eng, batch, k):
+    """Advance ``batch`` until every lane finished, ``k`` generations a
+    segment; returns ``(batch, segments)``."""
+    segs = []
+    while not eng.done(batch).all():
+        batch, seg = eng.advance(batch, k)
+        segs.append(seg)
+    return batch, segs
+
+
+def sv_result(eng, batch, segs, i):
+    return eng.lane_result(eng.unpack(batch, i), eng.lane_records(segs, i))
+
+
+class _Capture:
+    """Wrap a function: the first call's arguments and result are kept
+    (tensors cloned), every call passes through."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.kwargs, self.out = fn, None, None, None
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        if self.args is None:
+            clone = lambda a: a.clone() if hasattr(a, "clone") else a
+            self.args = tuple(clone(a) for a in args)
+            self.kwargs = dict(kwargs)
+            self.out = out
+        return out
+
+
+def serving_phases(torch, dev, tag, report):
+    """Phase 23: the serving slice. The run axis at the JAX package's
+    serving widths — the OneMax bucket (K1 once a generation over every
+    lane's rows), the CMA-ES bucket with 'lapack' and 'jacobi' (J1 once a
+    generation over [R, 8, 8]), the GP bucket (K9 once an evaluation over
+    every lane's trees) and the island bucket — each launch held against
+    its plain version and sampled lanes against their solo runs, bitwise;
+    the scheduler under contention; ResilientRun.multirun killed and
+    resumed; the HTTP service through its client, drained and restarted.
+    """
+    import shutil
+    root = os.path.join(ROOT, "build", "serving_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    serving_onemax_phase(torch, dev, tag, report)
+    for family in ("ea_simple", "ea_mu_comma_lambda", "ea_mu_plus_lambda"):
+        serving_float_phase(torch, dev, tag, family)
+    serving_cma_phase(torch, dev, tag, report)
+    serving_gp_phase(torch, dev, tag, report)
+    serving_island_phase(torch, dev, tag)
+    serving_scheduler_phase(torch, dev, tag, root)
+    serving_resilient_phase(torch, dev, tag, root)
+    serving_service_phase(torch, dev, tag, root)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag} phase 23 (serving): {time.perf_counter() - t_phase:.1f} s")
+
+
+def serving_onemax_phase(torch, dev, tag, report):
+    from deap_tpu_torch import Toolbox, algorithms, ops
+    from deap_tpu_torch.ops import kernels, variation
+    from deap_tpu_torch.serving import MultiRunEngine
+    from deap_tpu_torch.serving.wire import result_digest
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    tb = _onemax_toolbox(Toolbox, ops)
+    gens, pops, ngens, hypers = sv_onemax(dev)
+    eng = MultiRunEngine("ea_simple", tb, stats=fitness_stats(), device=dev)
+    cap = _Capture(kernels.fused_variation)
+    algorithms.fused_variation = cap
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        batch = eng.pack_fresh(gens, pops, SV_NGEN, n_lanes=SV_LANES,
+                               hyper={h: [hy[h] for hy in hypers]
+                                      for h in ("cxpb", "mutpb")})
+        for lane, ng in zip(batch["lanes"], ngens):
+            lane["ngen"] = ng
+        batch, segs = sv_run(eng, batch, SV_NGEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = kernels.fused_variation.launches
+    finally:
+        algorithms.fused_variation = kernels.fused_variation
+    if k1 != SV_NGEN:
+        fail(f"OneMax serving bucket: K1 launched {k1} times in {SV_NGEN} "
+             "generations")
+    report["k1"]["serving_launches"] = k1
+    # the plane's launch against its plain version, on the same inputs
+    (g, src, partner, cx_row, lo, hi, do_mut, mask, arg) = cap.args
+    want = variation.apply_variation(g, src.long(), partner.long(), cx_row,
+                                     lo, hi, do_mut, mask, arg,
+                                     cap.kwargs["mut_kind"]).to(g.dtype)
+    if not bitwise_equal(cap.out, want):
+        fail("OneMax serving bucket: K1's plane differs from its plain "
+             "version")
+    rows = int(g.shape[0])
+    # sampled lanes against their solo runs
+    samples = sv_samples(SV_TENANTS, SV_SAMPLES)
+    for i in samples:
+        solo = algorithms.ea_simple(
+            _sv_gen(torch, dev, 10_000 + i), pops[i], tb,
+            hypers[i]["cxpb"], hypers[i]["mutpb"], ngens[i],
+            stats=fitness_stats(), device=dev)
+        if result_digest(solo) != result_digest(sv_result(eng, batch,
+                                                          segs, i)):
+            fail(f"OneMax serving lane {i} differs from its solo ea_simple")
+    # the sequential rate: solo runs of the first lanes, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SV_SOLO_TIMED):
+        algorithms.ea_simple(_sv_gen(torch, dev, 10_000 + i), pops[i], tb,
+                             hypers[i]["cxpb"], hypers[i]["mutpb"],
+                             ngens[i], stats=fitness_stats(), device=dev)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    total = sum(ngens)
+    seq_rate = sum(ngens[:SV_SOLO_TIMED]) / solo_wall
+    print(f"{tag} serving OneMax bucket: {SV_TENANTS} tenants (pop {SV_POP}, "
+          f"L {SV_L}, ngen 7-{SV_NGEN}), admission + run {wall:.3f} s = "
+          f"{total / wall:.1f} gens/s batched; sequential solo ea_simple "
+          f"{seq_rate:.1f} gens/s ({SV_SOLO_TIMED} solo runs timed, "
+          f"{solo_wall:.3f} s, scaled to {SV_TENANTS}: "
+          f"{total / seq_rate:.3f} s); batched/sequential "
+          f"{seq_rate and (total / wall) / seq_rate:.2f}x; K1 launches {k1} "
+          f"over {rows} rows each at most; K1 == plain bitwise; "
+          f"{len(samples)} lanes == solo bitwise")
+
+
+def serving_float_phase(torch, dev, tag, family):
+    """A float32 Rastrigin bucket of ``family`` at the OneMax bucket's
+    widths: K1 once a generation over every lane's rows (its float
+    plane), held against its plain version; sampled lanes against their
+    solo loops, bitwise. The float-valued evaluation runs in each lane's
+    own shape; for ``ea_simple``, whether the stacked form would have
+    been bitwise on this card (Rastrigin's row sum, and a product with a
+    vector) is printed, not relied on, with the time of each form."""
+    from deap_tpu_torch import algorithms
+    from deap_tpu_torch.ops import kernels, variation
+    from deap_tpu_torch.serving import MultiRunEngine
+    from deap_tpu_torch.serving.wire import result_digest
+    from deap_tpu_torch.support.stats import fitness_stats
+
+    tb, gens, pops, ngens, hypers = sv_real(dev)
+    kw = {} if family == "ea_simple" else {"mu": SV_MU,
+                                           "lambda_": SV_LAMBDA}
+    eng = MultiRunEngine(family, tb, stats=fitness_stats(), device=dev,
+                         **kw)
+    cap = _Capture(kernels.fused_variation)
+    algorithms.fused_variation = cap
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        batch = eng.pack_fresh(gens, pops, SV_NGEN, n_lanes=SV_LANES,
+                               hyper={h: [hy[h] for hy in hypers]
+                                      for h in ("cxpb", "mutpb")})
+        for lane, ng in zip(batch["lanes"], ngens):
+            lane["ngen"] = ng
+        batch, segs = sv_run(eng, batch, SV_NGEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = kernels.fused_variation.launches
+    finally:
+        algorithms.fused_variation = kernels.fused_variation
+    if k1 != SV_NGEN:
+        fail(f"{family} float serving bucket: K1 launched {k1} times in "
+             f"{SV_NGEN} generations")
+    (g, src, partner, cx_row, lo, hi, do_mut, mask, arg) = cap.args
+    want = variation.apply_variation(g, src.long(), partner.long(), cx_row,
+                                     lo, hi, do_mut, mask, arg,
+                                     cap.kwargs["mut_kind"]).to(g.dtype)
+    if g.dtype != torch.float32 or not bitwise_equal(cap.out, want):
+        fail(f"{family} float serving bucket: K1's float plane differs "
+             "from its plain version")
+    samples = sv_samples(SV_TENANTS, SV_CMA_SAMPLES)
+    solo_fn = getattr(algorithms, family)
+    args = () if family == "ea_simple" else (SV_MU, SV_LAMBDA)
+    for i in samples:
+        solo = solo_fn(_sv_gen(torch, dev, 80_000 + i), pops[i], tb, *args,
+                       hypers[i]["cxpb"], hypers[i]["mutpb"], ngens[i],
+                       stats=fitness_stats(), device=dev)
+        if result_digest(solo) != result_digest(sv_result(eng, batch,
+                                                          segs, i)):
+            fail(f"{family} float serving lane {i} differs from its solo "
+                 "loop")
+    shape = ("" if family == "ea_simple"
+             else f", mu {SV_MU}, lambda {SV_LAMBDA}")
+    print(f"{tag} serving {family} float32 bucket: {SV_TENANTS} tenants "
+          f"(Rastrigin, pop {SV_POP}{shape}, L {SV_L}, ngen "
+          f"7-{SV_NGEN}) in {wall:.3f} s = "
+          f"{sum(ngens) / wall:.1f} gens/s batched; K1 launches {k1}, "
+          f"{int(cap.out.shape[0])} float32 children from "
+          f"{int(g.shape[0])} rows at most, == plain bitwise; "
+          f"{len(samples)} lanes == solo bitwise")
+    if family != "ea_simple":
+        return
+    # would one call over the stacked rows have been bitwise? (the
+    # engine does not rely on it)
+    final = torch.cat([eng.unpack(batch, i)["carry"]["pop"].genomes
+                       for i in range(SV_TENANTS)])
+    n = final.shape[0] // SV_TENANTS
+    w = torch.linspace(-1.0, 1.0, SV_L, device=dev)
+    for name, fn in (("rastrigin", tb.evaluate), ("g @ w", lambda x: x @ w)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked = fn(final).reshape(SV_TENANTS, -1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lanes = [fn(final[i * n:(i + 1) * n].clone()).reshape(-1)
+                 for i in range(SV_TENANTS)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        differ = sum(not bitwise_equal(stacked[i], lanes[i])
+                     for i in range(SV_TENANTS))
+        print(f"{tag} serving float32 evaluation {name}: one call over "
+              f"[{final.shape[0]}, {SV_L}] {1e3 * (t1 - t0):.3f} ms, each "
+              f"lane's own [{n}, {SV_L}] copied out {1e3 * (t2 - t1):.3f} "
+              f"ms; lanes whose values differ: {differ} of {SV_TENANTS}")
+
+
+def _sv_gen(torch, dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def serving_cma_phase(torch, dev, tag, report):
+    from deap_tpu_torch import algorithms
+    from deap_tpu_torch.ops import linalg
+    from deap_tpu_torch.serving import MultiRunEngine
+    from deap_tpu_torch.serving.wire import result_digest
+    from deap_tpu_torch.telemetry import RunJournal, read_journal
+
+    for impl in ("lapack", "jacobi"):
+        strat, tb, states, ngens = sv_cma(dev, impl)
+        gens = [_sv_gen(torch, dev, 60_000 + r) for r in range(SV_TENANTS)]
+        jpath = os.path.join(ROOT, "build", "serving_phase", f"{impl}.jsonl")
+        with RunJournal(jpath):
+            eng = MultiRunEngine("ea_generate_update", tb, spec=strat.spec,
+                                 state_template=states[0], device=dev)
+        hint = [r for r in read_journal(jpath)
+                if r.get("kind") == "serving_eigh_hint"]
+        if bool(hint) != (impl == "lapack"):
+            fail(f"CMA serving bucket ({impl}): serving_eigh_hint rows "
+                 f"{len(hint)}")
+        cap = _Capture(strat._eigh)
+        strat._eigh = cap
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            batch = eng.pack([eng.lane_init(g, st, ng) for g, st, ng in
+                              zip(gens, states, ngens)])
+            batch, segs = sv_run(eng, batch, SV_NGEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            j1 = linalg.eigh_jacobi.launches
+        finally:
+            strat._eigh = cap.fn
+        want_j1 = SV_NGEN if impl == "jacobi" else 0
+        if j1 != want_j1:
+            fail(f"CMA serving bucket ({impl}): J1 launched {j1} times, "
+                 f"expected {want_j1}")
+        extra = ""
+        if impl == "jacobi":
+            report["j1"]["serving_launches"] = j1
+            C = cap.args[0]
+            if C.shape != (SV_TENANTS, SV_CMA_DIM, SV_CMA_DIM):
+                fail(f"J1's serving batch has shape {tuple(C.shape)}")
+            w, V = cap.out
+            pw, pV = linalg.eigh_jacobi_plain(C)
+            if not (bitwise_equal(w, pw) and bitwise_equal(V, pV)):
+                fail("J1 over the serving batch differs from its plain "
+                     "version")
+            for i in range(SV_TENANTS):
+                wi, Vi = linalg.eigh_jacobi(C[i].contiguous())
+                if not (bitwise_equal(wi, w[i]) and bitwise_equal(Vi, V[i])):
+                    fail(f"J1 on matrix {i} alone differs from J1 over "
+                         "the batch")
+            extra = (f"; J1 launches {j1} over [{SV_TENANTS}, {SV_CMA_DIM}, "
+                     f"{SV_CMA_DIM}] == plain == J1 matrix by matrix, "
+                     "bitwise")
+        for i in sv_samples(SV_TENANTS, SV_CMA_SAMPLES):
+            solo = algorithms.ea_generate_update(
+                _sv_gen(torch, dev, 60_000 + i), states[i], tb, ngens[i],
+                spec=strat.spec, device=dev)
+            if result_digest(solo) != result_digest(
+                    sv_result(eng, batch, segs, i)):
+                fail(f"CMA serving lane {i} ({impl}) differs from its solo "
+                     "ea_generate_update")
+        print(f"{tag} serving CMA-ES bucket ({impl}): {SV_TENANTS} tenants "
+              f"(dim {SV_CMA_DIM}, lambda {SV_CMA_LAMBDA}, ngen 8-{SV_NGEN}) "
+              f"in {wall:.3f} s = {sum(ngens) / wall:.1f} gens/s batched"
+              f"{extra}; {len(sv_samples(SV_TENANTS, SV_CMA_SAMPLES))} "
+              "lanes == solo bitwise")
+
+
+def serving_gp_phase(torch, dev, tag, report):
+    from deap_tpu_torch.gp.loop import make_symbreg_loop
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.serving import GpMultiRunEngine
+    from deap_tpu_torch.serving.wire import result_digest
+
+    spec, gens, founders, ngens, hypers = sv_gp(dev)
+    eng = GpMultiRunEngine(spec, device=dev)
+    cap = _Capture(eng.run.evaluate)
+    eng.run.evaluate = cap
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = eng.pack_fresh(gens, founders, SV_GP_NGEN,
+                           {h: [hy[h] for hy in hypers]
+                            for h in ("cxpb", "mutpb")})
+    for lane, ng in zip(batch["lanes"], ngens):
+        lane["ngen"] = ng
+    admitted = kernels.gp_grouped_dispatch.launches
+    reset_counts()
+    cap.args = None
+    batch, segs = sv_run(eng, batch, SV_GP_NGEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k9 = kernels.gp_grouped_dispatch.launches
+    evals = SV_GP_NGEN  # every generation of this bucket touches rows
+    if k9 != evals:
+        fail(f"GP serving bucket: K9 launched {k9} times in {evals} "
+             "evaluations")
+    report["k9"]["serving_launches"] = k9
+    # one evaluation's rows through K9 and through its plain dispatch
+    interp = eng.run.interpreter
+    rows = cap.args[0]
+    got, inv = interp.unique(rows, spec.X)
+    interp.grouped_dispatch = (
+        lambda *a, levels, **k: kernels.gp_grouped_dispatch_plain(*a, **k))
+    try:
+        want, inv2 = interp.unique(rows, spec.X)
+    finally:
+        interp.grouped_dispatch = kernels.gp_grouped_dispatch
+    if not (bitwise_equal(got, want) and torch.equal(inv, inv2)):
+        fail("GP serving bucket: K9 differs from its plain dispatch")
+    gp_samples = sv_samples(SV_GP_TENANTS, SV_GP_SOLO_TIMED)
+    solo_wall = 0.0
+    for i in gp_samples:
+        solo = make_symbreg_loop(spec.pset, SV_GP_ML, spec.X, spec.y,
+                                 device=dev, **hypers[i])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = solo(_sv_gen(torch, dev, 30_000 + i), founders[i], ngens[i])
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t1
+        got = sv_result(eng, batch, segs, i)
+        keys = ("genomes", "depths", "fitness", "best_genome", "nevals",
+                "best_fitness")
+        if result_digest({k: want[k] for k in keys}) != result_digest(
+                {k: got[k] for k in keys}):
+            fail(f"GP serving lane {i} differs from its solo loop")
+    seq_rate = sum(ngens[i] for i in gp_samples) / solo_wall
+    print(f"{tag} serving GP bucket: {SV_GP_TENANTS} tenants (pop "
+          f"{SV_GP_POP}, max_len {SV_GP_ML}, {SV_GP_P} points, ngen "
+          f"13-{SV_GP_NGEN}) in {wall:.3f} s = {sum(ngens) / wall:.1f} "
+          f"gens/s batched; sequential solo make_symbreg_loop "
+          f"{seq_rate:.1f} gens/s ({len(gp_samples)} solo runs timed, "
+          f"{solo_wall:.3f} s, scaled to {SV_GP_TENANTS}: "
+          f"{sum(ngens) / seq_rate:.3f} s); batched/sequential "
+          f"{(sum(ngens) / wall) / seq_rate:.2f}x; K9 launches "
+          f"{admitted} at admission (every "
+          f"lane's founders) + {k9} in "
+          f"{evals} generations ({int(rows['length'].shape[0])} rows in "
+          f"the first); K9 == plain bitwise; {len(gp_samples)} lanes == "
+          "solo bitwise")
+
+
+def serving_island_phase(torch, dev, tag):
+    from deap_tpu_torch.ops import kernels
+    from deap_tpu_torch.serving import IslandMultiRunEngine
+    from deap_tpu_torch.serving.wire import result_digest
+
+    tb, spec, gens, inits, ngens, hypers = sv_island(dev)
+    eng = IslandMultiRunEngine(tb, spec, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = eng.pack([eng.lane_init(g, p, ng, h) for g, p, ng, h in
+                      zip(gens, inits, ngens, hypers)])
+    batch, segs = sv_run(eng, batch, SV_IS_NGEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = kernels.fused_variation.launches
+    if k1 != SV_IS_NGEN * SV_IS_FREQ:
+        fail(f"island serving bucket: K1 launched {k1} times in "
+             f"{SV_IS_NGEN * SV_IS_FREQ} generations")
+    for i in range(SV_IS_TENANTS):
+        solo = sv_island_solo(tb, spec, _sv_gen(torch, dev, 50_000 + i),
+                              inits[i], ngens[i], hypers[i])
+        if result_digest(solo) != result_digest(sv_result(eng, batch, segs,
+                                                          i)):
+            fail(f"island serving lane {i} differs from its solo epochs")
+    print(f"{tag} serving island bucket: {SV_IS_TENANTS} tenants "
+          f"({SV_IS_ISLANDS} x {SV_IS_SIZE}, L {SV_IS_L}, epochs "
+          f"5-{SV_IS_NGEN}) in {wall:.3f} s = {sum(ngens) / wall:.1f} "
+          f"epochs/s batched; K1 launches {k1}; every lane == solo bitwise")
+
+
+def _sv_jobs(torch, dev):
+    """The scheduler's mixed tenants: 8 OneMax, 4 CMA-ES ('jacobi'), 4 GP
+    and 4 island jobs, with the solo result of each."""
+    from deap_tpu_torch import Toolbox, algorithms, ops
+    from deap_tpu_torch.gp.loop import make_symbreg_loop
+    from deap_tpu_torch.serving import Job
+    jobs, solo = [], {}
+    tb = _onemax_toolbox(Toolbox, ops)
+    gens, pops, ngens, hypers = sv_onemax(dev, 8)
+    for i in range(8):
+        jobs.append(Job(f"onemax-{i}", "ea_simple", tb, gens[i], pops[i],
+                        ngens[i] - 3, hypers[i]))
+        solo[jobs[-1].tenant_id] = algorithms.ea_simple(
+            _sv_gen(torch, dev, 10_000 + i), pops[i], tb, hypers[i]["cxpb"],
+            hypers[i]["mutpb"], ngens[i] - 3, device=dev)
+    strat, tbc, states, cngens = sv_cma(dev, "jacobi", 4)
+    for i in range(4):
+        jobs.append(Job(f"cma-{i}", "ea_generate_update", tbc,
+                        _sv_gen(torch, dev, 60_000 + i), states[i],
+                        cngens[i] - 4, spec=strat.spec))
+        solo[jobs[-1].tenant_id] = algorithms.ea_generate_update(
+            _sv_gen(torch, dev, 60_000 + i), states[i], tbc, cngens[i] - 4,
+            spec=strat.spec, device=dev)
+    spec, ggens, founders, gngens, ghypers = sv_gp(dev, 4)
+    for i in range(4):
+        jobs.append(Job(f"gp-{i}", "gp", None, ggens[i], founders[i], 5,
+                        ghypers[i], spec=spec))
+        r = make_symbreg_loop(spec.pset, SV_GP_ML, spec.X, spec.y,
+                              device=dev, **ghypers[i])(
+            _sv_gen(torch, dev, 30_000 + i), founders[i], 5)
+        solo[jobs[-1].tenant_id] = r
+    itb, ispec, igens, inits, ingens, ihypers = sv_island(dev, 4)
+    for i in range(4):
+        jobs.append(Job(f"island-{i}", "island", itb, igens[i], inits[i], 3,
+                        ihypers[i], spec=ispec))
+        solo[jobs[-1].tenant_id] = sv_island_solo(
+            itb, ispec, _sv_gen(torch, dev, 50_000 + i), inits[i], 3,
+            ihypers[i])
+    return jobs, solo
+
+
+def _sv_digest(result):
+    from deap_tpu_torch.serving.wire import result_digest
+    if isinstance(result, dict):  # a GP loop's: its stopping flag aside
+        result = {k: v for k, v in result.items() if k != "stopped_at"}
+    return result_digest(result)
+
+
+def serving_scheduler_phase(torch, dev, tag, root):
+    from deap_tpu_torch.serving import Scheduler
+    from deap_tpu_torch.telemetry import read_journal
+    jobs, solo = _sv_jobs(torch, dev)
+    t0 = time.perf_counter()
+    with Scheduler(os.path.join(root, "sched"), max_lanes=2, segment_len=2,
+                   fair_quantum=1) as sched:
+        for j in jobs:
+            sched.submit(j)
+        res = sched.run()
+    wall = time.perf_counter() - t0
+    for tid, want in solo.items():
+        if _sv_digest(res.get(tid)) != _sv_digest(want):
+            fail(f"scheduler tenant {tid} differs from its solo run")
+    kinds = [r["kind"] for r in read_journal(os.path.join(
+        root, "sched", "journal.jsonl"))]
+    ev, re_ = kinds.count("tenant_evicted"), kinds.count("tenant_resumed")
+    if not ev or not re_:
+        fail("scheduler under contention evicted or resumed no tenant")
+    print(f"{tag} serving scheduler: {len(jobs)} tenants in 4 buckets, 2 "
+          f"lanes each, quantum 1: {wall:.3f} s, {ev} evictions, {re_} "
+          f"resumes; every tenant == its solo run")
+
+
+def serving_resilient_phase(torch, dev, tag, root):
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch.resilience import ResilientRun
+    from deap_tpu_torch.resilience.faultinject import (FaultPlan,
+                                                       InjectedCrash, KillAt)
+    from deap_tpu_torch.serving import MultiRunEngine
+    tb = _onemax_toolbox(Toolbox, ops)
+    _, pops, ngens, hypers = sv_onemax(dev, 64)
+    gens = lambda: [_sv_gen(torch, dev, 10_000 + r) for r in range(64)]
+    mk = lambda: MultiRunEngine("ea_simple", tb, device=dev)
+    want = ResilientRun(os.path.join(root, "rs_ref"), segment_len=4
+                        ).multirun(mk(), gens(), pops, ngens, hypers)
+    d = os.path.join(root, "rs")
+    try:
+        ResilientRun(d, segment_len=4,
+                     fault_plan=FaultPlan([KillAt(4, "after_save")])
+                     ).multirun(mk(), gens(), pops, ngens, hypers)
+        fail("ResilientRun.multirun: the kill did not fire")
+    except InjectedCrash:
+        pass
+    res = ResilientRun(d, segment_len=4)
+    got = res.multirun(mk(), gens(), pops, ngens, hypers)
+    if res.resumed_from is None:
+        fail("ResilientRun.multirun did not resume")
+    for i, (w, g) in enumerate(zip(want, got)):
+        if _sv_digest(w) != _sv_digest(g):
+            fail(f"ResilientRun.multirun lane {i} differs after the resume")
+    print(f"{tag} serving ResilientRun.multirun: 64 OneMax lanes killed "
+          f"after generation 4's save, resumed: every lane == the "
+          f"uninterrupted run")
+
+
+def serving_service_phase(torch, dev, tag, root):
+    import threading
+    from deap_tpu_torch import Toolbox, ops
+    from deap_tpu_torch.core.population import init_population
+    from deap_tpu_torch.serving import (EvolutionService, Job, Scheduler,
+                                        ServiceClient)
+    from deap_tpu_torch.telemetry.metrics import MetricsRegistry
+    from deap_tpu_torch import FitnessSpec
+    tb = _onemax_toolbox(Toolbox, ops)
+    strat, tbc, states, _ = sv_cma(dev, "jacobi", 1)
+
+    def onemax(tid, params):
+        seed = int(params.get("seed", 0))
+        pop = init_population(_sv_gen(torch, dev, seed), SV_POP,
+                              ops.bernoulli_genome(SV_L),
+                              FitnessSpec((1.0,)), device=dev)
+        return Job(tid, "ea_simple", tb, _sv_gen(torch, dev, 10_000 + seed),
+                   pop, int(params.get("ngen", SV_NGEN)),
+                   {"cxpb": 0.5, "mutpb": 0.2}, program="onemax")
+
+    def sphere(tid, params):
+        seed = int(params.get("seed", 0))
+        return Job(tid, "ea_generate_update", tbc,
+                   _sv_gen(torch, dev, 60_000 + seed), states[0],
+                   int(params.get("ngen", SV_NGEN)), spec=strat.spec,
+                   program="sphere")
+
+    problems = {"onemax": onemax, "sphere": sphere}
+    specs = [("onemax", {"seed": 1, "ngen": 10}, "o1"),
+             ("onemax", {"seed": 2, "ngen": 7}, "o2"),
+             ("sphere", {"seed": 3, "ngen": 9}, "s1"),
+             ("onemax", {"seed": 4, "ngen": 12}, "drained")]
+    with Scheduler(os.path.join(root, "svc_ref"), max_lanes=4,
+                   segment_len=2) as sched:
+        for p, params, tid in specs:
+            sched.submit(problems[p](tid, params))
+        ref = {t: _sv_digest(r) for t, r in sched.run().items()}
+    t0 = time.perf_counter()
+    with EvolutionService(os.path.join(root, "svc"), problems, max_lanes=4,
+                          segment_len=2, metrics=MetricsRegistry()) as svc:
+        c = ServiceClient(svc.url)
+        for p, params, tid in specs[:3]:
+            c.submit(p, params=params, tenant_id=tid)
+        events = [e["event"] for e in c.stream("o1")]
+        got = {tid: c.result(tid, wait=True, timeout=300)
+               for _, _, tid in specs[:3]}
+    if events[0] != "status" or events[-1] != "finished" or \
+            "segment" not in events:
+        fail(f"service stream of o1: {events}")
+    for tid, res in got.items():
+        if res["status"] != "finished" or res["result"]["digest"] != ref[tid]:
+            fail(f"service result of {tid} differs from the in-process "
+                 "scheduler's")
+    # a drain mid-run, then a restart over the same root
+    droot = os.path.join(root, "svc_drain")
+    drained = threading.Event()
+    svc = None
+
+    def drain_after_first_step(step):
+        if step == 1:
+            svc.drain(wait=False)
+            drained.set()
+
+    svc = EvolutionService(droot, problems, max_lanes=4, segment_len=2,
+                           metrics=MetricsRegistry(),
+                           step_hook=drain_after_first_step)
+    try:
+        c = ServiceClient(svc.url)
+        c.submit("onemax", params=specs[3][1], tenant_id="drained")
+        if not (drained.wait(120) and svc._drained.wait(120)):
+            fail("service drain did not complete")
+        mid = c.result("drained", wait=False)
+    finally:
+        svc.close()
+    with EvolutionService(droot, problems, max_lanes=4, segment_len=2,
+                          metrics=MetricsRegistry()) as svc2:
+        c2 = ServiceClient(svc2.url)
+        c2.submit("onemax", params=specs[3][1], tenant_id="drained")
+        res = c2.result("drained", wait=True, timeout=300)
+    if mid["status"] != "drained" or res["status"] != "finished" or \
+            res["result"]["digest"] != ref["drained"]:
+        fail("service drain and restart did not resume to the in-process "
+             "digest")
+    print(f"{tag} serving service: 3 jobs over 127.0.0.1 (one streamed as "
+          f"NDJSON, {len(events)} events) == in-process digests; a 12-gen "
+          f"job drained at generation {mid['gen']} and resumed after a "
+          f"restart == its in-process digest; {time.perf_counter() - t0:.2f}"
+          " s")
 
 
 def _onemax_toolbox(Toolbox, ops):

@@ -521,7 +521,10 @@ def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
     record)``: select n → var_and → evaluate invalid → replace. With
     ``telemetry`` the step is ``(generator, pop, hof, mstate, gen) ->
     (pop, hof, record, mstate)``. With ``plan`` each rank varies and
-    evaluates its block of the children."""
+    evaluates its block of the children. ``step.told(off, hof, nevals,
+    sel_idx)`` is what follows the evaluation (the hall of fame, the
+    record, the meter), for children already evaluated; with
+    ``telemetry`` it takes ``mstate, gen`` after them."""
     tel = telemetry
     first = [True]  # the dispatch is journaled once, at the first call
 
@@ -533,6 +536,9 @@ def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
         first[0] = False
         off, nevals = _evaluate_children(off, toolbox.evaluate, plan, rows,
                                          pop.size)
+        return told(off, hof, nevals, idx, mstate, gen)
+
+    def told(off, hof, nevals, sel_idx, mstate=None, gen=None):
         if plan is not None:
             off = plan.constrain(off)
         if hof is not None:
@@ -542,10 +548,12 @@ def make_ea_simple_step(toolbox, cxpb: float, mutpb: float,
             return off, hof, rec
         # the selection doubles as parentage: child i descends from
         # pop[idx[i]]
-        mstate = _tel_measure(tel, mstate, nevals, off, gen, sel_idx=idx,
-                              sel_pool=pop.size, parent_idx=idx)
+        mstate = _tel_measure(tel, mstate, nevals, off, gen,
+                              sel_idx=sel_idx, sel_pool=off.size,
+                              parent_idx=sel_idx)
         return off, hof, rec, mstate
 
+    step.told = told
     return step
 
 
@@ -618,6 +626,9 @@ def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
         first[0] = False
         off, nevals = _evaluate_children(off, toolbox.evaluate, plan, rows,
                                          lambda_)
+        return told(generator, pop, off, hof, nevals, mstate, gen)
+
+    def told(generator, pop, off, hof, nevals, mstate=None, gen=None):
         pool = concat([pop, off]) if plus else off
         idx = toolbox.select(generator, pool.wvalues, mu)
         new_pop = gather(pool, idx)
@@ -634,6 +645,7 @@ def _make_mu_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
                               sel_idx=idx, sel_pool=pool.size)
         return new_pop, hof, rec, mstate
 
+    step.told = told
     return step
 
 
@@ -647,7 +659,11 @@ def make_ea_mu_plus_lambda_step(toolbox, mu: int, lambda_: int, cxpb: float,
     parents and children together. The hall of fame sees the children;
     the record is taken on the new population. With ``telemetry`` the
     step carries the meter state as :func:`make_ea_simple_step`'s; with
-    ``plan`` each rank varies and evaluates its block of the children."""
+    ``plan`` each rank varies and evaluates its block of the children.
+    ``step.told(generator, pop, off, hof, nevals)`` is what follows the
+    evaluation of the children ``off`` of ``pop`` (the survivors'
+    selection, the hall of fame, the record, the meter); with
+    ``telemetry`` it takes ``mstate, gen`` after them."""
     return _make_mu_lambda_step(toolbox, mu, lambda_, cxpb, mutpb, stats,
                                 telemetry, fused, plus=True, plan=plan)
 
@@ -819,17 +835,22 @@ def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
     """The ask-tell generation step ``(generator, state, hof) -> (state,
     hof, record)``: generate → evaluate → update. ``step.tell(state, hof,
     genomes, values)`` is its second half, for genomes already generated
-    and evaluated. With ``telemetry`` both take ``mstate, gen`` after
-    their arguments and return the meter state after the record. With
+    and evaluated; ``step.told(new_state, hof, genomes, values)`` is what
+    follows the update (the hall of fame, the record, the meter), for a
+    state already updated. With ``telemetry`` all take ``mstate, gen``
+    after their arguments and return the meter state after the record. With
     ``plan`` each rank evaluates its block of the λ genomes; the update
     reads them all."""
     tel = telemetry
 
     def tell(state, hof, genomes, values, mstate=None, gen=None):
+        return told(toolbox.update(state, genomes, values), hof, genomes,
+                    values, mstate, gen)
+
+    def told(new_state, hof, genomes, values, mstate=None, gen=None):
         pop = Population(genomes=genomes, fitness=values.to(torch.float32),
                          valid=torch.ones(lam, dtype=torch.bool,
                                           device=values.device), spec=spec)
-        new_state = toolbox.update(state, genomes, values)
         if plan is not None:
             new_state = plan.constrain(new_state)
         if hof is not None:
@@ -855,6 +876,7 @@ def make_ea_generate_update_step(toolbox, spec: FitnessSpec, lam: int,
                     *args)
 
     step.tell = tell
+    step.told = told
     return step
 
 

@@ -238,6 +238,15 @@ class GpStepParts:
         self.tournsize = tournsize
 
 
+def measure_builtins(meter, mstate, ne, fit):
+    """A generation's built-in metrics: ``ne`` evaluations of the ``n``
+    fitness values ``fit``."""
+    mstate = meter.inc(mstate, "nevals", ne)
+    mstate = meter.set(mstate, "best", fit.max())
+    mstate = meter.set(mstate, "mean", mean_f32(fit))
+    return meter.set(mstate, "evaluated_frac", ne / fit.shape[0])
+
+
 def make_gp_step_parts(pset: PrimitiveSet, max_len: int, *,
                        tournsize: int = 3, height_limit: int = 17,
                        mut_min: int = 0, mut_max: int = 2,
@@ -353,7 +362,10 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     ``run.init_state(genomes, ngen)``, ``run.advance(generator, state,
     draws=None)`` and ``run.finalize(state, ngen)`` drive it a
     generation at a time; ``draws`` replaces the generator's draws of
-    that generation (a :class:`GpDraws`-shaped object).
+    that generation (a :class:`GpDraws`-shaped object). ``advance`` is
+    ``run.vary_rows`` (select, vary, the rows to evaluate), ``evaluate``
+    of those rows, then ``run.finish``: the batched serving engine
+    evaluates many runs' rows in one call between the two halves.
 
     ``telemetry``/``probes`` (module docstring): a ``meter`` row each
     generation as it happens; telemetry changes no computed result and
@@ -467,11 +479,7 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
         """One generation's instrumentation, journaled at once: the
         built-ins, then the probes with the exact dedup count."""
         n = fit.shape[0]
-        m = tel.meter
-        mstate = m.inc(mstate, "nevals", ne)
-        mstate = m.set(mstate, "best", fit.max())
-        mstate = m.set(mstate, "mean", mean_f32(fit))
-        mstate = m.set(mstate, "evaluated_frac", ne / n)
+        mstate = measure_builtins(tel.meter, mstate, ne, fit)
         clone = None
         if host_dedup:
             first, _ = _dedup_rows(genomes["nodes"].cpu().numpy(),
@@ -528,9 +536,11 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                                        genomes, fit, 0)
         return state
 
-    def advance(generator: Optional[torch.Generator], state: dict,
-                draws=None) -> dict:
-        """One generation, in place on ``state``."""
+    def vary_rows(generator: Optional[torch.Generator], state: dict,
+                  draws=None) -> dict:
+        """A generation's first half: select and vary, and the padded
+        rows to evaluate (``pending["rows"]``, None when nothing was
+        touched). :func:`finish` takes their values."""
         if draws is None:
             check_generator(generator, dev)
             draws = GpDraws(generator, parts, cxpb, mutpb)
@@ -540,16 +550,38 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
                 draws, state["genomes"], state["depths"], state["fit"])
         with record_function("gp/vary"):
             t_idx, ne = vary(draws, genomes, depths, n)
-        state["nevals"].append(ne)
+        pending = {"genomes": genomes, "depths": depths, "fit": fit,
+                   "sel_idx": sel_idx, "ne": ne, "padded": None,
+                   "rows": None}
         if ne:
             P = min(_round_size(ne), n)
             padded = (t_idx[:P] if compaction == "device"
                       else torch.from_numpy(np.resize(t_idx, P)).to(dev))
-            padded = padded.to(torch.int64)
+            pending["padded"] = padded.to(torch.int64)
+            pending["rows"] = _take(genomes, pending["padded"])
+        return pending
+
+    def advance(generator: Optional[torch.Generator], state: dict,
+                draws=None) -> dict:
+        """One generation, in place on ``state``."""
+        pending = vary_rows(generator, state, draws)
+        w = None
+        if pending["rows"] is not None:
             with record_function("gp/evaluate"):
-                w = evaluate_rows(_take(genomes, padded), P)
+                w = evaluate_rows(pending["rows"],
+                                  int(pending["padded"].shape[0]))
+        return finish(state, pending, w)
+
+    def finish(state: dict, pending: dict, w) -> dict:
+        """A generation's second half, in place on ``state``: the touched
+        rows' values ``w`` written back, the best, the meter."""
+        genomes, depths, fit = (pending["genomes"], pending["depths"],
+                                pending["fit"])
+        sel_idx, ne = pending["sel_idx"], pending["ne"]
+        state["nevals"].append(ne)
+        if w is not None:
             # cycled duplicates carry the same value
-            fit[padded] = w
+            fit[pending["padded"]] = w
         # a NaN never compares greater: a NaN best is kept, never replaced,
         # as in the JAX package
         best_i = _best_index(fit)
@@ -589,6 +621,10 @@ def make_gp_loop(pset: PrimitiveSet, max_len: int, evaluate: Callable, *,
     run.telemetry = tel
     run.init_state = init_state
     run.advance = advance
+    run.vary_rows = vary_rows
+    run.finish = finish
+    run.evaluate = evaluate
+    run.parts = parts
     run.finalize = finalize
     return run
 

@@ -118,12 +118,16 @@ def island_draws(generator: torch.Generator, n_islands: int,
 
 
 def island_generation(pops: Population, aspirants: torch.Tensor, masks,
-                      toolbox, mut_kind: str, mode: str) -> Population:
+                      toolbox, mut_kind: str, mode: str,
+                      evaluate_rows: Optional[Callable] = None
+                      ) -> Population:
     """One eaSimple generation of every deme of ``pops`` (stacked ``[m,
     S, ...]``) on given draws: ``aspirants`` ``[m, S, t]`` (indices within
     each deme) and ``masks`` led by ``[m, S]``. Tournament winners, the
     variation plane (``mode``: ``'kernel'``, K1, or ``'plain'``) and
-    ``evaluate_invalid`` run once over the flattened demes."""
+    ``evaluate_invalid`` run once over the flattened demes;
+    ``evaluate_rows(off) -> off`` takes the evaluation's place when
+    given."""
     m, S = pops.valid.shape[:2]
     flat = _flatten_demes(pops)
     dev = flat.device
@@ -136,7 +140,8 @@ def island_generation(pops: Population, aspirants: torch.Tensor, masks,
            + offset).reshape(-1)
     off = var_and_apply(flat, masks, mut_kind, mode, sel_idx=idx,
                         partner=idx[pos])
-    off = evaluate_invalid(off, toolbox.evaluate)
+    off = (evaluate_invalid(off, toolbox.evaluate) if evaluate_rows is None
+           else evaluate_rows(off))
     return _stack_demes(off, m)
 
 
@@ -195,7 +200,11 @@ def make_island_step(toolbox, cxpb: float, mutpb: float, freq: int,
     ``best``, ``mean`` over all demes (on the mesh path the ranks' max and
     sums are all-reduced, in the spans ``island/pmax`` and
     ``island/psum``); ``probes`` see the deme-flattened population. Build
-    the initial state with ``telemetry.meter.init()`` after this call."""
+    the initial state with ``telemetry.meter.init()`` after this call.
+
+    Without ``mesh``, ``step.told(generator, pops[, mstate])`` is the
+    epoch's tail for demes whose ``freq`` generations already ran: the
+    migration, then the instrumentation."""
     del donate
     if plan is not None and mesh is not None:
         raise ValueError("pass either mesh= (shard_map path) or "
@@ -259,6 +268,10 @@ def make_island_step(toolbox, cxpb: float, mutpb: float, freq: int,
             local = generations(generator, _slice_demes(pops, lo, hi), n,
                                 lo, hi, batched)
             pops = plan.gather_rows(local, n)
+        return migrate(generator, pops)
+
+    def migrate(generator, pops):
+        """The epoch's tail on the whole stack: one ring migration."""
         pops = mig_ring(generator, pops, mig_k, selection=selection)
         return pops if plan is None else plan.constrain(pops)
 
@@ -284,8 +297,11 @@ def make_island_step(toolbox, cxpb: float, mutpb: float, freq: int,
             raise ValueError("probes= requires telemetry= (a "
                              "RunTelemetry): probe state rides the "
                              "telemetry Meter carry")
-        return (plan.compile(base, label="island_step") if plan is not None
+        step = (plan.compile(base, label="island_step") if plan is not None
                 else base)
+        if mesh is None:
+            step.told = migrate
+        return step
 
     meter = tel.meter
     meter.counter("epochs")
@@ -298,7 +314,10 @@ def make_island_step(toolbox, cxpb: float, mutpb: float, freq: int,
     tel.add_probes(probes)
 
     def instrumented(generator, pops, mstate):
-        pops = base(generator, pops)
+        return measure(base(generator, pops), mstate)
+
+    def measure(pops, mstate):
+        """The epoch's instrumentation of the migrated stack."""
         gmax, gsum, gcnt = _local_stats(pops)
         n_islands = pops.valid.shape[0]
         seen = pops
@@ -316,8 +335,12 @@ def make_island_step(toolbox, cxpb: float, mutpb: float, freq: int,
         mstate = tel.apply_probe(mstate, pop=_flatten_demes(seen))
         return pops, mstate
 
-    return (plan.compile(instrumented, label="island_step")
+    step = (plan.compile(instrumented, label="island_step")
             if plan is not None else instrumented)
+    if mesh is None:
+        step.told = lambda generator, pops, mstate: measure(
+            migrate(generator, pops), mstate)
+    return step
 
 
 def _migrate_sharded(generator, pops: Population, k: int, selection,

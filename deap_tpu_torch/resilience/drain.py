@@ -5,8 +5,9 @@ service-plane sibling of :class:`~deap_tpu_torch.resilience.engine.
 ResilientRun`'s signal guard: where the resilient runner turns a signal
 into "finish the in-flight segment, checkpoint, raise
 :class:`Preempted`", a server turns it into "stop admitting, finish the
-in-flight segment, checkpoint every tenant, exit" (the service is
-ROADMAP A13). This helper owns only the signal plumbing:
+in-flight segment, checkpoint every tenant, exit"
+(:meth:`deap_tpu_torch.serving.service.EvolutionService.
+install_signal_handlers`). This helper owns only the signal plumbing:
 
 - install from the **main thread only** (CPython delivers signals
   there; installing elsewhere raises ``ValueError`` — surfaced, not

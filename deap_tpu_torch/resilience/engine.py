@@ -59,9 +59,12 @@ generation, as the port's loop does.
   :func:`~deap_tpu_torch.parallel.make_island_step` epoch function in
   segments of epochs.
 
-Not ported yet: :meth:`ResilientRun.multirun` (ROADMAP A13) raises
-``NotImplementedError``. Journal events go to the telemetry's journal,
-or to every open :class:`~deap_tpu_torch.telemetry.RunJournal`.
+- **The run axis.** :meth:`ResilientRun.multirun` drives a batch of
+  :mod:`deap_tpu_torch.serving` lanes in segments, the whole batch one
+  checkpointed state.
+
+Journal events go to the telemetry's journal, or to every open
+:class:`~deap_tpu_torch.telemetry.RunJournal`.
 """
 
 from __future__ import annotations
@@ -545,8 +548,52 @@ class _IslandSpec(_LoopSpec):
         return state["pops"], state["mstate"]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+class _EngineBatchSpec(_LoopSpec):
+    """A batch of a :class:`deap_tpu_torch.serving.MultiRunEngine` (any
+    family, the GP and island engines included) driven in checkpointed
+    segments. The whole batch is ONE state — every lane's carry, its
+    generator's state and its records so far — so a preempted N-lane
+    sweep resumes all N lanes from one boundary, bit for bit. The lanes
+    are kept unpacked (each generator as its state) and packed afresh
+    for each segment, so a retried segment starts from the boundary's
+    generator states with no caller generator to put back."""
+
+    def __init__(self, engine, generators, inits, ngens, hypers):
+        self.algorithm = f"multirun_{engine.family}"
+        super().__init__(None)
+        self.engine = engine
+        self.generators = list(generators)
+        self.inits = list(inits)
+        self.ngens = ngens
+        self.hypers = hypers
+        self.n = len(self.generators)
+
+    def init(self):
+        eng = self.engine
+        lanes = [eng.lane_init(g, p, k, h)
+                 for g, p, k, h in zip(self.generators, self.inits,
+                                       self.ngens, self.hypers)]
+        return {"gen": 0, "lanes": lanes,
+                "records": [[] for _ in range(self.n)]}
+
+    def on_resume(self, state):
+        pass  # the lanes carry their generators' states
+
+    def segment(self, state, lo, hi):
+        eng = self.engine
+        batch, seg = eng.advance(eng.pack(state["lanes"]), hi - lo)
+        lanes = [eng.unpack(batch, i) for i in range(self.n)]
+        records = [state["records"][i] + (eng.lane_records((seg,), i) or [])
+                   for i in range(self.n)]
+        return dict(state, lanes=lanes, records=records, gen=hi)
+
+    def finalize(self, state):
+        eng = self.engine
+        return [eng.lane_result(state["lanes"][i], state["records"][i])
+                for i in range(self.n)]
+
+    def stop_requested(self, state):
+        return all(int(l["gen"]) >= int(l["ngen"]) for l in state["lanes"])
 
 
 class ResilientRun:
@@ -761,8 +808,27 @@ class ResilientRun:
                         record_rows=record_rows, device=dev),
             n_epochs, dev)
 
-    def multirun(self, *args, **kwargs):
-        raise _not_ported("multirun", "A13")
+    def multirun(self, engine, generators, inits, ngen, hyper=None):
+        """Drive the lanes of a :class:`deap_tpu_torch.serving.
+        MultiRunEngine` — any family, the GP
+        (:class:`~deap_tpu_torch.serving.GpMultiRunEngine`) and island
+        engines included — in checkpointed segments. ``ngen`` and
+        ``hyper`` broadcast as in :func:`deap_tpu_torch.serving.
+        multirun`; returns the same per-lane solo-format results, bit
+        for bit, with the whole batch (generator states included)
+        checkpointed as one state at every boundary. The generators are
+        read, never advanced."""
+        n = len(generators)
+        if len(inits) != n:
+            raise ValueError("len(inits) != len(generators)")
+        ngens = [int(g) for g in
+                 (ngen if isinstance(ngen, (list, tuple)) else [ngen] * n)]
+        hypers = (list(hyper) if isinstance(hyper, (list, tuple))
+                  else [hyper] * n)
+        if len(ngens) != n or len(hypers) != n:
+            raise ValueError("ngen/hyper lists must match len(generators)")
+        spec = _EngineBatchSpec(engine, generators, inits, ngens, hypers)
+        return self._drive(spec, max(ngens) if ngens else 0, engine.device)
 
     # -------------------------------------------------------- plumbing ----
 
@@ -948,7 +1014,8 @@ class ResilientRun:
 
     def _run_segment(self, spec: _LoopSpec, state, lo: int, hi: int):
         attempt = 0
-        at_start = spec.generator.get_state()
+        at_start = (spec.generator.get_state()
+                    if spec.generator is not None else None)
         while True:
             try:
                 self._fault("segment_attempt", lo=lo, hi=hi, attempt=attempt)
@@ -975,7 +1042,8 @@ class ResilientRun:
                     **({"action": action} if action else {}))
                 self.retry.sleep(delay)
                 # the retry draws what the failed attempt drew
-                spec.generator.set_state(at_start)
+                if at_start is not None:
+                    spec.generator.set_state(at_start)
                 attempt += 1
 
     # ----------------------------------------------------------- signals ----

@@ -30,11 +30,13 @@ Catalogue:
   back NaN, exercising the quarantine wrapper and the ``non_finite``
   alarm.
 
-Service-shaped faults — fired by the service's ``fault_plan`` event
-stream (``step`` after every service loop iteration, ``boundary`` inside
-the segment drain, ``http_response`` before a response is written,
-``wal_append`` after an admission-WAL record lands). The service is
-ROADMAP A13; until then they stay inert:
+Service-shaped faults — fired by
+:class:`~deap_tpu_torch.serving.service.EvolutionService`'s
+``fault_plan`` event stream (``step`` after every service loop
+iteration, ``boundary`` inside the segment drain, ``segment`` inside the
+segment-latency window, ``http_response`` before a response is written,
+``wal_append`` after an admission-WAL record lands, ``result`` as a
+tenant finishes):
 
 - :class:`DropResponse` — the network loses a response: the handler
   raises :class:`InjectedDrop`, the service closes the connection
@@ -47,7 +49,7 @@ ROADMAP A13; until then they stay inert:
 - :class:`KillServiceAt` — ``SIGKILL`` this process at a chosen service
   loop step or boundary: the real crash the admission WAL + checkpoint
   recovery path exists for. Only meaningful in a child process (the
-  chaos harness, :mod:`deap_tpu.serving.chaos`).
+  chaos harness is ROADMAP A13b).
 - :class:`TornWAL` — tear the tail off the admission WAL right after a
   record lands (then optionally ``SIGKILL``), emulating a power cut
   mid-append; replay must drop exactly the torn (never-ACKed) record.
@@ -56,12 +58,13 @@ ROADMAP A13; until then they stay inert:
   ``result`` seam, BEFORE the wire encode. Every layer still reports
   success — journal, status, HTTP 200 — which is exactly the silent
   wrong-answer failure only the known-answer canary tenants
-  (:mod:`deap_tpu.serving.canary`) can catch: the corrupted result's
+  (:mod:`deap_tpu_torch.serving.canary`) can catch: the corrupted result's
   wire digest no longer matches the canary's precomputed reference.
 - :class:`KillDuringHandoff` — ``SIGKILL`` the source service loop at a
-  chosen seam of the live-migration handshake
-  (:mod:`deap_tpu.serving.migration` fires ``migration`` events at
-  ``after_offer`` / ``before_adopted`` / ``before_transferred``):
+  chosen seam of the live-migration handshake (the JAX package's
+  ``serving.migration`` fires ``migration`` events at
+  ``after_offer`` / ``before_adopted`` / ``before_transferred``; live
+  migration is ROADMAP A13b, so in the port it stays inert):
   between offer-fsync and adoption-ACK is the exactly-once protocol's
   worst window, and the chaos tests pin that the tenant survives on
   exactly one service loop with bit-identical digests no matter which
@@ -338,8 +341,8 @@ class KillServiceAt(Fault):
     segment ``boundary`` with ``event='boundary'`` — mid-drain, after
     compute but amid bookkeeping: the worst window). No handler runs,
     no drain happens, nothing flushes — recovery is entirely the
-    admission WAL + checkpoint replay path. Use inside a chaos-harness
-    child process only (:mod:`deap_tpu.serving.chaos`)."""
+    admission WAL + checkpoint replay path. Use inside a child process
+    only."""
 
     def __init__(self, step: int, event: str = "step",
                  signum: int = signal.SIGKILL):
@@ -357,8 +360,9 @@ class KillServiceAt(Fault):
 
 class KillDuringHandoff(Fault):
     """``SIGKILL`` the source process at a chosen **seam of the
-    live-migration handshake** — fired on the ``migration`` event
-    :mod:`deap_tpu.serving.migration` emits with ``seam=`` context:
+    live-migration handshake** — fired on the ``migration`` event live
+    migration emits with ``seam=`` context (ROADMAP A13b; inert until
+    then):
 
     - ``after_offer`` — the offer record is fsync'd but the target has
       heard nothing: the tenant must replay on the SOURCE.
@@ -425,7 +429,7 @@ class CorruptResult(Fault):
     ``corrupt_pytree(result)`` before the result view is published, so
     the corruption is upstream of the wire digest: journal, tenant
     status and HTTP all report success, and only the known-answer
-    canary's digest compare (:mod:`deap_tpu.serving.canary`) can
+    canary's digest compare (:mod:`deap_tpu_torch.serving.canary`) can
     detect it. The default ``tenant_substr='canary'`` aims the fault
     straight at the canary tenants — the end-to-end detection proof
     ``bench.py --canary`` measures the latency of."""

@@ -277,6 +277,29 @@ class Strategy:
         offspring. ``values`` are raw objectives, ordered by their weighted
         values best first (ties by index, as the reference's stable
         sort)."""
+        moved = self.update_moments(state, genomes, values)
+        if self.needs_eigen(moved):
+            return self.update_eigen(moved, *self._eigh(moved.C))
+        return moved
+
+    def needs_eigen(self, moved: CMAState) -> bool:
+        """Whether the update that gave ``moved`` decomposes C again: every
+        update with ``eigen_gap`` 1; else a Python branch where the
+        reference has lax.cond, reading the count (a synchronise)."""
+        return self.eigen_gap == 1 or int(moved.count) % self.eigen_gap == 0
+
+    def update_eigen(self, moved: CMAState, evals: torch.Tensor,
+                     B: torch.Tensor) -> CMAState:
+        """The update's last part: ``moved`` with the eigenpairs of its C
+        (from this strategy's solver, on C alone or on a batch of them)."""
+        diagD = torch.sqrt(torch.clamp(evals, min=1e-30))
+        return dataclasses.replace(moved, B=B, diagD=diagD)
+
+    def update_moments(self, state: CMAState, genomes: torch.Tensor,
+                       values: torch.Tensor) -> CMAState:
+        """The update up to the eigendecomposition: the new centroid,
+        paths, step size, count and C, with ``state``'s ``B`` and
+        ``diagD`` (:meth:`update_eigen` replaces them)."""
         w = self.spec.wvalues(values if values.ndim == 2 else values[:, None])
         order = lex_sort_desc(w)
         sorted_pop = genomes[order][: self.mu]                    # [mu, dim]
@@ -312,16 +335,8 @@ class Strategy:
         sigma = state.sigma * torch.exp(
             (torch.linalg.norm(ps) / self.chiN - 1.0) * self.cs / self.damps)
 
-        # the lazy eigenupdate decides on the host: a Python branch where
-        # the reference has lax.cond, reading the count (a synchronise)
-        # only when eigen_gap > 1
-        if self.eigen_gap == 1 or int(count) % self.eigen_gap == 0:
-            evals, B = self._eigh(C)
-            diagD = torch.sqrt(torch.clamp(evals, min=1e-30))
-        else:
-            B, diagD = state.B, state.diagD
-        return CMAState(centroid=centroid, sigma=sigma, C=C, B=B,
-                        diagD=diagD, ps=ps, pc=pc, count=count)
+        return CMAState(centroid=centroid, sigma=sigma, C=C, B=state.B,
+                        diagD=state.diagD, ps=ps, pc=pc, count=count)
 
 
 def reconstruction_error(state: CMAState) -> float:

@@ -88,7 +88,7 @@ KNOBS = {
               "apply on the CPU"),
     "segment_len": (None, "10 (cache/env only)"),
     "gp_batch": (("batched", "solo"),
-                 "'batched' (the serving scheduler's knob; not ported)"),
+                 "'batched' (the serving scheduler's GP admission knob)"),
 }
 
 _ACTIVE: list = [None]

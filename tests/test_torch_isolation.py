@@ -491,3 +491,44 @@ def test_telemetry_stands_alone(no_card, tmp_path):
     from deap_tpu_torch.telemetry import Meter
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Meter().init()
+
+
+def test_serving_imports_without_jax_and_client_without_torch():
+    """``deap_tpu_torch.serving`` loads with no jax and no JAX package;
+    its stdlib client, loaded from its file (as a submit box does), loads
+    neither torch nor the rest of the port, and its codec works."""
+    script = textwrap.dedent("""
+        import sys
+        import deap_tpu_torch.serving as s
+        assert "multirun" in s.__all__ and "EvolutionService" in s.__all__
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "deap_tpu" or m.startswith("deap_tpu."))
+        print("LOADED", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+    client = ROOT / "deap_tpu_torch" / "serving" / "client.py"
+    script = textwrap.dedent(f"""
+        import importlib.util, sys
+        spec = importlib.util.spec_from_file_location("client_alone",
+                                                      {str(client)!r})
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["client_alone"] = mod
+        spec.loader.exec_module(mod)
+        import numpy as np
+        a = np.arange(4, dtype=np.float32)
+        assert mod.wire.unpack(mod.wire.pack({{"a": a}}))["a"].tobytes() \\
+            == a.tobytes()
+        mod.ServiceClient("http://127.0.0.1:9")
+        heavy = sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("torch", "jax",
+                                              "deap_tpu", "deap_tpu_torch"))
+        print("LOADED", heavy)
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout

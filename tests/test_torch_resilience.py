@@ -525,15 +525,39 @@ def test_tenant_id_round_trip_and_filter(tmp_path):
 @pytest.mark.parametrize("what,item", [
     ("telemetry", "A11"), ("metrics", "A11"), ("trace_every", "A11"),
     ("segment_len", "A11"), ("probes", "A11"), ("plan", "A12"),
-    ("island_run", "A12"), ("multirun", "A13")])
+    ("island_run", "A12"), ("multirun", "A13"), ("migrate", "A13b")])
 def test_not_ported_raises_naming_its_item(tmp_path, what, item):
     """What is not ported raises naming its ROADMAP item. ``telemetry=``,
     ``metrics=``, ``trace_every=`` and ``probes=`` are ported (A11):
     accepted, and probes without telemetry is the JAX engine's
     ValueError; the tuner's ``segment_len="auto"`` is ported (A11b): 10
     with no tuner; ``plan=`` and ``island_run`` are ported (A12): a plan
-    is taken, and an island run returns its demes."""
+    is taken, and an island run returns its demes; ``multirun`` is
+    ported (A13a): its lanes equal their solo runs. Live migration (the
+    service's ``migrate`` and ``adopt_orphans``) is A13b."""
     d = str(tmp_path / "ck")
+    if what == "multirun":
+        from deap_tpu_torch.serving import MultiRunEngine
+        eng = MultiRunEngine("ea_simple", _toolbox(), device=CPU)
+        gens = [make_generator(s, CPU) for s in (3, 4)]
+        out = ResilientRun(d, segment_len=2).multirun(
+            eng, gens, [_pop(), _pop()], [3, 5],
+            {"cxpb": 0.5, "mutpb": 0.2})
+        for s, (pop, lb, _) in zip((3, 4), out):
+            want, wlb, _ = algorithms.ea_simple(
+                make_generator(s, CPU), _pop(), _toolbox(), 0.5, 0.2,
+                len(lb) - 1, device=CPU)
+            assert torch.equal(pop.genomes, want.genomes)
+            assert len(lb) == len(wlb)
+        return
+    if what == "migrate":
+        from deap_tpu_torch.serving import EvolutionService
+        for call in (lambda: EvolutionService.migrate(None, "t", "x"),
+                     lambda: EvolutionService.adopt_orphans(None, "f")):
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP {item}"):
+                call()
+        return
     if what in ("plan", "island_run"):
         from deap_tpu_torch import parallel
         plan = parallel.ShardingPlan.for_islands(device=CPU)
@@ -572,8 +596,6 @@ def test_not_ported_raises_naming_its_item(tmp_path, what, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if what == "island_run":
             ResilientRun(d).island_run(None, None, None, 1)
-        elif what == "multirun":
-            ResilientRun(d).multirun(None, [], [], 1)
         elif what == "probes":
             ResilientRun(d).ea_simple(make_generator(0, CPU), _pop(),
                                       _toolbox(), 0.5, 0.2, 1,
